@@ -1,0 +1,251 @@
+"""Core compression operators of the STC paper (Sattler et al., 2019).
+
+Counterpart of ``repro/core/compression.py``, in PyTorch:
+
+* ``top_k_mask``  -- the mask of the k largest magnitudes (ties kept)
+* ``ternarize``   -- Algorithm 1 lines 6-8: kept entries -> ``{-µ, 0, +µ}``
+* ``stc_compress`` -- sparsify + ternarize in one call (the STC operator)
+* ``flatten_pytree`` / ``unflatten_pytree`` -- one fp32 vector over every
+  leaf of a parameter tree, in ``jax.tree.flatten`` order (sorted dict keys,
+  lists in order), so the paper's *global* top-k selects the same
+  coordinates as the reference
+* the ``StcBackend`` registry: ``"torch"`` (``torch.topk`` selection, the
+  counterpart of the reference's ``"jnp"`` and the tests' oracle) and
+  ``"kernel"`` (the histogram selection and fused apply kernels of
+  :mod:`repro_torch.kernels`, the default).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "CompressionStats",
+    "top_k_mask",
+    "ternarize",
+    "stc_compress",
+    "flatten_pytree",
+    "unflatten_pytree",
+    "tree_leaves",
+    "tree_map",
+    "StcBackend",
+    "register_stc_backend",
+    "get_stc_backend",
+    "STC_BACKENDS",
+]
+
+
+class CompressionStats(NamedTuple):
+    """Side information produced by a compression op (for the bit ledger)."""
+
+    nnz: torch.Tensor       # number of non-zero elements communicated
+    numel: torch.Tensor     # total number of elements
+    mu: torch.Tensor        # ternary magnitude
+
+
+def _k_from_p(n: int, p: float) -> int:
+    """Paper Algorithm 1 line 3: ``k <- max(np, 1)``."""
+    return max(int(n * p), 1)
+
+
+def top_k_mask(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Mask of ``|x| >= v`` with v the k-th largest magnitude of flattened
+    ``x`` (ties kept, as in Algorithm 1 line 5); exact zeros never kept."""
+    a = x.abs()
+    v = torch.topk(a.reshape(-1), k).values[-1]
+    return (a >= v) & (a > 0.0)
+
+
+def ternarize(x: torch.Tensor, mask: torch.Tensor):
+    """Algorithm 1 lines 6-8: ``(T*, µ)`` with µ the mean kept magnitude."""
+    k = torch.clamp(mask.sum(), min=1)
+    masked = torch.where(mask, x, torch.zeros_like(x))
+    mu = masked.abs().sum() / k.to(x.dtype)
+    return mu * torch.sign(masked), mu
+
+
+def stc_compress(x: torch.Tensor, p: float):
+    """Sparse Ternary Compression: Algorithm 1 of the paper."""
+    k = _k_from_p(x.numel(), p)
+    mask = top_k_mask(x, k)
+    tern, mu = ternarize(x, mask)
+    stats = CompressionStats(nnz=mask.sum(), numel=torch.tensor(x.numel()),
+                             mu=mu)
+    return tern, stats
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees: the paper compresses the *flattened* update of the whole
+# network, so top-k competes globally across layers.
+# ---------------------------------------------------------------------------
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in ``jax.tree.flatten`` order: dict keys sorted, lists and
+    tuples in order."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of one or more trees of equal structure."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key], *(r[key] for r in rest))
+                for key in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *subs) for subs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def _skeleton(tree):
+    """The tree's structure with every leaf replaced by None."""
+    if isinstance(tree, dict):
+        return {key: _skeleton(tree[key]) for key in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_skeleton(sub) for sub in tree)
+    return None
+
+
+def _rebuild(template, leaves):
+    if isinstance(template, dict):
+        return {key: _rebuild(template[key], leaves) for key in sorted(template)}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_rebuild(sub, leaves) for sub in template)
+    return next(leaves)
+
+
+def flatten_pytree(tree):
+    """Concatenate every leaf into one fp32 vector; returns ``(vector,
+    spec)`` with the spec that :func:`unflatten_pytree` takes."""
+    leaves = tree_leaves(tree)
+    shapes = [(tuple(leaf.shape), leaf.dtype) for leaf in leaves]
+    vec = torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in leaves])
+    return vec, (_skeleton(tree), shapes)
+
+
+def unflatten_pytree(vec: torch.Tensor, spec):
+    """Inverse of :func:`flatten_pytree`.  Leading dimensions of ``vec``
+    (a stacked cohort, ``(P, numel)``) carry over onto every leaf."""
+    template, shapes = spec
+    lead = tuple(vec.shape[:-1])
+    leaves, offset = [], 0
+    for shape, dtype in shapes:
+        size = int(np.prod(shape, dtype=np.int64))
+        leaves.append(vec[..., offset:offset + size].reshape(lead + shape)
+                      .to(dtype))
+        offset += size
+    return _rebuild(template, iter(leaves))
+
+
+# ---------------------------------------------------------------------------
+# Compressor backend registry: the codec picks its STC implementation by
+# name.  Both backends give the same masks, thresholds and counts; µ agrees
+# to fp32 rounding (the kernel route assembles Σ from histogram bins).
+# ---------------------------------------------------------------------------
+
+
+class StcBackend(NamedTuple):
+    """STC with error feedback in single and batched (client-axis) forms.
+
+    ``compress_with_residual(delta (n,), residual (n,), p)`` and
+    ``compress_with_residual_batch(deltas (B, n), residuals (B, n), p)``
+    return ``(msg, new_residual, CompressionStats)``.  ``select_batch(x (B,
+    n), ks)`` is the per-row exact k-selection, ``(thresh, count, sum_abs)``
+    of shape (B,).
+    """
+
+    name: str
+    compress_with_residual: object
+    compress_with_residual_batch: object
+    select_batch: object = None
+
+
+def _static_ks(ks, n_rows: int, n: int) -> np.ndarray:
+    """Normalize a static per-row k spec to a (B,) numpy int array."""
+    arr = np.broadcast_to(np.asarray(ks, np.int64), (n_rows,))
+    if arr.size and not (1 <= int(arr.min()) and int(arr.max()) <= n):
+        raise ValueError(f"per-row k out of range [1, {n}]: {arr}")
+    return arr
+
+
+def _torch_select_batch(x: torch.Tensor, ks):
+    """Per-row exact k-selection via one ``torch.topk`` gather; count and
+    sum are mask-then-reduce, as in the reference's ``_jnp_select_batch``."""
+    bsz, n = x.shape
+    ks = _static_ks(ks, bsz, n)
+    a = x.to(torch.float32).abs()
+    topc = torch.topk(a, min(int(ks.max()), n), dim=1).values
+    kj = torch.tensor(ks, dtype=torch.int64, device=x.device)
+    v = topc.gather(1, (kj - 1)[:, None])[:, 0]
+    mask = (a >= v[:, None]) & (a > 0.0)
+    cnt = mask.sum(dim=1, dtype=torch.int32)
+    sums = torch.where(mask, a, torch.zeros_like(a)).sum(dim=1)
+    return v, cnt, sums
+
+
+def _torch_compress_with_residual_batch(deltas, residuals, p: float):
+    carried = deltas.to(torch.float32) + residuals.to(torch.float32)
+    k = _k_from_p(carried.shape[1], p)
+    thresh, cnt, sums = _torch_select_batch(carried, k)
+    mu = sums / torch.clamp(cnt, min=1).to(torch.float32)
+    a = carried.abs()
+    mask = (a >= thresh[:, None]) & (a > 0.0)
+    tern = torch.where(mask, mu[:, None] * torch.sign(carried),
+                       torch.zeros_like(carried))
+    numel = torch.full((carried.shape[0],), carried.shape[1])
+    return tern, carried - tern, CompressionStats(nnz=cnt, numel=numel, mu=mu)
+
+
+def _single(batch_fn):
+    """The single-vector form of a batched compressor: a row batch of one."""
+    def single(delta, residual, p: float):
+        tern, res, stats = batch_fn(delta.reshape(1, -1),
+                                    residual.reshape(1, -1), p)
+        return tern[0], res[0], CompressionStats(*(s[0] for s in stats))
+    return single
+
+
+STC_BACKENDS: dict[str, StcBackend] = {
+    "torch": StcBackend("torch",
+                        _single(_torch_compress_with_residual_batch),
+                        _torch_compress_with_residual_batch,
+                        _torch_select_batch),
+}
+
+
+def register_stc_backend(backend: StcBackend) -> None:
+    STC_BACKENDS[backend.name] = backend
+
+
+def _make_kernel_backend() -> StcBackend:
+    # lazy: keeps core import-light (layering: kernels -> core, never back)
+    from repro_torch.kernels import (hist_topk_threshold_batched,
+                                     stc_compress_batch)
+
+    def batch(deltas, residuals, p: float):
+        tern, new_res, mu, _, nnz = stc_compress_batch(deltas, residuals, p)
+        numel = torch.full((deltas.shape[0],), deltas.shape[1])
+        return tern, new_res, CompressionStats(nnz=nnz, numel=numel, mu=mu)
+
+    def select(x, ks):
+        return hist_topk_threshold_batched(
+            x, _static_ks(ks, x.shape[0], x.shape[1]))
+
+    return StcBackend("kernel", _single(batch), batch, select)
+
+
+def get_stc_backend(name: str) -> StcBackend:
+    """Look up a registered STC backend ("torch" / "kernel") by name."""
+    if name == "kernel" and name not in STC_BACKENDS:
+        register_stc_backend(_make_kernel_backend())
+    if name not in STC_BACKENDS:
+        raise ValueError(
+            f"unknown STC backend {name!r}; options: "
+            f"{sorted(set(STC_BACKENDS) | {'kernel'})}")
+    return STC_BACKENDS[name]

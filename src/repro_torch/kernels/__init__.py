@@ -1,0 +1,38 @@
+"""Hand-written Hopper kernels for the STC hot path, with their plain
+PyTorch versions.
+
+* ``stc_compress`` -- fused mask -> ternarize -> error feedback
+  (``csrc/stc_apply.cu``).
+* ``hist_select``  -- per-row 256-bin magnitude histogram
+  (``csrc/histogram.cu``) and the exact k-selection around it.
+* ``bitpack``      -- MSB-first word packing of the wire stream
+  (``csrc/pack_bits.cu``), the device half of the ``"kernel"`` wire backend.
+* ``ops``          -- STC with error feedback composed from the above.
+
+Each wrapper launches its CUDA kernel on a CUDA tensor (raising if the
+build or the launch fails) and runs its plain version on a CPU tensor.
+``LAUNCHES`` counts the kernel launches.  The kernels are built on first use
+(see ``_build``), never when a module is imported.
+"""
+
+from ._build import LAUNCHES, build_all
+from .bitpack import pack_bits, pack_bits_plain
+from .hist_select import (hist_topk_threshold_batched,
+                          magnitude_histogram_batched,
+                          magnitude_histogram_plain)
+from .ops import stc_compress_batch, stc_compress_kernel
+from .stc_compress import stc_apply_batched, stc_apply_plain
+
+__all__ = [
+    "LAUNCHES",
+    "build_all",
+    "stc_compress_batch",
+    "stc_compress_kernel",
+    "hist_topk_threshold_batched",
+    "magnitude_histogram_batched",
+    "magnitude_histogram_plain",
+    "stc_apply_batched",
+    "stc_apply_plain",
+    "pack_bits",
+    "pack_bits_plain",
+]

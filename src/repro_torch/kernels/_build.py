@@ -1,0 +1,141 @@
+"""Build, load and count the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source has a plain C interface and is compiled on first
+use by one ``nvcc`` process per source, all started together, into
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+
+The library name carries a hash of its source, so an edited kernel is never
+served from a stale build.  Libraries are loaded with ``ctypes``; every C
+entry takes its pointers and PyTorch's current stream as ``void*`` and
+returns ``cudaGetLastError()``, which :func:`check` turns into an exception.
+
+``LAUNCHES`` counts kernel launches by name.  A wrapper records one launch
+where it launches its kernel and nowhere else, so a run can show that its
+main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ["SOURCES", "LAUNCHES", "LaunchCounter", "build_all", "library",
+           "entry", "check", "stream_ptr"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("stc_apply", "histogram", "pack_bits")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict[tuple[str, str], object] = {}
+_LOCK = threading.Lock()
+
+
+class LaunchCounter:
+    """Kernel launches by name, plus the shape of each kernel's last
+    launch (the shapes the main path handed it)."""
+
+    def __init__(self):
+        self.counts: dict[str, int] = {name: 0 for name in SOURCES}
+        self.shapes: dict[str, tuple] = {}
+
+    def record(self, name: str, shape: tuple) -> None:
+        self.counts[name] += 1
+        self.shapes[name] = tuple(shape)
+
+    def reset(self) -> None:
+        for name in self.counts:
+            self.counts[name] = 0
+        self.shapes.clear()
+
+
+LAUNCHES = LaunchCounter()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile every missing library, one ``nvcc`` per source, in parallel.
+    Raises with the compiler's output when any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    targets = {name: _target(name) for name in names}
+    procs = {}
+    for name, out in targets.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return targets
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building all on first use."""
+    with _LOCK:
+        if name not in _LIBS:
+            for lib_name, path in build_all().items():
+                _LIBS.setdefault(lib_name, ctypes.CDLL(str(path)))
+        return _LIBS[name]
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """The C function ``symbol`` of ``csrc/<name>.cu``, its argument types
+    declared once (pointers and the stream as ``c_void_p``); returns a
+    ``cudaError_t`` as ``int``."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the integer handle the C
+    entries take."""
+    return torch.cuda.current_stream(device).cuda_stream

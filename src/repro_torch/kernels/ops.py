@@ -1,0 +1,49 @@
+"""STC with error feedback, composed from the histogram selection and the
+fused apply kernel.
+
+Counterpart of ``repro/kernels/ops.py``:
+
+    1. exact k-selection by histogram  (``k = max(int(n·p), 1)``)
+    2. ``µ = Σ|carried at or above t| / max(count, 1)``
+    3. fused ternarize + error feedback over the carried vector
+
+:func:`stc_compress_batch` compresses a round's ``(P, n)`` client updates
+with one histogram launch and one apply launch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.selection import DEFAULT_CAP
+from .hist_select import hist_topk_threshold_batched
+from .stc_compress import stc_apply_batched
+
+__all__ = ["stc_compress_batch", "stc_compress_kernel"]
+
+
+def stc_compress_batch(deltas: torch.Tensor, residuals: torch.Tensor,
+                       p: float, *, cap: int = DEFAULT_CAP):
+    """Batched STC over ``(B, n)`` updates and residuals.
+
+    Returns ``(tern, new_residual, mu, thresh, nnz)``: ``(B, n)`` tensors
+    and ``(B,)`` statistics.
+    """
+    if deltas.shape != residuals.shape or deltas.ndim != 2:
+        raise ValueError(f"deltas {tuple(deltas.shape)} and residuals "
+                         f"{tuple(residuals.shape)} must be equal (B, n)")
+    n = deltas.shape[1]
+    k = max(int(n * p), 1)
+    carried = deltas.to(torch.float32) + residuals.to(torch.float32)
+    thresh, cnt, s = hist_topk_threshold_batched(carried, k, cap=cap)
+    mu = s / torch.clamp(cnt, min=1).to(torch.float32)
+    tern, new_res = stc_apply_batched(carried, thresh, mu)
+    return tern, new_res, mu, thresh, cnt
+
+
+def stc_compress_kernel(delta: torch.Tensor, residual: torch.Tensor,
+                        p: float, *, cap: int = DEFAULT_CAP):
+    """Single-vector form: a row batch of one."""
+    tern, res, mu, thresh, cnt = stc_compress_batch(
+        delta.reshape(1, -1), residual.reshape(1, -1), p, cap=cap)
+    return tern[0], res[0], mu[0], thresh[0], cnt[0]
