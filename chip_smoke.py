@@ -5,29 +5,45 @@
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
-1. build the three CUDA kernels from ``src/repro_torch/csrc`` into
+1. build the five CUDA kernels from ``src/repro_torch/csrc`` into
    ``build/kernels/`` (one ``nvcc`` per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and on adversarial rows: ``stc_apply`` bitwise,
+   main paths' shapes and on adversarial inputs: ``stc_apply`` bitwise,
    histogram counts exact and sums within rtol 1e-6, selection threshold
-   and count exact, ``pack_bits`` words identical;
-3. train the paper CNN at full width with STC (the configuration of
-   ``examples/federated_noniid.py``: 10 clients, 2 classes each, p = 1/50
-   up and down, lr 0.05, 40 rounds) through ``backend="kernel"`` and
-   ``wire_backend="kernel"``, with the launch counters set to 0 just
-   before; then the same run on the CPU with the plain versions; final
-   accuracy must agree within 0.03 and upstream bits within 2 %, and every
-   kernel must have launched; then, from the trained state, 3 lock-step
-   rounds of the card's encode, apply and ledger phases against the CPU's
-   on the same inputs (positions, signs, counts and wire words exact, µ
-   within rtol 1e-6, residuals and parameters within 1e-6 of
-   ``|value| + µ``), and ``pack_bits`` at the main path's own stream size;
-4. time each kernel and its plain version with CUDA events (device time:
-   the stream is held while the host enqueues), the k-selection
-   beside ``torch.topk``, and one round split into local SGD, encode,
-   apply and ledger (with the ``"kernel"`` and the host wire packer).
+   and count exact, ``pack_bits`` words identical, ``unpack_bits`` bits
+   and zero counts identical (also to the host unpack), ``threshold_stats``
+   counts exact and sums within rtol 1e-6, the bisection driver's
+   threshold bitwise the CPU's, and ``selector="bisect"`` giving the
+   ``"hist"`` mask;
+3. the dense path: train the paper CNN at full width with STC (the
+   configuration of ``examples/federated_noniid.py``: 10 clients, 2
+   classes each, p = 1/50 up and down, lr 0.05, 40 rounds) through
+   ``backend="kernel"`` and ``wire_backend="kernel"``, with the launch
+   counters set to 0 just before; then the same run on the CPU with the
+   plain versions; final accuracy must agree within 0.03 and upstream bits
+   within 2 %, and ``stc_apply``, the histogram and ``pack_bits`` must have
+   launched; then, from the trained state, 3 lock-step rounds of the card's
+   encode, apply and ledger phases against the CPU's on the same inputs
+   (positions, signs, counts and wire words exact, µ within rtol 1e-6,
+   residuals and parameters within 1e-6 of ``|value| + µ``), and
+   ``pack_bits`` at the main path's own stream size;
+4. the ingest path: the same run with ``TrainerConfig(ingest=True)`` (the
+   fused server ingest, decoding through ``unpack_bits``), card against
+   CPU as in 3, with ``unpack_bits`` and the three kernels of 3 launched;
+   then 3 lock-step ingest rounds on the card's messages (accumulator sum
+   bitwise the CPU's, global-delta positions and signs exact, µ within
+   rtol 1e-6), and ``unpack_bits`` at the path's own word count; then
+   signSGD through the same ingest (``wire_backend="kernel"``), 3
+   lock-step rounds with unpacked bits and global delta identical;
+5. the bisection path: ``stc_compress_kernel(selector="bisect")`` at the
+   cnn's width, which must launch ``threshold_stats``;
+6. time each kernel and its plain version with CUDA events (device time:
+   the stream is held while the host enqueues) beside the library call
+   that computes the same function where there is one, the k-selections
+   beside ``torch.topk``, and a dense and an ingest round split into
+   phases (with the ``"kernel"`` and the host wire backends).
 
-Prints the card's name and power limit, the TF32 flags, the timing lines,
+Prints the timing lines, the TF32 flags, the card's name and power limit,
 a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
 """
@@ -136,6 +152,10 @@ def check_kernels(torch, np, rk):
 
     errs["pack_bits"] = max(check_pack_bits(torch, np, rk, rng, m)
                             for m in (1, 31, 32, 1_000_003, 2_400_000))
+    errs["unpack_bits"] = max(check_unpack_bits(torch, np, rk, rng, w)
+                              for w in (1, 2, 9608, 1_000_003))
+    errs["threshold_stats"] = check_threshold_stats(torch, np, rk, rng)
+    errs["bisection"] = check_bisection(torch, np, rk, rng)
     torch.cuda.synchronize()
     return errs
 
@@ -162,9 +182,84 @@ def check_pack_bits(torch, np, rk, rng, m) -> float:
     return err
 
 
+def check_unpack_bits(torch, np, rk, rng, n_words) -> float:
+    """``unpack_bits`` on ``n_words`` random card words (the edge words 0,
+    1, 0x80000000 and 0xFFFFFFFF first) against its plain version and the
+    host unpack: bits and zero counts identical; returns 0.0."""
+    from repro_torch.core.wire import _unpack_bits_numpy
+    w = rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
+    edge = np.array([0, 1, 0x80000000, 0xFFFFFFFF], np.uint32)
+    w[:min(n_words, 4)] = edge[:n_words]
+    words = torch.from_numpy(w.view(np.int32)).to("cuda")
+    bits, zeros = rk.unpack_words_with_counts(words)
+    bits_p, zeros_p = rk.unpack_words_plain(words)
+    bits_np = _unpack_bits_numpy(w)
+    zeros_np = 32 - bits_np.reshape(-1, 32).sum(axis=1, dtype=np.int64)
+    got_bits, got_zeros = bits.cpu().numpy(), zeros.cpu().numpy()
+    err = max(float(np.abs(got_bits.astype(np.int64) - bits_np).max()),
+              float(np.abs(got_zeros - zeros_np).max()))
+    require(torch.equal(bits, bits_p) and torch.equal(zeros, zeros_p)
+            and err == 0.0, f"unpack_bits differs at W={n_words}")
+    return err
+
+
+def check_threshold_stats(torch, np, rk, rng) -> float:
+    """``threshold_stats`` at the cnn's n on a row with zeros, at t = 0,
+    two quantiles and above the max: counts exact, sums within rtol 1e-6.
+    Returns the sums' largest abs difference."""
+    x_np = (rng.standard_normal(MAIN_N) * 1e-3).astype(np.float32)
+    x_np[rng.random(MAIN_N) < 0.1] = 0.0
+    x = torch.from_numpy(x_np).to("cuda")
+    a = x.abs()
+    err = 0.0
+    for t in (torch.zeros((), device="cuda"), a.quantile(0.5),
+              a.quantile(0.98), a.max() * 2):
+        cnt, total = rk.threshold_stats(x, t)
+        cnt_p, total_p = rk.threshold_stats_plain(x, t)
+        require(int(cnt) == int(cnt_p),
+                f"threshold_stats count differs at t={float(t)}")
+        require(bool(torch.allclose(total, total_p, rtol=1e-6, atol=0.0)),
+                f"threshold_stats sum beyond rtol 1e-6 at t={float(t)}")
+        err = max(err, float((total - total_p).abs()))
+    require(int(rk.threshold_stats(x, torch.zeros((), device="cuda"))[0])
+            == int((x_np != 0).sum()), "threshold_stats counted zeros")
+    return err
+
+
+def check_bisection(torch, np, rk, rng) -> float:
+    """The bisection driver on the card against the CPU (threshold bitwise,
+    count exact, sums within rtol 1e-6), and ``selector="bisect"`` against
+    ``"hist"`` at p = 1/50 (the same mask).  Returns the largest sum
+    difference."""
+    x = torch.from_numpy(
+        (rng.standard_normal(MAIN_N) * 1e-3).astype(np.float32)).to("cuda")
+    err = 0.0
+    for p in (0.001, P_STC, 0.1):
+        k = max(int(MAIN_N * p), 1)
+        t, c, s = rk.topk_threshold(x, k)
+        t_c, c_c, s_c = rk.topk_threshold(x.cpu(), k)
+        require(torch.equal(t.cpu(), t_c) and int(c) == int(c_c) == k,
+                f"bisection threshold or count differs from the CPU at k={k}")
+        require(bool(torch.allclose(s.cpu(), s_c, rtol=1e-6, atol=0.0)),
+                f"bisection sum beyond rtol 1e-6 at k={k}")
+        err = max(err, float((s.cpu() - s_c).abs()))
+    r = torch.from_numpy(
+        (rng.standard_normal(MAIN_N) * 1e-4).astype(np.float32)).to("cuda")
+    bis = rk.stc_compress_kernel(x, r, P_STC, selector="bisect")
+    hist = rk.stc_compress_kernel(x, r, P_STC, selector="hist")
+    require(torch.equal(torch.sign(bis[0]), torch.sign(hist[0]))
+            and int(bis[4]) == int(hist[4]),
+            "selector='bisect' and 'hist' select different masks")
+    return err
+
+
 # ---------------------------------------------------------------- phase 3
 
-def make_trainer(device, torch):
+DENSE_KERNELS = ("stc_apply", "histogram", "pack_bits")
+INGEST_KERNELS = DENSE_KERNELS + ("unpack_bits",)
+
+
+def make_trainer(device, torch, ingest=False, codec="stc"):
     from repro_torch.core import make_protocol
     from repro_torch.data import make_image_classification
     from repro_torch.fed import FedEnvironment, FederatedTrainer, \
@@ -173,15 +268,24 @@ def make_trainer(device, torch):
     train, test = make_image_classification(seed=0, n=6000)
     env = FedEnvironment(n_clients=10, participation=1.0,
                          classes_per_client=2, batch_size=20)
-    proto = make_protocol("stc", sparsity_up=P_STC, sparsity_down=P_STC,
-                          backend="kernel", wire_backend="kernel")
+    if codec == "stc":
+        proto = make_protocol("stc", sparsity_up=P_STC, sparsity_down=P_STC,
+                              backend="kernel", wire_backend="kernel")
+    else:
+        proto = make_protocol(codec, wire_backend="kernel")
     return FederatedTrainer(MODEL_ZOO["cnn"], train, test, env, proto,
-                            TrainerConfig(lr=0.05), device=device)
+                            TrainerConfig(lr=0.05, ingest=ingest),
+                            device=device)
 
 
-def run_trainers(torch, rk):
-    gpu = make_trainer("cuda", torch)
+def run_trainers(torch, rk, ingest=False):
+    """The cnn on the card (counters set to 0 just before) and on the CPU;
+    requires the path's kernels to have launched on the card's run."""
+    path, needed = (("ingest", INGEST_KERNELS) if ingest
+                    else ("dense", DENSE_KERNELS))
+    gpu = make_trainer("cuda", torch, ingest=ingest)
     require(gpu.numel == MAIN_N, f"cnn has {gpu.numel} parameters")
+    require(gpu.ingest == ingest, f"the {path} trainer is not on its path")
     rk.LAUNCHES.reset()
     t0 = time.perf_counter()
     h_gpu = gpu.run(ROUNDS, eval_every=ROUNDS)[-1]
@@ -190,10 +294,11 @@ def run_trainers(torch, rk):
     launches = dict(rk.LAUNCHES.counts)
     shapes = dict(rk.LAUNCHES.shapes)
     require(bool(torch.isfinite(gpu.params_vec).all()), "non-finite params")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} never launched on the main path")
+    for name in needed:
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the {path} path")
 
-    cpu = make_trainer("cpu", torch)
+    cpu = make_trainer("cpu", torch, ingest=ingest)
     t0 = time.perf_counter()
     h_cpu = cpu.run(ROUNDS, eval_every=ROUNDS)[-1]
     cpu_s = time.perf_counter() - t0
@@ -203,14 +308,14 @@ def run_trainers(torch, rk):
     d_up = abs(h_gpu["bits_up"] / h_cpu["bits_up"] - 1.0)
     d_params = float((gpu.params_vec.cpu() - cpu.params_vec).norm()
                      / cpu.params_vec.norm())
-    print(f"trainer: cnn {gpu.numel} params, {ROUNDS} rounds | card "
+    print(f"{path} trainer: cnn {gpu.numel} params, {ROUNDS} rounds | card "
           f"acc={h_gpu['acc']:.4f} bits_up={h_gpu['bits_up']:.0f} "
           f"bits_down={h_gpu['bits_down']:.0f} ({gpu_s:.1f} s) | cpu "
           f"acc={h_cpu['acc']:.4f} bits_up={h_cpu['bits_up']:.0f} "
           f"bits_down={h_cpu['bits_down']:.0f} ({cpu_s:.1f} s) | "
           f"|d acc|={d_acc:.4f} |d bits_up|={d_up:.4%} "
           f"|d params|/|params|={d_params:.3e}")
-    print(f"main-path launches: {json.dumps(launches)} shapes: "
+    print(f"{path}-path launches: {json.dumps(launches)} shapes: "
           f"{json.dumps({k: list(v) for k, v in shapes.items()})}")
     require(d_acc <= 0.03, f"accuracy differs by {d_acc:.4f} > 0.03")
     require(d_up <= 0.02, f"bits_up differs by {d_up:.4%} > 2%")
@@ -316,6 +421,158 @@ def check_lockstep(torch, np, rk, tr, rounds=3):
     return worst
 
 
+def check_ingest_lockstep(torch, np, rk, tr, rounds=3):
+    """The fused ingest on the card (decode through ``unpack_bits``, STC on
+    the card) against the same ingest on the CPU, round by round on the
+    card's messages from the trained state: wire words identical, the
+    accumulator's sum and weight mass bitwise, the global delta's
+    positions, signs and count exact and µ within rtol 1e-6.  The trainer's
+    parameters and residuals are left as they were."""
+    from repro_torch.core.residual import ResidualState
+    from repro_torch.fed.loop import local_sgd
+    proto, p = tr.protocol, tr.env.participants_per_round
+    w = tr._participation_weights_np(np.ones(p), np.zeros(p))
+    params = tr.params_vec.clone()
+    client_res = tr.client_state.residual.clone()
+    server = ResidualState(tr.server_state.residual.clone())
+    worst = {"mu_rtol": 0.0, "words_abs": 0.0, "sum_abs": 0.0}
+    unpacks = rk.LAUNCHES.counts["unpack_bits"]
+    for r in range(rounds):
+        sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
+        xs, ys = tr._sample_batches(sel, proto.local_iters)
+        idx = torch.as_tensor(sel, device=tr.device)
+        deltas, _ = local_sgd(tr.apply_fn, tr.spec, params,
+                              tr.client_mom[idx], xs, ys, tr.tcfg.lr,
+                              tr.tcfg.momentum)
+        msgs, cstate, _ = proto.encode_batch(
+            deltas, ResidualState(residual=client_res[idx]))
+        batch = proto.encode_wire_batch(msgs, direction="up")
+        batch_c = proto.encode_wire_batch(msgs.cpu(), direction="up")
+        worst["words_abs"] = max(worst["words_abs"],
+                                 words_err(np, batch.words, batch_c.words))
+        require(worst["words_abs"] == 0.0,
+                f"ingest lock-step round {r}: wire words differ")
+        acc = proto.make_ingest(tr.numel)
+        proto.ingest_wire_batch(acc, batch, w, direction="up",
+                                device=tr.device)
+        acc_c = proto.make_ingest(tr.numel)
+        proto.ingest_wire_batch(acc_c, batch_c, w, direction="up",
+                                device="cpu")
+        worst["sum_abs"] = max(worst["sum_abs"],
+                               float(np.abs(acc.sum - acc_c.sum).max()))
+        require(np.array_equal(acc.sum, acc_c.sum)
+                and acc.weight_mass == acc_c.weight_mass,
+                f"ingest lock-step round {r}: accumulators differ")
+        gd, server_new, st = proto.aggregate_ingest(acc, server)
+        gd_c, _, st_c = proto.aggregate_ingest(
+            acc_c, ResidualState(server.residual.cpu()))
+        require(torch.equal(torch.sign(gd.cpu()), torch.sign(gd_c))
+                and int(st.nnz) == int(st_c.nnz),
+                f"ingest lock-step round {r}: global-delta positions, "
+                f"signs or count differ")
+        rel = abs(float(st.mu) - float(st_c.mu)) / abs(float(st_c.mu))
+        require(rel <= 1e-6, f"ingest lock-step round {r}: µ off by rtol "
+                             f"{rel:.3e} > 1e-6")
+        worst["mu_rtol"] = max(worst["mu_rtol"], rel)
+        client_res[idx] = cstate.residual
+        server = server_new
+        params = params + gd
+    require(rk.LAUNCHES.counts["unpack_bits"] > unpacks,
+            "the ingest lock-step did not decode through unpack_bits")
+    print(f"ingest lock-step ({rounds} rounds, card vs CPU on the card's "
+          f"messages): {json.dumps(worst)}")
+    return worst
+
+
+def check_signsgd_ingest(torch, np, rk, rounds=3):
+    """signSGD through the fused ingest: the cnn trainer's rounds on the
+    card (counters set to 0 just before; ``pack_bits`` and ``unpack_bits``
+    must launch), then 3 lock-step rounds card against CPU from its state:
+    messages, wire words, unpacked sign bits, accumulator and global delta
+    identical."""
+    from repro_torch.core import wire
+    from repro_torch.fed.loop import local_sgd
+    tr = make_trainer("cuda", torch, ingest=True, codec="signsgd")
+    require(tr.ingest, "the signSGD trainer is not on the ingest path")
+    rk.LAUNCHES.reset()
+    tr.run(rounds, eval_every=rounds)
+    torch.cuda.synchronize()
+    launches = dict(rk.LAUNCHES.counts)
+    for name in ("pack_bits", "unpack_bits"):
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the signSGD ingest path")
+    proto, p = tr.protocol, tr.env.participants_per_round
+    w = tr._participation_weights_np(np.ones(p), np.zeros(p))
+    params = tr.params_vec.clone()
+    for r in range(rounds):
+        sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
+        xs, ys = tr._sample_batches(sel, proto.local_iters)
+        idx = torch.as_tensor(sel, device=tr.device)
+        deltas, _ = local_sgd(tr.apply_fn, tr.spec, params,
+                              tr.client_mom[idx], xs, ys, tr.tcfg.lr,
+                              tr.tcfg.momentum)
+        msgs, _, _ = proto.encode_batch(deltas, None)
+        msgs_c, _, _ = proto.encode_batch(deltas.cpu(), None)
+        require(torch.equal(msgs.cpu(), msgs_c),
+                f"signSGD lock-step round {r}: messages differ")
+        batch = proto.encode_wire_batch(msgs, direction="up")
+        batch_c = proto.encode_wire_batch(msgs_c, direction="up")
+        require(words_err(np, batch.words, batch_c.words) == 0.0,
+                f"signSGD lock-step round {r}: wire words differ")
+        for i in range(p):
+            bits = wire.sign_plane_bits(batch.message(i), backend="kernel",
+                                        device=tr.device)
+            bits_c = wire.sign_plane_bits(batch_c.message(i),
+                                          backend="kernel", device="cpu")
+            require(np.array_equal(bits, bits_c),
+                    f"signSGD lock-step round {r}: unpacked bits differ")
+        acc = proto.make_ingest(tr.numel)
+        proto.ingest_wire_batch(acc, batch, w, direction="up",
+                                device=tr.device)
+        acc_c = proto.make_ingest(tr.numel)
+        proto.ingest_wire_batch(acc_c, batch_c, w, direction="up",
+                                device="cpu")
+        require(np.array_equal(acc.sum, acc_c.sum),
+                f"signSGD lock-step round {r}: accumulators differ")
+        gd, _, _ = proto.aggregate_ingest(acc, None)
+        gd_c, _, _ = proto.aggregate_ingest(acc_c, None)
+        require(torch.equal(gd, gd_c),
+                f"signSGD lock-step round {r}: global deltas differ")
+        params = params + gd.to(tr.device)
+    print(f"signSGD ingest: {rounds} rounds on the card, launches "
+          f"{json.dumps(launches)}; {rounds} lock-step rounds card vs CPU: "
+          f"messages, words, unpacked bits, accumulator and global delta "
+          f"identical")
+
+
+def run_bisection(torch, np, rk):
+    """The bisection path through its entry point,
+    ``stc_compress_kernel(selector="bisect")``, at the cnn's width, counters
+    set to 0 just before; ``threshold_stats`` must launch (iters + 1 = 33
+    times).  Returns the launch counts and shapes."""
+    rng = np.random.default_rng(3)
+    delta = torch.from_numpy(
+        (rng.standard_normal(MAIN_N) * 1e-3).astype(np.float32)).to("cuda")
+    residual = torch.from_numpy(
+        (rng.standard_normal(MAIN_N) * 1e-4).astype(np.float32)).to("cuda")
+    rk.LAUNCHES.reset()
+    tern, res, mu, thresh, cnt = rk.stc_compress_kernel(
+        delta, residual, P_STC, selector="bisect")
+    torch.cuda.synchronize()
+    launches = dict(rk.LAUNCHES.counts)
+    shapes = dict(rk.LAUNCHES.shapes)
+    require(launches["threshold_stats"] > 0,
+            "kernel threshold_stats never launched on the bisection path")
+    k = max(int(MAIN_N * P_STC), 1)
+    require(int(cnt) == k and int((tern != 0).sum()) == k
+            and bool(torch.isfinite(res).all()) and float(mu) > 0,
+            "the bisection path's message is wrong")
+    print(f"bisection path: stc_compress_kernel(selector='bisect') at n="
+          f"{MAIN_N}, k={k}: count {int(cnt)}, launches "
+          f"{json.dumps(launches)}")
+    return launches, shapes
+
+
 # ---------------------------------------------------------------- phase 4
 
 def event_ms(torch, fn, iters=50, hold_stream=True) -> float:
@@ -344,6 +601,10 @@ def event_ms(torch, fn, iters=50, hold_stream=True) -> float:
 
 
 def time_kernels(torch, np, rk, shapes, launches, errs):
+    """Device time of each kernel at its path's shapes beside its plain
+    version, its byte bound and (where one PyTorch call computes the same
+    function) that call; the k-selections beside ``torch.topk``."""
+    from repro_torch.core.selection import bin_index
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     rows, n = MAIN_ROWS, MAIN_N          # the encode phase's (P, n) launch
@@ -356,9 +617,28 @@ def time_kernels(torch, np, rk, shapes, launches, errs):
     mu = s / c.to(torch.float32)
     m = shapes["pack_bits"][0]
     bits = torch.from_numpy((rng.random(m) < 0.3).astype(np.uint8)).to(dev)
+    n_words = shapes["unpack_bits"][0]
+    words = torch.from_numpy(rng.integers(
+        0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
+        .view(np.int32)).to(dev)
+    n_stats = shapes["threshold_stats"][0]
+    x1 = x[0, :n_stats].contiguous()
+    t1 = x1.abs().quantile(1 - P_STC)
 
     def bound(nbytes):
         return nbytes / HBM_BYTES_PER_S * 1e3
+
+    # the histogram's library yardstick: two row-offset bincounts (counts;
+    # sums through weights=) over the same bins
+    a = x.abs()
+    flat_bins = (bin_index(a, scale[:, None], 256).to(torch.int64)
+                 + 256 * torch.arange(rows, device=dev)[:, None]).reshape(-1)
+    flat_a = a.reshape(-1)
+
+    def bincount_hist():
+        return (torch.bincount(flat_bins, minlength=256 * rows),
+                torch.bincount(flat_bins, weights=flat_a,
+                               minlength=256 * rows))
 
     out = []
     nb = rows * n * 4
@@ -381,8 +661,8 @@ def time_kernels(torch, np, rk, shapes, launches, errs):
         "plain_ms": event_ms(torch,
                              lambda: rk.magnitude_histogram_plain(x, scale)),
         "bound_ms": bound(nb + 4 * rows + 8 * 256 * rows),
-        "bound_by": "bytes", "library_ms": None})
-    n_words = -(-m // 32)
+        "bound_by": "bytes", "library_ms": event_ms(torch, bincount_hist)})
+    n_pack_words = -(-m // 32)
     out.append({
         "name": "pack_bits", "route": "cuda",
         "source": "src/repro_torch/csrc/pack_bits.cu",
@@ -390,19 +670,57 @@ def time_kernels(torch, np, rk, shapes, launches, errs):
         "launches": launches["pack_bits"], "max_abs_err": errs["pack_bits"],
         "ms": event_ms(torch, lambda: rk.pack_bits(bits)),
         "plain_ms": event_ms(torch, lambda: rk.pack_bits_plain(bits)),
-        "bound_ms": bound(m + 4 * n_words), "bound_by": "bytes",
+        "bound_ms": bound(m + 4 * n_pack_words), "bound_by": "bytes",
         "library_ms": None})
-    # the k-selection synchronizes once (the overflow test), so it is
-    # timed with its host work; torch.topk beside it the same way
+    out.append({
+        "name": "unpack_bits", "route": "cuda",
+        "source": "src/repro_torch/csrc/unpack_bits.cu",
+        "replaces": "src/repro/kernels/wiredecode.py:57",
+        "launches": launches["unpack_bits"],
+        "max_abs_err": errs["unpack_bits"],
+        "ms": event_ms(torch, lambda: rk.unpack_words_with_counts(words)),
+        "plain_ms": event_ms(torch, lambda: rk.unpack_words_plain(words)),
+        "bound_ms": bound(4 * n_words + 32 * n_words + 4 * n_words),
+        "bound_by": "bytes", "library_ms": None})
+    out.append({
+        "name": "threshold_stats", "route": "cuda",
+        "source": "src/repro_torch/csrc/threshold_stats.cu",
+        "replaces": "src/repro/kernels/topk_threshold.py:38",
+        "launches": launches["threshold_stats"],
+        "max_abs_err": errs["threshold_stats"],
+        "ms": event_ms(torch, lambda: rk.threshold_stats(x1, t1)),
+        "plain_ms": event_ms(torch,
+                             lambda: rk.threshold_stats_plain(x1, t1)),
+        "bound_ms": bound(4 * n_stats + 4 + 4 + 8), "bound_by": "bytes",
+        "library_ms": None})
+    # the histogram route synchronizes once (the overflow test), so every
+    # k-selection is timed with its host work, torch.topk beside them
     sel_ms = event_ms(torch, lambda: rk.hist_topk_threshold_batched(x, k),
                       iters=20, hold_stream=False)
     topk_ms = event_ms(torch, lambda: torch.topk(x.abs(), k, dim=1),
                        iters=20, hold_stream=False)
     print(f"selection at ({rows}, {n}), k={k}, host included: histogram "
           f"route {sel_ms:.4f} ms, torch.topk {topk_ms:.4f} ms")
+    k1 = max(int(n_stats * P_STC), 1)
+    bis_ms = event_ms(torch, lambda: rk.topk_threshold(x1, k1),
+                      iters=20, hold_stream=False)
+    # ~300 launches a selection: two fit the launch queue during the hold
+    bis_dev_ms = event_ms(torch, lambda: rk.topk_threshold(x1, k1), iters=2)
+    hist1_ms = event_ms(torch,
+                        lambda: rk.hist_topk_threshold_batched(x1[None], k1),
+                        iters=20, hold_stream=False)
+    topk1_ms = event_ms(torch, lambda: torch.topk(x1.abs(), k1),
+                        iters=20, hold_stream=False)
+    print(f"selection at ({n_stats},), k={k1}, host included: bisection "
+          f"(33 threshold_stats passes) {bis_ms:.4f} ms (device time "
+          f"{bis_dev_ms:.4f} ms), histogram route {hist1_ms:.4f} ms, "
+          f"torch.topk {topk1_ms:.4f} ms")
     for row in out:
+        lib = (f", library {row['library_ms']:.4f} ms"
+               if row["library_ms"] is not None else "")
         print(f"kernel {row['name']}: {row['ms']:.4f} ms (plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms)")
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms"
+              f"{lib})")
     return out
 
 
@@ -457,6 +775,69 @@ def time_round(torch, np, tr):
     return med
 
 
+def time_ingest_round(torch, np, tr):
+    """One ingest round split into its phases, state left untouched, median
+    of 5.  ``wire_encode`` + ``decode_scatter`` are the trainer's
+    (``wire_backend="kernel"``: ``pack_bits`` and ``unpack_bits`` on the
+    card); the ``*_numpy`` pair runs the same messages through the host wire
+    backend; ``ledger`` is the downstream message (the upstream batch is
+    reused)."""
+    from repro_torch.core.residual import take_states
+    from repro_torch.fed.loop import local_sgd
+    proto, p = tr.protocol, tr.env.participants_per_round
+    host = dataclasses.replace(proto, wire_backend="numpy")
+    names = ("local_sgd", "encode", "wire_encode", "decode_scatter",
+             "wire_encode_numpy", "decode_scatter_numpy", "finalize",
+             "ledger")
+    phases = {name: [] for name in names + ("round",)}
+    w = tr._participation_weights_np(np.ones(p), np.zeros(p))
+
+    def sync_now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for _ in range(5):
+        sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
+        xs, ys = tr._sample_batches(sel, proto.local_iters)
+        idx = torch.as_tensor(sel, device=tr.device)
+        ts = [sync_now()]
+        deltas, _ = local_sgd(tr.apply_fn, tr.spec, tr.params_vec,
+                              tr.client_mom[idx], xs, ys, tr.tcfg.lr,
+                              tr.tcfg.momentum)
+        ts.append(sync_now())
+        msgs, _, _ = proto.encode_batch(deltas,
+                                        take_states(tr.client_state, idx))
+        ts.append(sync_now())
+        batch = proto.encode_wire_batch(msgs, direction="up")
+        ts.append(sync_now())
+        acc = proto.make_ingest(tr.numel)
+        proto.ingest_wire_batch(acc, batch, w, direction="up",
+                                device=tr.device)
+        ts.append(sync_now())
+        batch_n = host.encode_wire_batch(msgs, direction="up")
+        ts.append(sync_now())
+        acc_n = host.make_ingest(tr.numel)
+        host.ingest_wire_batch(acc_n, batch_n, w, direction="up")
+        ts.append(sync_now())
+        gd, _, _ = proto.aggregate_ingest(acc, tr.server_state)
+        ts.append(sync_now())
+        proto.encode_wire(gd, direction="down")
+        ts.append(sync_now())
+        require(np.array_equal(acc.sum, acc_n.sum),
+                "the kernel and host wire backends ingest differently")
+        for name, t0, t1 in zip(names, ts, ts[1:]):
+            phases[name].append((t1 - t0) * 1e3)
+    for _ in range(5):
+        t0 = sync_now()
+        tr.run_round()
+        phases["round"].append((sync_now() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in phases.items()}
+    print("ingest round phases (median of 5, ms, host clock after "
+          "synchronize): " + json.dumps({k: round(v, 3)
+                                         for k, v in med.items()}))
+    return med
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -488,8 +869,22 @@ def main() -> int:
             torch, np, rk, np.random.default_rng(2), shapes["pack_bits"][0]))
         print(f"pack_bits at the main path's m={shapes['pack_bits'][0]}: "
               f"words identical to its plain version and the host packer")
+        tr_in, launches_in, shapes_in = run_trainers(torch, rk, ingest=True)
+        check_ingest_lockstep(torch, np, rk, tr_in)
+        w_in = shapes_in["unpack_bits"][0]
+        errs["unpack_bits"] = max(errs["unpack_bits"], check_unpack_bits(
+            torch, np, rk, np.random.default_rng(4), w_in))
+        print(f"unpack_bits at the ingest path's W={w_in}: bits and zero "
+              f"counts identical to its plain version and the host unpack")
+        check_signsgd_ingest(torch, np, rk)
+        launches_bis, shapes_bis = run_bisection(torch, np, rk)
+        launches = {**launches, "unpack_bits": launches_in["unpack_bits"],
+                    "threshold_stats": launches_bis["threshold_stats"]}
+        shapes = {**shapes, "unpack_bits": shapes_in["unpack_bits"],
+                  "threshold_stats": shapes_bis["threshold_stats"]}
         rows = time_kernels(torch, np, rk, shapes, launches, errs)
         time_round(torch, np, tr)
+        time_ingest_round(torch, np, tr_in)
         for row in rows:
             require(all(isinstance(row[f], (int, float)) and math.isfinite(
                 row[f]) for f in ("ms", "plain_ms", "bound_ms")),

@@ -5,6 +5,8 @@ Counterpart of ``repro/core/compression.py``, in PyTorch:
 * ``top_k_mask``  -- the mask of the k largest magnitudes (ties kept)
 * ``ternarize``   -- Algorithm 1 lines 6-8: kept entries -> ``{-µ, 0, +µ}``
 * ``stc_compress`` -- sparsify + ternarize in one call (the STC operator)
+* ``sign_compress`` / ``majority_vote_sign`` -- signSGD and its
+  (weighted) majority vote
 * ``flatten_pytree`` / ``unflatten_pytree`` -- one fp32 vector over every
   leaf of a parameter tree, in ``jax.tree.flatten`` order (sorted dict keys,
   lists in order), so the paper's *global* top-k selects the same
@@ -27,6 +29,8 @@ __all__ = [
     "top_k_mask",
     "ternarize",
     "stc_compress",
+    "sign_compress",
+    "majority_vote_sign",
     "flatten_pytree",
     "unflatten_pytree",
     "tree_leaves",
@@ -75,6 +79,33 @@ def stc_compress(x: torch.Tensor, p: float):
     stats = CompressionStats(nnz=mask.sum(), numel=torch.tensor(x.numel()),
                              mu=mu)
     return tern, stats
+
+
+def sign_compress(x: torch.Tensor, step: float):
+    """signSGD with a coordinate-wise step size δ (paper Section VI uses
+    δ = 2e-4)."""
+    out = (step * torch.sign(x)).to(x.dtype)
+    stats = CompressionStats(nnz=torch.tensor(x.numel()),
+                             numel=torch.tensor(x.numel()),
+                             mu=torch.tensor(step, dtype=x.dtype))
+    return out, stats
+
+
+def majority_vote_sign(stacked_signs: torch.Tensor, step: float,
+                       weights=None) -> torch.Tensor:
+    """signSGD-with-majority-vote server aggregation (Bernstein et al. '18).
+
+    ``stacked_signs``: (n_clients, ...) tensor of ±step (or ±1) client
+    updates.  Returns the ±step majority direction per coordinate.
+    ``weights`` (a per-client vector, e.g. participation mask × staleness
+    decay) turns the vote into a weighted vote; None is the plain vote.
+    """
+    signs = torch.sign(stacked_signs)
+    if weights is not None:
+        w = torch.as_tensor(weights, dtype=signs.dtype, device=signs.device)
+        signs = signs * w.reshape((-1,) + (1,) * (signs.ndim - 1))
+    vote = torch.sign(signs.sum(dim=0))
+    return (step * vote).to(stacked_signs.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -14,32 +14,44 @@ and implementing a small interface that the federated trainer
   combine through the codec's :class:`~repro_torch.core.aggregation.
   AggregationRule`, then downstream compression.
 * ``upload_bits`` / ``download_bits`` -- the analytic bit ledger (Eq. 1).
-* ``encode_wire`` / ``encode_wire_batch`` and ``measured_*`` -- the real
-  bitstream (host-side, :mod:`repro_torch.core.wire`): codecs with
-  ``wire_format = True`` get exact measured bits in the trainer's ledger.
-  A message that is a tensor is packed by the wire backend on the tensor's
-  device.
+* ``encode_wire`` / ``decode_wire`` / ``encode_wire_batch`` and
+  ``measured_*`` -- the real bitstream (host-side,
+  :mod:`repro_torch.core.wire`): codecs with ``wire_format = True`` get
+  exact measured bits in the trainer's ledger.  A message that is a tensor
+  is packed by the wire backend on the tensor's device.
+* the fused decode→aggregate ingest (``supports_ingest``, ``make_ingest``,
+  ``ingest_dense`` / ``ingest_wire*``, ``aggregate_ingest``): a round's
+  wire messages scatter into one host :class:`~repro_torch.core.ingest.
+  IngestAccumulator`, bitwise equal to the dense oracle.  The ingest and
+  validation methods take ``device=``, where the ``"kernel"`` wire backend
+  unpacks words (CUDA unless the caller names the CPU).
 
-This slice ports the base class and :class:`StcCodec`; the other paper
-codecs (baseline, fedavg, signsgd, topk, ternquant) are still to port.
+This slice ports the base class, :class:`StcCodec` and the flat path of
+:class:`SignSGDCodec`; the other paper codecs (baseline, fedavg, topk,
+ternquant) are still to port, and so are screening rules on the ingest
+path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import ClassVar, Optional
 
 import numpy as np
 import torch
 
 from . import golomb, wire
-from .aggregation import AggregationRule, make_rule
-from .compression import CompressionStats, get_stc_backend
+from .aggregation import AggregationRule, MeanRule, make_rule
+from .compression import (CompressionStats, get_stc_backend,
+                          majority_vote_sign, sign_compress)
+from .ingest import IngestAccumulator
 from .registry import lookup as _registry_lookup, resolve as _registry_resolve
 from .residual import ResidualState, init_residual, map_states, take_states
 
 __all__ = ["Codec", "make_protocol", "register_protocol",
-           "registered_protocols", "get_protocol_class", "StcCodec"]
+           "registered_protocols", "get_protocol_class", "StcCodec",
+           "SignSGDCodec"]
 
 _REGISTRY: dict[str, type["Codec"]] = {}
 
@@ -190,6 +202,28 @@ class Codec:
         raise NotImplementedError(
             f"{type(self).__name__} has no wire format")
 
+    def decode_wire(self, msg: wire.WireMessage, *,
+                    direction: str = "up") -> np.ndarray:
+        """Inverse of :meth:`encode_wire` (host numpy), exact up to the
+        wire format's resolution (a 1-bit sign plane cannot represent
+        exact zeros -- see :func:`wire.pack_sign_words`)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no wire format")
+
+    def validate_wire(self, msg: wire.WireMessage, *, direction: str = "up",
+                      device=None) -> None:
+        """Admission-control validation of ONE arriving wire message:
+        raises :class:`wire.WireDecodeError` on any corruption the decoder
+        can detect.  The default decodes the full message and discards it;
+        codecs with a cheaper structural check override it."""
+        self.decode_wire(msg, direction=direction)
+
+    def wire_norm(self, msg: wire.WireMessage) -> float:
+        """Cheap l2-norm estimate of ONE encoded message from its wire side
+        information alone (no decode)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no wire-norm estimate")
+
     def encode_wire_batch(self, msgs, *,
                           direction: str = "up") -> wire.WireBatch:
         """Serialize a stacked (P, numel) round of messages."""
@@ -226,6 +260,75 @@ class Codec:
         plus header bits; None = no bound known)."""
         return None
 
+    # -- fused decode→aggregate ingestion (repro_torch.core.ingest) ----------
+    # A codec with ``supports_ingest = True`` consumes a round as a stream
+    # of wire messages scattered into one O(numel) host accumulator;
+    # ``aggregate_ingest`` finalizes the round from it.  Contract: the wire
+    # paths are bitwise the dense oracle (``decode_wire`` + ``ingest_dense``)
+    # and both share ``finalize_ingest``.
+
+    supports_ingest: ClassVar[bool] = False
+
+    def make_ingest(self, numel: int) -> IngestAccumulator:
+        """A fresh per-round accumulator sized for the flat message vector."""
+        if not self.supports_ingest:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no ingest path")
+        if not self.rule.supports_streaming:
+            raise NotImplementedError(
+                f"aggregation rule {self.rule.name!r} needs every client's "
+                "coordinates at once and cannot stream through "
+                "IngestAccumulator; use the dense aggregate path (trainers "
+                "asked for ingest=True fall back automatically)")
+        if self.rule.screens:
+            raise NotImplementedError(
+                f"aggregation rule {self.rule.name!r} screens messages; "
+                "screening on the ingest path is not ported yet")
+        return IngestAccumulator(numel)
+
+    def ingest_dense(self, acc: IngestAccumulator, vec: np.ndarray,
+                     weight: float) -> None:
+        """One dense (decoded, or never wire-encoded) host message into the
+        accumulator -- the fused wire paths' bit-exactness oracle."""
+        acc.begin_message(weight)
+        acc.add_dense(vec, weight)
+
+    def ingest_wire_chunk(self, acc: IngestAccumulator, msg, weight: float,
+                          *, direction: str = "up", offset: int = 0,
+                          device=None) -> None:
+        """Scatter ONE wire sub-stream at flat ``offset`` (no per-message
+        bookkeeping)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no wire ingest path")
+
+    def ingest_wire(self, acc: IngestAccumulator, msg, weight: float, *,
+                    direction: str = "up", device=None) -> None:
+        """One arriving wire message: account its weight and measured bits,
+        then scatter its decoded fields into the accumulator."""
+        acc.begin_message(weight, bits=self.measured_message_bits(msg))
+        self.ingest_wire_chunk(acc, msg, weight, direction=direction,
+                               device=device)
+
+    def ingest_wire_batch(self, acc: IngestAccumulator, batch, weights, *,
+                          direction: str = "up", device=None) -> None:
+        """A whole encoded round, message-major.  The default loops
+        :meth:`ingest_wire`; STC overrides it with a fused decode."""
+        for i, w in enumerate(np.asarray(weights, np.float64)):
+            self.ingest_wire(acc, batch.message(i), float(w),
+                             direction=direction, device=device)
+
+    def finalize_ingest(self, combined: np.ndarray, server_state):
+        """Downstream compression of the accumulator's fp32 weighted mean;
+        the ingest twin of the tail of :meth:`aggregate`.  Returns
+        ``(global_delta, new_server_state, stats)``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no ingest path")
+
+    def aggregate_ingest(self, acc: IngestAccumulator, server_state):
+        """Finalize a round straight from the accumulator (the fused wire
+        path and the dense oracle both end here, so they agree bitwise)."""
+        return self.finalize_ingest(acc.combined(), server_state)
+
 
 class _ErrorFeedbackMixin:
     error_feedback: ClassVar[bool] = True
@@ -249,6 +352,10 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
 
     wire_format: ClassVar[bool] = True      # Golomb position stream (Alg. 3)
     wire_header_bits: ClassVar[float] = 32.0  # fp32 µ per message (Eq. 15)
+    supports_ingest: ClassVar[bool] = True
+    #: fused-ingest decode block: rows are grouped so each multi-segment
+    #: decode pass touches at most this many stream words
+    ingest_block_words: ClassVar[int] = 1 << 16
 
     def init_server_state(self, numel: int, device=None) -> ResidualState:
         return init_residual(numel, device)
@@ -260,6 +367,20 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
         return wire.encode_ternary_words(
             _host(msg), self._wire_p(direction), backend=self.wire_backend,
             device=_device_of(msg))
+
+    def decode_wire(self, msg, *, direction="up"):
+        return wire.decode_ternary_words(msg, self._wire_p(direction))
+
+    def validate_wire(self, msg, *, direction="up", device=None):
+        # fields-only parse: every decoder corruption check fires without
+        # materializing the dense vector
+        wire.decode_ternary_fields(msg, self._wire_p(direction),
+                                   backend=self.wire_backend, device=device)
+
+    def wire_norm(self, msg):
+        # nnz coordinates of magnitude |µ| exactly (abs: a negated µ must
+        # not give a negative norm)
+        return abs(float(msg.mu)) * math.sqrt(max(int(msg.nnz), 0))
 
     def encode_wire_batch(self, msgs, *, direction="up"):
         return wire.encode_ternary_words_batch(
@@ -290,8 +411,138 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
             mean, server_state.residual, self.sparsity_down)
         return out, ResidualState(residual=new_res), stats
 
+    # ---- fused ingest: Golomb fields -> accumulator scatter ----
+    def ingest_wire_chunk(self, acc, msg, weight, *, direction="up",
+                          offset=0, device=None):
+        pos, signs = wire.decode_ternary_fields(
+            msg, self._wire_p(direction), backend=self.wire_backend,
+            device=device)
+        acc.scatter_ternary(pos, signs, msg.mu, weight, offset=offset)
+
+    def ingest_wire_batch(self, acc, batch, weights, *, direction="up",
+                          device=None):
+        # multi-segment field decode + one scatter per bounded word block
+        # (bitwise the sequential ingest_wire loop: np.add.at applies in
+        # element order, and the fields come out message-major)
+        w = np.asarray(weights, np.float64)
+        for i in range(batch.n_msgs):
+            acc.begin_message(float(w[i]),
+                              bits=float(batch.bit_len[i])
+                              + self.wire_header_bits)
+        p = self._wire_p(direction)
+        i0, n_msgs = 0, batch.n_msgs
+        while i0 < n_msgs:
+            i1, words = i0, 0
+            while i1 < n_msgs and (i1 == i0
+                                   or words + int(batch.word_count[i1])
+                                   <= self.ingest_block_words):
+                words += int(batch.word_count[i1])
+                i1 += 1
+            sub = batch.rows(i0, i1)
+            seg, pos, signs = wire.decode_ternary_fields_batch(
+                sub, p, backend=self.wire_backend, device=device)
+            acc.scatter_ternary_batch(seg, pos, signs, sub.mu, w[i0:i1])
+            i0 = i1
+
+    def finalize_ingest(self, combined, server_state):
+        # the host mean goes to the server residual's device, then through
+        # the codec's STC backend, as in aggregate
+        be = get_stc_backend(self.backend)
+        res = server_state.residual
+        mean = torch.from_numpy(np.asarray(combined, np.float32)).to(
+            res.device)
+        out, new_res, stats = be.compress_with_residual(
+            mean, res, self.sparsity_down)
+        return out, ResidualState(residual=new_res), stats
+
     def upload_bits(self, numel: int) -> float:
         return golomb.stc_message_bits(numel, self.sparsity_up)
 
     def download_bits(self, numel: int, n_participating: int = 1) -> float:
         return golomb.stc_message_bits(numel, self.sparsity_down)
+
+
+@register_protocol
+@dataclasses.dataclass(frozen=True)
+class SignSGDCodec(Codec):
+    """signSGD with majority vote (Bernstein et al. '18); δ = ``sign_step``.
+    The flat path; the tree path waits for the mesh slice."""
+
+    name: ClassVar[str] = "signsgd"
+
+    sign_step: float = 2e-4
+    wire_backend: str = "numpy"             # wire packer: "numpy" | "kernel"
+
+    wire_format: ClassVar[bool] = True      # dense sign plane, 1 bit/coord
+    wire_static_size: ClassVar[bool] = True  # numel bits, exactly, always
+    supports_ingest: ClassVar[bool] = True
+
+    def _sign_stats(self, out: torch.Tensor) -> CompressionStats:
+        return CompressionStats(nnz=torch.tensor(out.numel()),
+                                numel=torch.tensor(out.numel()),
+                                mu=torch.tensor(self.sign_step))
+
+    def encode(self, delta, state):
+        msg, stats = sign_compress(delta, self.sign_step)
+        return msg, state, stats
+
+    def encode_wire(self, msg, *, direction="up"):
+        return wire.pack_sign_words(_host(msg), self.sign_step,
+                                    backend=self.wire_backend,
+                                    device=_device_of(msg))
+
+    def decode_wire(self, msg, *, direction="up"):
+        return wire.unpack_sign_words(msg)
+
+    def validate_wire(self, msg, *, direction="up", device=None):
+        # a sign plane is exactly numel bits; anything else is truncation
+        # or padding corruption, by construction
+        if int(msg.bit_len) != int(msg.numel):
+            raise wire.WireDecodeError(
+                "corrupt sign plane: bit_len != numel")
+        wire.sign_plane_bits(msg, backend=self.wire_backend, device=device)
+
+    def wire_norm(self, msg):
+        # every coordinate is exactly ±sign_step
+        return self.sign_step * math.sqrt(int(msg.numel))
+
+    def wire_bound_bits(self, numel, nnz, direction="up"):
+        return float(numel)                 # measured == analytic, exactly
+
+    # ---- fused ingest: the vote tally IS the weighted plane sum ----
+    def ingest_wire_chunk(self, acc, msg, weight, *, direction="up",
+                          offset=0, device=None):
+        bits01 = wire.sign_plane_bits(msg, backend=self.wire_backend,
+                                      device=device)
+        acc.add_sign_plane(bits01, self.sign_step, weight, offset=offset)
+
+    def finalize_ingest(self, combined, server_state):
+        # sign(weighted mean) == sign(weighted vote tally): the arrived mass
+        # is positive and the wire planes are exactly ±step.  The result is
+        # a CPU tensor (signSGD has no server state to place it by).
+        out = self.sign_step * torch.sign(
+            torch.from_numpy(np.asarray(combined, np.float32)))
+        return out, server_state, self._sign_stats(out)
+
+    def aggregate(self, msgs, server_state, mask=None, staleness=None):
+        if not isinstance(self.rule, MeanRule):
+            # order-statistic rules: combine the ±step messages through the
+            # rule, then re-quantize to the sign plane
+            out = self.sign_step * torch.sign(
+                self.combine(msgs, mask, staleness))
+            return out, server_state, self._sign_stats(out)
+        # mean family: the weighted majority vote
+        weights = None
+        if mask is not None or staleness is not None:
+            if mask is None:
+                mask = torch.ones(msgs.shape[0], dtype=torch.float32,
+                                  device=msgs.device)
+            weights = self.participation_weights(mask, staleness)
+        out = majority_vote_sign(msgs, self.sign_step, weights=weights)
+        return out, server_state, self._sign_stats(out)
+
+    def upload_bits(self, numel: int) -> float:
+        return golomb.signsgd_message_bits(numel)
+
+    def download_bits(self, numel: int, n_participating: int = 1) -> float:
+        return golomb.signsgd_message_bits(numel)

@@ -2,7 +2,8 @@
 
 The port's numpy copy of ``repro/core/wire.py``: every stream it packs is
 byte-identical to the reference's.  Only the ``"kernel"`` backend differs:
-its word packer is the CUDA kernel of :mod:`repro_torch.kernels.bitpack`.
+its word packer and unpacker are the CUDA kernels of
+:mod:`repro_torch.kernels.bitpack` and :mod:`repro_torch.kernels.wiredecode`.
 
 The paper's communication claims rest on the REAL Golomb-encoded ternary
 bitstream (Algorithms 3-4, Eqs. 15-17).  The per-bit host loop in
@@ -40,7 +41,8 @@ backend is asked for the CPU), so the card and the CPU share one API.
 
 Decode is vectorized end to end -- and multi-segment: ONE pass parses every
 client stream of a word-aligned batch.  One bit unpack (host ``unpackbits``
-on every backend: the wire-decode kernel is not ported yet), one
+on ``"numpy"``; the CUDA word-unpack kernel of
+:mod:`repro_torch.kernels.wiredecode` on ``"kernel"``), one
 ``searchsorted`` over the zero positions giving each candidate terminator
 its successor (capped at its own segment's data end), then a
 pointer-doubling transitive closure -- ``O(Z log Z)`` array ops, no Python
@@ -346,14 +348,16 @@ WIRE_BACKENDS: dict[str, WireBackend] = {
 
 @functools.lru_cache(maxsize=None)
 def _make_kernel_backend(device=None) -> WireBackend:
-    """The ``"kernel"`` packer, one per device: chunk -> bit expansion on
-    the host, the 32-bit word assembly in
-    :func:`repro_torch.kernels.bitpack.pack_bits` on ``device`` (resolved
-    when a stream is packed: CUDA unless the caller names the CPU).  Decode
-    keeps the numpy unpack: the wire-decode kernel is not ported yet."""
+    """The ``"kernel"`` backend, one per device (resolved when a stream is
+    packed or unpacked: CUDA unless the caller names the CPU).  Encode:
+    chunk -> bit expansion on the host, the 32-bit word assembly in
+    :func:`repro_torch.kernels.bitpack.pack_bits` on ``device``.  Decode:
+    the words go to ``device``, :func:`repro_torch.kernels.wiredecode.
+    unpack_bits_words` explodes them into bits there, and the bits come back
+    to the host field scan."""
+    # lazy: keeps core import-light (layering: kernels -> core, never back)
 
     def pack_bits(bits: np.ndarray) -> np.ndarray:
-        # lazy: keeps core import-light (layering: kernels -> core, never back)
         import torch
         from repro_torch.device import resolve_device
         from repro_torch.kernels.bitpack import pack_bits as pack_kernel
@@ -364,18 +368,29 @@ def _make_kernel_backend(device=None) -> WireBackend:
     def pack_chunks(vals, lens, offs, total_bits):
         return pack_bits(_chunks_to_bits(vals, lens, offs, total_bits))
 
-    return WireBackend("kernel", pack_chunks, pack_bits, _unpack_bits_numpy)
+    def unpack_bits(words: np.ndarray) -> np.ndarray:
+        import torch
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels.wiredecode import unpack_bits_words
+        w = np.ascontiguousarray(words, np.uint32).view(np.int32)
+        bits = unpack_bits_words(
+            torch.from_numpy(w).to(resolve_device(device)))
+        return bits.cpu().numpy()
+
+    return WireBackend("kernel", pack_chunks, pack_bits, unpack_bits)
 
 
-def _backend_unpack(backend: str, words: np.ndarray) -> np.ndarray:
-    """All ``32 * n_words`` stream bits through the named backend."""
-    return get_wire_backend(backend).unpack_bits(words)
+def _backend_unpack(backend: str, words: np.ndarray,
+                    device=None) -> np.ndarray:
+    """All ``32 * n_words`` stream bits through the named backend (the
+    ``"kernel"`` one on ``device``)."""
+    return get_wire_backend(backend, device).unpack_bits(words)
 
 
 def get_wire_backend(name: str, device=None) -> WireBackend:
     """Look up a wire packing backend ("numpy" / "kernel").  ``device`` is
-    where the ``"kernel"`` backend packs words; the host backends ignore
-    it."""
+    where the ``"kernel"`` backend packs and unpacks words; the host
+    backends ignore it."""
     if name == "kernel":
         return _make_kernel_backend(device)
     if name not in WIRE_BACKENDS:
@@ -642,12 +657,13 @@ def _check_bit_len(bit_len, word_count) -> None:
 
 
 def decode_ternary_fields(msg: WireMessage, p: float, *,
-                          backend: str = "numpy"
+                          backend: str = "numpy", device=None
                           ) -> tuple[np.ndarray, np.ndarray]:
     """One message's coded ``(positions, signs)`` -- no dense scatter.
 
     The fused ingest path (:mod:`repro_torch.core.ingest`) consumes these fields
     directly; :func:`decode_ternary_words` adds the scatter on top.
+    ``device`` is where the ``"kernel"`` backend unpacks the words.
     """
     b = _b_star_checked(p)
     if msg.bit_len == 0:
@@ -657,7 +673,7 @@ def decode_ternary_fields(msg: WireMessage, p: float, *,
         return np.zeros(0, np.int64), np.zeros(0, np.float32)
     words = np.ascontiguousarray(msg.words)
     _check_bit_len(msg.bit_len, words.size)
-    bits = _backend_unpack(backend, words)
+    bits = _backend_unpack(backend, words, device)
     _, positions, signs = _decode_stream_fields(
         bits, np.zeros(1, np.int64), np.asarray([msg.bit_len], np.int64),
         msg.numel, b)
@@ -670,7 +686,7 @@ def decode_ternary_fields(msg: WireMessage, p: float, *,
 
 
 def decode_ternary_fields_batch(batch: WireBatch, p: float, *,
-                                backend: str = "numpy"
+                                backend: str = "numpy", device=None
                                 ) -> tuple[np.ndarray, np.ndarray,
                                            np.ndarray]:
     """All messages' ``(seg, positions, signs)`` in ONE decode pass.
@@ -687,7 +703,7 @@ def decode_ternary_fields_batch(batch: WireBatch, p: float, *,
         return (np.zeros(0, np.int64), np.zeros(0, np.int64),
                 np.zeros(0, np.float32))
     _check_bit_len(batch.bit_len, batch.word_count)
-    bits = _backend_unpack(backend, batch.words)
+    bits = _backend_unpack(backend, batch.words, device)
     seg, positions, signs = _decode_stream_fields(
         bits, (32 * batch.word_start).astype(np.int64),
         batch.bit_len.astype(np.int64), batch.numel, b)
@@ -700,25 +716,27 @@ def decode_ternary_fields_batch(batch: WireBatch, p: float, *,
 
 
 def decode_ternary_words(msg: WireMessage, p: float, *,
-                         backend: str = "numpy") -> np.ndarray:
+                         backend: str = "numpy", device=None) -> np.ndarray:
     """Vectorized Algorithm 4: unpack a word stream back to the flat tensor."""
     out = np.zeros(msg.numel, np.float32)
-    positions, signs = decode_ternary_fields(msg, p, backend=backend)
+    positions, signs = decode_ternary_fields(msg, p, backend=backend,
+                                             device=device)
     if positions.size:
         out[positions] = signs * np.float32(msg.mu)
     return out
 
 
 def decode_ternary_words_batch(batch: WireBatch, p: float, *,
-                               backend: str = "numpy") -> np.ndarray:
+                               backend: str = "numpy",
+                               device=None) -> np.ndarray:
     """Decode every message of a batch; returns ``(P, numel)`` fp32.
 
     The whole batch decodes as one multi-segment pass (shared unpack,
     vectorized per-client offset arithmetic) followed by one 2-D scatter.
     """
     out = np.zeros((batch.n_msgs, batch.numel), np.float32)
-    seg, positions, signs = decode_ternary_fields_batch(batch, p,
-                                                        backend=backend)
+    seg, positions, signs = decode_ternary_fields_batch(
+        batch, p, backend=backend, device=device)
     if positions.size:
         mu32 = batch.mu.astype(np.float32)
         out[seg, positions] = signs * mu32[seg]
@@ -752,12 +770,14 @@ def unpack_sign_words(msg: WireMessage) -> np.ndarray:
                     -np.float32(msg.mu)).astype(np.float32)
 
 
-def sign_plane_bits(msg: WireMessage, *, backend: str = "numpy") -> np.ndarray:
+def sign_plane_bits(msg: WireMessage, *, backend: str = "numpy",
+                    device=None) -> np.ndarray:
     """The ``bit_len`` 0/1 sign bits of a dense sign-plane message, through
-    the named unpack backend (validated like the Golomb decode paths)."""
+    the named unpack backend (validated like the Golomb decode paths;
+    ``device`` is where the ``"kernel"`` backend unpacks)."""
     words = np.ascontiguousarray(msg.words)
     _check_bit_len(msg.bit_len, words.size)
-    return _backend_unpack(backend, words)[: int(msg.bit_len)]
+    return _backend_unpack(backend, words, device)[: int(msg.bit_len)]
 
 
 # ---------------------------------------------------------------------------

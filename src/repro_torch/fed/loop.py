@@ -23,14 +23,21 @@ trainers see the same data.  The trainer runs on CUDA unless it is given
 ``device="cpu"``; on the card it turns TF32 off for matmuls and
 convolutions, so that fp32 stays fp32.
 
+With ``TrainerConfig(ingest=True)`` the apply phase is the fused server
+ingest instead: the round's messages are encoded to the wire, decoded
+(through the ``"kernel"`` wire backend's unpack kernel on the trainer's
+device, or on the host) and scattered into one host
+:class:`~repro_torch.core.ingest.IngestAccumulator`, and the codec
+finalizes the round from it; the ledger reuses the encoded batch.
+
 Still to port: chunked codecs (``TrainerConfig.chunks`` / ``p_fn``),
-adaptive controllers (``controller``), fused wire ingest (``ingest=True``)
-and the buffered trainer.
+adaptive controllers (``controller``) and the buffered trainer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -65,6 +72,9 @@ class TrainerConfig:
     chunks: int | str | None = None
     p_fn: Optional[Callable] = None
     controller: object = None
+    # Fused decode→aggregate server ingest (repro_torch.core.ingest): the
+    # round's wire messages scatter into one O(numel) host accumulator
+    # instead of a dense (P, numel) combine.  Opt-in, as in the reference.
     ingest: bool = False
 
 
@@ -143,9 +153,20 @@ class FederatedTrainer:
             if getattr(tcfg, field) is not None:
                 raise NotImplementedError(
                     f"TrainerConfig({field}=...) is not ported yet")
-        if tcfg.ingest:
-            raise NotImplementedError(
-                "TrainerConfig(ingest=True) is not ported yet")
+        self.ingest = bool(tcfg.ingest)
+        if self.ingest and not protocol.supports_ingest:
+            raise ValueError(
+                f"codec {protocol.name!r} has no ingest path "
+                "(supports_ingest=False); drop TrainerConfig(ingest=True)")
+        if self.ingest and not protocol.rule.supports_streaming:
+            # order-statistic rules need every client's coordinates at
+            # once: the round aggregates dense, loudly
+            warnings.warn(
+                f"aggregation rule {protocol.rule.name!r} cannot stream "
+                "(supports_streaming=False); TrainerConfig(ingest=True) "
+                "falls back to the dense combine for this codec",
+                RuntimeWarning, stacklevel=2)
+            self.ingest = False
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -230,25 +251,58 @@ class FederatedTrainer:
                             device=self.device))
         return global_delta
 
+    def _participation_weights_np(self, mask, staleness) -> np.ndarray:
+        """The codec's fp32 combining weights, resolved on the host as fp64
+        (the ingest accumulator's weights)."""
+        return self.protocol.participation_weights(
+            torch.as_tensor(mask, dtype=torch.float32),
+            torch.as_tensor(staleness, dtype=torch.float32)
+        ).numpy().astype(np.float64)
+
+    def _ingest_round(self, msgs, mask, staleness):
+        """Fused streaming aggregation: the round's wire messages scatter
+        into an O(numel) host accumulator (decoded on the trainer's device
+        by the ``"kernel"`` wire backend) instead of a dense combine.
+        Returns the applied global delta and the encoded batch, which the
+        measured ledger reuses."""
+        proto = self.protocol
+        w = self._participation_weights_np(mask, staleness)
+        acc = proto.make_ingest(self.numel)
+        batch = proto.encode_wire_batch(msgs, direction="up")
+        proto.ingest_wire_batch(acc, batch, w, direction="up",
+                                device=self.device)
+        gd, self.server_state, _ = proto.aggregate_ingest(acc,
+                                                          self.server_state)
+        gd = gd.to(self.device)
+        self.params_vec = self.params_vec + gd
+        return gd, batch
+
     def run_round(self):
         p = self.env.participants_per_round
         sel = self.rng.choice(self.env.n_clients, size=p, replace=False)
         xs, ys = self._sample_batches(sel, self.protocol.local_iters)
         msgs = self._dispatch(sel, xs, ys)
-        global_delta = self._apply_update(msgs, np.ones(p, np.float32),
-                                          np.zeros(p, np.float32))
-        self._account(sel, msgs, global_delta)
+        mask, staleness = np.ones(p, np.float32), np.zeros(p, np.float32)
+        batch = None
+        if self.ingest:
+            global_delta, batch = self._ingest_round(msgs, mask, staleness)
+        else:
+            global_delta = self._apply_update(msgs, mask, staleness)
+        self._account(sel, msgs, global_delta, batch)
         self.round += 1
 
-    def _account(self, sel, msgs, global_delta):
-        """Bit ledger + partial-participation sync cost of one round."""
+    def _account(self, sel, msgs, global_delta, batch=None):
+        """Bit ledger + partial-participation sync cost of one round;
+        ``batch`` is the round's encoded upstream batch where the ingest
+        path already built it."""
         proto, p = self.protocol, len(sel)
         up_analytic = p * proto.upload_bits(self.numel)
         per_update_analytic = proto.download_bits(self.numel,
                                                   n_participating=p)
         model_bits = 32.0 * self.numel
         if self.measure_bits:
-            batch = proto.encode_wire_batch(msgs, direction="up")
+            if batch is None:
+                batch = proto.encode_wire_batch(msgs, direction="up")
             up = proto.measured_batch_bits(batch)
             down_msg = proto.encode_wire(global_delta, direction="down")
             per_update = proto.measured_message_bits(down_msg)

@@ -1,13 +1,17 @@
 """Hand-written Hopper kernels for the STC hot path, with their plain
 PyTorch versions.
 
-* ``stc_compress`` -- fused mask -> ternarize -> error feedback
+* ``stc_compress``   -- fused mask -> ternarize -> error feedback
   (``csrc/stc_apply.cu``).
-* ``hist_select``  -- per-row 256-bin magnitude histogram
+* ``hist_select``    -- per-row 256-bin magnitude histogram
   (``csrc/histogram.cu``) and the exact k-selection around it.
-* ``bitpack``      -- MSB-first word packing of the wire stream
-  (``csrc/pack_bits.cu``), the device half of the ``"kernel"`` wire backend.
-* ``ops``          -- STC with error feedback composed from the above.
+* ``topk_threshold`` -- threshold statistics (``csrc/threshold_stats.cu``)
+  and the bisection k-selection around them (``selector="bisect"``).
+* ``bitpack``        -- MSB-first word packing of the wire stream
+  (``csrc/pack_bits.cu``), the device half of the ``"kernel"`` wire encode.
+* ``wiredecode``     -- word unpacking with zero counts
+  (``csrc/unpack_bits.cu``), the device half of the ``"kernel"`` decode.
+* ``ops``            -- STC with error feedback composed from the above.
 
 Each wrapper launches its CUDA kernel on a CUDA tensor (raising if the
 build or the launch fails) and runs its plain version on a CPU tensor.
@@ -22,6 +26,10 @@ from .hist_select import (hist_topk_threshold_batched,
                           magnitude_histogram_plain)
 from .ops import stc_compress_batch, stc_compress_kernel
 from .stc_compress import stc_apply_batched, stc_apply_plain
+from .topk_threshold import (threshold_stats, threshold_stats_plain,
+                             topk_threshold)
+from .wiredecode import (unpack_bits_words, unpack_words_plain,
+                         unpack_words_with_counts)
 
 __all__ = [
     "LAUNCHES",
@@ -33,6 +41,12 @@ __all__ = [
     "magnitude_histogram_plain",
     "stc_apply_batched",
     "stc_apply_plain",
+    "threshold_stats",
+    "threshold_stats_plain",
+    "topk_threshold",
     "pack_bits",
     "pack_bits_plain",
+    "unpack_words_with_counts",
+    "unpack_bits_words",
+    "unpack_words_plain",
 ]

@@ -34,7 +34,8 @@ __all__ = ["SOURCES", "LAUNCHES", "LaunchCounter", "build_all", "library",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("stc_apply", "histogram", "pack_bits")
+SOURCES = ("stc_apply", "histogram", "pack_bits", "unpack_bits",
+           "threshold_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,14 +1,17 @@
-"""STC with error feedback, composed from the histogram selection and the
-fused apply kernel.
+"""STC with error feedback, composed from the k-selection and the fused
+apply kernel.
 
 Counterpart of ``repro/kernels/ops.py``:
 
-    1. exact k-selection by histogram  (``k = max(int(n·p), 1)``)
+    1. exact k-selection (``k = max(int(n·p), 1)``): by histogram
+       (``selector="hist"``, the default) or by threshold bisection
+       (``selector="bisect"``, ``iters + 1`` stats passes)
     2. ``µ = Σ|carried at or above t| / max(count, 1)``
     3. fused ternarize + error feedback over the carried vector
 
 :func:`stc_compress_batch` compresses a round's ``(P, n)`` client updates
-with one histogram launch and one apply launch.
+with one histogram launch and one apply launch; it keeps the histogram
+route, as in the reference.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from ..core.selection import DEFAULT_CAP
 from .hist_select import hist_topk_threshold_batched
 from .stc_compress import stc_apply_batched
+from .topk_threshold import topk_threshold
 
 __all__ = ["stc_compress_batch", "stc_compress_kernel"]
 
@@ -42,8 +46,20 @@ def stc_compress_batch(deltas: torch.Tensor, residuals: torch.Tensor,
 
 
 def stc_compress_kernel(delta: torch.Tensor, residual: torch.Tensor,
-                        p: float, *, cap: int = DEFAULT_CAP):
-    """Single-vector form: a row batch of one."""
-    tern, res, mu, thresh, cnt = stc_compress_batch(
-        delta.reshape(1, -1), residual.reshape(1, -1), p, cap=cap)
-    return tern[0], res[0], mu[0], thresh[0], cnt[0]
+                        p: float, *, selector: str = "hist", iters: int = 32,
+                        cap: int = DEFAULT_CAP):
+    """Single-vector form.  ``selector="hist"`` is a row batch of one;
+    ``"bisect"`` selects by :func:`.topk_threshold.topk_threshold`."""
+    if selector == "hist":
+        tern, res, mu, thresh, cnt = stc_compress_batch(
+            delta.reshape(1, -1), residual.reshape(1, -1), p, cap=cap)
+        return tern[0], res[0], mu[0], thresh[0], cnt[0]
+    if selector != "bisect":
+        raise ValueError(f"unknown selector {selector!r}")
+    carried = (delta.to(torch.float32) + residual.to(torch.float32)) \
+        .reshape(-1)
+    k = max(int(carried.numel() * p), 1)
+    thresh, cnt, s = topk_threshold(carried, k, iters=iters)
+    mu = s / torch.clamp(cnt, min=1).to(torch.float32)
+    tern, new_res = stc_apply_batched(carried[None], thresh[None], mu[None])
+    return tern[0], new_res[0], mu, thresh, cnt

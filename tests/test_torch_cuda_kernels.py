@@ -64,3 +64,46 @@ def test_selection_matches_cpu_route(dev, k):
 def test_pack_bits(dev, m):
     bits = (torch.rand(m, device=dev) < 0.3).to(torch.uint8)
     assert torch.equal(rk.pack_bits(bits), rk.pack_bits_plain(bits))
+
+
+@pytest.mark.parametrize("n_words", [1, 2, 9608, 15_640, 1_000_003])
+def test_unpack_bits(dev, n_words):
+    w = np.random.default_rng(n_words).integers(
+        0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
+    w[:4] = np.array([0, 1, 0x80000000, 0xFFFFFFFF], np.uint32)[:n_words]
+    words = torch.from_numpy(w.view(np.int32)).to(dev)
+    before = rk.LAUNCHES.counts["unpack_bits"]
+    bits, zeros = rk.unpack_words_with_counts(words)
+    bits_p, zeros_p = rk.unpack_words_plain(words)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["unpack_bits"] == before + 1
+    assert torch.equal(bits, bits_p) and torch.equal(zeros, zeros_p)
+    assert torch.equal(rk.unpack_bits_words(words), bits_p)
+    assert rk.LAUNCHES.counts["unpack_bits"] == before + 2
+
+
+@pytest.mark.parametrize("q", [0.0, 0.5, 0.98, 2.0])
+def test_threshold_stats(dev, q):
+    x = _rows(dev, (307_434,), 3)
+    x[::7] = 0.0                                 # zeros: counted never
+    t = (x.abs().quantile(q) if q <= 1 else x.abs().max() * q)
+    t = t.reshape(()) if q > 0 else torch.zeros((), device=dev)
+    before = rk.LAUNCHES.counts["threshold_stats"]
+    cnt, total = rk.threshold_stats(x, t)
+    cnt_p, total_p = rk.threshold_stats_plain(x, t)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["threshold_stats"] == before + 1
+    assert int(cnt) == int(cnt_p)
+    assert torch.allclose(total, total_p, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("p", [0.001, 0.02, 0.1])
+def test_bisection_matches_cpu(dev, p):
+    x = _rows(dev, (307_434,), 4)
+    k = max(int(x.numel() * p), 1)
+    before = rk.LAUNCHES.counts["threshold_stats"]
+    t, c, s = rk.topk_threshold(x, k)
+    t_c, c_c, s_c = rk.topk_threshold(x.cpu(), k)
+    assert rk.LAUNCHES.counts["threshold_stats"] == before + 33
+    assert torch.equal(t.cpu(), t_c) and int(c) == int(c_c) == k
+    assert torch.allclose(s.cpu(), s_c, rtol=1e-6, atol=0.0)

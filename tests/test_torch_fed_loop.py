@@ -8,10 +8,17 @@
 * End to end: logreg from the reference's initial parameters, 20 rounds;
   final accuracy within 0.03 and measured upstream bits within 2 % of the
   JAX trainer (local SGD differs at the ulp level, so positions may drift
-  after the first round).
+  after the first round); the same with ``TrainerConfig(ingest=True)`` on
+  both sides.
+* Fused ingest: ``ingest=True`` reproduces the port's dense run (accuracy
+  and ``bits_up`` equal after 2 rounds, as tests/test_ingest.py asserts for
+  the reference) for ``stc`` and ``signsgd``; a non-streaming rule warns and
+  falls back to the dense combine.
 """
 
+import dataclasses
 import os
+from typing import ClassVar
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +37,7 @@ from repro.fed.loop import build_encode_phase as ref_build_encode
 from repro.core.compression import flatten_pytree as ref_flatten
 from repro.models.paper_models import MODEL_ZOO as REF_ZOO
 from repro_torch.core import make_protocol
+from repro_torch.core.aggregation import MeanRule
 from repro_torch.core.compression import flatten_pytree
 from repro_torch.data import make_classification
 from repro_torch.fed import FedEnvironment, FederatedTrainer, TrainerConfig
@@ -158,8 +166,9 @@ def test_data_and_splits_identical():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("backend", ["kernel", "torch"])
-def test_end_to_end_logreg_matches_reference(backend):
+def _end_to_end_logreg(backend, ingest):
+    """20 rounds of both trainers from the reference's initial
+    parameters; returns (reference history row, port history row, port)."""
     (train, test), (ref_train, ref_test) = _data()
     kw = dict(n_clients=10, participation=1.0, classes_per_client=2,
               batch_size=20)
@@ -168,15 +177,20 @@ def test_end_to_end_logreg_matches_reference(backend):
                         REF_ZOO["logreg"][0](jax.random.PRNGKey(0)))
     ref = RefTrainer(REF_ZOO["logreg"], ref_train, ref_test, RefEnv(**kw),
                      ref_make_protocol("stc", sparsity_up=p, sparsity_down=p),
-                     RefConfig(lr=0.05))
+                     RefConfig(lr=0.05, ingest=ingest))
     h_ref = ref.run(20, eval_every=20)[-1]
     port = FederatedTrainer(
         (lambda gen: params_from_jax(init), MODEL_ZOO["logreg"][1]),
         train, test, FedEnvironment(**kw),
         make_protocol("stc", sparsity_up=p, sparsity_down=p,
                       backend=backend, wire_backend="kernel"),
-        TrainerConfig(lr=0.05), device="cpu")
-    h = port.run(20, eval_every=20)[-1]
+        TrainerConfig(lr=0.05, ingest=ingest), device="cpu")
+    return h_ref, port.run(20, eval_every=20)[-1], port
+
+
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+def test_end_to_end_logreg_matches_reference(backend):
+    h_ref, h, port = _end_to_end_logreg(backend, ingest=False)
     assert abs(h["acc"] - h_ref["acc"]) <= 0.03
     assert abs(h["bits_up"] / h_ref["bits_up"] - 1) <= 0.02
     assert abs(h["bits_down"] / h_ref["bits_down"] - 1) <= 0.02
@@ -199,8 +213,89 @@ def _tiny_trainer(**cfg):
                             TrainerConfig(**cfg), device="cpu")
 
 
+def test_end_to_end_ingest_matches_reference_ingest():
+    """``ingest=True`` in both packages: the port's fused ingest (decode
+    through the "kernel" wire backend on the CPU) against the reference's."""
+    h_ref, h, port = _end_to_end_logreg("kernel", ingest=True)
+    assert port.ingest
+    assert abs(h["acc"] - h_ref["acc"]) <= 0.03
+    assert abs(h["bits_up"] / h_ref["bits_up"] - 1) <= 0.02
+    assert h["bits_up_analytic"] == h_ref["bits_up_analytic"]
+    assert len(port.wire_log) == 20
+    assert h["acc"] > 0.5
+
+
+def _ingest_parts():
+    train, test = make_classification(seed=0, n=600, n_test=160)
+    env = FedEnvironment(n_clients=6, participation=0.5,
+                         classes_per_client=2, batch_size=10)
+    return train, test, env
+
+
+@pytest.mark.parametrize("wire_backend", ["numpy", "kernel"])
+@pytest.mark.parametrize("name", ["stc", "signsgd"])
+def test_ingest_matches_dense(name, wire_backend):
+    train, test, env = _ingest_parts()
+    kw = dict(sparsity_up=1 / 8, sparsity_down=1 / 8) if name == "stc" \
+        else {}
+    accs, bits = [], []
+    for ingest in (False, True):
+        tr = FederatedTrainer(MODEL_ZOO["logreg"], train, test, env,
+                              make_protocol(name, wire_backend=wire_backend,
+                                            **kw),
+                              TrainerConfig(lr=0.05, seed=0, ingest=ingest),
+                              device="cpu")
+        assert tr.ingest == ingest
+        hist = tr.run(2, eval_every=2)
+        accs.append(hist[-1]["acc"])
+        bits.append(tr.bits_up)
+        assert torch.isfinite(tr.params_vec).all()
+    assert accs[0] == accs[1]
+    assert bits[0] == bits[1]
+
+
+def test_ingest_with_non_streaming_rule_warns_and_falls_back():
+    @dataclasses.dataclass(frozen=True)
+    class GatheredMean(MeanRule):
+        name: ClassVar[str] = "gathered-mean"
+        supports_streaming: ClassVar[bool] = False
+
+    train, test, env = _ingest_parts()
+    runs = []
+    for rule, ingest in ((GatheredMean(), True), ("mean", False)):
+        proto = make_protocol("stc", sparsity_up=1 / 8, sparsity_down=1 / 8,
+                              rule=rule)
+        cfg = TrainerConfig(lr=0.05, ingest=ingest)
+        if ingest:
+            with pytest.warns(RuntimeWarning, match="cannot stream"):
+                tr = FederatedTrainer(MODEL_ZOO["logreg"], train, test, env,
+                                      proto, cfg, device="cpu")
+            assert not tr.ingest
+        else:
+            tr = FederatedTrainer(MODEL_ZOO["logreg"], train, test, env,
+                                  proto, cfg, device="cpu")
+        tr.run(2, eval_every=2)
+        runs.append(tr)
+    assert torch.equal(runs[0].params_vec, runs[1].params_vec)
+    assert runs[0].bits_up == runs[1].bits_up
+
+
+def test_ingest_on_codec_without_ingest_path_is_loud():
+    from repro_torch.core import StcCodec
+
+    @dataclasses.dataclass(frozen=True)
+    class NoIngest(StcCodec):
+        supports_ingest: ClassVar[bool] = False
+
+    train, test, env = _ingest_parts()
+    with pytest.raises(ValueError, match="no ingest path"):
+        FederatedTrainer(MODEL_ZOO["logreg"], train, test, env, NoIngest(),
+                         TrainerConfig(ingest=True), device="cpu")
+
+
 @pytest.mark.parametrize("cfg", [{"chunks": "whole"}, {"chunks": 64},
-                                 {"controller": "fixed"}, {"ingest": True}])
+                                 {"controller": "fixed"},
+                                 {"p_fn": lambda name, depth: None}])
 def test_unported_options_raise(cfg):
     with pytest.raises(NotImplementedError):
         _tiny_trainer(**cfg)

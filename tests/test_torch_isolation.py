@@ -32,7 +32,9 @@ def _port_modules():
 def test_every_module_is_listed():
     mods = _port_modules()
     for name in ("repro_torch.kernels.hist_select", "repro_torch.fed.loop",
-                 "repro_torch.core.wire", "repro_torch.models.paper_models"):
+                 "repro_torch.core.wire", "repro_torch.models.paper_models",
+                 "repro_torch.core.ingest", "repro_torch.kernels.wiredecode",
+                 "repro_torch.kernels.topk_threshold"):
         assert name in mods
 
 
