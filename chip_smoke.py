@@ -5,13 +5,18 @@
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
-1. build the five CUDA kernels from ``src/repro_torch/csrc`` into
-   ``build/kernels/`` (one ``nvcc`` per source, in parallel);
+1. build the six CUDA kernels from ``src/repro_torch/csrc`` into
+   ``build/kernels/`` (one ``nvcc`` per source, in parallel) and print the
+   registers and shared memory (``-Xptxas -v``) of the histogram and
+   ``pack_chunks``, and the atomics, conversions and fp64 adds in the
+   histogram's SASS;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and on adversarial inputs: ``stc_apply`` bitwise,
-   histogram counts exact and sums within rtol 1e-6, selection threshold
-   and count exact, ``pack_bits`` words identical, ``unpack_bits`` bits
-   and zero counts identical (also to the host unpack), ``threshold_stats``
+   histogram counts exact and sums within rtol 1e-6 (normal, skewed and
+   all-zero rows; two calls identical; one device operation a call),
+   selection threshold and count exact, ``pack_bits`` and ``pack_chunks``
+   words identical (also to the host packer), ``unpack_bits`` bits and
+   zero counts identical (also to the host unpack), ``threshold_stats``
    counts exact and sums within rtol 1e-6, the bisection driver's
    threshold bitwise the CPU's, and ``selector="bisect"`` giving the
    ``"hist"`` mask;
@@ -21,27 +26,32 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    ``backend="kernel"`` and ``wire_backend="kernel"``, with the launch
    counters set to 0 just before; then the same run on the CPU with the
    plain versions; final accuracy must agree within 0.03 and upstream bits
-   within 2 %, and ``stc_apply``, the histogram and ``pack_bits`` must have
-   launched; then, from the trained state, 3 lock-step rounds of the card's
-   encode, apply and ledger phases against the CPU's on the same inputs
-   (positions, signs, counts and wire words exact, µ within rtol 1e-6,
-   residuals and parameters within 1e-6 of ``|value| + µ``), and
-   ``pack_bits`` at the main path's own stream size;
+   within 2 %, and ``stc_apply``, the histogram and ``pack_chunks`` must
+   have launched (``pack_chunks`` twice a round: the upstream batch and the
+   downstream message); then, from the trained state, 3 lock-step rounds of
+   the card's encode, apply and ledger phases against the CPU's on the
+   same inputs (positions, signs, counts and wire words exact, µ within
+   rtol 1e-6, residuals and parameters within 1e-6 of ``|value| + µ``),
+   and ``pack_chunks`` on the chunks of the last round's upstream batch;
 4. the ingest path: the same run with ``TrainerConfig(ingest=True)`` (the
    fused server ingest, decoding through ``unpack_bits``), card against
    CPU as in 3, with ``unpack_bits`` and the three kernels of 3 launched;
    then 3 lock-step ingest rounds on the card's messages (accumulator sum
    bitwise the CPU's, global-delta positions and signs exact, µ within
    rtol 1e-6), and ``unpack_bits`` at the path's own word count; then
-   signSGD through the same ingest (``wire_backend="kernel"``), 3
-   lock-step rounds with unpacked bits and global delta identical;
+   signSGD through the same ingest (``wire_backend="kernel"``, its sign
+   planes through ``pack_bits``), 3 lock-step rounds with unpacked bits
+   and global delta identical;
 5. the bisection path: ``stc_compress_kernel(selector="bisect")`` at the
    cnn's width, which must launch ``threshold_stats``;
 6. time each kernel and its plain version with CUDA events (device time:
    the stream is held while the host enqueues) beside the library call
-   that computes the same function where there is one, the k-selections
-   beside ``torch.topk``, and a dense and an ingest round split into
-   phases (with the ``"kernel"`` and the host wire backends).
+   that computes the same function where there is one (the histogram on
+   the carried matrices of a lock-step round and on a normal matrix, and
+   at 1, 2 and 4 CTAs an SM; ``pack_chunks`` on a real round's upstream
+   chunks), the k-selections beside ``torch.topk``, and a dense and an
+   ingest round split into phases (with the ``"kernel"`` and the host
+   wire backends, in turns).
 
 Prints the timing lines, the TF32 flags, the card's name and power limit,
 a ``{"kernels": [...]}`` line, and as its last line
@@ -85,6 +95,69 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# ---------------------------------------------------------------- phase 1
+
+FP64_SHARED_ATOMIC_PROBE = r"""
+__global__ void probe(const double* x, double* out) {
+  __shared__ double acc;
+  if (threadIdx.x == 0) acc = 0.0;
+  __syncthreads();
+  atomicAdd(&acc, x[threadIdx.x]);
+  __syncthreads();
+  if (threadIdx.x == 0) *out = acc;
+}
+"""
+
+
+def sass_opcodes(cuobjdump: str, binary: Path, prefixes) -> dict:
+    """Counts of the SASS instructions of ``binary`` whose opcode starts
+    with one of ``prefixes``."""
+    import re
+    out = subprocess.run([cuobjdump, "-sass", str(binary)],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    ops = re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", out)
+    counts: dict = {}
+    for op in ops:
+        if op.startswith(tuple(prefixes)):
+            counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def print_build_notes() -> None:
+    """``-Xptxas -v`` of the two redesigned kernels, the atomics,
+    conversions, fp64 adds and votes in the histogram's SASS, and the SASS
+    of a plain fp64 ``atomicAdd`` to shared memory (whether it compiles to
+    a compare-and-swap loop)."""
+    from repro_torch.kernels import _build
+    for name in ("histogram", "pack_chunks"):
+        notes = [line.split(":", 1)[-1].strip()
+                 for line in _build.build_log(name).splitlines()
+                 if "Used" in line or "spill" in line]
+        print(f"ptxas -v {name}: {' | '.join(notes)}")
+    nvcc = Path(_build._nvcc())
+    cuobjdump = str(nvcc.parent / "cuobjdump")
+    atomics = ("ATOM", "RED.", "CAS")
+    try:
+        lib = _build.build_all(("histogram",))["histogram"]
+        ops = sass_opcodes(cuobjdump, lib,
+                           atomics + ("F2I", "F2F", "DADD", "VOTE"))
+        print(f"histogram SASS atomics, conversions, fp64 adds and votes: "
+              f"{json.dumps(ops)}")
+        src = _build.BUILD_DIR / "probe_fp64_shared_atomic.cu"
+        src.write_text(FP64_SHARED_ATOMIC_PROBE)
+        cubin = src.with_suffix(".cubin")
+        subprocess.run([str(nvcc), "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-cubin", "-O3", "-o", str(cubin), str(src)],
+                       capture_output=True, text=True, timeout=120,
+                       check=True)
+        print(f"fp64 atomicAdd to shared memory, SASS atomics: "
+              f"{json.dumps(sass_opcodes(cuobjdump, cubin, atomics))}")
+    except (OSError, subprocess.SubprocessError) as exc:
+        print(f"SASS not read: {exc}")
+
+
 # ---------------------------------------------------------------- phase 2
 
 def check_kernels(torch, np, rk):
@@ -113,8 +186,10 @@ def check_kernels(torch, np, rk):
     ]).astype(np.float32)).to(dev)
 
     torch_select = get_stc_backend("torch").select_batch
-    sets = [(rows((MAIN_ROWS, MAIN_N)), max(int(MAIN_N * P_STC), 1)),
-            (rows((1, MAIN_N), 1e-4), max(int(MAIN_N * P_STC), 1)),
+    k_main = max(int(MAIN_N * P_STC), 1)
+    sets = [(rows((MAIN_ROWS, MAIN_N)), k_main),
+            (rows((1, MAIN_N), 1e-4), k_main),
+            (skewed(torch, np, rng, MAIN_ROWS, MAIN_N), k_main),
             (adversarial, 100),
             (adversarial, 1),
             (adversarial, n_adv)]
@@ -123,12 +198,7 @@ def check_kernels(torch, np, rk):
         a = x.abs()
         a_max = a.amax(dim=1)
         scale = torch.where(a_max > 0, 256.0 / a_max, torch.zeros_like(a_max))
-        cnt_k, sum_k = rk.magnitude_histogram_batched(x, scale)
-        cnt_p, sum_p = rk.magnitude_histogram_plain(x, scale)
-        require(torch.equal(cnt_k, cnt_p), f"histogram counts differ k={k}")
-        require(torch.allclose(sum_k, sum_p, rtol=1e-6, atol=0.0),
-                f"histogram sums beyond rtol 1e-6 k={k}")
-        hist_err = max(hist_err, float((sum_k - sum_p).abs().max()))
+        hist_err = max(hist_err, check_histogram(torch, rk, x, scale))
 
         t_k, c_k, s_k = rk.hist_topk_threshold_batched(x, k)
         t_o, c_o, s_o = torch_select(x, k)
@@ -150,14 +220,114 @@ def check_kernels(torch, np, rk):
     errs["stc_apply"], errs["histogram"] = apply_err, hist_err
     errs["selection"] = sel_err
 
+    x, scale = skewed(torch, np, rng, MAIN_ROWS, MAIN_N, scale=True)
+    ops = device_ops(torch, lambda: rk.magnitude_histogram_batched(x, scale))
+    require(ops is None or len(ops) == 1,
+            f"the histogram ran {len(ops or ())} device operations, not 1: "
+            f"{ops}")
+    print(f"histogram: device operations in one call (torch.profiler): "
+          f"{ops if ops is not None else 'not seen by the profiler'}")
     errs["pack_bits"] = max(check_pack_bits(torch, np, rk, rng, m)
                             for m in (1, 31, 32, 1_000_003, 2_400_000))
+    errs["pack_chunks"] = max(check_pack_chunks(torch, np, rk, *chunk_set(
+        np, rng, count, gaps)) for count, gaps in ((1, False), (33, True),
+                                                   (61_480, True),
+                                                   (1_000_003, False)))
     errs["unpack_bits"] = max(check_unpack_bits(torch, np, rk, rng, w)
                               for w in (1, 2, 9608, 1_000_003))
     errs["threshold_stats"] = check_threshold_stats(torch, np, rk, rng)
     errs["bisection"] = check_bisection(torch, np, rk, rng)
     torch.cuda.synchronize()
     return errs
+
+
+def skewed(torch, np, rng, n_rows, n, scale=False):
+    """Rows like the carried deltas at their most skewed: one outlier a row
+    and every other magnitude below 1/256 of it (bin 0); the last row all
+    zero.  With ``scale`` also the k-selection's scale."""
+    x = np.clip(rng.standard_normal((n_rows, n)) * 1e-3, -3e-3, 3e-3)
+    x[np.arange(n_rows), rng.integers(0, n, n_rows)] = 1.0
+    x[-1] = 0.0
+    x = torch.from_numpy(x.astype(np.float32)).to("cuda")
+    if not scale:
+        return x
+    a_max = x.abs().amax(dim=1)
+    return x, torch.where(a_max > 0, 256.0 / a_max, torch.zeros_like(a_max))
+
+
+def check_histogram(torch, rk, x, scale) -> float:
+    """The histogram kernel against its plain version (counts exact, sums
+    within rtol 1e-6), one launch a call, and a second call identical to
+    the first.  Returns the sums' largest abs difference."""
+    before = rk.LAUNCHES.counts["histogram"]
+    cnt_k, sum_k = rk.magnitude_histogram_batched(x, scale)
+    require(rk.LAUNCHES.counts["histogram"] == before + 1,
+            "one histogram call is not one launch")
+    cnt_p, sum_p = rk.magnitude_histogram_plain(x, scale)
+    shape = tuple(x.shape)
+    require(torch.equal(cnt_k, cnt_p), f"histogram counts differ at {shape}")
+    require(torch.allclose(sum_k, sum_p, rtol=1e-6, atol=0.0),
+            f"histogram sums beyond rtol 1e-6 at {shape}")
+    cnt_2, sum_2 = rk.magnitude_histogram_batched(x, scale)
+    require(torch.equal(cnt_k, cnt_2) and torch.equal(sum_k, sum_2),
+            f"two histogram calls differ at {shape}")
+    return float((sum_k - sum_p).abs().max())
+
+
+def device_ops(torch, fn):
+    """Names of the device operations (kernels, memsets, copies) that one
+    call of ``fn`` runs, by ``torch.profiler``; None if the profiler sees
+    no device activity at all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return names or None
+
+
+def chunk_set(np, rng, count, gaps=False):
+    """``count`` Golomb-like chunks (lengths 1-63, a fifth of them 32-one
+    chunks), back to back or with word-aligned client gaps, and a total
+    that is not a multiple of 32: ``(vals, lens, offs, total_bits)``."""
+    lens = rng.integers(1, 64, count)
+    lens[rng.random(count) < 0.2] = 32
+    offs = np.cumsum(lens) - lens
+    if gaps and count > 1:
+        for cut in sorted(rng.choice(np.arange(1, count), min(8, count - 1),
+                                     replace=False)):
+            offs[cut:] += (-int(offs[cut]) % 32) + 32 * int(rng.integers(3))
+    vals = rng.integers(0, 1 << 63, count, dtype=np.uint64)
+    vals &= (np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1)
+    vals[lens == 32] = np.uint64(0xFFFFFFFF)
+    return vals, lens, offs, int(offs[-1] + lens[-1]) + 17
+
+
+def chunk_tensors(torch, np, vals, lens, offs):
+    """The chunk fields as the card tensors ``pack_chunks`` takes."""
+    return (torch.from_numpy(np.ascontiguousarray(vals).view(np.int64))
+            .to("cuda"),
+            torch.from_numpy(lens.astype(np.int32)).to("cuda"),
+            torch.from_numpy(offs.astype(np.int64)).to("cuda"))
+
+
+def check_pack_chunks(torch, np, rk, vals, lens, offs, total_bits) -> float:
+    """``pack_chunks`` on the card against its plain version and the host
+    scatter; returns the words' max abs difference (0.0)."""
+    from repro_torch.core.wire import _scatter_chunks_numpy
+    t = chunk_tensors(torch, np, vals, lens, offs)
+    w_k = rk.pack_chunks(*t, total_bits).cpu().numpy().view(np.uint32)
+    w_p = rk.pack_chunks_plain(*t, total_bits).cpu().numpy().view(np.uint32)
+    w_np = _scatter_chunks_numpy(vals, lens, offs, total_bits)
+    err = max(words_err(np, w_k, w_p), words_err(np, w_k, w_np))
+    require(err == 0.0, f"pack_chunks words differ at {len(vals)} chunks "
+                        f"(max {err})")
+    return err
 
 
 def words_err(np, got, want) -> float:
@@ -255,7 +425,7 @@ def check_bisection(torch, np, rk, rng) -> float:
 
 # ---------------------------------------------------------------- phase 3
 
-DENSE_KERNELS = ("stc_apply", "histogram", "pack_bits")
+DENSE_KERNELS = ("stc_apply", "histogram", "pack_chunks")
 INGEST_KERNELS = DENSE_KERNELS + ("unpack_bits",)
 
 
@@ -297,6 +467,11 @@ def run_trainers(torch, rk, ingest=False):
     for name in needed:
         require(launches[name] > 0,
                 f"kernel {name} never launched on the {path} path")
+    require(launches["pack_chunks"] == 2 * ROUNDS
+            and launches["pack_bits"] == 0,
+            f"the {path} ledger packed {launches['pack_chunks']} times with "
+            f"pack_chunks and {launches['pack_bits']} with pack_bits in "
+            f"{ROUNDS} rounds, not twice a round with pack_chunks alone")
 
     cpu = make_trainer("cpu", torch, ingest=ingest)
     t0 = time.perf_counter()
@@ -330,7 +505,9 @@ def check_lockstep(torch, np, rk, tr, rounds=3):
     state on.  Positions, signs, counts and wire words must be exact; µ
     within rtol 1e-6; residuals and parameters within 1e-6 of
     ``|value| + µ``.  The trainer's parameters and residuals are left as
-    they were; only its data stream advances."""
+    they were; only its data stream advances.  Returns the last round's
+    carried matrices (clients', server's) and upstream messages, for the
+    timings."""
     from repro_torch.core import wire
     from repro_torch.core.compression import get_stc_backend
     from repro_torch.core.residual import ResidualState
@@ -374,7 +551,7 @@ def check_lockstep(torch, np, rk, tr, rounds=3):
         require(worst["words_abs"] == 0.0,
                 f"lock-step round {r}: {what} wire words differ")
 
-    packs = rk.LAUNCHES.counts["pack_bits"]
+    packs = rk.LAUNCHES.counts["pack_chunks"]
     for r in range(rounds):
         sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
         xs, ys = tr._sample_batches(sel, proto.local_iters)
@@ -387,6 +564,9 @@ def check_lockstep(torch, np, rk, tr, rounds=3):
         gd, sstate, sg = proto.aggregate(msgs, ResidualState(server_res),
                                          mask=ones, staleness=zeros)
         mean = proto.combine(msgs, ones, zeros)
+        last = {"carried": deltas + client_res[idx],
+                "server_carried": (mean + server_res)[None],
+                "upstream": msgs.cpu().numpy()}
 
         msgs_c, cstate_c, st_c = proto.encode_batch(
             deltas.cpu(), ResidualState(residual=client_res[idx].cpu()))
@@ -414,11 +594,11 @@ def check_lockstep(torch, np, rk, tr, rounds=3):
         client_res[idx] = cstate.residual
         server_res = sstate.residual
         params = params + gd
-    require(rk.LAUNCHES.counts["pack_bits"] > packs,
-            "the lock-step ledger did not go through pack_bits")
+    require(rk.LAUNCHES.counts["pack_chunks"] > packs,
+            "the lock-step ledger did not go through pack_chunks")
     print(f"lock-step ({rounds} rounds, card vs CPU from the same inputs): "
           f"{json.dumps(worst)}")
-    return worst
+    return last
 
 
 def check_ingest_lockstep(torch, np, rk, tr, rounds=3):
@@ -489,7 +669,7 @@ def check_signsgd_ingest(torch, np, rk, rounds=3):
     card (counters set to 0 just before; ``pack_bits`` and ``unpack_bits``
     must launch), then 3 lock-step rounds card against CPU from its state:
     messages, wire words, unpacked sign bits, accumulator and global delta
-    identical."""
+    identical.  Returns the launch counts and shapes of its rounds."""
     from repro_torch.core import wire
     from repro_torch.fed.loop import local_sgd
     tr = make_trainer("cuda", torch, ingest=True, codec="signsgd")
@@ -498,6 +678,7 @@ def check_signsgd_ingest(torch, np, rk, rounds=3):
     tr.run(rounds, eval_every=rounds)
     torch.cuda.synchronize()
     launches = dict(rk.LAUNCHES.counts)
+    shapes = dict(rk.LAUNCHES.shapes)
     for name in ("pack_bits", "unpack_bits"):
         require(launches[name] > 0,
                 f"kernel {name} never launched on the signSGD ingest path")
@@ -543,6 +724,7 @@ def check_signsgd_ingest(torch, np, rk, rounds=3):
           f"{json.dumps(launches)}; {rounds} lock-step rounds card vs CPU: "
           f"messages, words, unpacked bits, accumulator and global delta "
           f"identical")
+    return launches, shapes
 
 
 def run_bisection(torch, np, rk):
@@ -575,6 +757,10 @@ def run_bisection(torch, np, rk):
 
 # ---------------------------------------------------------------- phase 4
 
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
 def event_ms(torch, fn, iters=50, hold_stream=True) -> float:
     """Mean device time of ``fn`` over back-to-back launches (CUDA events).
 
@@ -600,10 +786,52 @@ def event_ms(torch, fn, iters=50, hold_stream=True) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_kernels(torch, np, rk, shapes, launches, errs):
+def upstream_chunks(np, last):
+    """The chunks of the last lock-step round's upstream batch, as the
+    ``"kernel"`` backend hands them to ``pack_chunks`` in the per-client
+    regime: ``(vals, lens, offs, total_bits)``."""
+    from repro_torch.core import wire
+    up = last["upstream"]
+    vals, lens, offs, batch = wire._client_chunks_batch(
+        up, [np.flatnonzero(r) for r in up], wire._b_star_checked(P_STC))
+    return vals, lens, offs, 32 * int(batch.word_count.sum())
+
+
+def row_scale(torch, x):
+    """The k-selection's per-row scale, 256 / max|x| (0 for a zero
+    row)."""
+    a_max = x.abs().amax(dim=1)
+    return torch.where(a_max > 0, 256.0 / a_max, torch.zeros_like(a_max))
+
+
+def time_histogram(torch, rk, mats):
+    """The histogram's device time on each named ``(x, scale)`` at 1, 2 and
+    4 CTAs an SM (the launch's grid), printed; returns the times at the
+    shipped setting."""
+    from repro_torch.kernels import hist_select
+    shipped = hist_select._CTAS_PER_SM
+    sweep = {}
+    try:
+        for per_sm in (1, 2, 4):
+            hist_select._CTAS_PER_SM = per_sm
+            sweep[per_sm] = {
+                name: event_ms(torch, lambda x=x, sc=sc:
+                               rk.magnitude_histogram_batched(x, sc))
+                for name, (x, sc) in mats.items()}
+    finally:
+        hist_select._CTAS_PER_SM = shipped
+    print(f"histogram ms by CTAs an SM (shipped: {shipped}): "
+          f"{json.dumps(sweep)}")
+    return sweep[shipped]
+
+
+def time_kernels(torch, np, rk, shapes, launches, errs, last):
     """Device time of each kernel at its path's shapes beside its plain
     version, its byte bound and (where one PyTorch call computes the same
-    function) that call; the k-selections beside ``torch.topk``."""
+    function) that call; the k-selections beside ``torch.topk``.  ``last``
+    is the last lock-step round: the histogram is timed on its carried
+    matrices (the main path's inputs) and on a normal matrix,
+    ``pack_chunks`` on the chunks of its upstream batch."""
     from repro_torch.core.selection import bin_index
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -611,12 +839,25 @@ def time_kernels(torch, np, rk, shapes, launches, errs):
     x = torch.from_numpy(
         (rng.standard_normal((rows, n)) * 1e-3).astype(np.float32)).to(dev)
     k = max(int(n * P_STC), 1)
-    a_max = x.abs().amax(dim=1)
-    scale = 256.0 / a_max
+    scale = row_scale(torch, x)
     t, c, s = rk.hist_topk_threshold_batched(x, k)
     mu = s / c.to(torch.float32)
+    carried = last["carried"].contiguous()
+    c_scale = row_scale(torch, carried)
+    c_bins = bin_index(carried.abs(), c_scale[:, None], 256)
+    print(f"carried matrix of the last lock-step round {tuple(carried.shape)}"
+          f": share in bin 0 {float((c_bins == 0).double().mean()):.6f}, "
+          f"bin 1 {float((c_bins == 1).double().mean()):.6f}, bins 2-255 "
+          f"{float((c_bins >= 2).double().mean()):.6f}")
+    server = last["server_carried"].contiguous()
+    hist_ms = time_histogram(torch, rk, {
+        "carried": (carried, c_scale), "normal": (x, scale),
+        "server_carried": (server, row_scale(torch, server))})
     m = shapes["pack_bits"][0]
     bits = torch.from_numpy((rng.random(m) < 0.3).astype(np.uint8)).to(dev)
+    vals, lens, offs, up_bits = upstream_chunks(np, last)
+    up_words = up_bits // 32
+    chunks = chunk_tensors(torch, np, vals, lens, offs)
     n_words = shapes["unpack_bits"][0]
     words = torch.from_numpy(rng.integers(
         0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
@@ -630,8 +871,8 @@ def time_kernels(torch, np, rk, shapes, launches, errs):
 
     # the histogram's library yardstick: two row-offset bincounts (counts;
     # sums through weights=) over the same bins
-    a = x.abs()
-    flat_bins = (bin_index(a, scale[:, None], 256).to(torch.int64)
+    a = carried.abs()
+    flat_bins = (bin_index(a, c_scale[:, None], 256).to(torch.int64)
                  + 256 * torch.arange(rows, device=dev)[:, None]).reshape(-1)
     flat_a = a.reshape(-1)
 
@@ -639,6 +880,9 @@ def time_kernels(torch, np, rk, shapes, launches, errs):
         return (torch.bincount(flat_bins, minlength=256 * rows),
                 torch.bincount(flat_bins, weights=flat_a,
                                minlength=256 * rows))
+
+    def hist_bound(b):                   # x and scale read, 8 bytes a bin
+        return bound(4 * b * n + 4 * b + 8 * 256 * b)
 
     out = []
     nb = rows * n * 4
@@ -656,12 +900,27 @@ def time_kernels(torch, np, rk, shapes, launches, errs):
         "source": "src/repro_torch/csrc/histogram.cu",
         "replaces": "src/repro/kernels/hist_select.py:123",
         "launches": launches["histogram"], "max_abs_err": errs["histogram"],
-        "ms": event_ms(torch,
-                       lambda: rk.magnitude_histogram_batched(x, scale)),
-        "plain_ms": event_ms(torch,
-                             lambda: rk.magnitude_histogram_plain(x, scale)),
-        "bound_ms": bound(nb + 4 * rows + 8 * 256 * rows),
-        "bound_by": "bytes", "library_ms": event_ms(torch, bincount_hist)})
+        "ms": hist_ms["carried"],
+        "plain_ms": event_ms(
+            torch, lambda: rk.magnitude_histogram_plain(carried, c_scale)),
+        "bound_ms": hist_bound(rows), "bound_by": "bytes",
+        "library_ms": event_ms(torch, bincount_hist),
+        "ms_normal": hist_ms["normal"],
+        "ms_server_b1": hist_ms["server_carried"],
+        "bound_ms_b1": hist_bound(1)})
+    out.append({
+        "name": "pack_chunks", "route": "cuda",
+        "source": "src/repro_torch/csrc/pack_chunks.cu",
+        "replaces": "src/repro/kernels/bitpack.py:59",
+        "launches": launches["pack_chunks"],
+        "max_abs_err": errs["pack_chunks"],
+        "ms": event_ms(torch, lambda: rk.pack_chunks(*chunks, up_bits)),
+        # the plain version sizes its bit plane on the host: host included
+        "plain_ms": event_ms(
+            torch, lambda: rk.pack_chunks_plain(*chunks, up_bits),
+            iters=20, hold_stream=False),
+        "bound_ms": bound(20 * len(vals) + 4 * up_words), "bound_by": "bytes",
+        "library_ms": None, "chunks": len(vals), "words": up_words})
     n_pack_words = -(-m // 32)
     out.append({
         "name": "pack_bits", "route": "cuda",
@@ -718,9 +977,10 @@ def time_kernels(torch, np, rk, shapes, launches, errs):
     for row in out:
         lib = (f", library {row['library_ms']:.4f} ms"
                if row["library_ms"] is not None else "")
+        extra = {k: v for k, v in row.items() if k not in KERNEL_KEYS}
         print(f"kernel {row['name']}: {row['ms']:.4f} ms (plain "
               f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms"
-              f"{lib})")
+              f"{lib}){' ' + json.dumps(extra) if extra else ''}")
     return out
 
 
@@ -861,14 +1121,17 @@ def main() -> int:
         rk.build_all()
         print(f"build: {time.perf_counter() - t0:.1f} s "
               f"(nvcc, one process per source)")
+        print_build_notes()
         errs = check_kernels(torch, np, rk)
         print(f"kernel checks passed: {json.dumps(errs)}")
         tr, launches, shapes = run_trainers(torch, rk)
-        check_lockstep(torch, np, rk, tr)
-        errs["pack_bits"] = max(errs["pack_bits"], check_pack_bits(
-            torch, np, rk, np.random.default_rng(2), shapes["pack_bits"][0]))
-        print(f"pack_bits at the main path's m={shapes['pack_bits'][0]}: "
-              f"words identical to its plain version and the host packer")
+        last = check_lockstep(torch, np, rk, tr)
+        chunks = upstream_chunks(np, last)
+        errs["pack_chunks"] = max(errs["pack_chunks"], check_pack_chunks(
+            torch, np, rk, *chunks))
+        print(f"pack_chunks on a lock-step round's upstream batch "
+              f"({len(chunks[0])} chunks, {chunks[3] // 32} words): words "
+              f"identical to its plain version and the host packer")
         tr_in, launches_in, shapes_in = run_trainers(torch, rk, ingest=True)
         check_ingest_lockstep(torch, np, rk, tr_in)
         w_in = shapes_in["unpack_bits"][0]
@@ -876,13 +1139,20 @@ def main() -> int:
             torch, np, rk, np.random.default_rng(4), w_in))
         print(f"unpack_bits at the ingest path's W={w_in}: bits and zero "
               f"counts identical to its plain version and the host unpack")
-        check_signsgd_ingest(torch, np, rk)
+        launches_sg, shapes_sg = check_signsgd_ingest(torch, np, rk)
+        m_sg = shapes_sg["pack_bits"][0]
+        errs["pack_bits"] = max(errs["pack_bits"], check_pack_bits(
+            torch, np, rk, np.random.default_rng(2), m_sg))
+        print(f"pack_bits at the signSGD path's m={m_sg}: words identical "
+              f"to its plain version and the host packer")
         launches_bis, shapes_bis = run_bisection(torch, np, rk)
         launches = {**launches, "unpack_bits": launches_in["unpack_bits"],
+                    "pack_bits": launches_sg["pack_bits"],
                     "threshold_stats": launches_bis["threshold_stats"]}
         shapes = {**shapes, "unpack_bits": shapes_in["unpack_bits"],
+                  "pack_bits": shapes_sg["pack_bits"],
                   "threshold_stats": shapes_bis["threshold_stats"]}
-        rows = time_kernels(torch, np, rk, shapes, launches, errs)
+        rows = time_kernels(torch, np, rk, shapes, launches, errs, last)
         time_round(torch, np, tr)
         time_ingest_round(torch, np, tr_in)
         for row in rows:

@@ -2,8 +2,9 @@
 
 The port's numpy copy of ``repro/core/wire.py``: every stream it packs is
 byte-identical to the reference's.  Only the ``"kernel"`` backend differs:
-its word packer and unpacker are the CUDA kernels of
-:mod:`repro_torch.kernels.bitpack` and :mod:`repro_torch.kernels.wiredecode`.
+its packers and unpacker are the CUDA kernels of
+:mod:`repro_torch.kernels.bitpack` (Golomb chunks and sign planes) and
+:mod:`repro_torch.kernels.wiredecode`.
 
 The paper's communication claims rest on the REAL Golomb-encoded ternary
 bitstream (Algorithms 3-4, Eqs. 15-17).  The per-bit host loop in
@@ -34,10 +35,13 @@ client messages in ONE vectorized pass into a single word-aligned stream
 (per-client slices are views), which beats P sequential single-message packs.
 
 Backends mirror :func:`repro_torch.core.compression.get_stc_backend`: ``"numpy"``
-is the host scatter above; ``"kernel"`` expands chunks to a bit tensor and
-packs 32-bit words on the device through the CUDA kernel in
-:mod:`repro_torch.kernels.bitpack` (its plain PyTorch version when the
-backend is asked for the CPU), so the card and the CPU share one API.
+is the host scatter above; ``"kernel"`` copies the chunk fields to the
+device and ORs them into 32-bit words there with the CUDA kernel
+:func:`repro_torch.kernels.bitpack.pack_chunks` (its plain PyTorch version
+when the backend is asked for the CPU), so the card and the CPU share one
+API.  Above the fused-batch limit the ``"kernel"`` backend still builds each
+client's chunks on its own, as the per-client regime does, but packs the
+whole round in one call.
 
 Decode is vectorized end to end -- and multi-segment: ONE pass parses every
 client stream of a word-aligned batch.  One bit unpack (host ``unpackbits``
@@ -321,25 +325,6 @@ def _unpack_bits_numpy(words: np.ndarray) -> np.ndarray:
     return words_to_bits(words, 32 * int(np.asarray(words).size))
 
 
-def _chunks_to_bits(vals: np.ndarray, lens: np.ndarray, offs: np.ndarray,
-                    total_bits: int) -> np.ndarray:
-    """Expand (value, length) chunks at explicit bit offsets into 0/1.
-
-    Offsets may leave gaps (the batched stream word-aligns each client);
-    gap bits stay zero, matching the scatter backend's padding.
-    """
-    bits = np.zeros(int(total_bits), np.uint8)
-    if not len(vals):
-        return bits
-    owner = np.repeat(np.arange(len(lens)), lens)
-    dense_start = np.cumsum(lens) - lens
-    within = np.arange(int(lens.sum())) - dense_start[owner]
-    shift = (lens[owner] - 1 - within).astype(_U64)
-    bits[offs[owner] + within] = (
-        (vals.astype(_U64)[owner] >> shift) & _U64(1)).astype(np.uint8)
-    return bits
-
-
 WIRE_BACKENDS: dict[str, WireBackend] = {
     "numpy": WireBackend("numpy", _scatter_chunks_numpy, _pack_bits_numpy,
                          _unpack_bits_numpy),
@@ -349,12 +334,14 @@ WIRE_BACKENDS: dict[str, WireBackend] = {
 @functools.lru_cache(maxsize=None)
 def _make_kernel_backend(device=None) -> WireBackend:
     """The ``"kernel"`` backend, one per device (resolved when a stream is
-    packed or unpacked: CUDA unless the caller names the CPU).  Encode:
-    chunk -> bit expansion on the host, the 32-bit word assembly in
-    :func:`repro_torch.kernels.bitpack.pack_bits` on ``device``.  Decode:
-    the words go to ``device``, :func:`repro_torch.kernels.wiredecode.
-    unpack_bits_words` explodes them into bits there, and the bits come back
-    to the host field scan."""
+    packed or unpacked: CUDA unless the caller names the CPU).  Encode: the
+    chunk fields go to ``device`` and
+    :func:`repro_torch.kernels.bitpack.pack_chunks` ORs them into words
+    there; sign planes go up as bits to
+    :func:`repro_torch.kernels.bitpack.pack_bits`.  Decode: the words go to
+    ``device``, :func:`repro_torch.kernels.wiredecode.unpack_bits_words`
+    explodes them into bits there, and the bits come back to the host field
+    scan."""
     # lazy: keeps core import-light (layering: kernels -> core, never back)
 
     def pack_bits(bits: np.ndarray) -> np.ndarray:
@@ -366,7 +353,19 @@ def _make_kernel_backend(device=None) -> WireBackend:
         return words.cpu().numpy().view(np.uint32)
 
     def pack_chunks(vals, lens, offs, total_bits):
-        return pack_bits(_chunks_to_bits(vals, lens, offs, total_bits))
+        import torch
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels.bitpack import pack_chunks as chunk_kernel
+        dev = resolve_device(device)
+
+        def up(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+        words = chunk_kernel(up(np.asarray(vals, _U64).view(np.int64),
+                                np.int64),
+                             up(lens, np.int32), up(offs, np.int64),
+                             int(total_bits))
+        return words.cpu().numpy().view(np.uint32)
 
     def unpack_bits(words: np.ndarray) -> np.ndarray:
         import torch
@@ -452,22 +451,50 @@ def _codeword_chunks(d: np.ndarray, signs: np.ndarray, b: int):
     return vals, lens, lengths
 
 
+def _message_chunks(x: np.ndarray, nz: np.ndarray, b: int):
+    """One flat ternary vector's chunks from its (non-empty) nonzero
+    indices: ``(vals, lens, offs, total_bits, mu)``, offsets from 0."""
+    nzv = x[nz]
+    mu = float(np.abs(nzv).mean())
+    d = np.diff(nz, prepend=np.int64(-1)) - 1           # gap-1 >= 0
+    vals, lens, _ = _codeword_chunks(d, (nzv > 0), b)
+    cs = np.cumsum(lens)
+    total_bits = int(cs[-1])    # == lengths.sum(): chunks partition codewords
+    return vals, lens, cs - lens, total_bits, mu
+
+
 def _encode_from_nz(x: np.ndarray, nz: np.ndarray, b: int,
                     backend: str, device=None) -> WireMessage:
     """Pack one flat ternary vector given its precomputed nonzero indices."""
     n = int(x.size)
     if nz.size == 0:
         return WireMessage(np.zeros(0, np.uint32), 0, 0.0, n, 0)
-    nzv = x[nz]
-    mu = float(np.abs(nzv).mean())
-    d = np.diff(nz, prepend=np.int64(-1)) - 1           # gap-1 >= 0
-    vals, lens, _ = _codeword_chunks(d, (nzv > 0), b)
-    cs = np.cumsum(lens)
-    offs = cs - lens
-    total_bits = int(cs[-1])    # == lengths.sum(): chunks partition codewords
+    vals, lens, offs, total_bits, mu = _message_chunks(x, nz, b)
     words = get_wire_backend(backend, device).pack_chunks(vals, lens, offs,
                                                           total_bits)
     return WireMessage(words, total_bits, mu, n, int(nz.size))
+
+
+def _client_chunks_batch(x: np.ndarray, per_client: list, b: int):
+    """Every client's chunks built as :func:`_encode_from_nz` builds them,
+    each client's offsets rebased to its word-aligned start: ``(vals, lens,
+    offs, batch)``, where ``batch`` is the :class:`WireBatch` that
+    :func:`concat_messages` of the per-client messages gives, with
+    ``words=None`` until the chunks are packed."""
+    parts = [_message_chunks(x[i], nz, b) if nz.size else None
+             for i, nz in enumerate(per_client)]
+    bit_len = np.asarray([p[3] if p else 0 for p in parts], np.int64)
+    word_count = (bit_len + 31) // 32
+    word_start = np.cumsum(word_count) - word_count
+    live = [i for i, p in enumerate(parts) if p]
+    offs = np.concatenate([parts[i][2] + 32 * word_start[i] for i in live])
+    batch = WireBatch(None, word_start, word_count, bit_len,
+                      np.asarray([p[4] if p else 0.0 for p in parts],
+                                 np.float64),
+                      np.asarray([nz.size for nz in per_client], np.int64),
+                      x.shape[1])
+    return (np.concatenate([parts[i][0] for i in live]),
+            np.concatenate([parts[i][1] for i in live]), offs, batch)
 
 
 def encode_ternary_words(tensor: np.ndarray, p: float, *,
@@ -506,11 +533,17 @@ def encode_ternary_words_batch(tensors: np.ndarray, p: float, *,
                          np.zeros(P, np.float64), z.copy(), n)
     if nnz_total > _FUSED_NNZ_MAX:
         # dense regime: the fused pass's working set falls out of L2 and
-        # per-element cost triples; cache-resident per-client packs win
-        # (reusing the scans above)
-        return concat_messages([
-            _encode_from_nz(x[i], per_client[i], b, backend, device)
-            for i in range(P)])
+        # per-element cost triples; cache-resident per-client chunk builds
+        # win (reusing the scans above)
+        if backend != "kernel":
+            return concat_messages([
+                _encode_from_nz(x[i], per_client[i], b, backend, device)
+                for i in range(P)])
+        # the device packer takes the whole round's chunks in one call
+        vals, lens, offs, batch = _client_chunks_batch(x, per_client, b)
+        return batch._replace(words=get_wire_backend(backend, device)
+                              .pack_chunks(vals, lens, offs,
+                                           32 * int(batch.word_count.sum())))
     # sparse regime (the paper's operating point): ONE fused vectorized
     # pass over all clients amortizes every fixed-cost stage
     pos = np.concatenate(per_client)

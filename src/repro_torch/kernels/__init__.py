@@ -7,8 +7,9 @@ PyTorch versions.
   (``csrc/histogram.cu``) and the exact k-selection around it.
 * ``topk_threshold`` -- threshold statistics (``csrc/threshold_stats.cu``)
   and the bisection k-selection around them (``selector="bisect"``).
-* ``bitpack``        -- MSB-first word packing of the wire stream
-  (``csrc/pack_bits.cu``), the device half of the ``"kernel"`` wire encode.
+* ``bitpack``        -- MSB-first word packing of the wire stream: Golomb
+  chunks (``csrc/pack_chunks.cu``), the device half of the ``"kernel"``
+  ternary wire encode, and dense sign planes (``csrc/pack_bits.cu``).
 * ``wiredecode``     -- word unpacking with zero counts
   (``csrc/unpack_bits.cu``), the device half of the ``"kernel"`` decode.
 * ``ops``            -- STC with error feedback composed from the above.
@@ -20,7 +21,8 @@ build or the launch fails) and runs its plain version on a CPU tensor.
 """
 
 from ._build import LAUNCHES, build_all
-from .bitpack import pack_bits, pack_bits_plain
+from .bitpack import (pack_bits, pack_bits_plain, pack_chunks,
+                      pack_chunks_plain)
 from .hist_select import (hist_topk_threshold_batched,
                           magnitude_histogram_batched,
                           magnitude_histogram_plain)
@@ -46,6 +48,8 @@ __all__ = [
     "topk_threshold",
     "pack_bits",
     "pack_bits_plain",
+    "pack_chunks",
+    "pack_chunks_plain",
     "unpack_words_with_counts",
     "unpack_bits_words",
     "unpack_words_plain",

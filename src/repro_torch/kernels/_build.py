@@ -5,7 +5,12 @@ use by one ``nvcc`` process per source, all started together, into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so \\
+         csrc/<name>.cu
+
+The compiler's output (``-Xptxas -v``: each kernel's registers, shared
+memory and spills) is kept beside the library and read by
+:func:`build_log`.
 
 The library name carries a hash of its source, so an edited kernel is never
 served from a stale build.  Libraries are loaded with ``ctypes``; every C
@@ -29,15 +34,15 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "LAUNCHES", "LaunchCounter", "build_all", "library",
-           "entry", "check", "stream_ptr"]
+__all__ = ["SOURCES", "LAUNCHES", "LaunchCounter", "build_all", "build_log",
+           "library", "entry", "check", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("stc_apply", "histogram", "pack_bits", "unpack_bits",
-           "threshold_stats")
+SOURCES = ("stc_apply", "histogram", "pack_bits", "pack_chunks",
+           "unpack_bits", "threshold_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[tuple[str, str], object] = {}
@@ -101,10 +106,17 @@ def build_all(names=SOURCES) -> dict[str, Path]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return targets
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc -Xptxas -v`` printed when ``csrc/<name>.cu`` was built."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -5,10 +5,18 @@ become one MSB-first uint32 word,
 
     word[w] = sum_j bits[32w + j] << (31 - j)
 
-with the bits past the stream's end taken as 0.  On a CUDA tensor the
-wrapper launches ``csrc/pack_bits.cu``; on a CPU tensor it runs
-:func:`pack_bits_plain`.  Words come back as int32 tensors holding the
-uint32 bit patterns (``.numpy().view(np.uint32)`` reads them as words).
+with the bits past the stream's end taken as 0.  Two entries:
+
+* :func:`pack_bits` packs a dense 0/1 bit plane (the signSGD sign planes)
+  through ``csrc/pack_bits.cu``;
+* :func:`pack_chunks` packs the ternary wire's Golomb chunks, ``(value,
+  length)`` pairs at given bit offsets, through ``csrc/pack_chunks.cu``:
+  what the reference computes as ``pack_bits_words`` over the host's
+  chunk -> bit expansion, without the expansion.
+
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
+its plain version.  Words come back as int32 tensors holding the uint32
+bit patterns (``.numpy().view(np.uint32)`` reads them as words).
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ import torch
 from ..core.selection import PASSES
 from . import _build
 
-__all__ = ["pack_bits", "pack_bits_plain"]
+__all__ = ["pack_bits", "pack_bits_plain", "pack_chunks",
+           "pack_chunks_plain"]
 
 _WEIGHTS = [1 << (31 - j) for j in range(32)]
 
@@ -67,3 +76,68 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {bits.device}")
     return _launch(bits.contiguous())
 
+
+
+def pack_chunks_plain(vals: torch.Tensor, lens: torch.Tensor,
+                      offs: torch.Tensor, total_bits: int) -> torch.Tensor:
+    """Plain PyTorch version: every chunk expanded to its bits (most
+    significant first) at its offset, then :func:`pack_bits_plain`."""
+    dev = vals.device
+    lens64 = lens.to(torch.int64)
+    n_bits = int(lens64.sum())
+    bits = torch.zeros(int(total_bits), dtype=torch.uint8, device=dev)
+    if n_bits:
+        owner = torch.repeat_interleave(
+            torch.arange(lens64.numel(), device=dev), lens64)
+        start = torch.cumsum(lens64, 0) - lens64
+        within = torch.arange(n_bits, device=dev) - start[owner]
+        shift = lens64[owner] - 1 - within
+        bits[offs[owner] + within] = ((vals[owner] >> shift) & 1) \
+            .to(torch.uint8)
+    return pack_bits_plain(bits)
+
+
+def _launch_chunks(vals, lens, offs, n_words: int) -> torch.Tensor:
+    fn = _build.entry("pack_chunks", "pack_chunks_u64",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                               ctypes.c_longlong,
+                                               ctypes.c_void_p])
+    words = torch.empty(n_words, dtype=torch.int32, device=vals.device)
+    if n_words == 0:
+        return words
+    err = fn(vals.data_ptr(), lens.data_ptr(), offs.data_ptr(),
+             words.data_ptr(), vals.numel(), n_words,
+             _build.stream_ptr(vals.device))
+    _build.check("pack_chunks", err)
+    _build.LAUNCHES.record("pack_chunks", vals.shape)
+    return words
+
+
+def pack_chunks(vals: torch.Tensor, lens: torch.Tensor, offs: torch.Tensor,
+                total_bits: int) -> torch.Tensor:
+    """Pack chunks into ``ceil(total_bits / 32)`` words.
+
+    ``vals`` (int64, carrying uint64 values), ``lens`` (int32, 1-63 bits)
+    and ``offs`` (int64, non-decreasing, gaps allowed) are flat tensors of
+    one length on one device: chunk ``i``'s ``lens[i]`` low bits, most
+    significant first, land at stream bits ``[offs[i], offs[i] +
+    lens[i])``.  Chunks do not overlap and end by ``total_bits``; the other
+    bits are 0."""
+    if not (vals.ndim == lens.ndim == offs.ndim == 1
+            and vals.numel() == lens.numel() == offs.numel()):
+        raise ValueError(f"vals, lens and offs must be flat and of one "
+                         f"length, got {tuple(vals.shape)}, "
+                         f"{tuple(lens.shape)}, {tuple(offs.shape)}")
+    if (vals.dtype, lens.dtype, offs.dtype) != (torch.int64, torch.int32,
+                                                 torch.int64):
+        raise ValueError(f"vals, lens, offs must be int64, int32, int64, got "
+                         f"{vals.dtype}, {lens.dtype}, {offs.dtype}")
+    if not vals.device == lens.device == offs.device:
+        raise ValueError("vals, lens and offs must be on one device")
+    PASSES.record("pack_chunks")
+    if vals.device.type == "cpu":
+        return pack_chunks_plain(vals, lens, offs, total_bits)
+    if vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {vals.device}")
+    return _launch_chunks(vals.contiguous(), lens.contiguous(),
+                          offs.contiguous(), -(-int(total_bits) // 32))

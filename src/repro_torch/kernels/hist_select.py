@@ -42,8 +42,16 @@ from . import _build
 __all__ = ["NBINS", "DEFAULT_CAP", "magnitude_histogram_batched",
            "magnitude_histogram_plain", "hist_topk_threshold_batched"]
 
-_TARGET_CTAS = 4 * 132          # enough resident blocks to fill an H100
-_MIN_ELEMS_PER_CTA = 4096
+# 512-thread CTAs a launch aims for on each SM (chip_smoke.py times 1, 2
+# and 4); every CTA of a row adds one partial that the row's last CTA
+# reduces, and a CTA takes at most _MAX_CTA_ELEMS elements (its split
+# integer sums stay below 2^32)
+_CTAS_PER_SM = 1
+_MIN_ELEMS_PER_CTA = 8192
+_MAX_CTA_ELEMS = 65000
+_MAX_ROWS = 65535               # the grid's y extent
+_SCRATCH: dict = {}             # (device index, stream) -> partials, tickets
+_SMS: dict = {}                 # device index -> SM count
 
 
 def magnitude_histogram_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -60,22 +68,55 @@ def magnitude_histogram_plain(x: torch.Tensor, scale: torch.Tensor,
     return cnt, sums.to(torch.float32)
 
 
+def _grid(rows: int, n: int, sms: int) -> int:
+    """CTAs a row: all resident at once (``_CTAS_PER_SM`` on every SM over
+    the batch), none with fewer than ``_MIN_ELEMS_PER_CTA`` elements, and
+    none with more than ``_MAX_CTA_ELEMS``."""
+    return max(1, min(-(-n // _MIN_ELEMS_PER_CTA),
+                      _CTAS_PER_SM * sms // rows),
+               -(-n // _MAX_CTA_ELEMS))
+
+
+def _scratch(device: torch.device, stream: int, slots: int):
+    """Per-CTA partials (int32 counts, fp64 sums) and the zeroed per-row
+    tickets, allocated once per device and stream and grown on demand; the
+    kernel leaves every ticket at 0 again."""
+    key = (device.index, stream)
+    have = _SCRATCH.get(key)
+    if have is None or have[0].numel() < slots * NBINS:
+        slots = max(slots, 2 * _CTAS_PER_SM * _SMS[device.index])
+        have = (torch.empty(slots * NBINS, dtype=torch.int32, device=device),
+                torch.empty(slots * NBINS, dtype=torch.float64, device=device),
+                have[2] if have is not None else
+                torch.zeros(_MAX_ROWS, dtype=torch.int32, device=device))
+        _SCRATCH[key] = have
+    return have
+
+
 def _launch(x, scale, bins):
     if bins != NBINS:
         raise ValueError(f"the CUDA histogram has {NBINS} bins, got {bins}")
     fn = _build.entry("histogram", "magnitude_histogram_f32",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
                                                ctypes.c_int, ctypes.c_void_p])
     rows, n = x.shape
-    per_row = max(1, min(-(-n // _MIN_ELEMS_PER_CTA),
-                         -(-_TARGET_CTAS // rows)))
-    cnt = torch.zeros((rows, bins), dtype=torch.int32, device=x.device)
-    sums = torch.zeros((rows, bins), dtype=torch.float64, device=x.device)
+    cnt = torch.empty((rows, bins), dtype=torch.int32, device=x.device)
+    sums = torch.empty((rows, bins), dtype=torch.float32, device=x.device)
+    if rows == 0 or n == 0:
+        return cnt.zero_(), sums.zero_()
+    idx = x.device.index
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(x.device) \
+            .multi_processor_count
+    per_row = _grid(rows, n, _SMS[idx])
+    stream = _build.stream_ptr(x.device)
+    part_cnt, part_sum, tickets = _scratch(x.device, stream, rows * per_row)
     err = fn(x.data_ptr(), scale.data_ptr(), cnt.data_ptr(), sums.data_ptr(),
-             rows, n, per_row, _build.stream_ptr(x.device))
+             part_cnt.data_ptr(), part_sum.data_ptr(), tickets.data_ptr(),
+             rows, n, per_row, stream)
     _build.check("histogram", err)
     _build.LAUNCHES.record("histogram", x.shape)
-    return cnt, sums.to(torch.float32)
+    return cnt, sums
 
 
 def magnitude_histogram_batched(x: torch.Tensor, scale: torch.Tensor, *,
@@ -96,8 +137,8 @@ def magnitude_histogram_batched(x: torch.Tensor, scale: torch.Tensor, *,
         return magnitude_histogram_plain(x, scale, bins)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if rows > 65535:
-        raise ValueError(f"at most 65535 rows per launch, got {rows}")
+    if rows > _MAX_ROWS:
+        raise ValueError(f"at most {_MAX_ROWS} rows per launch, got {rows}")
     return _launch(x.contiguous(), scale.contiguous(), bins)
 
 

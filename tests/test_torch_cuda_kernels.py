@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch import kernels as rk
+from repro_torch.core import wire
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +50,106 @@ def test_histogram(dev, shape):
     cnt_p, sums_p = rk.magnitude_histogram_plain(x, scale)
     assert torch.equal(cnt, cnt_p)
     assert torch.allclose(sums, sums_p, rtol=1e-6, atol=0.0)
+
+
+def _hist_rows(dev, rows, n, seed):
+    """Row 0 skewed (one outlier, the rest in bin 0), row 1 all zero, the
+    rest normal; with the scale the k-selection gives them."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, n)) * 1e-3).astype(np.float32)
+    x[0] = np.clip(x[0], -3e-3, 3e-3)
+    x[0, rng.integers(n)] = 1.0
+    if rows > 1:
+        x[1] = 0.0
+    x = torch.from_numpy(x).to(dev)
+    a_max = x.abs().amax(dim=1)
+    return x, torch.where(a_max > 0, 256.0 / a_max, torch.zeros_like(a_max))
+
+
+@pytest.mark.parametrize("rows", [1, 10, 64])
+@pytest.mark.parametrize("n", [1, 5001, 307_434])
+def test_histogram_skewed_zero_rows_one_launch_deterministic(dev, rows, n):
+    x, scale = _hist_rows(dev, rows, n, rows * n)
+    before = rk.LAUNCHES.counts["histogram"]
+    cnt, sums = rk.magnitude_histogram_batched(x, scale)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["histogram"] == before + 1
+    cnt_p, sums_p = rk.magnitude_histogram_plain(x, scale)
+    assert torch.equal(cnt, cnt_p)
+    assert torch.allclose(sums, sums_p, rtol=1e-6, atol=0.0)
+    again = rk.magnitude_histogram_batched(x, scale)
+    assert torch.equal(cnt, again[0]) and torch.equal(sums, again[1])
+    assert int(cnt[0, 0]) == n - 1 and int(cnt[0, 255]) == 1
+
+
+def _chunks(rng, count, gaps=False):
+    lens = rng.integers(1, 64, count)
+    lens[rng.random(count) < 0.2] = 32
+    offs = np.cumsum(lens) - lens
+    if gaps:
+        for cut in sorted(rng.choice(np.arange(1, count), 8, replace=False)):
+            offs[cut:] += (-int(offs[cut]) % 32) + 32 * int(rng.integers(3))
+    vals = rng.integers(0, 1 << 63, count, dtype=np.uint64)
+    vals &= (np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1)
+    vals[lens == 32] = np.uint64(0xFFFFFFFF)
+    return vals, lens, offs, int(offs[-1] + lens[-1]) + 17
+
+
+def _pack_on_card(dev, vals, lens, offs, total_bits):
+    t = (torch.from_numpy(vals.view(np.int64)).to(dev),
+         torch.from_numpy(lens.astype(np.int32)).to(dev),
+         torch.from_numpy(offs.astype(np.int64)).to(dev))
+    before = rk.LAUNCHES.counts["pack_chunks"]
+    words = rk.pack_chunks(*t, total_bits)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["pack_chunks"] == before + 1
+    assert torch.equal(words, rk.pack_chunks_plain(*t, total_bits))
+    return words.cpu().numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("count,gaps", [(1, False), (5000, False),
+                                        (61_480, True)])
+def test_pack_chunks(dev, count, gaps):
+    vals, lens, offs, total_bits = _chunks(np.random.default_rng(count),
+                                           count, gaps)
+    got = _pack_on_card(dev, vals, lens, offs, total_bits)
+    np.testing.assert_array_equal(
+        got, wire._scatter_chunks_numpy(vals, lens, offs, total_bits))
+
+
+def _round_messages(density, rows=10, n=307_434, seed=5):
+    rng = np.random.default_rng(seed)
+    x = np.zeros((rows, n), np.float32)
+    m = rng.random((rows, n)) < density
+    x[m] = np.where(rng.random(int(m.sum())) < 0.5, 2e-3, -2e-3)
+    return x
+
+
+def test_pack_chunks_real_round_upstream_batch(dev):
+    """A cnn round's upstream batch (10 clients at p = 1/50), its chunks
+    built as the per-client regime builds them."""
+    x = _round_messages(1 / 50)
+    per_client = [np.flatnonzero(r) for r in x]
+    vals, lens, offs, batch = wire._client_chunks_batch(
+        x, per_client, wire._b_star_checked(1 / 50))
+    total_bits = 32 * int(batch.word_count.sum())
+    got = _pack_on_card(dev, vals, lens, offs, total_bits)
+    np.testing.assert_array_equal(
+        got, wire._scatter_chunks_numpy(vals, lens, offs, total_bits))
+
+
+@pytest.mark.parametrize("density", [0.001, 1 / 50])    # fused, per client
+def test_encode_batch_kernel_backend_on_card(dev, density):
+    x = _round_messages(density)
+    before = rk.LAUNCHES.counts["pack_chunks"]
+    got = wire.encode_ternary_words_batch(x, 1 / 50, backend="kernel",
+                                          device=dev)
+    assert rk.LAUNCHES.counts["pack_chunks"] == before + 1
+    want = wire.encode_ternary_words_batch(x, 1 / 50)
+    for field in ("words", "word_start", "word_count", "bit_len", "mu",
+                  "nnz"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field))
 
 
 @pytest.mark.parametrize("k", [1, 6148, 307_434])

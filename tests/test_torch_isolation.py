@@ -34,7 +34,8 @@ def test_every_module_is_listed():
     for name in ("repro_torch.kernels.hist_select", "repro_torch.fed.loop",
                  "repro_torch.core.wire", "repro_torch.models.paper_models",
                  "repro_torch.core.ingest", "repro_torch.kernels.wiredecode",
-                 "repro_torch.kernels.topk_threshold"):
+                 "repro_torch.kernels.topk_threshold",
+                 "repro_torch.kernels.bitpack"):
         assert name in mods
 
 

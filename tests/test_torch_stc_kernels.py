@@ -84,6 +84,48 @@ def test_plain_histogram_extreme_and_zero_rows():
     assert int(cnt_p[1, 0]) == 5000          # scale 0: all in bin 0
 
 
+def _skewed(n, seed):
+    """One outlier; every other magnitude below 1/256 of it (bin 0)."""
+    rng = np.random.default_rng(seed)
+    x = np.clip(rng.standard_normal(n) * 1e-3, -3e-3, 3e-3)
+    x[rng.integers(n)] = -1.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [1, 7, 5001])
+def test_plain_histogram_skewed_zero_and_odd_rows(n):
+    """The redesigned kernel keeps bins 0 and 1 apart from the others: its
+    plain version on a skewed row (everything but one outlier in bin 0), an
+    all-zero row and a normal row, at n = 1 and odd n."""
+    x = np.stack([_skewed(n, n), np.zeros(n, np.float32),
+                  _rows(n, seed=n + 1, scale=1e-2)])
+    scale = _scale(x)
+    cnt_r, sum_r = ref_hist(jnp.asarray(x), jnp.asarray(scale),
+                            interpret=True)
+    cnt_p, sum_p = rk.magnitude_histogram_batched(torch.from_numpy(x),
+                                                  torch.from_numpy(scale))
+    np.testing.assert_array_equal(cnt_p.numpy(), np.asarray(cnt_r))
+    np.testing.assert_allclose(sum_p.numpy(), np.asarray(sum_r), rtol=1e-6)
+    assert int(cnt_p[0, 255]) == 1 and int(cnt_p[0, 0]) == n - 1
+    assert int(cnt_p[1, 0]) == n and float(sum_p[1].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("rows", [1, 10, 64, 200, 65535])
+@pytest.mark.parametrize("n", [1, 5001, 307_434, 10_000_019])
+def test_histogram_grid_keeps_every_cta_in_its_limit(rows, n):
+    """The launch grid: at least one CTA a row, every CTA resident at once
+    unless the rows or the per-CTA limit need more, and no CTA with more
+    elements (its share of the float4 body plus the scalar head and tail)
+    than the kernel's split integer sums allow."""
+    from repro_torch.kernels import hist_select
+    per_row = hist_select._grid(rows, n, 132)
+    assert per_row >= 1
+    assert 4 * -(-(n // 4) // per_row) + 6 <= 65535
+    forced = max(1, -(-n // hist_select._MAX_CTA_ELEMS))
+    assert rows * per_row <= max(132 * hist_select._CTAS_PER_SM,
+                                 rows * forced)
+
+
 def _check_select(x, k, cap):
     t_r, c_r, s_r = ref_select(jnp.asarray(x), k, cap=cap, interpret=True)
     t_p, c_p, s_p = rk.hist_topk_threshold_batched(torch.from_numpy(x), k,
@@ -216,3 +258,27 @@ def test_single_vector_forms_are_row_batches_of_one():
     out = rk.stc_compress_kernel(x[0], torch.zeros(4000), 0.01)
     out_b = rk.stc_compress_batch(x[:1], torch.zeros(1, 4000), 0.01)
     assert all(torch.equal(a, b[0]) for a, b in zip(out, out_b))
+
+
+def test_pack_chunks_on_the_cpu_never_launches():
+    rk.LAUNCHES.reset()
+    PASSES.reset()
+    words = rk.pack_chunks(torch.tensor([5], dtype=torch.int64),
+                           torch.tensor([3], dtype=torch.int32),
+                           torch.tensor([30], dtype=torch.int64), 40)
+    assert words.numpy().view(np.uint32).tolist() == [0b10, 1 << 31]
+    assert rk.LAUNCHES.counts["pack_chunks"] == 0
+    assert PASSES.counts == {"pack_chunks": 1}
+
+
+def test_pack_chunks_validates_inputs():
+    v = torch.zeros(4, dtype=torch.int64)
+    lens = torch.ones(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rk.pack_chunks(v.to("meta"), lens.to("meta"), v.to("meta"), 64)
+    with pytest.raises(ValueError, match="int64, int32, int64"):
+        rk.pack_chunks(v, lens.long(), v, 64)
+    with pytest.raises(ValueError, match="one length"):
+        rk.pack_chunks(v, lens[:3], v, 64)
+    with pytest.raises(ValueError, match="one device"):
+        rk.pack_chunks(v, lens, v.to("meta"), 64)

@@ -1,10 +1,11 @@
 """Port parity of the wire format: the numpy copies of core/wire.py and
-core/golomb.py, and the plain version of the ``pack_bits`` kernel.
+core/golomb.py, and the plain versions of the ``pack_bits`` and
+``pack_chunks`` kernels.
 
 Word streams are byte-identical to the reference's on the same ternary
 inputs, for the port's "numpy" backend and its "kernel" backend (whose
-word packer runs its plain version on the CPU); the analytic Golomb bits
-are equal.
+packers run their plain versions on the CPU), in the fused and the
+per-client regime of the batch encode; the analytic Golomb bits are equal.
 """
 
 import os
@@ -18,7 +19,8 @@ from repro.core import golomb as ref_golomb
 from repro.core import wire as ref_wire
 from repro.kernels import pack_bits_words as ref_pack_kernel
 from repro_torch.core import golomb, wire
-from repro_torch.kernels import pack_bits, pack_bits_plain
+from repro_torch.kernels import (pack_bits, pack_bits_plain, pack_chunks,
+                                 pack_chunks_plain)
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -82,6 +84,79 @@ def test_encode_handles_long_gaps():
         _same_message(wire.encode_ternary_words(x, 0.1, backend=backend,
                                                 device="cpu"),
                       ref_wire.encode_ternary_words(x, 0.1))
+
+
+def test_per_client_regime_empty_client_and_long_quotient():
+    """Above the fused-batch limit the "kernel" backend packs every
+    client's chunks in one call: an empty client (no words) and a client
+    whose gaps need 32-one chunks (quotients >= 32) keep their fields."""
+    rng = np.random.default_rng(11)
+    x = _ternary(rng, (6, 30_000), 0.4)
+    x[2] = 0.0                                           # empty client
+    x[4] = 0.0
+    x[4, [5, 9_000, 29_999]] = [0.37, -0.37, 0.37]      # gaps >> 32 * 2^b*
+    assert int((x != 0).sum()) > wire._FUSED_NNZ_MAX
+    want = ref_wire.encode_ternary_words_batch(x, 1 / 50)
+    assert want.word_count[2] == 0 and want.bit_len[4] > 3 * 32
+    for backend in ("numpy", "kernel"):
+        got = wire.encode_ternary_words_batch(x, 1 / 50, backend=backend,
+                                              device="cpu")
+        _same_batch(got, want)
+    np.testing.assert_array_equal(
+        wire.decode_ternary_words_batch(got, 1 / 50),
+        ref_wire.decode_ternary_words_batch(want, 1 / 50))
+
+
+def _chunk_case(case, seed):
+    """``(vals uint64, lens int64, offs int64, total_bits)`` chunk sets."""
+    rng = np.random.default_rng(seed)
+    if case == "random":                     # lengths 1-63, back to back
+        lens = rng.integers(1, 64, 700)
+        offs = np.cumsum(lens) - lens
+    elif case == "straddle_one":             # bits 20..49 of each 64
+        lens = np.full(300, 30)
+        offs = 64 * np.arange(300) + 20
+    elif case == "straddle_two":             # 63 bits over 3 words
+        lens = np.full(300, 63)
+        offs = 96 * np.arange(300) + 31
+    elif case == "ones32":                   # 32-one chunks, odd offsets
+        lens = np.where(rng.random(400) < 0.5, 32, rng.integers(1, 64, 400))
+        offs = np.cumsum(lens) - lens + 7
+    else:                                    # word-aligned client starts
+        lens = rng.integers(1, 64, 900)
+        offs = np.cumsum(lens) - lens
+        for cut in sorted(rng.choice(np.arange(1, 900), 6, replace=False)):
+            gap = (-int(offs[cut]) % 32) + 32 * int(rng.integers(0, 3))
+            offs[cut:] += gap
+    lens = lens.astype(np.int64)
+    vals = rng.integers(0, 1 << 63, lens.size, dtype=np.uint64)
+    vals &= (np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1)
+    if case == "ones32":
+        vals[lens == 32] = np.uint64(0xFFFFFFFF)
+    total_bits = int(offs[-1] + lens[-1]) + int(rng.integers(1, 31))
+    return vals, lens, offs.astype(np.int64), total_bits
+
+
+@pytest.mark.parametrize("case", ["random", "straddle_one", "straddle_two",
+                                  "ones32", "client_gaps"])
+def test_plain_pack_chunks_matches_scatter_and_reference_kernel(case):
+    vals, lens, offs, total_bits = _chunk_case(case, len(case))
+    assert total_bits % 32
+    want = ref_wire._scatter_chunks_numpy(vals, lens, offs, total_bits)
+    t = (torch.from_numpy(vals.view(np.int64)),
+         torch.from_numpy(lens.astype(np.int32)), torch.from_numpy(offs))
+    got = pack_chunks(*t, total_bits).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        pack_chunks_plain(*t, total_bits).numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(      # the Pallas kernel, interpreted
+        ref_wire.get_wire_backend("kernel").pack_chunks(vals, lens, offs,
+                                                        total_bits), want)
+    np.testing.assert_array_equal(
+        wire.get_wire_backend("kernel", "cpu").pack_chunks(vals, lens, offs,
+                                                           total_bits), want)
+    np.testing.assert_array_equal(
+        wire._scatter_chunks_numpy(vals, lens, offs, total_bits), want)
 
 
 @pytest.mark.parametrize("m", [1, 31, 32, 33, 1000, 4097, 70_001])
