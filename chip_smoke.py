@@ -5,18 +5,21 @@
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
-1. build the six CUDA kernels from ``src/repro_torch/csrc`` into
+1. build the seven CUDA kernels from ``src/repro_torch/csrc`` into
    ``build/kernels/`` (one ``nvcc`` per source, in parallel) and print the
-   registers and shared memory (``-Xptxas -v``) of the histogram and
-   ``pack_chunks``, and the atomics, conversions and fp64 adds in the
-   histogram's SASS;
+   registers and shared memory (``-Xptxas -v``) of the histogram,
+   ``pack_chunks`` and ``golomb_decode``, and the atomics, conversions and
+   fp64 adds in the histogram's SASS;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and on adversarial inputs: ``stc_apply`` bitwise,
    histogram counts exact and sums within rtol 1e-6 (normal, skewed and
    all-zero rows; two calls identical; one device operation a call),
    selection threshold and count exact, ``pack_bits`` and ``pack_chunks``
    words identical (also to the host packer), ``unpack_bits`` bits and
-   zero counts identical (also to the host unpack), ``threshold_stats``
+   zero counts identical (also to the host unpack), ``golomb_decode``
+   fields identical and raising on the same inputs (valid batches, the
+   decoder's chunk-boundary traps, a cnn round, 300 corrupt batches and
+   the 60 mutations of the reference's wire fuzz test), ``threshold_stats``
    counts exact and sums within rtol 1e-6, the bisection driver's
    threshold bitwise the CPU's, and ``selector="bisect"`` giving the
    ``"hist"`` mask;
@@ -34,14 +37,17 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    rtol 1e-6, residuals and parameters within 1e-6 of ``|value| + µ``),
    and ``pack_chunks`` on the chunks of the last round's upstream batch;
 4. the ingest path: the same run with ``TrainerConfig(ingest=True)`` (the
-   fused server ingest, decoding through ``unpack_bits``), card against
-   CPU as in 3, with ``unpack_bits`` and the three kernels of 3 launched;
-   then 3 lock-step ingest rounds on the card's messages (accumulator sum
-   bitwise the CPU's, global-delta positions and signs exact, µ within
-   rtol 1e-6), and ``unpack_bits`` at the path's own word count; then
-   signSGD through the same ingest (``wire_backend="kernel"``, its sign
-   planes through ``pack_bits``), 3 lock-step rounds with unpacked bits
-   and global delta identical;
+   fused server ingest, decoding the ternary wire through
+   ``golomb_decode``), card against CPU as in 3, with ``golomb_decode``
+   launched at least once a round, ``unpack_bits`` never, and the three
+   kernels of 3 launched; then 3 lock-step ingest rounds on the card's
+   messages (accumulator sum bitwise the CPU's, global-delta positions and
+   signs exact, µ within rtol 1e-6), and ``golomb_decode`` on the last
+   one's batch against its plain version and the numpy scan; then signSGD
+   through the same ingest (``wire_backend="kernel"``, its sign planes
+   through ``pack_bits`` and ``unpack_bits``), 3 lock-step rounds with
+   unpacked bits and global delta identical, and ``unpack_bits`` at that
+   path's own word count;
 5. the bisection path: ``stc_compress_kernel(selector="bisect")`` at the
    cnn's width, which must launch ``threshold_stats``;
 6. time each kernel and its plain version with CUDA events (device time:
@@ -51,7 +57,9 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    at 1, 2 and 4 CTAs an SM; ``pack_chunks`` on a real round's upstream
    chunks), the k-selections beside ``torch.topk``, and a dense and an
    ingest round split into phases (with the ``"kernel"`` and the host
-   wire backends, in turns).
+   wire backends, in turns), and the ingest decode of one round's batch
+   split into words up, the decode, fields down and ``np.add.at``, beside
+   the numpy field scan on the same batch.
 
 Prints the timing lines, the TF32 flags, the card's name and power limit,
 a ``{"kernels": [...]}`` line, and as its last line
@@ -126,12 +134,12 @@ def sass_opcodes(cuobjdump: str, binary: Path, prefixes) -> dict:
 
 
 def print_build_notes() -> None:
-    """``-Xptxas -v`` of the two redesigned kernels, the atomics,
+    """``-Xptxas -v`` of the three redesigned kernels, the atomics,
     conversions, fp64 adds and votes in the histogram's SASS, and the SASS
     of a plain fp64 ``atomicAdd`` to shared memory (whether it compiles to
     a compare-and-swap loop)."""
     from repro_torch.kernels import _build
-    for name in ("histogram", "pack_chunks"):
+    for name in ("histogram", "pack_chunks", "golomb_decode"):
         notes = [line.split(":", 1)[-1].strip()
                  for line in _build.build_log(name).splitlines()
                  if "Used" in line or "spill" in line]
@@ -235,6 +243,7 @@ def check_kernels(torch, np, rk):
                                                    (1_000_003, False)))
     errs["unpack_bits"] = max(check_unpack_bits(torch, np, rk, rng, w)
                               for w in (1, 2, 9608, 1_000_003))
+    errs["golomb_decode"] = check_golomb_cases(torch, np, rk)
     errs["threshold_stats"] = check_threshold_stats(torch, np, rk, rng)
     errs["bisection"] = check_bisection(torch, np, rk, rng)
     torch.cuda.synchronize()
@@ -289,6 +298,28 @@ def device_ops(torch, fn):
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     return names or None
+
+
+def kernel_times(torch, fn, calls=10):
+    """Device time (ms) of each kernel that a call of ``fn`` runs, mean over
+    ``calls`` calls, by ``torch.profiler``; None if it sees none."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernel = re.search(r"(\w+)\(", e.name)     # a kernel's name
+            name = kernel.group(1) if kernel else e.name
+            times[name] = (times.get(name, 0.0)
+                           + e.time_range.elapsed_us() / calls / 1e3)
+    return times or None
 
 
 def chunk_set(np, rng, count, gaps=False):
@@ -373,6 +404,67 @@ def check_unpack_bits(torch, np, rk, rng, n_words) -> float:
     return err
 
 
+def golomb_vs_plain(torch, np, rk, words, word_start, bit_len, nnz, numel,
+                    b):
+    """``golomb_decode`` and its plain version on the same card words:
+    ``(raised, max_abs_err)``; fails unless both raise or both give
+    identical fields."""
+    from repro_torch.core.wire import WireDecodeError
+    w = torch.from_numpy(np.ascontiguousarray(words, np.uint32)
+                         .view(np.int32)).to("cuda")
+    table = [torch.from_numpy(np.array(a, np.int64, ndmin=1))
+             for a in (word_start, bit_len, nnz)]
+    out = []
+    for fn in (rk.decode_golomb_fields, rk.decode_golomb_fields_plain):
+        try:
+            out.append(fn(w, *table, numel, b))
+        except WireDecodeError:
+            out.append(None)
+    torch.cuda.synchronize()
+    got, want = out
+    require((got is None) == (want is None),
+            f"golomb_decode {'raised' if got is None else 'decoded'} where "
+            f"its plain version did not (W={w.numel()}, b={b})")
+    if got is None:
+        return True, 0.0
+    require(all(g.dtype == h.dtype and torch.equal(g, h)
+                for g, h in zip(got, want)),
+            f"golomb_decode fields differ from its plain version "
+            f"(W={w.numel()}, b={b})")
+    return False, max(float((g.double() - h.double()).abs().max())
+                      if g.numel() else 0.0 for g, h in zip(got, want))
+
+
+def check_golomb_cases(torch, np, rk) -> float:
+    """``golomb_decode`` against its plain version on the card: valid
+    batches over the P grid and b = 30, the decoder's traps (unary runs over
+    chunks and compose tiles, codewords ending on chunk ends, ``bit_len %
+    32 == 0``, empty segments, b = 0), a cnn round, all-ones buffers, 300
+    corrupt batches and the 60 mutations of the reference's wire fuzz test
+    (the case builders of ``tests/_golomb_cases.py``); fields identical,
+    verdicts identical.  Returns the largest field difference (0.0)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _golomb_cases as gc
+    from repro_torch.core import wire
+    err, raised, n = 0.0, 0, 0
+    batches = (gc.valid_cases() + gc.trap_cases() + [("cnn", *gc.cnn_round())]
+               + gc.corrupt_cases(300))
+    tables = [(bt.words, bt.word_start, bt.bit_len, bt.nnz, bt.numel,
+               wire._b_star_checked(p)) for _, bt, p in batches]
+    tables += [(m.words, 0, m.bit_len, m.nnz, m.numel,
+                wire._b_star_checked(p)) for _, m, p in gc.fuzz_messages()
+               if m.bit_len <= 32 * m.words.size]
+    tables += [(np.full(40, 0xFFFFFFFF, np.uint32), 0, bl, 0, 10**9, b)
+               for b in (0, 5, 30) for bl in (1, 32, 257, 1280)]
+    for table in tables:
+        r, e = golomb_vs_plain(torch, np, rk, *table)
+        raised, err, n = raised + r, max(err, e), n + 1
+    require(raised >= 150, f"only {raised} corrupt golomb cases raised")
+    print(f"golomb_decode: {n} cases against its plain version on the card, "
+          f"{raised} raised on both, the rest identical fields")
+    return err
+
+
 def check_threshold_stats(torch, np, rk, rng) -> float:
     """``threshold_stats`` at the cnn's n on a row with zeros, at t = 0,
     two quantiles and above the max: counts exact, sums within rtol 1e-6.
@@ -426,7 +518,7 @@ def check_bisection(torch, np, rk, rng) -> float:
 # ---------------------------------------------------------------- phase 3
 
 DENSE_KERNELS = ("stc_apply", "histogram", "pack_chunks")
-INGEST_KERNELS = DENSE_KERNELS + ("unpack_bits",)
+INGEST_KERNELS = DENSE_KERNELS + ("golomb_decode",)
 
 
 def make_trainer(device, torch, ingest=False, codec="stc"):
@@ -472,6 +564,13 @@ def run_trainers(torch, rk, ingest=False):
             f"the {path} ledger packed {launches['pack_chunks']} times with "
             f"pack_chunks and {launches['pack_bits']} with pack_bits in "
             f"{ROUNDS} rounds, not twice a round with pack_chunks alone")
+    if ingest:
+        require(launches["golomb_decode"] >= ROUNDS
+                and launches["unpack_bits"] == 0,
+                f"the ingest path decoded {launches['golomb_decode']} times "
+                f"with golomb_decode and {launches['unpack_bits']} with "
+                f"unpack_bits in {ROUNDS} rounds, not at least once a round "
+                f"with golomb_decode alone")
 
     cpu = make_trainer("cpu", torch, ingest=ingest)
     t0 = time.perf_counter()
@@ -602,12 +701,13 @@ def check_lockstep(torch, np, rk, tr, rounds=3):
 
 
 def check_ingest_lockstep(torch, np, rk, tr, rounds=3):
-    """The fused ingest on the card (decode through ``unpack_bits``, STC on
-    the card) against the same ingest on the CPU, round by round on the
+    """The fused ingest on the card (decode through ``golomb_decode``, STC
+    on the card) against the same ingest on the CPU, round by round on the
     card's messages from the trained state: wire words identical, the
     accumulator's sum and weight mass bitwise, the global delta's
     positions, signs and count exact and µ within rtol 1e-6.  The trainer's
-    parameters and residuals are left as they were."""
+    parameters and residuals are left as they were.  Returns the worst
+    gaps and the last round's upstream batch."""
     from repro_torch.core.residual import ResidualState
     from repro_torch.fed.loop import local_sgd
     proto, p = tr.protocol, tr.env.participants_per_round
@@ -616,7 +716,7 @@ def check_ingest_lockstep(torch, np, rk, tr, rounds=3):
     client_res = tr.client_state.residual.clone()
     server = ResidualState(tr.server_state.residual.clone())
     worst = {"mu_rtol": 0.0, "words_abs": 0.0, "sum_abs": 0.0}
-    unpacks = rk.LAUNCHES.counts["unpack_bits"]
+    decodes = rk.LAUNCHES.counts["golomb_decode"]
     for r in range(rounds):
         sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
         xs, ys = tr._sample_batches(sel, proto.local_iters)
@@ -657,11 +757,33 @@ def check_ingest_lockstep(torch, np, rk, tr, rounds=3):
         client_res[idx] = cstate.residual
         server = server_new
         params = params + gd
-    require(rk.LAUNCHES.counts["unpack_bits"] > unpacks,
-            "the ingest lock-step did not decode through unpack_bits")
+    require(rk.LAUNCHES.counts["golomb_decode"] > decodes,
+            "the ingest lock-step did not decode through golomb_decode")
     print(f"ingest lock-step ({rounds} rounds, card vs CPU on the card's "
           f"messages): {json.dumps(worst)}")
-    return worst
+    return worst, batch
+
+
+def check_golomb_at_path(torch, np, rk, proto, batch) -> float:
+    """``golomb_decode`` on an ingest round's batch (the path's own W)
+    against its plain version on the card and the numpy scan; returns the
+    largest field difference (0.0)."""
+    from repro_torch.core import wire
+    b = wire._b_star_checked(proto.sparsity_up)
+    raised, err = golomb_vs_plain(torch, np, rk, batch.words,
+                                  batch.word_start, batch.bit_len, batch.nnz,
+                                  batch.numel, b)
+    require(not raised, "golomb_decode raised on a valid ingest batch")
+    got = wire.decode_ternary_fields_batch(batch, proto.sparsity_up,
+                                           backend="kernel", device="cuda")
+    want = wire.decode_ternary_fields_batch(batch, proto.sparsity_up)
+    require(all(g.dtype == h.dtype and np.array_equal(g, h)
+                for g, h in zip(got, want)),
+            "golomb_decode fields differ from the numpy scan")
+    print(f"golomb_decode at the ingest path's W={batch.words.size} "
+          f"({got[1].size} codewords, {batch.n_msgs} segments): fields "
+          f"identical to its plain version and the numpy scan")
+    return err
 
 
 def check_signsgd_ingest(torch, np, rk, rounds=3):
@@ -825,13 +947,59 @@ def time_histogram(torch, rk, mats):
     return sweep[shipped]
 
 
-def time_kernels(torch, np, rk, shapes, launches, errs, last):
+def golomb_row(torch, np, rk, launches, errs, batch, p, bound):
+    """``golomb_decode`` on an ingest round's batch: device time of its
+    three passes (the segment table uploaded once), the wrapper with its
+    status read, the plain version on the card and the numpy field scan
+    (host included), and the byte bound of this batch."""
+    from repro_torch.core import wire
+    from repro_torch.kernels import wiredecode
+    b = wire._b_star_checked(p)
+    ws, bl, nnz = (np.asarray(a, np.int64)
+                   for a in (batch.word_start, batch.bit_len, batch.nnz))
+    table = [torch.from_numpy(a) for a in (ws, bl, nnz)]
+    w = torch.from_numpy(np.ascontiguousarray(batch.words, np.uint32)
+                         .view(np.int32)).to("cuda")
+    meta_np = wiredecode._segment_meta(ws, bl, nnz)
+    meta = torch.from_numpy(meta_np).to("cuda")
+    n_chunks, n_out = int(meta_np[-1, 2]), int(meta_np[-1, 3])
+    n_words, n_seg = w.numel(), ws.size
+
+    def passes():
+        return wiredecode._launch_decode(w, meta, n_chunks, n_out, b)
+
+    return {
+        "name": "golomb_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/golomb_decode.cu",
+        "replaces": "src/repro/kernels/wiredecode.py:57",
+        "launches": launches["golomb_decode"],
+        "max_abs_err": errs["golomb_decode"],
+        "ms": event_ms(torch, passes),
+        "plain_ms": event_ms(torch, lambda: rk.decode_golomb_fields_plain(
+            w, *table, batch.numel, b), iters=10, hold_stream=False),
+        # words, the (start, length, nnz) table and the status read once;
+        # seg, position and sign written once a codeword
+        "bound_ms": bound(4 * n_words + 24 * n_seg + 24 * n_seg
+                          + 20 * n_out), "bound_by": "bytes",
+        "library_ms": None,
+        "wrapper_ms": event_ms(torch, lambda: rk.decode_golomb_fields(
+            w, *table, batch.numel, b), iters=20, hold_stream=False),
+        "numpy_ms": event_ms(torch, lambda: wire._decode_fields_numpy(
+            batch.words, ws, bl, nnz, batch.numel, b), iters=5,
+            hold_stream=False),
+        "pass_ms": kernel_times(torch, passes),
+        "words": n_words, "codewords": n_out, "segments": n_seg,
+        "chunks": n_chunks}
+
+
+def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
     """Device time of each kernel at its path's shapes beside its plain
     version, its byte bound and (where one PyTorch call computes the same
     function) that call; the k-selections beside ``torch.topk``.  ``last``
     is the last lock-step round: the histogram is timed on its carried
     matrices (the main path's inputs) and on a normal matrix,
-    ``pack_chunks`` on the chunks of its upstream batch."""
+    ``pack_chunks`` on the chunks of its upstream batch; ``golomb_decode``
+    on the last ingest lock-step round's batch."""
     from repro_torch.core.selection import bin_index
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -941,6 +1109,8 @@ def time_kernels(torch, np, rk, shapes, launches, errs, last):
         "plain_ms": event_ms(torch, lambda: rk.unpack_words_plain(words)),
         "bound_ms": bound(4 * n_words + 32 * n_words + 4 * n_words),
         "bound_by": "bytes", "library_ms": None})
+    out.append(golomb_row(torch, np, rk, launches, errs, batch_in, P_STC,
+                          bound))
     out.append({
         "name": "threshold_stats", "route": "cuda",
         "source": "src/repro_torch/csrc/threshold_stats.cu",
@@ -1035,10 +1205,60 @@ def time_round(torch, np, tr):
     return med
 
 
+def time_decode_split(torch, np, rk, proto, batch, reps=21):
+    """The ingest decode of one round's batch split into its steps, host
+    clock after ``synchronize``, median of ``reps``, the two backends in
+    turns: ``"kernel"`` = words up, decode (the wrapper: table up, three
+    passes, status read), fields down, ``np.add.at``; ``"numpy"`` = the
+    host field scan (unpack + ``_decode_stream_fields``), ``np.add.at``.
+    The two accumulators must be identical."""
+    from repro_torch.core import wire
+    b = wire._b_star_checked(proto.sparsity_up)
+    ws, bl, nnz = (np.asarray(a, np.int64)
+                   for a in (batch.word_start, batch.bit_len, batch.nnz))
+    table = [torch.from_numpy(a) for a in (ws, bl, nnz)]
+    words = np.ascontiguousarray(batch.words, np.uint32).view(np.int32)
+    weights = np.full(batch.n_msgs, 0.1)
+    names = ("words_up", "decode", "fields_down", "add_at", "numpy_scan",
+             "numpy_add_at")
+    phases = {name: [] for name in names}
+
+    def sync_now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for _ in range(reps):
+        ts = [sync_now()]
+        w = torch.from_numpy(words).to("cuda")
+        ts.append(sync_now())
+        fields = rk.decode_golomb_fields(w, *table, batch.numel, b)
+        ts.append(sync_now())
+        seg, pos, sign = (f.cpu().numpy() for f in fields)
+        ts.append(sync_now())
+        acc = proto.make_ingest(batch.numel)
+        acc.scatter_ternary_batch(seg, pos, sign, batch.mu, weights)
+        ts.append(sync_now())
+        fields_n = wire._decode_fields_numpy(batch.words, ws, bl, nnz,
+                                             batch.numel, b)
+        ts.append(sync_now())
+        acc_n = proto.make_ingest(batch.numel)
+        acc_n.scatter_ternary_batch(*fields_n, batch.mu, weights)
+        ts.append(sync_now())
+        require(np.array_equal(acc.sum, acc_n.sum),
+                "the decode split's accumulators differ")
+        for name, t0, t1 in zip(names, ts, ts[1:]):
+            phases[name].append((t1 - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in phases.items()}
+    print(f"ingest decode split (W={words.size}, {int(nnz.sum())} "
+          f"codewords, median of {reps}, ms, host clock after synchronize): "
+          + json.dumps({k: round(v, 4) for k, v in med.items()}))
+    return med
+
+
 def time_ingest_round(torch, np, tr):
     """One ingest round split into its phases, state left untouched, median
     of 5.  ``wire_encode`` + ``decode_scatter`` are the trainer's
-    (``wire_backend="kernel"``: ``pack_bits`` and ``unpack_bits`` on the
+    (``wire_backend="kernel"``: ``pack_chunks`` and ``golomb_decode`` on the
     card); the ``*_numpy`` pair runs the same messages through the host wire
     backend; ``ledger`` is the downstream message (the upstream batch is
     reused)."""
@@ -1133,28 +1353,36 @@ def main() -> int:
               f"({len(chunks[0])} chunks, {chunks[3] // 32} words): words "
               f"identical to its plain version and the host packer")
         tr_in, launches_in, shapes_in = run_trainers(torch, rk, ingest=True)
-        check_ingest_lockstep(torch, np, rk, tr_in)
-        w_in = shapes_in["unpack_bits"][0]
-        errs["unpack_bits"] = max(errs["unpack_bits"], check_unpack_bits(
-            torch, np, rk, np.random.default_rng(4), w_in))
-        print(f"unpack_bits at the ingest path's W={w_in}: bits and zero "
-              f"counts identical to its plain version and the host unpack")
+        _, batch_in = check_ingest_lockstep(torch, np, rk, tr_in)
+        errs["golomb_decode"] = max(errs["golomb_decode"],
+                                    check_golomb_at_path(
+                                        torch, np, rk, tr_in.protocol,
+                                        batch_in))
         launches_sg, shapes_sg = check_signsgd_ingest(torch, np, rk)
+        w_sg = shapes_sg["unpack_bits"][0]
+        errs["unpack_bits"] = max(errs["unpack_bits"], check_unpack_bits(
+            torch, np, rk, np.random.default_rng(4), w_sg))
+        print(f"unpack_bits at the signSGD path's W={w_sg}: bits and zero "
+              f"counts identical to its plain version and the host unpack")
         m_sg = shapes_sg["pack_bits"][0]
         errs["pack_bits"] = max(errs["pack_bits"], check_pack_bits(
             torch, np, rk, np.random.default_rng(2), m_sg))
         print(f"pack_bits at the signSGD path's m={m_sg}: words identical "
               f"to its plain version and the host packer")
         launches_bis, shapes_bis = run_bisection(torch, np, rk)
-        launches = {**launches, "unpack_bits": launches_in["unpack_bits"],
+        launches = {**launches,
+                    "golomb_decode": launches_in["golomb_decode"],
+                    "unpack_bits": launches_sg["unpack_bits"],
                     "pack_bits": launches_sg["pack_bits"],
                     "threshold_stats": launches_bis["threshold_stats"]}
-        shapes = {**shapes, "unpack_bits": shapes_in["unpack_bits"],
+        shapes = {**shapes, "unpack_bits": shapes_sg["unpack_bits"],
                   "pack_bits": shapes_sg["pack_bits"],
                   "threshold_stats": shapes_bis["threshold_stats"]}
-        rows = time_kernels(torch, np, rk, shapes, launches, errs, last)
+        rows = time_kernels(torch, np, rk, shapes, launches, errs, last,
+                            batch_in)
         time_round(torch, np, tr)
         time_ingest_round(torch, np, tr_in)
+        time_decode_split(torch, np, rk, tr_in.protocol, batch_in)
         for row in rows:
             require(all(isinstance(row[f], (int, float)) and math.isfinite(
                 row[f]) for f in ("ms", "plain_ms", "bound_ms")),

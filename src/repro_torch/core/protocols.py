@@ -24,7 +24,7 @@ and implementing a small interface that the federated trainer
   wire messages scatter into one host :class:`~repro_torch.core.ingest.
   IngestAccumulator`, bitwise equal to the dense oracle.  The ingest and
   validation methods take ``device=``, where the ``"kernel"`` wire backend
-  unpacks words (CUDA unless the caller names the CPU).
+  decodes the streams (CUDA unless the caller names the CPU).
 
 This slice ports the base class, :class:`StcCodec` and the flat path of
 :class:`SignSGDCodec`; the other paper codecs (baseline, fedavg, topk,

@@ -2,9 +2,9 @@
 
 The port's numpy copy of ``repro/core/wire.py``: every stream it packs is
 byte-identical to the reference's.  Only the ``"kernel"`` backend differs:
-its packers and unpacker are the CUDA kernels of
-:mod:`repro_torch.kernels.bitpack` (Golomb chunks and sign planes) and
-:mod:`repro_torch.kernels.wiredecode`.
+its packers, its ternary field decoder and its sign-plane unpacker are the
+CUDA kernels of :mod:`repro_torch.kernels.bitpack` (Golomb chunks and sign
+planes) and :mod:`repro_torch.kernels.wiredecode`.
 
 The paper's communication claims rest on the REAL Golomb-encoded ternary
 bitstream (Algorithms 3-4, Eqs. 15-17).  The per-bit host loop in
@@ -44,16 +44,19 @@ client's chunks on its own, as the per-client regime does, but packs the
 whole round in one call.
 
 Decode is vectorized end to end -- and multi-segment: ONE pass parses every
-client stream of a word-aligned batch.  One bit unpack (host ``unpackbits``
-on ``"numpy"``; the CUDA word-unpack kernel of
-:mod:`repro_torch.kernels.wiredecode` on ``"kernel"``), one
-``searchsorted`` over the zero positions giving each candidate terminator
-its successor (capped at its own segment's data end), then a
-pointer-doubling transitive closure -- ``O(Z log Z)`` array ops, no Python
-chase -- marks each segment's terminator chain; batch gathers recover
-remainders and signs and a segmented cumsum the positions.  Truncated or
-corrupt payloads (``bit_len`` past the buffer, a run past ``numel``, a
-stream ending mid-codeword) raise :class:`WireDecodeError` on every path.
+client stream of a word-aligned batch into ``(seg, positions, signs)``.  On
+``"numpy"``: one host bit unpack (``unpackbits``), one ``searchsorted`` over
+the zero positions giving each candidate terminator its successor (capped
+at its own segment's data end), then a pointer-doubling transitive closure
+-- ``O(Z log Z)`` array ops, no Python chase -- marks each segment's
+terminator chain; batch gathers recover remainders and signs and a
+segmented cumsum the positions.  On ``"kernel"``: the words go to the
+device and the CUDA Golomb decoder of :mod:`repro_torch.kernels.wiredecode`
+parses the fields there (a chunk-parallel decode; its plain version, asked
+for the CPU, is the scan above in torch), so the fields, not the bits, come
+back.  Truncated or corrupt payloads (``bit_len`` past the buffer, a run
+past ``numel``, a stream ending mid-codeword, a codeword count other than
+the advertised ``nnz``) raise :class:`WireDecodeError` on every path.
 """
 
 from __future__ import annotations
@@ -264,8 +267,12 @@ class WireBackend(NamedTuple):
     ``pack_chunks(vals, lens, offs, total_bits)``: uint64 ``(value, length)``
     chunk arrays at exclusive-scan bit offsets -> canonical uint32 words.
     ``pack_bits(bits)``: a dense uint8 0/1 array -> canonical uint32 words.
-    ``unpack_bits(words)``: the decode inverse -- ALL ``32 * n_words`` MSB-
-    first bits as uint8 0/1.
+    ``unpack_bits(words)``: the sign-plane decode -- ALL ``32 * n_words``
+    MSB-first bits as uint8 0/1.
+    ``decode_fields(words, word_start, bit_len, nnz, numel, b)``: the
+    ternary decode -- every segment's Golomb codewords as ``(seg,
+    positions, signs)``, raising :class:`WireDecodeError` on corruption
+    (including a codeword count other than ``nnz``).
     All must be bit-identical across backends.
     """
 
@@ -273,6 +280,7 @@ class WireBackend(NamedTuple):
     pack_chunks: Callable
     pack_bits: Callable
     unpack_bits: Callable
+    decode_fields: Callable
 
 
 def _or_group_sorted(u64: np.ndarray, idx: np.ndarray,
@@ -325,23 +333,38 @@ def _unpack_bits_numpy(words: np.ndarray) -> np.ndarray:
     return words_to_bits(words, 32 * int(np.asarray(words).size))
 
 
+def _decode_fields_numpy(words, word_start, bit_len, nnz, numel: int,
+                         b: int):
+    """The host field scan over the host bit unpack, with the per-segment
+    count check."""
+    seg, positions, signs = _decode_stream_fields(
+        _unpack_bits_numpy(words), 32 * np.asarray(word_start, np.int64),
+        np.asarray(bit_len, np.int64), numel, b)
+    counts = np.bincount(seg, minlength=len(bit_len))
+    if np.any(counts != np.asarray(nnz, np.int64)):
+        raise WireDecodeError("corrupt golomb stream: decoded nnz mismatch")
+    return seg, positions, signs
+
+
 WIRE_BACKENDS: dict[str, WireBackend] = {
     "numpy": WireBackend("numpy", _scatter_chunks_numpy, _pack_bits_numpy,
-                         _unpack_bits_numpy),
+                         _unpack_bits_numpy, _decode_fields_numpy),
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _make_kernel_backend(device=None) -> WireBackend:
     """The ``"kernel"`` backend, one per device (resolved when a stream is
-    packed or unpacked: CUDA unless the caller names the CPU).  Encode: the
+    packed or decoded: CUDA unless the caller names the CPU).  Encode: the
     chunk fields go to ``device`` and
     :func:`repro_torch.kernels.bitpack.pack_chunks` ORs them into words
     there; sign planes go up as bits to
-    :func:`repro_torch.kernels.bitpack.pack_bits`.  Decode: the words go to
-    ``device``, :func:`repro_torch.kernels.wiredecode.unpack_bits_words`
-    explodes them into bits there, and the bits come back to the host field
-    scan."""
+    :func:`repro_torch.kernels.bitpack.pack_bits`.  Ternary decode: the
+    words and the segment table go to ``device``,
+    :func:`repro_torch.kernels.wiredecode.decode_golomb_fields` parses the
+    codewords there, and the fields come back.  Sign planes: the words go
+    to ``device``, :func:`repro_torch.kernels.wiredecode.unpack_bits_words`
+    explodes them into bits there, and the bits come back."""
     # lazy: keeps core import-light (layering: kernels -> core, never back)
 
     def pack_bits(bits: np.ndarray) -> np.ndarray:
@@ -376,14 +399,20 @@ def _make_kernel_backend(device=None) -> WireBackend:
             torch.from_numpy(w).to(resolve_device(device)))
         return bits.cpu().numpy()
 
-    return WireBackend("kernel", pack_chunks, pack_bits, unpack_bits)
+    def decode_fields(words, word_start, bit_len, nnz, numel, b):
+        import torch
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels.wiredecode import decode_golomb_fields
+        w = np.ascontiguousarray(words, np.uint32).view(np.int32)
+        table = [torch.from_numpy(np.array(a, np.int64, ndmin=1))
+                 for a in (word_start, bit_len, nnz)]
+        fields = decode_golomb_fields(
+            torch.from_numpy(w).to(resolve_device(device)), *table,
+            int(numel), b)
+        return tuple(f.cpu().numpy() for f in fields)
 
-
-def _backend_unpack(backend: str, words: np.ndarray,
-                    device=None) -> np.ndarray:
-    """All ``32 * n_words`` stream bits through the named backend (the
-    ``"kernel"`` one on ``device``)."""
-    return get_wire_backend(backend, device).unpack_bits(words)
+    return WireBackend("kernel", pack_chunks, pack_bits, unpack_bits,
+                       decode_fields)
 
 
 def get_wire_backend(name: str, device=None) -> WireBackend:
@@ -696,7 +725,7 @@ def decode_ternary_fields(msg: WireMessage, p: float, *,
 
     The fused ingest path (:mod:`repro_torch.core.ingest`) consumes these fields
     directly; :func:`decode_ternary_words` adds the scatter on top.
-    ``device`` is where the ``"kernel"`` backend unpacks the words.
+    ``device`` is where the ``"kernel"`` backend decodes the words.
     """
     b = _b_star_checked(p)
     if msg.bit_len == 0:
@@ -706,15 +735,12 @@ def decode_ternary_fields(msg: WireMessage, p: float, *,
         return np.zeros(0, np.int64), np.zeros(0, np.float32)
     words = np.ascontiguousarray(msg.words)
     _check_bit_len(msg.bit_len, words.size)
-    bits = _backend_unpack(backend, words, device)
-    _, positions, signs = _decode_stream_fields(
-        bits, np.zeros(1, np.int64), np.asarray([msg.bit_len], np.int64),
-        msg.numel, b)
     # integrity: the advertised nnz is side information the decoder can
     # cross-check for free -- a mutated stream that still parses but yields
     # a different codeword count is corruption, not data
-    if positions.size != int(msg.nnz):
-        raise WireDecodeError("corrupt golomb stream: decoded nnz mismatch")
+    _, positions, signs = get_wire_backend(backend, device).decode_fields(
+        words, np.zeros(1, np.int64), np.asarray([msg.bit_len], np.int64),
+        np.asarray([msg.nnz], np.int64), msg.numel, b)
     return positions, signs
 
 
@@ -724,9 +750,11 @@ def decode_ternary_fields_batch(batch: WireBatch, p: float, *,
                                            np.ndarray]:
     """All messages' ``(seg, positions, signs)`` in ONE decode pass.
 
-    ``seg`` maps every codeword to its message row.  One hoisted unpack of
-    the shared word buffer + one multi-segment field scan -- no per-client
-    Python loop or repeated ``unpackbits`` views.
+    ``seg`` maps every codeword to its message row.  One multi-segment
+    field decode of the shared word buffer -- no per-client Python loop or
+    repeated ``unpackbits`` views; every message's decoded codeword count
+    must match its advertised nnz.  ``device`` is where the ``"kernel"``
+    backend decodes.
     """
     b = _b_star_checked(p)
     if batch.n_msgs == 0 or int(batch.bit_len.sum()) == 0:
@@ -736,16 +764,10 @@ def decode_ternary_fields_batch(batch: WireBatch, p: float, *,
         return (np.zeros(0, np.int64), np.zeros(0, np.int64),
                 np.zeros(0, np.float32))
     _check_bit_len(batch.bit_len, batch.word_count)
-    bits = _backend_unpack(backend, batch.words, device)
-    seg, positions, signs = _decode_stream_fields(
-        bits, (32 * batch.word_start).astype(np.int64),
-        batch.bit_len.astype(np.int64), batch.numel, b)
-    # per-row integrity: every message's decoded codeword count must match
-    # its advertised nnz (same check class as the single-message path)
-    counts = np.bincount(seg, minlength=batch.n_msgs)
-    if np.any(counts != np.asarray(batch.nnz, np.int64)):
-        raise WireDecodeError("corrupt golomb stream: decoded nnz mismatch")
-    return seg, positions, signs
+    return get_wire_backend(backend, device).decode_fields(
+        batch.words, np.asarray(batch.word_start, np.int64),
+        np.asarray(batch.bit_len, np.int64), np.asarray(batch.nnz, np.int64),
+        batch.numel, b)
 
 
 def decode_ternary_words(msg: WireMessage, p: float, *,
@@ -810,7 +832,8 @@ def sign_plane_bits(msg: WireMessage, *, backend: str = "numpy",
     ``device`` is where the ``"kernel"`` backend unpacks)."""
     words = np.ascontiguousarray(msg.words)
     _check_bit_len(msg.bit_len, words.size)
-    return _backend_unpack(backend, words, device)[: int(msg.bit_len)]
+    return get_wire_backend(backend, device).unpack_bits(words)[
+        : int(msg.bit_len)]
 
 
 # ---------------------------------------------------------------------------

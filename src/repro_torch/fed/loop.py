@@ -25,7 +25,7 @@ convolutions, so that fp32 stays fp32.
 
 With ``TrainerConfig(ingest=True)`` the apply phase is the fused server
 ingest instead: the round's messages are encoded to the wire, decoded
-(through the ``"kernel"`` wire backend's unpack kernel on the trainer's
+(through the ``"kernel"`` wire backend's decode kernels on the trainer's
 device, or on the host) and scattered into one host
 :class:`~repro_torch.core.ingest.IngestAccumulator`, and the codec
 finalizes the round from it; the ledger reuses the encoded batch.

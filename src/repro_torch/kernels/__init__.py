@@ -10,8 +10,10 @@ PyTorch versions.
 * ``bitpack``        -- MSB-first word packing of the wire stream: Golomb
   chunks (``csrc/pack_chunks.cu``), the device half of the ``"kernel"``
   ternary wire encode, and dense sign planes (``csrc/pack_bits.cu``).
-* ``wiredecode``     -- word unpacking with zero counts
-  (``csrc/unpack_bits.cu``), the device half of the ``"kernel"`` decode.
+* ``wiredecode``     -- the ternary wire's Golomb field decode
+  (``csrc/golomb_decode.cu``), the ``"kernel"`` backend's ternary decode,
+  and word unpacking with zero counts (``csrc/unpack_bits.cu``), its
+  sign-plane decode.
 * ``ops``            -- STC with error feedback composed from the above.
 
 Each wrapper launches its CUDA kernel on a CUDA tensor (raising if the
@@ -30,7 +32,8 @@ from .ops import stc_compress_batch, stc_compress_kernel
 from .stc_compress import stc_apply_batched, stc_apply_plain
 from .topk_threshold import (threshold_stats, threshold_stats_plain,
                              topk_threshold)
-from .wiredecode import (unpack_bits_words, unpack_words_plain,
+from .wiredecode import (decode_golomb_fields, decode_golomb_fields_plain,
+                         unpack_bits_words, unpack_words_plain,
                          unpack_words_with_counts)
 
 __all__ = [
@@ -53,4 +56,6 @@ __all__ = [
     "unpack_words_with_counts",
     "unpack_bits_words",
     "unpack_words_plain",
+    "decode_golomb_fields",
+    "decode_golomb_fields_plain",
 ]

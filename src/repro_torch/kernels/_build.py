@@ -40,7 +40,7 @@ __all__ = ["SOURCES", "LAUNCHES", "LaunchCounter", "build_all", "build_log",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("stc_apply", "histogram", "pack_bits", "pack_chunks",
-           "unpack_bits", "threshold_stats")
+           "unpack_bits", "golomb_decode", "threshold_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -128,15 +128,15 @@ def library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def entry(name: str, symbol: str, argtypes: list):
+def entry(name: str, symbol: str, argtypes: list, restype=ctypes.c_int):
     """The C function ``symbol`` of ``csrc/<name>.cu``, its argument types
-    declared once (pointers and the stream as ``c_void_p``); returns a
-    ``cudaError_t`` as ``int``."""
+    declared once (pointers and the stream as ``c_void_p``); a launching
+    entry returns a ``cudaError_t`` as ``int``."""
     fn = _ENTRIES.get((name, symbol))
     if fn is None:
         fn = getattr(library(name), symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _ENTRIES[(name, symbol)] = fn
     return fn
 

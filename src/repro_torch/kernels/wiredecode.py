@@ -1,30 +1,44 @@
-"""Bit-stream word unpacking for the wire-decode path.
+"""Wire-stream decoding on the card: word unpacking and the Golomb field
+decode.
 
-Counterpart of ``repro/kernels/wiredecode.py``, the exact inverse of
-:mod:`.bitpack`: every uint32 stream word explodes into its 32 MSB-first
+Counterpart of ``repro/kernels/wiredecode.py``, whose one Pallas kernel
+(``_unpack_kernel``) explodes every uint32 stream word into its 32 MSB-first
 bits, with the word's zero count beside it,
 
     bit[32w + j] = (word[w] >> (31 - j)) & 1
     zeros[w]     = 32 - popc(word[w])
 
-over ALL ``32 * n_words`` bits (word padding included).  Words come in as
-int32 tensors holding the uint32 bit patterns (as :func:`.bitpack.pack_bits`
-returns them); bits come out as uint8 0/1.  On a CUDA tensor the wrappers
-launch ``csrc/unpack_bits.cu``; on a CPU tensor they run
-:func:`unpack_words_plain`.
+over ALL ``32 * n_words`` bits (word padding included), for the host field
+scan to parse.  Two kernels take its place here:
+
+* :func:`unpack_words_with_counts` / :func:`unpack_bits_words`
+  (``csrc/unpack_bits.cu``): the same unpacking, for signSGD's dense sign
+  planes, whose bits are the message;
+* :func:`decode_golomb_fields` (``csrc/golomb_decode.cu``): the ternary
+  stream's Golomb codewords parsed on the card into ``(seg, positions,
+  signs)`` -- what the unpack plus ``core/wire.py::_decode_stream_fields``
+  computed -- so the fields, not the bits, come back to the host.
+
+Words come in as int32 tensors holding the uint32 bit patterns (as
+:func:`.bitpack.pack_bits` returns them).  On a CUDA tensor the wrappers
+launch their kernels; on a CPU tensor they run their plain versions
+(:func:`unpack_words_plain`, :func:`decode_golomb_fields_plain`).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..core.selection import PASSES
+from ..core.wire import _MAX_B_STAR, WireDecodeError
 from . import _build
 
 __all__ = ["unpack_words_with_counts", "unpack_bits_words",
-           "unpack_words_plain"]
+           "unpack_words_plain", "decode_golomb_fields",
+           "decode_golomb_fields_plain"]
 
 _SHIFTS = list(range(31, -1, -1))
 
@@ -74,3 +88,224 @@ def unpack_bits_words(words: torch.Tensor) -> torch.Tensor:
     zero counts are computed and dropped, as in the reference."""
     bits, _ = unpack_words_with_counts(words)
     return bits
+
+
+# ---------------------------------------------------------------------------
+# Golomb field decode of the ternary wire (csrc/golomb_decode.cu)
+# ---------------------------------------------------------------------------
+
+_FINAL, _OVERRUN = 64, 128       # csrc/golomb_decode.cu: status flags
+
+
+def decode_golomb_fields_plain(words: torch.Tensor,
+                               seg_word_start: torch.Tensor,
+                               seg_bit_len: torch.Tensor, nnz: torch.Tensor,
+                               numel: int, b: int):
+    """Plain PyTorch version: the host field scan
+    (``core/wire.py::_decode_stream_fields``) transcribed to tensors, over
+    the bits of :func:`unpack_words_plain`.  Every zero bit is a candidate
+    terminator; one ``searchsorted`` links each to the first zero ``b + 2``
+    bits past it, and a pointer-doubling closure marks each segment's chain
+    from its first zero -- an algorithm independent of the kernel's chunk
+    decode.  Raises :class:`WireDecodeError` where the scan does, and on a
+    segment whose codeword count is not its ``nnz``."""
+    dev, i64 = words.device, torch.int64
+    seg_start = 32 * seg_word_start.to(dev)
+    seg_len = seg_bit_len.to(dev)
+    n_seg = seg_start.numel()
+    active = torch.nonzero(seg_len > 0).flatten()
+    if active.numel() == 0:
+        fields = (torch.zeros(0, dtype=i64, device=dev),
+                  torch.zeros(0, dtype=i64, device=dev),
+                  torch.zeros(0, dtype=torch.float32, device=dev))
+    else:
+        bits, _ = unpack_words_plain(words)
+        fields = _scan_fields(bits, seg_start, seg_start + seg_len, active,
+                              n_seg, numel, b)
+    counts = torch.bincount(fields[0], minlength=n_seg)
+    if not torch.equal(counts.cpu(), nnz.to(i64).cpu()):
+        raise WireDecodeError("corrupt golomb stream: decoded nnz mismatch")
+    return fields
+
+
+def _scan_fields(bits, seg_start, seg_end, active, n_seg, numel, b):
+    dev, i64 = bits.device, torch.int64
+    zeros = torch.nonzero(bits == 0).flatten()
+    n_zeros = zeros.numel()
+    if n_zeros == 0:
+        raise WireDecodeError("corrupt golomb stream: no unary terminator")
+    seg_of = torch.searchsorted(seg_start, zeros, right=True) - 1
+    nxt = zeros + (b + 2)
+    is_final = nxt == seg_end[seg_of]
+    overrun = nxt > seg_end[seg_of]
+    succ = torch.full((n_zeros + 1,), n_zeros, dtype=i64, device=dev)
+    interior = ~(is_final | overrun)
+    succ[:n_zeros][interior] = torch.searchsorted(zeros, nxt[interior])
+    seeds = torch.searchsorted(zeros, seg_start[active])
+    if bool((seeds >= n_zeros).any()):
+        raise WireDecodeError("corrupt golomb stream: no unary terminator")
+    reached = torch.zeros(n_zeros + 1, dtype=torch.bool, device=dev)
+    reached[seeds] = True
+    jump = succ                                  # covers 2^k steps at iter k
+    while True:
+        idx = torch.nonzero(reached[:n_zeros]).flatten()
+        reached[jump[idx]] = True
+        if int(reached[:n_zeros].sum()) == idx.numel():
+            break
+        jump = jump[jump]
+    sel = reached[:n_zeros]
+    if bool((sel & overrun).any()):
+        raise WireDecodeError("corrupt golomb stream: truncated codeword")
+    ok = torch.zeros(n_seg, dtype=torch.bool, device=dev)
+    ok[seg_of[sel & is_final]] = True
+    if not bool(ok[active].all()):
+        raise WireDecodeError("corrupt golomb stream: truncated codeword")
+    term = zeros[sel]                            # terminators, stream order
+    cw_seg = seg_of[sel]
+    first = torch.ones(term.numel(), dtype=torch.bool, device=dev)
+    first[1:] = cw_seg[1:] != cw_seg[:-1]
+    fidx = torch.nonzero(first).flatten()
+    starts = torch.empty_like(term)
+    starts[fidx] = seg_start[cw_seg[fidx]]
+    nonfirst = torch.nonzero(~first).flatten()
+    starts[nonfirst] = term[nonfirst - 1] + (b + 2)
+    q = term - starts
+    if b:
+        offs = torch.arange(1, b + 1, dtype=i64, device=dev)
+        rbits = bits[term[:, None] + offs].to(i64)
+        r = (rbits << torch.arange(b - 1, -1, -1, dtype=i64,
+                                   device=dev)).sum(dim=1)
+    else:
+        r = torch.zeros_like(q)
+    signs = torch.where(bits[term + b + 1] == 1,
+                        torch.ones((), dtype=torch.float32, device=dev),
+                        -torch.ones((), dtype=torch.float32, device=dev))
+    gaps = q * (1 << b) + r + 1
+    cum = torch.cumsum(gaps, dim=0)
+    seg_base = cum[fidx] - gaps[fidx]            # segmented cumsum rebase
+    ends = torch.cat([fidx[1:], torch.tensor([term.numel()], device=dev)])
+    positions = cum - torch.repeat_interleave(seg_base, ends - fidx) - 1
+    if bool((positions[ends - 1] >= numel).any()):  # gaps >= 1: the last
+        raise WireDecodeError(
+            "corrupt golomb stream: position overflows tensor")
+    return cw_seg, positions, signs
+
+
+def _segment_table(words, seg_word_start, seg_bit_len, nnz, b):
+    """The host segment table as numpy, checked: word starts in order, each
+    segment's bits inside its words and before the next segment's, and no
+    segment advertising more codewords than its bits can hold."""
+    for name, t in (("seg_word_start", seg_word_start),
+                    ("seg_bit_len", seg_bit_len), ("nnz", nnz)):
+        if t.ndim != 1 or t.dtype != torch.int64 or t.device.type != "cpu":
+            raise ValueError(f"{name} must be a flat int64 CPU tensor (the "
+                             f"host segment table), got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    ws, bl, cnt = (t.numpy() for t in (seg_word_start, seg_bit_len, nnz))
+    if not ws.size == bl.size == cnt.size:
+        raise ValueError(f"segment table columns differ in length: "
+                         f"{ws.size}, {bl.size}, {cnt.size}")
+    if np.any(ws < 0) or np.any(np.diff(ws) < 0):
+        raise ValueError("segment word starts must be >= 0 and in order")
+    limit = np.append(32 * ws[1:], 32 * words.numel())
+    if np.any(bl < 0) or np.any(32 * ws + bl > limit):
+        raise WireDecodeError(
+            "corrupt wire payload: bit_len past the word buffer")
+    if np.any(cnt < 0) or np.any(cnt > bl // (b + 2)):
+        raise WireDecodeError("corrupt golomb stream: decoded nnz mismatch")
+    return ws, bl, cnt
+
+
+def _chunk_bits() -> int:
+    """The kernel's chunk length in bits (``CHUNK_BITS`` of the source)."""
+    return _build.entry("golomb_decode", "golomb_decode_chunk_bits", [])()
+
+
+def _segment_meta(ws, bl, cnt) -> np.ndarray:
+    """The kernel's segment table: int64 rows of (first bit, bit length,
+    first chunk, first output), and a last row holding the chunk and
+    output totals in its last two columns."""
+    meta = np.zeros((ws.size + 1, 4), np.int64)
+    meta[:-1, 0], meta[:-1, 1] = 32 * ws, bl
+    meta[1:, 2] = np.cumsum(-(-bl // _chunk_bits()))
+    meta[1:, 3] = np.cumsum(cnt)
+    return meta
+
+
+def _launch_decode(words, meta, n_chunks: int, n_out: int, b: int):
+    """Enqueue the three passes on ``meta`` (the segment table, already on
+    ``words``' device); returns the fields and the per-segment status,
+    unread."""
+    fn = _build.entry("golomb_decode", "golomb_decode",
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_longlong]
+                      + [ctypes.c_void_p] * 6)
+    scratch_bytes = _build.entry(
+        "golomb_decode", "golomb_decode_scratch_bytes",
+        [ctypes.c_longlong, ctypes.c_int], restype=ctypes.c_longlong)
+    dev, n_seg = words.device, meta.shape[0] - 1
+    scratch = torch.empty(scratch_bytes(n_chunks, b), dtype=torch.uint8,
+                          device=dev)
+    seg = torch.empty(n_out, dtype=torch.int64, device=dev)
+    pos = torch.empty(n_out, dtype=torch.int64, device=dev)
+    sign = torch.empty(n_out, dtype=torch.float32, device=dev)
+    status = torch.empty(3 * n_seg, dtype=torch.int64, device=dev)
+    err = fn(words.data_ptr(), meta.data_ptr(), n_seg, b, n_chunks,
+             scratch.data_ptr(), seg.data_ptr(), pos.data_ptr(),
+             sign.data_ptr(), status.data_ptr(), _build.stream_ptr(dev))
+    _build.check("golomb_decode", err)
+    _build.LAUNCHES.record("golomb_decode", words.shape)
+    return (seg, pos, sign), status
+
+
+def _check_status(status: np.ndarray, bl, cnt, numel: int) -> None:
+    """Raise as the host scan would, from the kernel's per-segment
+    ``(count, last state, last position)``."""
+    count, code, last = status.reshape(-1, 3).T
+    if np.any((bl > 0) & ((code & _FINAL) == 0) & ((code & _OVERRUN) == 0)):
+        raise WireDecodeError("corrupt golomb stream: no unary terminator")
+    if np.any((bl > 0) & ((code & _OVERRUN) != 0)):
+        raise WireDecodeError("corrupt golomb stream: truncated codeword")
+    if np.any(count != cnt):
+        raise WireDecodeError("corrupt golomb stream: decoded nnz mismatch")
+    if np.any((count > 0) & (last >= numel)):
+        raise WireDecodeError(
+            "corrupt golomb stream: position overflows tensor")
+
+
+def decode_golomb_fields(words: torch.Tensor, seg_word_start: torch.Tensor,
+                         seg_bit_len: torch.Tensor, nnz: torch.Tensor,
+                         numel: int, b: int):
+    """Parse every segment's Golomb ternary codewords out of a word buffer.
+
+    ``words`` is the flat int32 stream; the host segment table (flat int64
+    CPU tensors of one length) gives segment ``i`` the stream bits
+    ``[32 * seg_word_start[i], 32 * seg_word_start[i] + seg_bit_len[i])``
+    and its advertised codeword count ``nnz[i]``; ``b`` is the Golomb
+    parameter (0-30).  Returns ``(seg, positions, signs)`` on ``words``'
+    device -- int64 owning segment, int64 decoded position and float32
+    ±1.0 of every codeword, segment-major in stream order -- bitwise the
+    reference's field scan.  Raises :class:`WireDecodeError` exactly where
+    that scan (plus its count check) does: a truncated codeword, a unary
+    run with no terminator, a count other than ``nnz``, a position at or
+    past ``numel``."""
+    if words.ndim != 1 or words.dtype != torch.int32:
+        raise ValueError(f"words must be a flat int32 tensor, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    if not 0 <= int(b) <= _MAX_B_STAR:
+        raise ValueError(f"golomb parameter b must be in [0, {_MAX_B_STAR}],"
+                         f" got {b}")
+    b = int(b)
+    ws, bl, cnt = _segment_table(words, seg_word_start, seg_bit_len, nnz, b)
+    PASSES.record("golomb_decode")
+    if words.device.type == "cpu":
+        return decode_golomb_fields_plain(words, seg_word_start, seg_bit_len,
+                                          nnz, numel, b)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    meta = _segment_meta(ws, bl, cnt)
+    fields, status = _launch_decode(
+        words.contiguous(), torch.from_numpy(meta).to(words.device),
+        int(meta[-1, 2]), int(meta[-1, 3]), b)
+    _check_status(status.cpu().numpy(), bl, cnt, int(numel))
+    return fields

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import _golomb_cases as golomb_cases
 from repro_torch import kernels as rk
 from repro_torch.core import wire
 
@@ -208,3 +209,96 @@ def test_bisection_matches_cpu(dev, p):
     assert rk.LAUNCHES.counts["threshold_stats"] == before + 33
     assert torch.equal(t.cpu(), t_c) and int(c) == int(c_c) == k
     assert torch.allclose(s.cpu(), s_c, rtol=1e-6, atol=0.0)
+
+
+def _decode_table(words, word_start, bit_len, nnz):
+    w = torch.from_numpy(np.ascontiguousarray(words, np.uint32)
+                         .view(np.int32))
+    return w, [torch.from_numpy(np.array(a, np.int64, ndmin=1))
+               for a in (word_start, bit_len, nnz)]
+
+
+def _decode_verdict(fn):
+    try:
+        return fn()
+    except wire.WireDecodeError:
+        return "raised"
+
+
+def _golomb_kernel_vs_plain(dev, words, word_start, bit_len, nnz, numel, b):
+    """The kernel and its plain version on the same card words: the same
+    verdict, and fields identical; returns the kernel's outcome."""
+    w, table = _decode_table(words, word_start, bit_len, nnz)
+    w = w.to(dev)
+    got = _decode_verdict(
+        lambda: rk.decode_golomb_fields(w, *table, numel, b))
+    torch.cuda.synchronize()
+    want = _decode_verdict(
+        lambda: rk.decode_golomb_fields_plain(w, *table, numel, b))
+    assert isinstance(got, str) == isinstance(want, str), (got, want)
+    if not isinstance(got, str):
+        assert all(torch.equal(g, h) for g, h in zip(got, want))
+    return got
+
+
+@pytest.mark.parametrize(
+    "case", golomb_cases.valid_cases() + golomb_cases.trap_cases(),
+    ids=lambda c: c[0])
+def test_golomb_decode_matches_plain(dev, case):
+    name, batch, p = case
+    before = rk.LAUNCHES.counts["golomb_decode"]
+    got = _golomb_kernel_vs_plain(
+        dev, batch.words, batch.word_start, batch.bit_len, batch.nnz,
+        batch.numel, wire._b_star_checked(p))
+    assert rk.LAUNCHES.counts["golomb_decode"] == before + 1
+    assert not isinstance(got, str) and got[1].numel() == batch.nnz.sum()
+
+
+def test_golomb_decode_cnn_round_through_the_wire_backend(dev):
+    batch, p = golomb_cases.cnn_round()
+    before = dict(rk.LAUNCHES.counts)
+    got = wire.decode_ternary_fields_batch(batch, p, backend="kernel",
+                                           device=dev)
+    assert rk.LAUNCHES.counts["golomb_decode"] == before["golomb_decode"] + 1
+    assert rk.LAUNCHES.counts["unpack_bits"] == before["unpack_bits"]
+    want = wire.decode_ternary_fields_batch(batch, p)
+    for g, h in zip(got, want):
+        assert g.dtype == h.dtype
+        np.testing.assert_array_equal(g, h)
+    _golomb_kernel_vs_plain(dev, batch.words, batch.word_start,
+                            batch.bit_len, batch.nnz, batch.numel,
+                            wire._b_star_checked(p))
+
+
+def test_golomb_decode_corrupt_same_verdict(dev):
+    """Corrupt batches and the 60 mutations of the reference's wire fuzz
+    test: the kernel raises exactly where its plain version raises."""
+    raised = 0
+    for name, batch, p in golomb_cases.corrupt_cases(300):
+        got = _decode_verdict(lambda: wire.decode_ternary_fields_batch(
+            batch, p, backend="kernel", device=dev))
+        want = _decode_verdict(lambda: wire.decode_ternary_fields_batch(
+            batch, p, backend="kernel", device="cpu"))
+        assert isinstance(got, str) == isinstance(want, str), name
+        if not isinstance(got, str):
+            assert all(np.array_equal(g, h) for g, h in zip(got, want))
+        raised += isinstance(got, str)
+    for trial, msg, p in golomb_cases.fuzz_messages():
+        got = _decode_verdict(lambda: wire.decode_ternary_fields(
+            msg, p, backend="kernel", device=dev))
+        want = _decode_verdict(lambda: wire.decode_ternary_fields(
+            msg, p, backend="kernel", device="cpu"))
+        assert isinstance(got, str) == isinstance(want, str), trial
+        if not isinstance(got, str):
+            assert all(np.array_equal(g, h) for g, h in zip(got, want))
+    assert raised >= 150
+
+
+@pytest.mark.parametrize("b", [0, 5, 30])
+def test_golomb_decode_all_ones_and_zero_buffers(dev, b):
+    for fill in (0xFFFFFFFF, 0):
+        words = np.full(40, fill, np.uint32)
+        for bit_len in (1, 31, 32, 33, 256, 257, 1280):
+            for nnz in {0, 1, bit_len // (b + 2)}:
+                _golomb_kernel_vs_plain(dev, words, [0], [bit_len], [nnz],
+                                        10**9, b)
