@@ -5,16 +5,20 @@
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
-1. build the seven CUDA kernels from ``src/repro_torch/csrc`` into
+1. build the eight CUDA kernels from ``src/repro_torch/csrc`` into
    ``build/kernels/`` (one ``nvcc`` per source, in parallel) and print the
    registers and shared memory (``-Xptxas -v``) of the histogram,
-   ``pack_chunks`` and ``golomb_decode``, and the atomics, conversions and
-   fp64 adds in the histogram's SASS;
+   ``bin_select``, ``pack_chunks`` and ``golomb_decode``, and the atomics,
+   conversions and fp64 adds in the histogram's SASS;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and on adversarial inputs: ``stc_apply`` bitwise,
    histogram counts exact and sums within rtol 1e-6 (normal, skewed and
    all-zero rows; two calls identical; one device operation a call),
-   selection threshold and count exact, ``pack_bits`` and ``pack_chunks``
+   the candidate-bin select ``bin_select`` ``v`` and count bitwise and sums
+   within rtol 1e-6 (two calls identical) on normal, carried-like (~99 %
+   in bin 0), skewed, tied, constant, all-zero and fewer-non-zeros-than-k
+   rows and per-row k, selection threshold and count exact (also against
+   the ``"torch"`` route and the CPU), ``pack_bits`` and ``pack_chunks``
    words identical (also to the host packer), ``unpack_bits`` bits and
    zero counts identical (also to the host unpack), ``golomb_decode``
    fields identical and raising on the same inputs (valid batches, the
@@ -29,13 +33,24 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    ``backend="kernel"`` and ``wire_backend="kernel"``, with the launch
    counters set to 0 just before; then the same run on the CPU with the
    plain versions; final accuracy must agree within 0.03 and upstream bits
-   within 2 %, and ``stc_apply``, the histogram and ``pack_chunks`` must
-   have launched (``pack_chunks`` twice a round: the upstream batch and the
-   downstream message); then, from the trained state, 3 lock-step rounds of
+   within 2 %, and ``stc_apply``, the histogram, ``bin_select`` and
+   ``pack_chunks`` must have launched (the histogram and ``bin_select``
+   twice a round: the clients' encode and the server's STC; ``pack_chunks``
+   twice a round: the upstream batch and the downstream message); the card
+   run prints, round by round, each selection's candidate bin and its
+   population, and how many of them the old refinement (``torch.topk``
+   with ``cap = 8192``) would have sent to its full-row ``torch.sort``;
+   then, from the trained state, 3 lock-step rounds of
    the card's encode, apply and ledger phases against the CPU's on the
    same inputs (positions, signs, counts and wire words exact, µ within
    rtol 1e-6, residuals and parameters within 1e-6 of ``|value| + µ``),
-   and ``pack_chunks`` on the chunks of the last round's upstream batch;
+   ``pack_chunks`` on the chunks of the last round's upstream batch, and
+   ``bin_select`` against its plain version on the last round's carried
+   matrices, the clients' (10, n) and the server's (1, n); then
+   ``stc_compress_batch`` on those matrices under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronization)
+   and the selection under ``torch.profiler`` (no ``aten::topk``,
+   ``aten::sort`` or ``aten::kthvalue``);
 4. the ingest path: the same run with ``TrainerConfig(ingest=True)`` (the
    fused server ingest, decoding the ternary wire through
    ``golomb_decode``), card against CPU as in 3, with ``golomb_decode``
@@ -54,8 +69,11 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    the stream is held while the host enqueues) beside the library call
    that computes the same function where there is one (the histogram on
    the carried matrices of a lock-step round and on a normal matrix, and
-   at 1, 2 and 4 CTAs an SM; ``pack_chunks`` on a real round's upstream
-   chunks), the k-selections beside ``torch.topk``, and a dense and an
+   at 1, 2 and 4 CTAs an SM; ``bin_select`` on those carried matrices
+   beside ``torch.topk``, with its four passes by ``torch.profiler``;
+   ``pack_chunks`` on a real round's upstream chunks), the k-selections
+   beside ``torch.topk`` (on the carried matrices host included and in
+   device time, on a normal matrix host included), and a dense and an
    ingest round split into phases (with the ``"kernel"`` and the host
    wire backends, in turns), and the ingest decode of one round's batch
    split into words up, the decode, fields down and ``np.add.at``, beside
@@ -134,12 +152,12 @@ def sass_opcodes(cuobjdump: str, binary: Path, prefixes) -> dict:
 
 
 def print_build_notes() -> None:
-    """``-Xptxas -v`` of the three redesigned kernels, the atomics,
+    """``-Xptxas -v`` of the four redesigned kernels, the atomics,
     conversions, fp64 adds and votes in the histogram's SASS, and the SASS
     of a plain fp64 ``atomicAdd`` to shared memory (whether it compiles to
     a compare-and-swap loop)."""
     from repro_torch.kernels import _build
-    for name in ("histogram", "pack_chunks", "golomb_decode"):
+    for name in ("histogram", "bin_select", "pack_chunks", "golomb_decode"):
         notes = [line.split(":", 1)[-1].strip()
                  for line in _build.build_log(name).splitlines()
                  if "Used" in line or "spill" in line]
@@ -198,10 +216,13 @@ def check_kernels(torch, np, rk):
     sets = [(rows((MAIN_ROWS, MAIN_N)), k_main),
             (rows((1, MAIN_N), 1e-4), k_main),
             (skewed(torch, np, rng, MAIN_ROWS, MAIN_N), k_main),
+            (carried_like(torch, np, rng, MAIN_ROWS, MAIN_N), k_main),
+            (carried_like(torch, np, rng, 1, MAIN_N), k_main),
             (adversarial, 100),
             (adversarial, 1),
-            (adversarial, n_adv)]
-    hist_err = sel_err = apply_err = 0.0
+            (adversarial, n_adv),
+            (adversarial, np.array([1, 100, 7, 20_000, 5_000, 6_148]))]
+    hist_err = sel_err = apply_err = select_err = 0.0
     for x, k in sets:
         a = x.abs()
         a_max = a.amax(dim=1)
@@ -218,6 +239,7 @@ def check_kernels(torch, np, rk):
         require(torch.allclose(s_k, s_o, rtol=1e-6, atol=0.0),
                 f"selection sum beyond rtol 1e-6 k={k}")
         sel_err = max(sel_err, float((s_k - s_o).abs().max()))
+        select_err = max(select_err, check_bin_select(torch, rk, x, k))
 
         mu = s_k / torch.clamp(c_k, min=1).to(torch.float32)
         tern_k, res_k = rk.stc_apply_batched(x, t_k, mu)
@@ -226,7 +248,7 @@ def check_kernels(torch, np, rk):
                 f"stc_apply not bitwise equal k={k}")
         apply_err = max(apply_err, float((tern_k - tern_p).abs().max()))
     errs["stc_apply"], errs["histogram"] = apply_err, hist_err
-    errs["selection"] = sel_err
+    errs["selection"], errs["bin_select"] = sel_err, select_err
 
     x, scale = skewed(torch, np, rng, MAIN_ROWS, MAIN_N, scale=True)
     ops = device_ops(torch, lambda: rk.magnitude_histogram_batched(x, scale))
@@ -262,6 +284,52 @@ def skewed(torch, np, rng, n_rows, n, scale=False):
         return x
     a_max = x.abs().amax(dim=1)
     return x, torch.where(a_max > 0, 256.0 / a_max, torch.zeros_like(a_max))
+
+
+def carried_like(torch, np, rng, n_rows, n):
+    """Rows like a trained cnn's carried residuals: one outlier a row,
+    about 1 % of the row in the bins above 0 and the rest, about 99 %, in
+    bin 0."""
+    x = np.clip(rng.standard_normal((n_rows, n)) * 1e-3, -3e-3, 3e-3)
+    x[:, rng.integers(0, n, n // 100)] *= 200.0
+    x[np.arange(n_rows), rng.integers(0, n, n_rows)] = 1.0
+    return torch.from_numpy(x.astype(np.float32)).to("cuda")
+
+
+def select_inputs(torch, x, k):
+    """``(scale, b, r, cnt_b)``: what ``hist_topk_threshold_batched`` hands the
+    candidate-bin select for ``x`` and ``k``, made on the card."""
+    from repro_torch.core.selection import locate_bin
+    from repro_torch.kernels import hist_select
+    rows, n = x.shape
+    kj = hist_select._row_ks(k, rows, n, x.device)
+    scale = row_scale(torch, x)
+    cnt, sums = hist_select.magnitude_histogram_batched(x, scale)
+    b, cnt_gt, _, cnt_b = locate_bin(cnt, sums, kj, 256)
+    return scale, b, kj - cnt_gt.to(torch.int64), cnt_b
+
+
+def check_bin_select(torch, rk, x, k) -> float:
+    """``bin_select`` against its plain version on the k-selection's inputs
+    for ``x`` and ``k``: ``v`` and the count bitwise, the sum within rtol
+    1e-6, one launch a call, and a second call identical to the first.
+    Returns the sums' largest abs difference."""
+    scale, b, r, _ = select_inputs(torch, x, k)
+    before = rk.LAUNCHES.counts["bin_select"]
+    got = rk.candidate_select_batched(x, scale, b, r)
+    require(rk.LAUNCHES.counts["bin_select"] == before + 1,
+            "one bin_select call is not one launch")
+    want = rk.candidate_select_plain(x, scale, b, r)
+    shape = tuple(x.shape)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            f"bin_select v or count differs from its plain version at "
+            f"{shape}")
+    require(torch.allclose(got[2], want[2], rtol=1e-6, atol=0.0),
+            f"bin_select sums beyond rtol 1e-6 at {shape}")
+    again = rk.candidate_select_batched(x, scale, b, r)
+    require(all(torch.equal(g, a) for g, a in zip(got, again)),
+            f"two bin_select calls differ at {shape}")
+    return float((got[2] - want[2]).abs().max())
 
 
 def check_histogram(torch, rk, x, scale) -> float:
@@ -315,8 +383,9 @@ def kernel_times(torch, fn, calls=10):
     times: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            kernel = re.search(r"(\w+)\(", e.name)     # a kernel's name
-            name = kernel.group(1) if kernel else e.name
+            kernel = re.search(r"(\w+)(<\d+>)?\(", e.name)  # kernel's name
+            name = kernel.group(1) + (kernel.group(2) or "") if kernel \
+                else e.name
             times[name] = (times.get(name, 0.0)
                            + e.time_range.elapsed_us() / calls / 1e3)
     return times or None
@@ -517,7 +586,7 @@ def check_bisection(torch, np, rk, rng) -> float:
 
 # ---------------------------------------------------------------- phase 3
 
-DENSE_KERNELS = ("stc_apply", "histogram", "pack_chunks")
+DENSE_KERNELS = ("stc_apply", "histogram", "bin_select", "pack_chunks")
 INGEST_KERNELS = DENSE_KERNELS + ("golomb_decode",)
 
 
@@ -542,23 +611,45 @@ def make_trainer(device, torch, ingest=False, codec="stc"):
 
 def run_trainers(torch, rk, ingest=False):
     """The cnn on the card (counters set to 0 just before) and on the CPU;
-    requires the path's kernels to have launched on the card's run."""
+    requires the path's kernels to have launched on the card's run.  The
+    dense card run also records every selection's candidate bin
+    (``probe_selections``)."""
+    from repro_torch.kernels import hist_select
     path, needed = (("ingest", INGEST_KERNELS) if ingest
                     else ("dense", DENSE_KERNELS))
     gpu = make_trainer("cuda", torch, ingest=ingest)
     require(gpu.numel == MAIN_N, f"cnn has {gpu.numel} parameters")
     require(gpu.ingest == ingest, f"the {path} trainer is not on its path")
-    rk.LAUNCHES.reset()
-    t0 = time.perf_counter()
-    h_gpu = gpu.run(ROUNDS, eval_every=ROUNDS)[-1]
-    torch.cuda.synchronize()
-    gpu_s = time.perf_counter() - t0
-    launches = dict(rk.LAUNCHES.counts)
-    shapes = dict(rk.LAUNCHES.shapes)
+    located = []
+    locate_bin = hist_select.locate_bin
+
+    def recording_locate_bin(*args):
+        out = locate_bin(*args)
+        located.append((out[0].clone(), out[3].clone()))   # b, cnt_b
+        return out
+
+    if not ingest:
+        hist_select.locate_bin = recording_locate_bin
+    try:
+        rk.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        h_gpu = gpu.run(ROUNDS, eval_every=ROUNDS)[-1]
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        launches = dict(rk.LAUNCHES.counts)
+        shapes = dict(rk.LAUNCHES.shapes)
+    finally:
+        hist_select.locate_bin = locate_bin
     require(bool(torch.isfinite(gpu.params_vec).all()), "non-finite params")
     for name in needed:
         require(launches[name] > 0,
                 f"kernel {name} never launched on the {path} path")
+    require(launches["bin_select"] == launches["histogram"] == 2 * ROUNDS,
+            f"the {path} path selected {launches['bin_select']} times with "
+            f"bin_select and {launches['histogram']} with the histogram in "
+            f"{ROUNDS} rounds, not twice a round with both")
+    if located:
+        probe_selections(located)
     require(launches["pack_chunks"] == 2 * ROUNDS
             and launches["pack_bits"] == 0,
             f"the {path} ledger packed {launches['pack_chunks']} times with "
@@ -594,6 +685,38 @@ def run_trainers(torch, rk, ingest=False):
     require(d_acc <= 0.03, f"accuracy differs by {d_acc:.4f} > 0.03")
     require(d_up <= 0.02, f"bits_up differs by {d_up:.4%} > 2%")
     return gpu, launches, shapes
+
+
+def probe_selections(located) -> None:
+    """Round by round, the candidate bin ``b`` and its population ``cnt_b``
+    of the encode selection (the cohort's rows) and of the server's, and
+    how many of them the old refinement would have sent to its full-row
+    ``torch.sort`` (a selection sorted when any row's bin held more than
+    ``cap`` elements)."""
+    from repro_torch.core.selection import DEFAULT_CAP
+    require(len(located) == 2 * ROUNDS,
+            f"{len(located)} selections recorded in {ROUNDS} rounds")
+    sorted_sel = {"encode": 0, "server": 0}
+    rows_over = rows_all = 0
+    for rnd in range(ROUNDS):
+        line = []
+        for role, (b, cnt_b) in zip(("encode", "server"),
+                                    located[2 * rnd:2 * rnd + 2]):
+            b, cnt_b = b.tolist(), cnt_b.tolist()
+            require(len(b) == (MAIN_ROWS if role == "encode" else 1),
+                    f"round {rnd + 1}: the {role} selection has {len(b)} "
+                    f"rows")
+            over = sum(c > DEFAULT_CAP for c in cnt_b)
+            sorted_sel[role] += over > 0
+            if role == "encode":
+                rows_over, rows_all = rows_over + over, rows_all + len(b)
+            line.append(f"{role} b={b} cnt_b={cnt_b} over cap {over}")
+        print(f"selection probe round {rnd + 1}: {'; '.join(line)}")
+    print(f"selection probe: {sorted_sel['encode']} of {ROUNDS} encode and "
+          f"{sorted_sel['server']} of {ROUNDS} server selections would have "
+          f"taken the old route's full-row torch.sort; {rows_over} of "
+          f"{rows_all} client rows had a candidate bin over cap = "
+          f"{DEFAULT_CAP}")
 
 
 def check_lockstep(torch, np, rk, tr, rounds=3):
@@ -698,6 +821,51 @@ def check_lockstep(torch, np, rk, tr, rounds=3):
     print(f"lock-step ({rounds} rounds, card vs CPU from the same inputs): "
           f"{json.dumps(worst)}")
     return last
+
+
+def check_carried_selection(torch, rk, last) -> float:
+    """On the last lock-step round's carried matrices, the clients' (10, n)
+    and the server's (1, n): ``bin_select`` against its plain version;
+    ``stc_compress_batch`` under ``torch.cuda.set_sync_debug_mode("error")``
+    (after a first call, which may grow the scratch); and the selection
+    under ``torch.profiler``, which must show no ``aten::topk``,
+    ``aten::sort`` or ``aten::kthvalue``.  Returns the sums' largest abs
+    difference."""
+    from torch.profiler import ProfilerActivity, profile
+    k = max(int(MAIN_N * P_STC), 1)
+    err = 0.0
+    for name in ("carried", "server_carried"):
+        x = last[name].contiguous()
+        err = max(err, check_bin_select(torch, rk, x, k))
+        res = torch.zeros_like(x)
+        want = rk.stc_compress_batch(x, res, P_STC)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = rk.stc_compress_batch(x, res, P_STC)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"two stc_compress_batch calls on the {name} matrix differ")
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            rk.hist_topk_threshold_batched(x, k)
+            torch.cuda.synchronize()
+        ops = sorted({e.name for e in prof.events()})
+        banned = {"aten::topk", "aten::sort", "aten::kthvalue"} & set(ops)
+        require(not banned, f"the card's selection called {sorted(banned)}")
+        # host time of the selection's ops, under the profiler (which adds
+        # its own overhead to each): where the host-bound selection goes
+        avg = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        top = {e.key: [e.count, round(e.self_cpu_time_total / 1e3, 4)]
+               for e in avg[:12]}
+        calls = sum(e.count for e in avg if e.key.startswith("aten::"))
+        print(f"selection on the {name} matrix {tuple(x.shape)}: bin_select "
+              f"identical to its plain version; stc_compress_batch ran under "
+              f"set_sync_debug_mode('error'); {calls} aten calls (nested ones "
+              f"included), host ops "
+              f"by self CPU ms under torch.profiler [count, ms]: "
+              f"{json.dumps(top)}")
+    return err
 
 
 def check_ingest_lockstep(torch, np, rk, tr, rounds=3):
@@ -992,6 +1160,59 @@ def golomb_row(torch, np, rk, launches, errs, batch, p, bound):
         "chunks": n_chunks}
 
 
+def select_row(torch, rk, launches, errs, last, bound):
+    """``bin_select`` on the last lock-step round's carried matrices, the
+    clients' (10, n) and the server's (1, n), at the inputs the selection
+    gives it: device time and its four passes (``torch.profiler``), the
+    plain version (host included: it synchronizes), the byte bound and
+    ``torch.topk`` of the same matrix; and the whole k-selection, host
+    included and in device time, beside ``torch.topk`` in both."""
+    k = max(int(MAIN_N * P_STC), 1)
+    row = {"name": "bin_select", "route": "cuda",
+           "source": "src/repro_torch/csrc/bin_select.cu",
+           "replaces": "src/repro/kernels/hist_select.py:292",
+           "launches": launches["bin_select"],
+           "max_abs_err": errs["bin_select"], "bound_by": "bytes"}
+    for name, sfx in (("carried", ""), ("server_carried", "_b1")):
+        x = last[name].contiguous()
+        rows, n = x.shape
+        scale, b, r, cnt_b = select_inputs(torch, x, k)
+        a = x.abs()
+
+        def kernel(x=x, scale=scale, b=b, r=r):
+            return rk.candidate_select_batched(x, scale, b, r)
+
+        def topk(a=a):
+            return torch.topk(a, k, dim=1)
+
+        def select(x=x):
+            return rk.hist_topk_threshold_batched(x, k)
+
+        def topk_abs(x=x):
+            return torch.topk(x.abs(), k, dim=1)
+
+        row["ms" + sfx] = event_ms(torch, kernel)
+        row["plain_ms" + sfx] = event_ms(
+            torch, lambda x=x, scale=scale, b=b, r=r:
+            rk.candidate_select_plain(x, scale, b, r), iters=10,
+            hold_stream=False)
+        # x read once; scale, b and r read and v, cnt_in, sum_in written
+        row["bound_ms" + sfx] = bound(4 * rows * n + 20 * rows + 12 * rows)
+        row["library_ms" + sfx] = event_ms(torch, topk)
+        row["pass_ms" + sfx] = kernel_times(torch, kernel)
+        row["cnt_b" + sfx] = cnt_b.tolist()
+        sel = {"host": event_ms(torch, select, iters=20, hold_stream=False),
+               "device": event_ms(torch, select, iters=20)}
+        ref = {"host": event_ms(torch, topk_abs, iters=20, hold_stream=False),
+               "device": event_ms(torch, topk_abs, iters=20)}
+        row["selection_ms" + sfx], row["topk_ms" + sfx] = sel, ref
+        print(f"selection on the {name} matrix ({rows}, {n}), k={k}: "
+              f"histogram route host included {sel['host']:.4f} ms, device "
+              f"{sel['device']:.4f} ms; torch.topk of |x| host included "
+              f"{ref['host']:.4f} ms, device {ref['device']:.4f} ms")
+    return row
+
+
 def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
     """Device time of each kernel at its path's shapes beside its plain
     version, its byte bound and (where one PyTorch call computes the same
@@ -1076,6 +1297,7 @@ def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
         "ms_normal": hist_ms["normal"],
         "ms_server_b1": hist_ms["server_carried"],
         "bound_ms_b1": hist_bound(1)})
+    out.append(select_row(torch, rk, launches, errs, last, bound))
     out.append({
         "name": "pack_chunks", "route": "cuda",
         "source": "src/repro_torch/csrc/pack_chunks.cu",
@@ -1122,8 +1344,9 @@ def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
                              lambda: rk.threshold_stats_plain(x1, t1)),
         "bound_ms": bound(4 * n_stats + 4 + 4 + 8), "bound_by": "bytes",
         "library_ms": None})
-    # the histogram route synchronizes once (the overflow test), so every
-    # k-selection is timed with its host work, torch.topk beside them
+    # every k-selection is timed with its host work, torch.topk beside them
+    # (the bisection synchronizes; the histogram route on the carried
+    # matrices is also timed in device time, in select_row)
     sel_ms = event_ms(torch, lambda: rk.hist_topk_threshold_batched(x, k),
                       iters=20, hold_stream=False)
     topk_ms = event_ms(torch, lambda: torch.topk(x.abs(), k, dim=1),
@@ -1352,6 +1575,8 @@ def main() -> int:
         print(f"pack_chunks on a lock-step round's upstream batch "
               f"({len(chunks[0])} chunks, {chunks[3] // 32} words): words "
               f"identical to its plain version and the host packer")
+        errs["bin_select"] = max(errs["bin_select"],
+                                 check_carried_selection(torch, rk, last))
         tr_in, launches_in, shapes_in = run_trainers(torch, rk, ingest=True)
         _, batch_in = check_ingest_lockstep(torch, np, rk, tr_in)
         errs["golomb_decode"] = max(errs["golomb_decode"],

@@ -4,7 +4,8 @@ PyTorch versions.
 * ``stc_compress``   -- fused mask -> ternarize -> error feedback
   (``csrc/stc_apply.cu``).
 * ``hist_select``    -- per-row 256-bin magnitude histogram
-  (``csrc/histogram.cu``) and the exact k-selection around it.
+  (``csrc/histogram.cu``), the exact select inside the candidate bin
+  (``csrc/bin_select.cu``) and the k-selection they make up.
 * ``topk_threshold`` -- threshold statistics (``csrc/threshold_stats.cu``)
   and the bisection k-selection around them (``selector="bisect"``).
 * ``bitpack``        -- MSB-first word packing of the wire stream: Golomb
@@ -25,7 +26,8 @@ build or the launch fails) and runs its plain version on a CPU tensor.
 from ._build import LAUNCHES, build_all
 from .bitpack import (pack_bits, pack_bits_plain, pack_chunks,
                       pack_chunks_plain)
-from .hist_select import (hist_topk_threshold_batched,
+from .hist_select import (candidate_select_batched, candidate_select_plain,
+                          hist_topk_threshold_batched,
                           magnitude_histogram_batched,
                           magnitude_histogram_plain)
 from .ops import stc_compress_batch, stc_compress_kernel
@@ -44,6 +46,8 @@ __all__ = [
     "hist_topk_threshold_batched",
     "magnitude_histogram_batched",
     "magnitude_histogram_plain",
+    "candidate_select_batched",
+    "candidate_select_plain",
     "stc_apply_batched",
     "stc_apply_plain",
     "threshold_stats",

@@ -39,8 +39,8 @@ __all__ = ["SOURCES", "LAUNCHES", "LaunchCounter", "build_all", "build_log",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("stc_apply", "histogram", "pack_bits", "pack_chunks",
-           "unpack_bits", "golomb_decode", "threshold_stats")
+SOURCES = ("stc_apply", "histogram", "bin_select", "pack_bits",
+           "pack_chunks", "unpack_bits", "golomb_decode", "threshold_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,9 +1,11 @@
 """Histogram k-selection for STC: a 256-bin magnitude histogram per row,
-a cumulative-sum bin search, and one refinement over the candidate bin.
+a cumulative-sum bin search, and an exact select inside the candidate bin.
 
 Counterpart of ``repro/kernels/hist_select.py``.
-:func:`magnitude_histogram_batched` launches ``csrc/histogram.cu`` on a CUDA
-tensor and runs :func:`magnitude_histogram_plain` on a CPU tensor.
+:func:`magnitude_histogram_batched` launches ``csrc/histogram.cu`` and
+:func:`candidate_select_batched` launches ``csrc/bin_select.cu`` on a CUDA
+tensor; on a CPU tensor they run :func:`magnitude_histogram_plain` and
+:func:`candidate_select_plain`.
 
 :func:`hist_topk_threshold_batched` is the k-selection, the same on
 both devices:
@@ -12,11 +14,15 @@ both devices:
    all-zero row);                                         (pass 1, torch)
 2. the histogram of per-bin ``(count, Σ|x|)``;           (pass 2, kernel)
 3. ``locate_bin`` finds the bin ``b`` that holds the k-th largest magnitude
-   and its rank ``r`` inside it; one refinement pass gathers the bin's
-   candidates and reads the exact k-th magnitude from their top ``cap``
-   values;                                                (pass 3, torch)
-4. if a candidate bin holds more than ``cap`` elements (heavy ties, extreme
-   dynamic range), that row falls back to an exact sort.
+   and its rank ``r`` inside it, and the select reads the exact ``r``-th
+   largest magnitude of bin ``b`` with the count and mass of the bin's
+   elements at or above it.                               (pass 3, kernel)
+
+The select kernel is a radix select on the fp32 bit pattern with no
+capacity limit.  Its plain version is the reference's refinement: the top
+``cap`` values of the masked row, or an exact sort of the row when the
+candidate bin holds more than ``cap`` elements (heavy ties, extreme dynamic
+range, and bin 0 of the trainers' carried residual rows).
 
 Unlike the reference, this selection never skips the histogram: the
 reference's small-k shortcut (``interpret and k_max <= cap``) would bypass
@@ -26,7 +32,7 @@ Counts and sums follow Algorithm 1 (the reference's ``"jnp"`` contract):
 exact zeros are never counted, so a row with fewer than k non-zeros gets
 ``v = 0``, ``count = #non-zeros`` and ``Σ`` over them (ROADMAP Queue 3, R1).
 The threshold is an element of the row and the count is exact; ``Σ`` is
-assembled from bin sums plus candidates, so it differs from a
+assembled from bin sums plus the candidates', so it differs from a
 mask-then-reduce sum at the ulp level.
 """
 
@@ -34,13 +40,15 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..core.selection import DEFAULT_CAP, NBINS, PASSES, bin_index, locate_bin
 from . import _build
 
 __all__ = ["NBINS", "DEFAULT_CAP", "magnitude_histogram_batched",
-           "magnitude_histogram_plain", "hist_topk_threshold_batched"]
+           "magnitude_histogram_plain", "candidate_select_batched",
+           "candidate_select_plain", "hist_topk_threshold_batched"]
 
 # 512-thread CTAs a launch aims for on each SM (chip_smoke.py times 1, 2
 # and 4); every CTA of a row adds one partial that the row's last CTA
@@ -52,6 +60,10 @@ _MAX_CTA_ELEMS = 65000
 _MAX_ROWS = 65535               # the grid's y extent
 _SCRATCH: dict = {}             # (device index, stream) -> partials, tickets
 _SMS: dict = {}                 # device index -> SM count
+# the select: one 512-thread CTA an SM over the batch, none with fewer than
+# _MIN_ELEMS_PER_CTA elements; per-row digit histograms of _DIGITS words
+_DIGITS = 2048
+_SELECT_SCRATCH: dict = {}      # (device index, stream) -> select scratch
 
 
 def magnitude_histogram_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -143,13 +155,144 @@ def magnitude_histogram_batched(x: torch.Tensor, scale: torch.Tensor, *,
 
 
 def _row_ks(k, rows: int, n: int, device) -> torch.Tensor:
-    ks = torch.tensor(k, dtype=torch.int64).reshape(-1)
-    ks = ks.expand(rows) if ks.numel() == 1 else ks
-    if ks.shape != (rows,):
-        raise ValueError(f"k must be an int or ({rows},), got {tuple(ks.shape)}")
-    if rows and not (1 <= int(ks.min()) and int(ks.max()) <= n):
+    """``k`` (an int, or one per row on the host) as a ``(rows,)`` int64
+    tensor on ``device``, range-checked on the host.  A shared k becomes a
+    device fill and per-row ks an asynchronous copy from pinned memory, so
+    neither synchronizes."""
+    ks = np.asarray(k, np.int64).reshape(-1)
+    if ks.size not in (1, rows):
+        raise ValueError(f"k must be an int or ({rows},), got {ks.shape}")
+    if rows and not (1 <= ks.min() and ks.max() <= n):
         raise ValueError(f"per-row k out of range [1, {n}]: {ks.tolist()}")
-    return ks.to(device)
+    if ks.size == 1:
+        return torch.full((rows,), int(ks[0]), dtype=torch.int64,
+                          device=device)
+    host = torch.from_numpy(ks.copy())
+    if torch.device(device).type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host
+
+
+def candidate_select_plain(x: torch.Tensor, scale: torch.Tensor,
+                           b: torch.Tensor, r: torch.Tensor, *,
+                           cap: int = DEFAULT_CAP):
+    """Plain PyTorch version of the candidate-bin select: per row, ``v`` the
+    ``r``-th largest ``|x|`` among the elements of bin ``b``, and
+    ``(cnt_in, sum_in)`` over the bin's elements ``>= v`` and ``> 0``.
+
+    The bin's candidates are read from the top ``cap`` values of the masked
+    row; a row whose bin holds more than ``cap`` elements takes them from a
+    full sort.  Runs on the CPU; the card runs ``csrc/bin_select.cu``."""
+    n = x.shape[1]
+    cap_eff = min(cap, n)
+    a = x.abs()
+    in_bin = bin_index(a, scale[:, None], NBINS) == b[:, None]
+    topc = torch.topk(torch.where(in_bin, a, torch.full_like(a, -1.0)),
+                      cap_eff, dim=1).values
+    v = topc.gather(1, torch.clamp(r - 1, 0, cap_eff - 1)[:, None])[:, 0]
+    ge = (topc > 0.0) & (topc >= v[:, None])
+    count = ge.sum(dim=1, dtype=torch.int32)
+    total = torch.where(ge, topc, torch.zeros_like(topc)).sum(dim=1)
+
+    overflow = in_bin.sum(dim=1) > cap_eff
+    if bool(overflow.any()):
+        srt = torch.sort(torch.where(in_bin, a, torch.full_like(a, -1.0)),
+                         dim=1, descending=True).values
+        vs = srt.gather(1, torch.clamp(r - 1, 0, n - 1)[:, None])[:, 0]
+        m = in_bin & (a >= vs[:, None]) & (a > 0.0)
+        v = torch.where(overflow, vs, v)
+        count = torch.where(overflow, m.sum(dim=1, dtype=torch.int32), count)
+        total = torch.where(overflow,
+                            torch.where(m, a, torch.zeros_like(a)).sum(dim=1),
+                            total)
+    return v, count, total
+
+
+def _select_scratch(device: torch.device, stream: int, rows: int,
+                    slots: int):
+    """The select's row state, its zeroed per-row digit histograms and
+    tickets, and the per-CTA partials, allocated once per device and stream
+    and grown on demand; the kernels leave histograms and tickets at 0."""
+    key = (device.index, stream)
+    have = _SELECT_SCRATCH.get(key)
+    if have is None or have["tickets"].numel() < rows \
+            or have["part_cnt"].numel() < slots:
+        rows = max(rows, have["tickets"].numel() if have else 0)
+        slots = max(slots, have["part_cnt"].numel() if have else 0)
+        have = {"state": torch.empty(2 * rows, dtype=torch.int32,
+                                     device=device),
+                "ghist": torch.zeros(rows * _DIGITS, dtype=torch.int32,
+                                     device=device),
+                "tickets": torch.zeros(rows, dtype=torch.int32,
+                                       device=device),
+                "part_cnt": torch.empty(slots, dtype=torch.int32,
+                                        device=device),
+                "part_sum": torch.empty(slots, dtype=torch.float64,
+                                        device=device)}
+        _SELECT_SCRATCH[key] = have
+    return have
+
+
+def _launch_select(x, scale, b, r):
+    fn = _build.entry("bin_select", "candidate_select_f32",
+                      [ctypes.c_void_p] * 12 + [ctypes.c_int,
+                                                ctypes.c_longlong,
+                                                ctypes.c_int,
+                                                ctypes.c_void_p])
+    rows, n = x.shape
+    v = torch.empty(rows, dtype=torch.float32, device=x.device)
+    cnt = torch.empty(rows, dtype=torch.int32, device=x.device)
+    total = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows == 0 or n == 0:
+        return v.zero_(), cnt.zero_(), total.zero_()
+    idx = x.device.index
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(x.device) \
+            .multi_processor_count
+    per_row = max(1, min(-(-n // _MIN_ELEMS_PER_CTA), _SMS[idx] // rows))
+    stream = _build.stream_ptr(x.device)
+    s = _select_scratch(x.device, stream, rows, rows * per_row)
+    err = fn(x.data_ptr(), scale.data_ptr(), b.data_ptr(), r.data_ptr(),
+             v.data_ptr(), cnt.data_ptr(), total.data_ptr(),
+             s["state"].data_ptr(), s["ghist"].data_ptr(),
+             s["part_cnt"].data_ptr(), s["part_sum"].data_ptr(),
+             s["tickets"].data_ptr(), rows, n, per_row, stream)
+    _build.check("bin_select", err)
+    _build.LAUNCHES.record("bin_select", x.shape)
+    return v, cnt, total
+
+
+def candidate_select_batched(x: torch.Tensor, scale: torch.Tensor,
+                             b: torch.Tensor, r: torch.Tensor, *,
+                             cap: int = DEFAULT_CAP):
+    """Exact candidate-bin select over a ``(B, n)`` fp32 matrix: per row,
+    ``(v, cnt_in, sum_in)`` for the candidate bin ``b`` and the rank ``r``
+    inside it (``(B,)`` int64, from ``locate_bin``), with the row's
+    ``scale``.  ``v`` is the ``r``-th largest ``|x|`` of the bin, ``cnt_in``
+    and ``sum_in`` count and sum the bin's elements ``>= v`` and ``> 0``.
+
+    On a CUDA tensor it launches ``csrc/bin_select.cu``, which has no
+    capacity limit and does not synchronize; on a CPU tensor it runs
+    :func:`candidate_select_plain`, the only place ``cap`` is read."""
+    if x.ndim != 2 or x.dtype != torch.float32:
+        raise ValueError(f"x must be (B, n) float32, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    rows = x.shape[0]
+    for name, t, dtype in (("scale", scale, torch.float32),
+                           ("b", b, torch.int64), ("r", r, torch.int64)):
+        if t.shape != (rows,) or t.dtype != dtype or t.device != x.device:
+            raise ValueError(f"{name} must be ({rows},) {dtype} on "
+                             f"{x.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    PASSES.record("refine")
+    if x.device.type == "cpu":
+        return candidate_select_plain(x, scale, b, r, cap=cap)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if rows > _MAX_ROWS:
+        raise ValueError(f"at most {_MAX_ROWS} rows per launch, got {rows}")
+    return _launch_select(x.contiguous(), scale.contiguous(), b.contiguous(),
+                          r.contiguous())
 
 
 def hist_topk_threshold_batched(x: torch.Tensor, k, *, bins: int = NBINS,
@@ -160,39 +303,24 @@ def hist_topk_threshold_batched(x: torch.Tensor, k, *, bins: int = NBINS,
     Returns ``(thresh, count, sum_abs)`` of shape ``(B,)``: ``thresh`` the
     exact k-th largest magnitude, ``count`` the non-zeros at or above it
     (ties kept) and ``sum_abs`` their magnitude mass.
+
+    On the card it is ``max|x|``, the histogram kernel, ``locate_bin`` and
+    the select kernel: no ``(B, n)`` temporary, no sort or top-k, and no
+    host synchronization.  ``cap`` is read only on the CPU, where it sizes
+    the plain select's top-k gather.
     """
     rows, n = x.shape
     kj = _row_ks(k, rows, n, x.device)
     x = x.to(torch.float32)
-    cap_eff = min(cap, n)
 
     PASSES.record("max")                                        # pass 1
-    a = x.abs()
-    a_max = a.amax(dim=1)
+    a_max = torch.linalg.vector_norm(x, float("inf"), dim=1)
     scale = torch.where(a_max > 0, torch.full_like(a_max, float(bins)) / a_max,
                         torch.zeros_like(a_max))
 
     cnt, sums = magnitude_histogram_batched(x, scale, bins=bins)  # pass 2
-    b, cnt_gt, sum_gt, cnt_b = locate_bin(cnt, sums, kj, bins)
+    b, cnt_gt, sum_gt, _ = locate_bin(cnt, sums, kj, bins)
     r = kj - cnt_gt.to(torch.int64)                     # rank inside bin b
-
-    PASSES.record("refine")                                     # pass 3
-    in_bin = bin_index(a, scale[:, None], bins) == b[:, None]
-    topc = torch.topk(torch.where(in_bin, a, torch.full_like(a, -1.0)),
-                      cap_eff, dim=1).values
-    v = topc.gather(1, torch.clamp(r - 1, 0, cap_eff - 1)[:, None])[:, 0]
-    ge = (topc > 0.0) & (topc >= v[:, None])
-    count = cnt_gt + ge.sum(dim=1, dtype=torch.int32)
-    total = sum_gt + torch.where(ge, topc, torch.zeros_like(topc)).sum(dim=1)
-
-    overflow = cnt_b > cap_eff
-    if bool(overflow.any()):
-        srt = torch.sort(a, dim=1).values
-        vs = srt.gather(1, (n - kj)[:, None])[:, 0]
-        m = (a >= vs[:, None]) & (a > 0.0)
-        v = torch.where(overflow, vs, v)
-        count = torch.where(overflow, m.sum(dim=1, dtype=torch.int32), count)
-        total = torch.where(overflow,
-                            torch.where(m, a, torch.zeros_like(a)).sum(dim=1),
-                            total)
-    return v, count, total
+    v, cnt_in, sum_in = candidate_select_batched(x, scale, b, r,  # pass 3
+                                                 cap=cap)
+    return v, cnt_gt + cnt_in, sum_gt + sum_in

@@ -162,6 +162,88 @@ def test_selection_matches_cpu_route(dev, k):
     assert torch.allclose(s.cpu(), s_c, rtol=1e-6, atol=0.0)
 
 
+def _select_rows(kind, rows, n, seed):
+    """Rows for the candidate-bin select: ``carried`` (one outlier, ~1 %
+    of the row above bin 0, the rest in bin 0), ``ties`` across the
+    threshold, ``sparse`` (zero rows and rows with fewer non-zeros than
+    k), ``constant`` (the whole row in one bin) and ``normal``."""
+    rng = np.random.default_rng(seed)
+    if kind == "carried":
+        x = np.clip(rng.standard_normal((rows, n)) * 1e-3, -3e-3, 3e-3)
+        x[:, rng.integers(0, n, n // 100)] *= 200.0
+        x[np.arange(rows), rng.integers(0, n, rows)] = 1.0
+    elif kind == "ties":
+        x = np.where(rng.random((rows, n)) < 0.5, 1.0,
+                     rng.uniform(0, 0.5, (rows, n)))
+        x *= np.sign(rng.standard_normal((rows, n)))
+    elif kind == "sparse":
+        x = np.zeros((rows, n))
+        for row in range(1, rows):
+            x[row, rng.choice(n, 19 * row, replace=False)] = 0.37
+    elif kind == "constant":
+        x = np.full((rows, n), 0.25)
+    else:
+        x = rng.standard_normal((rows, n))
+    return x.astype(np.float32)
+
+
+def _select_inputs(x, k):
+    """``(scale, b, r)`` on the card as the k-selection makes them."""
+    from repro_torch.core.selection import locate_bin
+    from repro_torch.kernels import hist_select
+    rows, n = x.shape
+    kj = hist_select._row_ks(k, rows, n, x.device)
+    a_max = x.abs().amax(dim=1)
+    scale = torch.where(a_max > 0, 256.0 / a_max, torch.zeros_like(a_max))
+    cnt, sums = rk.magnitude_histogram_batched(x, scale)
+    b, cnt_gt, _, _ = locate_bin(cnt, sums, kj, 256)
+    return scale, b, kj - cnt_gt.to(torch.int64)
+
+
+@pytest.mark.parametrize("kind", ["carried", "ties", "sparse", "constant",
+                                  "normal"])
+@pytest.mark.parametrize("rows,k", [(1, 6148), (10, 6148), (10, 1),
+                                    (4, np.array([1, 400, 6148, 300_000]))])
+def test_bin_select_matches_plain_and_is_deterministic(dev, kind, rows, k):
+    """The select kernel against its plain version (``v`` and ``cnt_in``
+    bitwise, ``sum_in`` within rtol 1e-6), one launch a call, and two calls
+    with identical bits."""
+    x = torch.from_numpy(_select_rows(kind, rows, 307_434, rows)).to(dev)
+    scale, b, r = _select_inputs(x, k)
+    before = rk.LAUNCHES.counts["bin_select"]
+    got = rk.candidate_select_batched(x, scale, b, r)
+    again = rk.candidate_select_batched(x, scale, b, r)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["bin_select"] == before + 2
+    want = rk.candidate_select_plain(x, scale, b, r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.allclose(got[2], want[2], rtol=1e-6, atol=0.0)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("rows", [1, 10])
+def test_stc_compress_batch_does_not_synchronize(dev, rows):
+    """The card's STC step, selection included, runs under
+    ``set_sync_debug_mode("error")`` (after a first call has built the
+    kernels and the scratch), and its selection calls no sort or top-k."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.from_numpy(_select_rows("carried", rows, 307_434, 7)).to(dev)
+    res = torch.zeros_like(x)
+    rk.stc_compress_batch(x, res, 1 / 50)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = rk.stc_compress_batch(x, res, 1 / 50)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(out[4].min()) >= 6148
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rk.hist_topk_threshold_batched(x, 6148)
+        torch.cuda.synchronize()
+    ops = {e.name for e in prof.events()}
+    assert not ops & {"aten::topk", "aten::sort", "aten::kthvalue"}, ops
+
+
 @pytest.mark.parametrize("m", [1, 33, 49_838, 1_000_003])
 def test_pack_bits(dev, m):
     bits = (torch.rand(m, device=dev) < 0.3).to(torch.uint8)

@@ -14,6 +14,16 @@
   and ``bits_up`` equal after 2 rounds, as tests/test_ingest.py asserts for
   the reference) for ``stc`` and ``signsgd``; a non-streaming rule warns and
   falls back to the dense combine.
+* Exact agreement over 10 rounds (momentum 0.9, three local steps, half
+  participation, signSGD with and without measured bits): accuracy and
+  the four ledger columns equal, parameters within 1e-7.
+* R4 (ROADMAP Queue 3): when the server carries fewer non-zeros than k,
+  µ is a sum of equal magnitudes whose last ulp depends on the reduction
+  order, and the residual it leaves moves the downlink ledger.  What holds
+  is pinned: thresholds, counts and masks exact against ``"jnp"``, µ within
+  rtol 1e-6, residuals zero or within 1e-6 of µ; in the trainers' setting
+  the analytic columns and the first round's ledger are equal and
+  ``bits_up`` is within the trainers' 2 % limit.
 """
 
 import dataclasses
@@ -27,6 +37,7 @@ import pytest
 import torch
 
 from repro.core import make_protocol as ref_make_protocol
+from repro.core.compression import get_stc_backend as ref_backend
 from repro.core.residual import init_residual as ref_init_residual
 from repro.core.residual import stack_states as ref_stack_states
 from repro.data import make_classification as ref_make_classification
@@ -38,7 +49,8 @@ from repro.core.compression import flatten_pytree as ref_flatten
 from repro.models.paper_models import MODEL_ZOO as REF_ZOO
 from repro_torch.core import make_protocol
 from repro_torch.core.aggregation import MeanRule
-from repro_torch.core.compression import flatten_pytree
+from repro_torch.core.compression import flatten_pytree, get_stc_backend
+from repro_torch.core.residual import ResidualState
 from repro_torch.data import make_classification
 from repro_torch.fed import FedEnvironment, FederatedTrainer, TrainerConfig
 from repro_torch.fed.environment import split_data
@@ -326,3 +338,166 @@ def test_residual_state_layout():
     port_state = make_protocol("stc").init_client_state(10, "cpu")
     np.testing.assert_array_equal(port_state.residual.numpy(),
                                   np.asarray(ref_state.residual))
+
+
+def _both_trainers(codec, proto_kw, env_kw, cfg_kw, *, backend="kernel",
+                   data_n=2000, rounds=10):
+    """Both packages' trainers on logreg from the reference's initial
+    parameters; returns (reference, port, their last history rows)."""
+    kw = dict(n_clients=10, participation=1.0, classes_per_client=2,
+              batch_size=20)
+    kw.update(env_kw)
+    n_kw = {} if data_n is None else {"n": data_n}
+    train, test = make_classification(seed=0, **n_kw)
+    ref_train, ref_test = ref_make_classification(seed=0, **n_kw)
+    init = jax.tree.map(np.asarray,
+                        REF_ZOO["logreg"][0](jax.random.PRNGKey(0)))
+    ref = RefTrainer(REF_ZOO["logreg"], ref_train, ref_test, RefEnv(**kw),
+                     ref_make_protocol(codec, **proto_kw),
+                     RefConfig(lr=0.05, **cfg_kw))
+    h_ref = ref.run(rounds, eval_every=rounds)[-1]
+    extra = {"backend": backend} if codec == "stc" else {}
+    port = FederatedTrainer(
+        (lambda gen: params_from_jax(init), MODEL_ZOO["logreg"][1]),
+        train, test, FedEnvironment(**kw),
+        make_protocol(codec, **proto_kw, **extra),
+        TrainerConfig(lr=0.05, **cfg_kw), device="cpu")
+    return ref, port, h_ref, port.run(rounds, eval_every=rounds)[-1]
+
+
+_LEDGER = ("bits_up", "bits_down", "bits_up_analytic", "bits_down_analytic")
+_P50 = dict(sparsity_up=1 / 50, sparsity_down=1 / 50)
+
+
+@pytest.mark.parametrize("codec,proto_kw,env_kw,cfg_kw", [
+    ("stc", _P50, {}, {"momentum": 0.9}),
+    ("stc", dict(_P50, local_iters=3), {}, {}),
+    ("stc", _P50, {"participation": 0.5}, {}),
+    ("signsgd", {}, {}, {}),
+    ("signsgd", {}, {}, {"measure_bits": False}),
+], ids=["momentum", "local_iters", "participation", "signsgd",
+        "signsgd_analytic"])
+def test_settings_agree_with_reference_exactly(codec, proto_kw, env_kw,
+                                               cfg_kw):
+    ref, port, h_ref, h = _both_trainers(codec, proto_kw, env_kw, cfg_kw)
+    assert h["acc"] == h_ref["acc"]
+    for col in _LEDGER:
+        assert h[col] == h_ref[col], col
+    np.testing.assert_allclose(port.params_vec.numpy(),
+                               np.asarray(ref.params_vec), rtol=0,
+                               atol=1e-7)
+
+
+_R4_PROTO = dict(sparsity_up=1 / 400, sparsity_down=1 / 20)
+
+
+@pytest.mark.parametrize("data_n", [2000, None], ids=["n2000", "n_default"])
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+def test_r4_trainers_agree_on_what_holds(backend, data_n):
+    """R4's setting (P = 1, k_up = 19 < k_down = 392): the downlink takes
+    one of two modes (the ulp residuals of µ either stack up or do not),
+    so ``bits_down`` is not compared.  The analytic columns and the first
+    round's measured ledger are equal and ``bits_up`` is within 2 %."""
+    ref, port, h_ref, h = _both_trainers(
+        "stc", _R4_PROTO, {"participation": 0.1}, {}, backend=backend,
+        data_n=data_n)
+    assert h["bits_up_analytic"] == h_ref["bits_up_analytic"]
+    assert h["bits_down_analytic"] == h_ref["bits_down_analytic"]
+    assert port.wire_log[0] == ref.wire_log[0]
+    assert abs(h["bits_up"] / h_ref["bits_up"] - 1) <= 0.02
+
+
+def _r4_rows(rows, n, nnz, seed):
+    """``rows`` rows of ``nnz`` non-zeros of one magnitude (one a row) with
+    random signs: the server's carried vector of R4."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((rows, n), np.float32)
+    mags = rng.uniform(1e-4, 1.0, rows).astype(np.float32)
+    for row in range(rows):
+        at = rng.choice(n, nnz, replace=False)
+        x[row, at] = mags[row] * np.sign(rng.standard_normal(nnz))
+    return x
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+def test_r4_fewer_nonzeros_than_k_contract(backend, seed):
+    """300 rows of 19 equal magnitudes at n = 7850, p = 1/20 (k = 392):
+    thresholds, counts and masks exact against ``"jnp"``, µ within rtol
+    1e-6, and every residual zero or within 1e-6 of µ (on both sides)."""
+    n, p = 7850, 1 / 20
+    x = _r4_rows(300, n, 19, seed)
+    zeros = np.zeros_like(x)
+    jnp_be = ref_backend("jnp")
+    tern_j, res_j, st_j = jnp_be.compress_with_residual_batch(
+        jnp.asarray(x), jnp.asarray(zeros), p)
+    t_j, c_j, _ = jnp_be.select_batch(jnp.asarray(x), int(n * p))
+    be = get_stc_backend(backend)
+    tern, res, st = be.compress_with_residual_batch(
+        torch.from_numpy(x), torch.from_numpy(zeros), p)
+    t, c, _ = be.select_batch(torch.from_numpy(x), int(n * p))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(t_j))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(c_j))
+    assert (c.numpy() == 19).all()
+    np.testing.assert_array_equal(np.sign(tern.numpy()),
+                                  np.sign(np.asarray(tern_j)))
+    np.testing.assert_array_equal(st.nnz.numpy(), np.asarray(st_j.nnz))
+    mu, mu_j = st.mu.numpy(), np.asarray(st_j.mu)
+    np.testing.assert_allclose(mu, mu_j, rtol=1e-6)
+    for got, m in ((res.numpy(), mu), (np.asarray(res_j), mu_j)):
+        assert np.all(np.abs(got) <= 1e-6 * m[:, None])
+
+
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+def test_r4_lockstep_thresholds_and_counts(backend):
+    """The R4 codec setting (one client, p_up = 1/400, p_down = 1/20) for
+    10 rounds, the port fed the reference's residuals each round: client
+    and server thresholds, counts and masks exact, µ within rtol 1e-6."""
+    n = 7850
+    ref = ref_make_protocol("stc", backend="jnp", **_R4_PROTO)
+    port = make_protocol("stc", backend=backend, **_R4_PROTO)
+    sel, sel_j = get_stc_backend(backend).select_batch, \
+        ref_backend("jnp").select_batch
+    k_up = max(int(n * _R4_PROTO["sparsity_up"]), 1)
+    k_down = max(int(n * _R4_PROTO["sparsity_down"]), 1)
+
+    def same_selection(x, k):
+        t, c, _ = sel(torch.from_numpy(x), k)
+        t_j, c_j, _ = sel_j(jnp.asarray(x), k)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(t_j))
+        np.testing.assert_array_equal(c.numpy(), np.asarray(c_j))
+        return int(c[0])
+
+    ref_cs = ref_stack_states(ref.init_client_state(n), 1)
+    ref_ss = ref.init_server_state(n)
+    one, zero = np.ones(1, np.float32), np.zeros(1, np.float32)
+    rng = np.random.default_rng(4)
+    for _ in range(10):
+        delta = (rng.standard_normal((1, n)) * 1e-2).astype(np.float32)
+        client_res = np.array(ref_cs.residual)
+        same_selection(delta + client_res, k_up)
+        m_port, _, st = port.encode_batch(
+            torch.from_numpy(delta),
+            ResidualState(torch.from_numpy(client_res)))
+        m_ref, ref_cs, st_j = ref.encode_batch(jnp.asarray(delta), ref_cs)
+        m_ref = np.array(m_ref)
+        np.testing.assert_array_equal(np.sign(m_port.numpy()),
+                                      np.sign(m_ref))
+        np.testing.assert_array_equal(st.nnz.numpy(), np.asarray(st_j.nnz))
+        np.testing.assert_allclose(st.mu.numpy(), np.asarray(st_j.mu),
+                                   rtol=1e-6)
+
+        server_res = np.array(ref_ss.residual)
+        assert same_selection((m_ref[0] + server_res)[None], k_down) \
+            < k_down                                      # R4's regime
+        g_port, _, sg = port.aggregate(
+            torch.from_numpy(m_ref),
+            ResidualState(torch.from_numpy(server_res)),
+            mask=torch.from_numpy(one), staleness=torch.from_numpy(zero))
+        g_ref, ref_ss, sg_j = ref.aggregate(
+            jnp.asarray(m_ref), ref_ss, mask=jnp.asarray(one),
+            staleness=jnp.asarray(zero))
+        np.testing.assert_array_equal(np.sign(g_port.numpy()),
+                                      np.sign(np.asarray(g_ref)))
+        assert int(sg.nnz) == int(sg_j.nnz)
+        np.testing.assert_allclose(float(sg.mu), float(sg_j.mu), rtol=1e-6)
