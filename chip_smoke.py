@@ -5,10 +5,11 @@
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
-1. build the eight CUDA kernels from ``src/repro_torch/csrc`` into
+1. build the nine CUDA kernels from ``src/repro_torch/csrc`` into
    ``build/kernels/`` (one ``nvcc`` per source, in parallel) and print the
    registers and shared memory (``-Xptxas -v``) of the histogram,
-   ``bin_select``, ``pack_chunks`` and ``golomb_decode``, and the atomics,
+   ``bin_select``, ``pack_chunks``, ``golomb_decode``, ``threshold_stats``
+   and ``bisect_select``, and the atomics,
    conversions and fp64 adds in the histogram's SASS;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and on adversarial inputs: ``stc_apply`` bitwise,
@@ -24,9 +25,14 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    fields identical and raising on the same inputs (valid batches, the
    decoder's chunk-boundary traps, a cnn round, 300 corrupt batches and
    the 60 mutations of the reference's wire fuzz test), ``threshold_stats``
-   counts exact and sums within rtol 1e-6, the bisection driver's
-   threshold bitwise the CPU's, and ``selector="bisect"`` giving the
-   ``"hist"`` mask;
+   counts exact and sums within rtol 1e-6 (two calls identical), the fused
+   bisection ``bisect_select`` ``lo`` and count bitwise its plain version's
+   (on the card and on the CPU) and sums within rtol 1e-6 (two calls
+   identical) at the cnn's n, on the edge cases of
+   ``tests/_bisect_cases.py``, a subnormal row and 4,000,037 elements,
+   ``selector="bisect"`` under ``set_sync_debug_mode("error")`` and giving
+   the ``"hist"`` mask; every selection check also runs on rows of
+   subnormals, which count as zeros (the reference's flush-to-zero);
 3. the dense path: train the paper CNN at full width with STC (the
    configuration of ``examples/federated_noniid.py``: 10 clients, 2
    classes each, p = 1/50 up and down, lr 0.05, 40 rounds) through
@@ -64,16 +70,23 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    unpacked bits and global delta identical, and ``unpack_bits`` at that
    path's own word count;
 5. the bisection path: ``stc_compress_kernel(selector="bisect")`` at the
-   cnn's width, which must launch ``threshold_stats``;
+   cnn's width, which must launch ``bisect_select`` once, ``stc_apply``
+   once and ``threshold_stats`` never; then ``threshold_stats`` through
+   its own entry point at the selected threshold (one launch, a check
+   only: no path launches ``threshold_stats``, and its row's count is the
+   path's, 0);
 6. time each kernel and its plain version with CUDA events (device time:
    the stream is held while the host enqueues) beside the library call
    that computes the same function where there is one (the histogram on
    the carried matrices of a lock-step round and on a normal matrix, and
    at 1, 2 and 4 CTAs an SM; ``bin_select`` on those carried matrices
    beside ``torch.topk``, with its four passes by ``torch.profiler``;
-   ``pack_chunks`` on a real round's upstream chunks), the k-selections
-   beside ``torch.topk`` (on the carried matrices host included and in
-   device time, on a normal matrix host included), and a dense and an
+   ``pack_chunks`` on a real round's upstream chunks; ``bisect_select``
+   per step and host included, beside ``torch.topk``, and at n = 17 and
+   n = 4,000,037 beside it),
+   the k-selections beside ``torch.topk`` (on the carried matrices host
+   included and in device time, on a normal matrix host included), and a
+   dense and an
    ingest round split into phases (with the ``"kernel"`` and the host
    wire backends, in turns), and the ingest decode of one round's batch
    split into words up, the decode, fields down and ``np.add.at``, beside
@@ -99,6 +112,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+FLT_MIN = 1.1754943508222875e-38  # the least normal fp32
 MAIN_ROWS, MAIN_N = 10, 307_434  # cohort x cnn parameters
 P_STC = 1 / 50
 ROUNDS = 40
@@ -152,12 +166,13 @@ def sass_opcodes(cuobjdump: str, binary: Path, prefixes) -> dict:
 
 
 def print_build_notes() -> None:
-    """``-Xptxas -v`` of the four redesigned kernels, the atomics,
+    """``-Xptxas -v`` of the six redesigned kernels, the atomics,
     conversions, fp64 adds and votes in the histogram's SASS, and the SASS
     of a plain fp64 ``atomicAdd`` to shared memory (whether it compiles to
     a compare-and-swap loop)."""
     from repro_torch.kernels import _build
-    for name in ("histogram", "bin_select", "pack_chunks", "golomb_decode"):
+    for name in ("histogram", "bin_select", "pack_chunks", "golomb_decode",
+                 "threshold_stats", "bisect_select"):
         notes = [line.split(":", 1)[-1].strip()
                  for line in _build.build_log(name).splitlines()
                  if "Used" in line or "spill" in line]
@@ -209,6 +224,8 @@ def check_kernels(torch, np, rk):
         np.zeros(n_adv),                            # all-zero row
         few,                                        # fewer non-zeros than k
         rng.standard_normal(n_adv),
+        subnormal_row(np, rng, n_adv),              # subnormals as zeros
+        rng.standard_normal(n_adv) * 1e-40,         # all subnormal
     ]).astype(np.float32)).to(dev)
 
     torch_select = get_stc_backend("torch").select_batch
@@ -221,12 +238,11 @@ def check_kernels(torch, np, rk):
             (adversarial, 100),
             (adversarial, 1),
             (adversarial, n_adv),
-            (adversarial, np.array([1, 100, 7, 20_000, 5_000, 6_148]))]
+            (adversarial, np.array([1, 100, 7, 20_000, 5_000, 6_148, 300,
+                                    5]))]
     hist_err = sel_err = apply_err = select_err = 0.0
     for x, k in sets:
-        a = x.abs()
-        a_max = a.amax(dim=1)
-        scale = torch.where(a_max > 0, 256.0 / a_max, torch.zeros_like(a_max))
+        scale = row_scale(torch, x)
         hist_err = max(hist_err, check_histogram(torch, rk, x, scale))
 
         t_k, c_k, s_k = rk.hist_topk_threshold_batched(x, k)
@@ -282,8 +298,17 @@ def skewed(torch, np, rng, n_rows, n, scale=False):
     x = torch.from_numpy(x.astype(np.float32)).to("cuda")
     if not scale:
         return x
-    a_max = x.abs().amax(dim=1)
-    return x, torch.where(a_max > 0, 256.0 / a_max, torch.zeros_like(a_max))
+    return x, row_scale(torch, x)
+
+
+def subnormal_row(np, rng, n):
+    """N(0, 1)·1e-40 subnormals with ~1 % N(0, 1) values and ~1 % values
+    within a factor 4 of FLT_MIN on either side (float64; the caller
+    casts)."""
+    x = rng.standard_normal(n) * 1e-40
+    x[rng.integers(0, n, n // 100)] = rng.standard_normal(n // 100)
+    x[rng.integers(0, n, n // 100)] = rng.uniform(-4, 4, n // 100) * FLT_MIN
+    return x
 
 
 def carried_like(torch, np, rng, n_rows, n):
@@ -535,45 +560,120 @@ def check_golomb_cases(torch, np, rk) -> float:
 
 
 def check_threshold_stats(torch, np, rk, rng) -> float:
-    """``threshold_stats`` at the cnn's n on a row with zeros, at t = 0,
-    two quantiles and above the max: counts exact, sums within rtol 1e-6.
-    Returns the sums' largest abs difference."""
+    """``threshold_stats`` at the cnn's n on a row with zeros and on a
+    subnormal row, at t = 0, a subnormal t, two quantiles and above the
+    max, and on a short row (n = 17): counts exact, sums within rtol 1e-6,
+    one launch a call, and a second call identical to the first.  Returns
+    the sums' largest abs difference."""
     x_np = (rng.standard_normal(MAIN_N) * 1e-3).astype(np.float32)
     x_np[rng.random(MAIN_N) < 0.1] = 0.0
-    x = torch.from_numpy(x_np).to("cuda")
-    a = x.abs()
+    rows = [torch.from_numpy(x_np).to("cuda"),
+            torch.from_numpy(subnormal_row(np, rng, MAIN_N).astype(
+                np.float32)).to("cuda"),
+            torch.from_numpy(rng.standard_normal(17).astype(
+                np.float32)).to("cuda")]
     err = 0.0
-    for t in (torch.zeros((), device="cuda"), a.quantile(0.5),
-              a.quantile(0.98), a.max() * 2):
-        cnt, total = rk.threshold_stats(x, t)
-        cnt_p, total_p = rk.threshold_stats_plain(x, t)
-        require(int(cnt) == int(cnt_p),
-                f"threshold_stats count differs at t={float(t)}")
-        require(bool(torch.allclose(total, total_p, rtol=1e-6, atol=0.0)),
-                f"threshold_stats sum beyond rtol 1e-6 at t={float(t)}")
-        err = max(err, float((total - total_p).abs()))
-    require(int(rk.threshold_stats(x, torch.zeros((), device="cuda"))[0])
-            == int((x_np != 0).sum()), "threshold_stats counted zeros")
+    for x in rows:
+        a = x.abs()
+        for t in (torch.zeros((), device="cuda"),
+                  torch.full((), 1e-40, device="cuda"), a.quantile(0.5),
+                  a.quantile(0.98), a.max() * 2):
+            before = rk.LAUNCHES.counts["threshold_stats"]
+            cnt, total = rk.threshold_stats(x, t)
+            again = rk.threshold_stats(x, t)
+            require(rk.LAUNCHES.counts["threshold_stats"] == before + 2,
+                    "one threshold_stats call is not one launch")
+            cnt_p, total_p = rk.threshold_stats_plain(x, t)
+            what = f"n={x.numel()} t={float(t)}"
+            require(int(cnt) == int(cnt_p),
+                    f"threshold_stats count differs at {what}")
+            require(bool(torch.allclose(total, total_p, rtol=1e-6,
+                                        atol=0.0)),
+                    f"threshold_stats sum beyond rtol 1e-6 at {what}")
+            require(torch.equal(cnt, again[0])
+                    and torch.equal(total, again[1]),
+                    f"two threshold_stats calls differ at {what}")
+            err = max(err, float((total - total_p).abs()))
+    require(int(rk.threshold_stats(rows[0], torch.zeros((), device="cuda"))
+                [0]) == int((x_np != 0).sum()),
+            "threshold_stats counted zeros")
+    normal = int((rows[1].abs() >= FLT_MIN).sum())
+    require(int(rk.threshold_stats(rows[1], 1e-40)[0]) == normal,
+            "threshold_stats counted subnormals")
     return err
 
 
+def bisect_vs_plain(torch, rk, x, k, iters=32) -> float:
+    """The fused bisection on the card against its plain version on the
+    same card tensor and on the CPU: ``lo`` and the count bitwise, Σ within
+    rtol 1e-6, one launch a call, and a second call with identical bits.
+    Returns Σ's abs difference."""
+    what = f"n={x.numel()} k={k} iters={iters}"
+    before = rk.LAUNCHES.counts["bisect_select"]
+    got = rk.topk_threshold(x, k, iters=iters)
+    again = rk.topk_threshold(x, k, iters=iters)
+    require(rk.LAUNCHES.counts["bisect_select"] == before + 2,
+            f"one bisection is not one launch at {what}")
+    for want in (rk.topk_threshold_plain(x, k, iters),
+                 rk.topk_threshold_plain(x.cpu(), k, iters)):
+        require(torch.equal(got[0].cpu().view(torch.int32),
+                            want[0].cpu().view(torch.int32))
+                and int(got[1]) == int(want[1]),
+                f"bisection lo or count differs from its plain version at "
+                f"{what}")
+        require(bool(torch.allclose(got[2].cpu(), want[2].cpu(), rtol=1e-6,
+                                    atol=0.0)),
+                f"bisection sum beyond rtol 1e-6 at {what}")
+    require(all(torch.equal(g.view(torch.int32), a.view(torch.int32))
+                for g, a in zip(got, again)),
+            f"two bisection calls differ at {what}")
+    return float((got[2].cpu() - want[2]).abs())
+
+
 def check_bisection(torch, np, rk, rng) -> float:
-    """The bisection driver on the card against the CPU (threshold bitwise,
-    count exact, sums within rtol 1e-6), and ``selector="bisect"`` against
+    """The fused bisection against its plain version: at the cnn's n for
+    p in {0.001, 1/50, 0.1} (count = k), on
+    the edge cases of ``tests/_bisect_cases.py`` (all zero, subnormal,
+    k = n, ties, n below 32, fewer non-zeros than k) with ``iters`` 0 and
+    32, on a subnormal row, and on a vector larger than the cluster's
+    shared memory (4,000,037 elements); ``stc_compress_kernel(selector=
+    "bisect")`` under ``set_sync_debug_mode("error")``, and against
     ``"hist"`` at p = 1/50 (the same mask).  Returns the largest sum
     difference."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _bisect_cases as bc
     x = torch.from_numpy(
         (rng.standard_normal(MAIN_N) * 1e-3).astype(np.float32)).to("cuda")
     err = 0.0
     for p in (0.001, P_STC, 0.1):
         k = max(int(MAIN_N * p), 1)
-        t, c, s = rk.topk_threshold(x, k)
-        t_c, c_c, s_c = rk.topk_threshold(x.cpu(), k)
-        require(torch.equal(t.cpu(), t_c) and int(c) == int(c_c) == k,
-                f"bisection threshold or count differs from the CPU at k={k}")
-        require(bool(torch.allclose(s.cpu(), s_c, rtol=1e-6, atol=0.0)),
-                f"bisection sum beyond rtol 1e-6 at k={k}")
-        err = max(err, float((s.cpu() - s_c).abs()))
+        err = max(err, bisect_vs_plain(torch, rk, x, k))
+        require(int(rk.topk_threshold(x, k)[1]) == k,
+                f"bisection count is not k={k}")
+    n_cases = 0
+    for case, k in bc.EDGE_CASES:
+        row = torch.from_numpy(bc.edge_row(
+            case, np.random.default_rng(k))).to("cuda")
+        for iters in (0, 32):
+            err = max(err, bisect_vs_plain(torch, rk, row, k, iters))
+            n_cases += 1
+    sub = torch.from_numpy(subnormal_row(np, rng, MAIN_N).astype(
+        np.float32)).to("cuda")
+    big = torch.from_numpy(
+        (rng.standard_normal(4_000_037) * 1e-3).astype(np.float32)).to("cuda")
+    for row, k in ((sub, 1000), (sub, 6148), (big, 80_000)):
+        err = max(err, bisect_vs_plain(torch, rk, row, k))
+    print(f"bisect_select: {n_cases} edge cases, the cnn's n at three k "
+          f"a subnormal row and n=4,000,037: lo and "
+          f"count bitwise its plain version's, two calls identical")
+    res = torch.zeros_like(x)
+    rk.stc_compress_kernel(x, res, P_STC, selector="bisect")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rk.stc_compress_kernel(x, res, P_STC, selector="bisect")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     r = torch.from_numpy(
         (rng.standard_normal(MAIN_N) * 1e-4).astype(np.float32)).to("cuda")
     bis = rk.stc_compress_kernel(x, r, P_STC, selector="bisect")
@@ -1020,8 +1120,12 @@ def check_signsgd_ingest(torch, np, rk, rounds=3):
 def run_bisection(torch, np, rk):
     """The bisection path through its entry point,
     ``stc_compress_kernel(selector="bisect")``, at the cnn's width, counters
-    set to 0 just before; ``threshold_stats`` must launch (iters + 1 = 33
-    times).  Returns the launch counts and shapes."""
+    set to 0 just before: exactly one ``bisect_select`` launch (all iters +
+    1 = 33 rounds), one ``stc_apply`` and no ``threshold_stats``; then
+    ``threshold_stats`` through its own entry point at the selected
+    threshold (one launch, counting k): a check only, whose launch is not
+    counted (no path launches ``threshold_stats``).  Returns the path's
+    launch counts and shapes."""
     rng = np.random.default_rng(3)
     delta = torch.from_numpy(
         (rng.standard_normal(MAIN_N) * 1e-3).astype(np.float32)).to("cuda")
@@ -1033,8 +1137,12 @@ def run_bisection(torch, np, rk):
     torch.cuda.synchronize()
     launches = dict(rk.LAUNCHES.counts)
     shapes = dict(rk.LAUNCHES.shapes)
-    require(launches["threshold_stats"] > 0,
-            "kernel threshold_stats never launched on the bisection path")
+    require(launches["bisect_select"] == 1 and launches["stc_apply"] == 1
+            and launches["threshold_stats"] == 0,
+            f"the bisection path launched bisect_select "
+            f"{launches['bisect_select']} times, stc_apply "
+            f"{launches['stc_apply']} and threshold_stats "
+            f"{launches['threshold_stats']}, not 1, 1 and 0")
     k = max(int(MAIN_N * P_STC), 1)
     require(int(cnt) == k and int((tern != 0).sum()) == k
             and bool(torch.isfinite(res).all()) and float(mu) > 0,
@@ -1042,6 +1150,14 @@ def run_bisection(torch, np, rk):
     print(f"bisection path: stc_compress_kernel(selector='bisect') at n="
           f"{MAIN_N}, k={k}: count {int(cnt)}, launches "
           f"{json.dumps(launches)}")
+    carried = delta + residual
+    rk.LAUNCHES.reset()
+    c_t, s_t = rk.threshold_stats(carried, thresh)
+    torch.cuda.synchronize()
+    require(rk.LAUNCHES.counts["threshold_stats"] == 1 and int(c_t) == k
+            and bool(torch.allclose(s_t, mu * k, rtol=1e-6, atol=0.0)),
+            "threshold_stats at the selected threshold is not one launch "
+            "counting k with the selection's mass")
     return launches, shapes
 
 
@@ -1088,10 +1204,11 @@ def upstream_chunks(np, last):
 
 
 def row_scale(torch, x):
-    """The k-selection's per-row scale, 256 / max|x| (0 for a zero
-    row)."""
+    """The k-selection's per-row scale, 256 / max|x| (0 for a row of zeros
+    and subnormals)."""
     a_max = x.abs().amax(dim=1)
-    return torch.where(a_max > 0, 256.0 / a_max, torch.zeros_like(a_max))
+    return torch.where(a_max >= FLT_MIN, 256.0 / a_max,
+                       torch.zeros_like(a_max))
 
 
 def time_histogram(torch, rk, mats):
@@ -1213,6 +1330,62 @@ def select_row(torch, rk, launches, errs, last, bound):
     return row
 
 
+def bisect_row(torch, rk, launches, errs, x1, bound):
+    """The fused bisection on the bisection path's vector: device time and
+    host included, and per step (iters + 1 = 33 steps: 32 bisection steps,
+    settled two a round, and the final count); the plain loop (device time: its ~300 small launches
+    queue behind the hold two calls at a time); the bound, one read of x;
+    and ``torch.topk`` of ``|x|``, the library call that selects the same
+    k, in device time and host included.  Then both in device time at
+    n = 17 (below one warp a CTA) and n = 4,000,037 (past the cluster's
+    shared memory, 917,504 elements), where the kernel is not held to its
+    bound."""
+    n = x1.numel()
+    k = max(int(n * P_STC), 1)
+    steps = 33
+
+    def kernel():
+        return rk.topk_threshold(x1, k)
+
+    def topk():
+        return torch.topk(x1.abs(), k)
+
+    row = {"name": "bisect_select", "route": "cuda",
+           "source": "src/repro_torch/csrc/bisect_select.cu",
+           "replaces": "src/repro/kernels/topk_threshold.py:104",
+           "launches": launches["bisect_select"],
+           "max_abs_err": errs["bisection"]}
+    row["ms"] = event_ms(torch, kernel)
+    row["ms_host"] = event_ms(torch, kernel, iters=20, hold_stream=False)
+    row["us_per_step"] = row["ms"] * 1e3 / steps
+    row["plain_ms"] = event_ms(
+        torch, lambda: rk.topk_threshold_plain(x1, k), iters=1)
+    row["plain_ms_host"] = event_ms(
+        torch, lambda: rk.topk_threshold_plain(x1, k), iters=5,
+        hold_stream=False)
+    row["bound_ms"] = bound(4 * n + 4 + 4 + 4)   # x once; lo, cnt, sum
+    row["bound_by"] = "bytes"
+    row["library_ms"] = event_ms(torch, topk)
+    row["library_ms_host"] = event_ms(torch, topk, iters=20,
+                                      hold_stream=False)
+    print(f"bisect_select at n={n}, k={k}, {steps} steps: device "
+          f"{row['ms']:.4f} ms ({row['us_per_step']:.3f} us a step), host "
+          f"included {row['ms_host']:.4f} ms; torch.topk of |x| device "
+          f"{row['library_ms']:.4f} ms, host included "
+          f"{row['library_ms_host']:.4f} ms; bound {row['bound_ms']:.5f} ms")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for m in (17, 4_000_037):
+        xm = torch.randn(m, generator=gen, device="cuda")
+        km = max(int(m * P_STC), 1)
+        ms = event_ms(torch, lambda: rk.topk_threshold(xm, km))
+        lib = event_ms(torch, lambda: torch.topk(xm.abs(), km))
+        row[f"ms_n{m}"], row[f"library_ms_n{m}"] = ms, lib
+        print(f"bisect_select at n={m}, k={km}: device {ms:.4f} ms, "
+              f"torch.topk of |x| {lib:.4f} ms, bound "
+              f"{bound(4 * m + 12):.5f} ms")
+    return row
+
+
 def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
     """Device time of each kernel at its path's shapes beside its plain
     version, its byte bound and (where one PyTorch call computes the same
@@ -1251,7 +1424,7 @@ def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
     words = torch.from_numpy(rng.integers(
         0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
         .view(np.int32)).to(dev)
-    n_stats = shapes["threshold_stats"][0]
+    n_stats = shapes["bisect_select"][0]   # threshold_stats's own row
     x1 = x[0, :n_stats].contiguous()
     t1 = x1.abs().quantile(1 - P_STC)
 
@@ -1342,8 +1515,11 @@ def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
         "ms": event_ms(torch, lambda: rk.threshold_stats(x1, t1)),
         "plain_ms": event_ms(torch,
                              lambda: rk.threshold_stats_plain(x1, t1)),
-        "bound_ms": bound(4 * n_stats + 4 + 4 + 8), "bound_by": "bytes",
-        "library_ms": None})
+        "bound_ms": bound(4 * n_stats + 4 + 4 + 4), "bound_by": "bytes",
+        "library_ms": None, "on_path": False,
+        "ms_host": event_ms(torch, lambda: rk.threshold_stats(x1, t1),
+                            iters=20, hold_stream=False)})
+    out.append(bisect_row(torch, rk, launches, errs, x1, bound))
     # every k-selection is timed with its host work, torch.topk beside them
     # (the bisection synchronizes; the histogram route on the carried
     # matrices is also timed in device time, in select_row)
@@ -1356,15 +1532,14 @@ def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
     k1 = max(int(n_stats * P_STC), 1)
     bis_ms = event_ms(torch, lambda: rk.topk_threshold(x1, k1),
                       iters=20, hold_stream=False)
-    # ~300 launches a selection: two fit the launch queue during the hold
-    bis_dev_ms = event_ms(torch, lambda: rk.topk_threshold(x1, k1), iters=2)
+    bis_dev_ms = event_ms(torch, lambda: rk.topk_threshold(x1, k1))
     hist1_ms = event_ms(torch,
                         lambda: rk.hist_topk_threshold_batched(x1[None], k1),
                         iters=20, hold_stream=False)
     topk1_ms = event_ms(torch, lambda: torch.topk(x1.abs(), k1),
                         iters=20, hold_stream=False)
     print(f"selection at ({n_stats},), k={k1}, host included: bisection "
-          f"(33 threshold_stats passes) {bis_ms:.4f} ms (device time "
+          f"(one bisect_select launch) {bis_ms:.4f} ms (device time "
           f"{bis_dev_ms:.4f} ms), histogram route {hist1_ms:.4f} ms, "
           f"torch.topk {topk1_ms:.4f} ms")
     for row in out:
@@ -1599,10 +1774,11 @@ def main() -> int:
                     "golomb_decode": launches_in["golomb_decode"],
                     "unpack_bits": launches_sg["unpack_bits"],
                     "pack_bits": launches_sg["pack_bits"],
-                    "threshold_stats": launches_bis["threshold_stats"]}
+                    "threshold_stats": launches_bis["threshold_stats"],
+                    "bisect_select": launches_bis["bisect_select"]}
         shapes = {**shapes, "unpack_bits": shapes_sg["unpack_bits"],
                   "pack_bits": shapes_sg["pack_bits"],
-                  "threshold_stats": shapes_bis["threshold_stats"]}
+                  "bisect_select": shapes_bis["bisect_select"]}
         rows = time_kernels(torch, np, rk, shapes, launches, errs, last,
                             batch_in)
         time_round(torch, np, tr)

@@ -15,6 +15,12 @@ Counterpart of ``repro/core/compression.py``, in PyTorch:
   counterpart of the reference's ``"jnp"`` and the tests' oracle) and
   ``"kernel"`` (the histogram selection and fused apply kernels of
   :mod:`repro_torch.kernels`, the default).
+
+Subnormal fp32 values (``|x| < FLT_MIN``) count as zero, as the reference
+computes them under XLA's flush-to-zero: never selected or counted, no part
+of µ, a residual of 0 and a sign of 0 (``core.selection.flush_subnormal``).
+The ``"torch"`` route flushes the operands and the result of every fp32 sum
+as XLA does, so its residuals are the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .selection import flush_subnormal
 
 __all__ = [
     "CompressionStats",
@@ -57,8 +65,9 @@ def _k_from_p(n: int, p: float) -> int:
 
 def top_k_mask(x: torch.Tensor, k: int) -> torch.Tensor:
     """Mask of ``|x| >= v`` with v the k-th largest magnitude of flattened
-    ``x`` (ties kept, as in Algorithm 1 line 5); exact zeros never kept."""
-    a = x.abs()
+    ``x`` (ties kept, as in Algorithm 1 line 5); zeros and subnormals never
+    kept."""
+    a = flush_subnormal(x).abs()
     v = torch.topk(a.reshape(-1), k).values[-1]
     return (a >= v) & (a > 0.0)
 
@@ -83,8 +92,9 @@ def stc_compress(x: torch.Tensor, p: float):
 
 def sign_compress(x: torch.Tensor, step: float):
     """signSGD with a coordinate-wise step size δ (paper Section VI uses
-    δ = 2e-4)."""
-    out = (step * torch.sign(x)).to(x.dtype)
+    δ = 2e-4).  A subnormal coordinate has sign 0 (the reference's flush);
+    ``torch.sign`` gives +0 where ``jnp.sign`` keeps -0."""
+    out = (step * torch.sign(flush_subnormal(x))).to(x.dtype)
     stats = CompressionStats(nnz=torch.tensor(x.numel()),
                              numel=torch.tensor(x.numel()),
                              mu=torch.tensor(step, dtype=x.dtype))
@@ -210,7 +220,7 @@ def _torch_select_batch(x: torch.Tensor, ks):
     sum are mask-then-reduce, as in the reference's ``_jnp_select_batch``."""
     bsz, n = x.shape
     ks = _static_ks(ks, bsz, n)
-    a = x.to(torch.float32).abs()
+    a = flush_subnormal(x.to(torch.float32)).abs()
     topc = torch.topk(a, min(int(ks.max()), n), dim=1).values
     kj = torch.tensor(ks, dtype=torch.int64, device=x.device)
     v = topc.gather(1, (kj - 1)[:, None])[:, 0]
@@ -221,7 +231,8 @@ def _torch_select_batch(x: torch.Tensor, ks):
 
 
 def _torch_compress_with_residual_batch(deltas, residuals, p: float):
-    carried = deltas.to(torch.float32) + residuals.to(torch.float32)
+    carried = flush_subnormal(flush_subnormal(deltas.to(torch.float32))
+                              + flush_subnormal(residuals.to(torch.float32)))
     k = _k_from_p(carried.shape[1], p)
     thresh, cnt, sums = _torch_select_batch(carried, k)
     mu = sums / torch.clamp(cnt, min=1).to(torch.float32)
@@ -230,7 +241,8 @@ def _torch_compress_with_residual_batch(deltas, residuals, p: float):
     tern = torch.where(mask, mu[:, None] * torch.sign(carried),
                        torch.zeros_like(carried))
     numel = torch.full((carried.shape[0],), carried.shape[1])
-    return tern, carried - tern, CompressionStats(nnz=cnt, numel=numel, mu=mu)
+    return (tern, flush_subnormal(carried - tern),
+            CompressionStats(nnz=cnt, numel=numel, mu=mu))
 
 
 def _single(batch_fn):

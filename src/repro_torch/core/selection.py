@@ -7,6 +7,11 @@ Counterpart of ``repro/core/selection.py``:
   is ``(a * scale)`` in fp32 truncated toward zero to int32, then clipped; it
   MUST stay bit-identical to the reference and to the CUDA histogram kernel
   (``__float2int_rz(a * scale)``: one fp32 multiply, no fused add).
+* ``flush_subnormal`` -- an fp32 value below ``FLT_MIN`` in magnitude as
+  the zero of its sign: what XLA on the CPU and the TPU do to the inputs and
+  outputs of fp32 arithmetic and comparisons, and so what the reference's
+  operators compute.  The plain versions flush their inputs with it; the
+  CUDA kernels flush the same values in the same places.
 * ``PASSES`` -- streaming-pass counter: every logical full sweep over the
   data records itself here.
 
@@ -18,17 +23,26 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NBINS", "DEFAULT_CAP", "bin_index", "locate_bin", "PASSES",
-           "PassCounter"]
+__all__ = ["NBINS", "DEFAULT_CAP", "FLT_MIN", "flush_subnormal", "bin_index",
+           "locate_bin", "PASSES", "PassCounter"]
 
 NBINS = 256         # histogram bins
 DEFAULT_CAP = 8192  # refinement-gather capacity (candidate bin size)
+FLT_MIN = torch.finfo(torch.float32).tiny   # 2^-126, the least normal fp32
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every subnormal value (``0 < |x| < FLT_MIN``) replaced by
+    the zero of its sign, as flush-to-zero hardware does."""
+    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
 
 
 def bin_index(a: torch.Tensor, scale: torch.Tensor, bins: int) -> torch.Tensor:
     """Linear magnitude binning; bit-identical to the reference's
-    ``jnp.clip((a * scale).astype(int32), 0, bins - 1)``."""
-    return torch.clamp((a * scale).to(torch.int32), 0, bins - 1)
+    ``jnp.clip((a * scale).astype(int32), 0, bins - 1)``, whose product
+    flushes a subnormal ``a`` to 0."""
+    return torch.clamp((flush_subnormal(a) * scale).to(torch.int32), 0,
+                       bins - 1)
 
 
 def locate_bin(cnt: torch.Tensor, sums: torch.Tensor, k: torch.Tensor,

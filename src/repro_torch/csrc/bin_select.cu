@@ -15,9 +15,10 @@
 //     sum_in     = sum of those candidates, fp64, rounded to fp32 once
 //
 // The bin is __float2int_rz(__fmul_rn(a, s)), clipped: the expression of
-// histogram.cu and core/selection.py::bin_index, bit for bit.  Exact zeros
-// are never counted (Algorithm 1: a row with fewer non-zeros than k gets
-// v = 0 and counts its non-zeros only).
+// histogram.cu and core/selection.py::bin_index, bit for bit.  A subnormal
+// |x| counts as 0 (its bits too), as the plain version's flush makes it.
+// Exact zeros are never counted (Algorithm 1: a row with fewer non-zeros
+// than k gets v = 0 and counts its non-zeros only).
 //
 // There is no capacity limit: a candidate bin may hold the whole row, as
 // bin 0 of a carried residual row does (98.7 % of a round-40 cnn row).
@@ -123,6 +124,13 @@ __device__ __forceinline__ void for_each_element(const RowSpan& sp,
   }
 }
 
+// |v| with a subnormal value as +0 (the reference's flush-to-zero), by its
+// bits: neither fabsf nor the conversion to fp64 is flushed by -ftz=true
+__device__ __forceinline__ float flushed_abs(float v) {
+  const unsigned b = __float_as_uint(v) & 0x7fffffffu;
+  return __uint_as_float(b < 0x00800000u ? 0u : b);
+}
+
 __device__ __forceinline__ int bin_of(float a, float s) {
   const int bin = __float2int_rz(__fmul_rn(a, s));
   return min(max(bin, 0), NBINS - 1);
@@ -178,7 +186,7 @@ __global__ void __launch_bounds__(THREADS)
   }
   const unsigned high = prefix >> HIGH;  // HIGH <= 31
   for_each_element(row_span(x, row, n), n, [&](float v) {
-    const float a = fabsf(v);
+    const float a = flushed_abs(v);
     const unsigned bits = __float_as_uint(a);
     if (bin_of(a, s) == bsel && (bits >> HIGH) == high) {
       atomicAdd(&h[(bits >> SHIFT) & (ND - 1)], 1u);
@@ -250,7 +258,7 @@ __global__ void __launch_bounds__(THREADS)
   int c = 0;
   double t = 0.0;
   for_each_element(row_span(x, row, n), n, [&](float e) {
-    const float a = fabsf(e);
+    const float a = flushed_abs(e);
     if (bin_of(a, s) == bsel && a >= v && a > 0.f) {
       c += 1;
       t += static_cast<double>(a);

@@ -11,7 +11,8 @@
 //
 // The bin is __float2int_rz(__fmul_rn(a, scale)): one fp32 multiply with no
 // fused add, truncated toward zero, then clipped -- the same expression as
-// core/selection.py::bin_index, bit for bit.
+// core/selection.py::bin_index, bit for bit.  A subnormal |x| counts as 0
+// (bin 0, adding nothing), as the plain version's flush_subnormal makes it.
 //
 // Bound: memory.  One read of x (4 bytes an element) plus the (B, 256)
 // output (8 bytes a bin); at (10, 307434) that is 12.3 MB, 3.7 us at
@@ -98,6 +99,13 @@ __device__ __forceinline__ unsigned fixed_point(float a, int ue) {
   return m << ((e ? e : 1) - 150 - ue);
 }
 
+// |v| with a subnormal value as +0 (the reference's flush-to-zero), by its
+// bits: neither fabsf nor the conversion to fp64 is flushed by -ftz=true
+__device__ __forceinline__ float flushed_abs(float v) {
+  const unsigned b = __float_as_uint(v) & 0x7fffffffu;
+  return __uint_as_float(b < 0x00800000u ? 0u : b);
+}
+
 struct RegBins {  // a thread's bins 0 and 1, and its bin-255 values >= big
   int c0, c1, cx;
   double s0, s1, sx;
@@ -112,7 +120,7 @@ __device__ __forceinline__ void bin_step(float v, bool valid, float s,
                                          RowUnit u, int* __restrict__ cnt,
                                          unsigned* __restrict__ lohi,
                                          RegBins& r) {
-  const float a = fabsf(v);
+  const float a = flushed_abs(v);
   int bin = __float2int_rz(__fmul_rn(a, s));
   bin = min(max(bin, 0), NBINS - 1);
   const double ad = static_cast<double>(a);

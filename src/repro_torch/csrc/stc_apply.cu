@@ -18,7 +18,11 @@
 // Rows of odd length (n = 307434 is not a multiple of 4) rule out aligned
 // float4 access per row, so the loads stay scalar and coalesced.  The
 // arithmetic is the plain version's, operation for operation: given the same
-// (t, mu) the outputs are bitwise equal.
+// (t, mu) the outputs are bitwise equal.  Subnormal values count as zeros,
+// as the reference computes them (flush-to-zero): t, mu and the residual as
+// the zero of their sign, and c as +0, the reference's flushed carried sum
+// of a subnormal delta and a +0 residual (the port's carried sum is not
+// flushed; ROADMAP Queue 3, R5).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,6 +32,18 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int ELEMS = 4;
 
+// v with a subnormal value as the zero of its sign, by its bits
+__device__ __forceinline__ float ftz(float v) {
+  const unsigned b = __float_as_uint(v);
+  return (b & 0x7f800000u) == 0u ? __uint_as_float(b & 0x80000000u) : v;
+}
+
+// a carried value with a subnormal as +0 (exact zeros kept), by its bits
+__device__ __forceinline__ float carried_read(float v) {
+  const unsigned b = __float_as_uint(v) & 0x7fffffffu;
+  return b != 0u && b < 0x00800000u ? 0.0f : v;
+}
+
 __global__ void stc_apply_kernel(const float* __restrict__ carried,
                                  const float* __restrict__ thresh,
                                  const float* __restrict__ mu,
@@ -35,8 +51,8 @@ __global__ void stc_apply_kernel(const float* __restrict__ carried,
                                  float* __restrict__ res,
                                  int64_t n) {
   const int64_t row = blockIdx.y;
-  const float t = thresh[row];
-  const float m = mu[row];
+  const float t = ftz(thresh[row]);
+  const float m = ftz(mu[row]);
   const float* c_row = carried + row * n;
   float* tern_row = tern + row * n;
   float* res_row = res + row * n;
@@ -45,12 +61,12 @@ __global__ void stc_apply_kernel(const float* __restrict__ carried,
   for (int j = 0; j < ELEMS; ++j) {
     const int64_t i = base + j * THREADS + threadIdx.x;
     if (i < n) {
-      const float c = c_row[i];
+      const float c = carried_read(c_row[i]);
       const float a = fabsf(c);
       const bool keep = (a >= t) && (a > 0.0f);
       const float q = keep ? (c > 0.0f ? m : -m) : 0.0f;
       tern_row[i] = q;
-      res_row[i] = __fsub_rn(c, q);
+      res_row[i] = ftz(__fsub_rn(c, q));
     }
   }
 }

@@ -7,7 +7,8 @@ PyTorch versions.
   (``csrc/histogram.cu``), the exact select inside the candidate bin
   (``csrc/bin_select.cu``) and the k-selection they make up.
 * ``topk_threshold`` -- threshold statistics (``csrc/threshold_stats.cu``)
-  and the bisection k-selection around them (``selector="bisect"``).
+  and the bisection k-selection (``selector="bisect"``), one launch of a
+  thread block cluster on the card (``csrc/bisect_select.cu``).
 * ``bitpack``        -- MSB-first word packing of the wire stream: Golomb
   chunks (``csrc/pack_chunks.cu``), the device half of the ``"kernel"``
   ternary wire encode, and dense sign planes (``csrc/pack_bits.cu``).
@@ -33,7 +34,7 @@ from .hist_select import (candidate_select_batched, candidate_select_plain,
 from .ops import stc_compress_batch, stc_compress_kernel
 from .stc_compress import stc_apply_batched, stc_apply_plain
 from .topk_threshold import (threshold_stats, threshold_stats_plain,
-                             topk_threshold)
+                             topk_threshold, topk_threshold_plain)
 from .wiredecode import (decode_golomb_fields, decode_golomb_fields_plain,
                          unpack_bits_words, unpack_words_plain,
                          unpack_words_with_counts)
@@ -53,6 +54,7 @@ __all__ = [
     "threshold_stats",
     "threshold_stats_plain",
     "topk_threshold",
+    "topk_threshold_plain",
     "pack_bits",
     "pack_bits_plain",
     "pack_chunks",

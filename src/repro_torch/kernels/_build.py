@@ -4,18 +4,24 @@ Every ``csrc/*.cu`` source has a plain C interface and is compiled on first
 use by one ``nvcc`` process per source, all started together, into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so \\
-         csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -ftz=true \\
+         -shared -Xcompiler -fPIC -Xptxas -v \\
+         -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+
+``-ftz=true`` flushes subnormal fp32 inputs and results of arithmetic and
+comparisons to zero, as XLA does on the CPU and the TPU, where the reference
+computes; the kernels also flush explicitly wherever a value's bits or its
+conversion to fp64 are read (neither is flushed by the flag).
 
 The compiler's output (``-Xptxas -v``: each kernel's registers, shared
 memory and spills) is kept beside the library and read by
 :func:`build_log`.
 
-The library name carries a hash of its source, so an edited kernel is never
-served from a stale build.  Libraries are loaded with ``ctypes``; every C
-entry takes its pointers and PyTorch's current stream as ``void*`` and
-returns ``cudaGetLastError()``, which :func:`check` turns into an exception.
+The library name carries a hash of its source and of the flags, so an
+edited kernel is never served from a stale build.  Libraries are loaded
+with ``ctypes``; every C entry takes its pointers and PyTorch's current
+stream as ``void*`` and returns ``cudaGetLastError()``, which
+:func:`check` turns into an exception.
 
 ``LAUNCHES`` counts kernel launches by name.  A wrapper records one launch
 where it launches its kernel and nowhere else, so a run can show that its
@@ -40,9 +46,10 @@ __all__ = ["SOURCES", "LAUNCHES", "LaunchCounter", "build_all", "build_log",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("stc_apply", "histogram", "bin_select", "pack_bits",
-           "pack_chunks", "unpack_bits", "golomb_decode", "threshold_stats")
+           "pack_chunks", "unpack_bits", "golomb_decode", "threshold_stats",
+           "bisect_select")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-ftz=true", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[tuple[str, str], object] = {}
@@ -81,7 +88,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

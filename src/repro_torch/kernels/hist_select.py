@@ -10,8 +10,8 @@ tensor; on a CPU tensor they run :func:`magnitude_histogram_plain` and
 :func:`hist_topk_threshold_batched` is the k-selection, the same on
 both devices:
 
-1. ``a_max = max|x|`` per row and ``scale = 256 / a_max`` (0 for an
-   all-zero row);                                         (pass 1, torch)
+1. ``a_max = max|x|`` per row and ``scale = 256 / a_max`` (0 for a row
+   of zeros and subnormals);                              (pass 1, torch)
 2. the histogram of per-bin ``(count, Σ|x|)``;           (pass 2, kernel)
 3. ``locate_bin`` finds the bin ``b`` that holds the k-th largest magnitude
    and its rank ``r`` inside it, and the select reads the exact ``r``-th
@@ -29,8 +29,10 @@ reference's small-k shortcut (``interpret and k_max <= cap``) would bypass
 the kernel at every main-path k.
 
 Counts and sums follow Algorithm 1 (the reference's ``"jnp"`` contract):
-exact zeros are never counted, so a row with fewer than k non-zeros gets
-``v = 0``, ``count = #non-zeros`` and ``Σ`` over them (ROADMAP Queue 3, R1).
+exact zeros are never counted and subnormal values count as zeros (the
+kernels and the plain versions flush them, ``flush_subnormal``), so a row
+with fewer than k non-zeros gets ``v = 0``, ``count = #non-zeros`` and
+``Σ`` over them (ROADMAP Queue 3, R1).
 The threshold is an element of the row and the count is exact; ``Σ`` is
 assembled from bin sums plus the candidates', so it differs from a
 mask-then-reduce sum at the ulp level.
@@ -43,7 +45,8 @@ import ctypes
 import numpy as np
 import torch
 
-from ..core.selection import DEFAULT_CAP, NBINS, PASSES, bin_index, locate_bin
+from ..core.selection import (DEFAULT_CAP, FLT_MIN, NBINS, PASSES, bin_index,
+                              flush_subnormal, locate_bin)
 from . import _build
 
 __all__ = ["NBINS", "DEFAULT_CAP", "magnitude_histogram_batched",
@@ -70,7 +73,7 @@ def magnitude_histogram_plain(x: torch.Tensor, scale: torch.Tensor,
                               bins: int = NBINS):
     """Plain PyTorch version: per-row ``(count int32, Σ|x| fp32)``.  Sums
     accumulate in fp64 and round to fp32 once, like the kernel."""
-    a = x.abs()
+    a = flush_subnormal(x).abs()
     idx = bin_index(a, scale[:, None], bins).to(torch.int64)
     rows = x.shape[0]
     cnt = torch.zeros((rows, bins), dtype=torch.int32, device=x.device)
@@ -185,7 +188,7 @@ def candidate_select_plain(x: torch.Tensor, scale: torch.Tensor,
     full sort.  Runs on the CPU; the card runs ``csrc/bin_select.cu``."""
     n = x.shape[1]
     cap_eff = min(cap, n)
-    a = x.abs()
+    a = flush_subnormal(x).abs()
     in_bin = bin_index(a, scale[:, None], NBINS) == b[:, None]
     topc = torch.topk(torch.where(in_bin, a, torch.full_like(a, -1.0)),
                       cap_eff, dim=1).values
@@ -315,7 +318,9 @@ def hist_topk_threshold_batched(x: torch.Tensor, k, *, bins: int = NBINS,
 
     PASSES.record("max")                                        # pass 1
     a_max = torch.linalg.vector_norm(x, float("inf"), dim=1)
-    scale = torch.where(a_max > 0, torch.full_like(a_max, float(bins)) / a_max,
+    # a row of zeros and subnormals is all zeros: scale 0, as the reference
+    scale = torch.where(a_max >= FLT_MIN,
+                        torch.full_like(a_max, float(bins)) / a_max,
                         torch.zeros_like(a_max))
 
     cnt, sums = magnitude_histogram_batched(x, scale, bins=bins)  # pass 2

@@ -5,9 +5,15 @@ Counterpart of ``repro/kernels/ops.py``:
 
     1. exact k-selection (``k = max(int(n·p), 1)``): by histogram
        (``selector="hist"``, the default) or by threshold bisection
-       (``selector="bisect"``, ``iters + 1`` stats passes)
+       (``selector="bisect"``, ``iters + 1`` logical stats passes in one
+       launch on the card)
     2. ``µ = Σ|carried at or above t| / max(count, 1)``
     3. fused ternarize + error feedback over the carried vector
+
+The kernels and their plain versions treat subnormal values as zeros, as
+the reference does.  The carried sum ``delta + residual`` is one torch add
+that does not flush its operands (ROADMAP Queue 3, R5): flushing them would
+cost two more passes over the batch.
 
 :func:`stc_compress_batch` compresses a round's ``(P, n)`` client updates
 with one histogram launch and one apply launch; it keeps the histogram

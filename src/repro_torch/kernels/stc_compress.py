@@ -7,7 +7,11 @@ wrapper launches ``csrc/stc_apply.cu``; on a CPU tensor it runs
 
 The mask is ``|c| >= t & |c| > 0``: exact zeros are never selected, as in
 the reference's ``"jnp"`` backend and Algorithm 1 (the reference's Pallas
-path counts zeros at ``t = 0``; see ROADMAP Queue 3, R1).
+path counts zeros at ``t = 0``; see ROADMAP Queue 3, R1).  Subnormal values
+count as zeros, as the reference computes them: ``t``, ``µ`` and the
+residual as the zero of their sign (``flush_subnormal``), and a carried
+value as +0, which is the reference's flushed carried sum of a subnormal
+delta and a +0 residual (the carried sum here is not flushed; R5).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import ctypes
 
 import torch
 
-from ..core.selection import PASSES
+from ..core.selection import FLT_MIN, PASSES, flush_subnormal
 from . import _build
 
 __all__ = ["stc_apply_batched", "stc_apply_plain"]
@@ -25,12 +29,13 @@ __all__ = ["stc_apply_batched", "stc_apply_plain"]
 def stc_apply_plain(carried: torch.Tensor, thresh: torch.Tensor,
                     mu: torch.Tensor):
     """Plain PyTorch version: ``(tern, carried - tern)`` per row."""
-    a = carried.abs()
-    keep = (a >= thresh[:, None]) & (a > 0.0)
-    tern = torch.where(keep, mu[:, None] * torch.sign(carried),
-                       torch.zeros((), dtype=carried.dtype,
-                                   device=carried.device))
-    return tern, carried - tern
+    c = torch.where((carried != 0) & (carried.abs() < FLT_MIN), 0.0,
+                    carried)
+    a = c.abs()
+    keep = (a >= flush_subnormal(thresh)[:, None]) & (a > 0.0)
+    tern = torch.where(keep, flush_subnormal(mu)[:, None] * torch.sign(c),
+                       torch.zeros((), dtype=c.dtype, device=c.device))
+    return tern, flush_subnormal(c - tern)
 
 
 def _launch(carried, thresh, mu):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import _bisect_cases as bisect_cases
 import _golomb_cases as golomb_cases
 from repro_torch import kernels as rk
 from repro_torch.core import wire
@@ -194,7 +195,8 @@ def _select_inputs(x, k):
     rows, n = x.shape
     kj = hist_select._row_ks(k, rows, n, x.device)
     a_max = x.abs().amax(dim=1)
-    scale = torch.where(a_max > 0, 256.0 / a_max, torch.zeros_like(a_max))
+    scale = torch.where(a_max >= bisect_cases.FLT_MIN, 256.0 / a_max,
+                        torch.zeros_like(a_max))
     cnt, sums = rk.magnitude_histogram_batched(x, scale)
     b, cnt_gt, _, _ = locate_bin(cnt, sums, kj, 256)
     return scale, b, kj - cnt_gt.to(torch.int64)
@@ -275,22 +277,129 @@ def test_threshold_stats(dev, q):
     before = rk.LAUNCHES.counts["threshold_stats"]
     cnt, total = rk.threshold_stats(x, t)
     cnt_p, total_p = rk.threshold_stats_plain(x, t)
+    again = rk.threshold_stats(x, t)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES.counts["threshold_stats"] == before + 1
+    assert rk.LAUNCHES.counts["threshold_stats"] == before + 2
     assert int(cnt) == int(cnt_p)
     assert torch.allclose(total, total_p, rtol=1e-6, atol=0.0)
+    assert torch.equal(cnt, again[0]) and torch.equal(total, again[1])
 
 
 @pytest.mark.parametrize("p", [0.001, 0.02, 0.1])
 def test_bisection_matches_cpu(dev, p):
     x = _rows(dev, (307_434,), 4)
     k = max(int(x.numel() * p), 1)
-    before = rk.LAUNCHES.counts["threshold_stats"]
+    before = dict(rk.LAUNCHES.counts)
     t, c, s = rk.topk_threshold(x, k)
     t_c, c_c, s_c = rk.topk_threshold(x.cpu(), k)
-    assert rk.LAUNCHES.counts["threshold_stats"] == before + 33
+    assert rk.LAUNCHES.counts["bisect_select"] == before["bisect_select"] + 1
+    assert rk.LAUNCHES.counts["threshold_stats"] == before["threshold_stats"]
     assert torch.equal(t.cpu(), t_c) and int(c) == int(c_c) == k
     assert torch.allclose(s.cpu(), s_c, rtol=1e-6, atol=0.0)
+
+
+def _bisect_vs_plain(x, k, iters=32):
+    """The fused bisection on the card against its plain version on the
+    CPU: ``lo`` and the count bitwise, Σ within rtol 1e-6, one launch a
+    call, and a second call with identical bits."""
+    before = rk.LAUNCHES.counts["bisect_select"]
+    got = rk.topk_threshold(x, k, iters=iters)
+    again = rk.topk_threshold(x, k, iters=iters)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["bisect_select"] == before + 2
+    want = rk.topk_threshold_plain(x.cpu(), k, iters)
+    assert torch.equal(got[0].cpu().view(torch.int32),
+                       want[0].view(torch.int32))
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.allclose(got[2].cpu(), want[2], rtol=1e-6, atol=0.0)
+    assert all(torch.equal(g.view(torch.int32), a.view(torch.int32))
+               for g, a in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("iters", [0, 32])
+@pytest.mark.parametrize("case,k", bisect_cases.EDGE_CASES)
+def test_bisect_select_edge_cases(dev, iters, case, k):
+    x = bisect_cases.edge_row(case, np.random.default_rng(k))
+    _bisect_vs_plain(torch.from_numpy(x).to(dev), k, iters)
+
+
+@pytest.mark.parametrize("n,k", [(4_000_037, 4000), (4_000_037, 3_600_000),
+                                 (4_000_037, 3_999_000), (917_505, 18_350)])
+def test_bisect_select_beyond_shared_memory(dev, n, k):
+    """Vectors larger than the cluster's shared memory holds (16 x 57,344
+    elements): the rest is read again from global memory in every round,
+    inside the one launch.  With fewer non-zeros than k (3,636,397 here)
+    ``lo`` stays 0 and the count covers the non-zeros (R1)."""
+    x = _rows(dev, (n,), n % 97)
+    x[::11] = 0.0
+    nnz = int((x != 0).sum())
+    lo, c, _ = _bisect_vs_plain(x, k)
+    if k <= nnz:
+        assert int(c) == k
+    else:
+        assert float(lo) == 0.0 and int(c) == nnz
+
+
+def test_bisection_does_not_synchronize(dev):
+    x = _rows(dev, (307_434,), 6)
+    rk.topk_threshold(x, 6148)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = rk.stc_compress_kernel(x, torch.zeros_like(x), 1 / 50,
+                                     selector="bisect")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(out[4]) == 6148
+
+
+def _subnormal_rows(dev, rows, n, seed):
+    """N(0, 1)·1e-40 subnormals with ~1 % N(0, 1) values and some values
+    near FLT_MIN; the last row all subnormal."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, n)) * 1e-40
+    x[:, rng.integers(0, n, n // 100)] = rng.standard_normal(n // 100)
+    x[:, rng.integers(0, n, n // 100)] = rng.uniform(-4, 4, n // 100) \
+        * bisect_cases.FLT_MIN
+    x[-1] = rng.standard_normal(n) * 1e-40
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def test_kernels_flush_subnormal_rows_as_their_plain_versions(dev):
+    """Subnormals count as zeros in every kernel of the k-selection and
+    the apply, as in their plain versions (and the reference)."""
+    x = _subnormal_rows(dev, 3, 307_434, 8)
+    k = 6148
+    t, c, s = rk.hist_topk_threshold_batched(x, k)
+    t_c, c_c, s_c = rk.hist_topk_threshold_batched(x.cpu(), k)
+    assert torch.equal(t.cpu(), t_c) and torch.equal(c.cpu(), c_c)
+    assert torch.allclose(s.cpu(), s_c, rtol=1e-6, atol=0.0)
+    assert int(c[-1]) == 0 and float(t[-1]) == 0.0
+    scale, b, r = _select_inputs(x, k)
+    cnt, sums = rk.magnitude_histogram_batched(x, scale)
+    cnt_p, sums_p = rk.magnitude_histogram_plain(x, scale)
+    assert torch.equal(cnt, cnt_p)
+    assert torch.allclose(sums, sums_p, rtol=1e-6, atol=0.0)
+    got = rk.candidate_select_batched(x, scale, b, r)
+    want = rk.candidate_select_plain(x, scale, b, r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.allclose(got[2], want[2], rtol=1e-6, atol=0.0)
+    mu = s / torch.clamp(c, min=1).to(torch.float32)
+    tern, res = rk.stc_apply_batched(x, t, mu)
+    tern_p, res_p = rk.stc_apply_plain(x, t, mu)
+    assert torch.equal(tern.view(torch.int32), tern_p.view(torch.int32))
+    assert torch.equal(res.view(torch.int32), res_p.view(torch.int32))
+    a = res.abs()
+    assert not bool(((a > 0) & (a < bisect_cases.FLT_MIN)).any())
+    for q in (0.0, 1e-40, 0.5):
+        cnt1, tot1 = rk.threshold_stats(x[0], q)
+        cnt1_p, tot1_p = rk.threshold_stats_plain(x[0].cpu(),
+                                                 torch.tensor(q))
+        assert int(cnt1) == int(cnt1_p)
+        assert torch.allclose(tot1.cpu(), tot1_p, rtol=1e-6, atol=0.0)
+    _bisect_vs_plain(x[0], 3000)
+    _bisect_vs_plain(x[-1], 10)
 
 
 def _decode_table(words, word_start, bit_len, nnz):

@@ -98,3 +98,30 @@ def test_pass_counter():
     assert port.PASSES.counts == {"max": 1, "histogram": 2}
     port.PASSES.reset()
     assert port.PASSES.total() == 0
+
+
+def test_flush_subnormal_keeps_the_sign_and_every_normal():
+    """What XLA's flush-to-zero does to an fp32 input: a subnormal becomes
+    the zero of its sign; zeros, normals, infinities and NaN stay."""
+    x = np.array([1e-40, -1e-40, 1.17e-38, port.FLT_MIN, -port.FLT_MIN, 0.0,
+                  -0.0, 2.5, np.inf, -np.inf, np.nan], np.float32)
+    got = port.flush_subnormal(torch.from_numpy(x)).numpy()
+    want = np.asarray(jnp.asarray(x) * jnp.float32(1.0))     # XLA's flush
+    np.testing.assert_array_equal(got.view(np.uint32)[:-1],
+                                  want.view(np.uint32)[:-1])
+    assert np.isnan(got[-1])
+    assert port.FLT_MIN == np.finfo(np.float32).tiny
+
+
+@pytest.mark.parametrize("a_max", [1e-36, 1.0])
+def test_bin_index_flushes_subnormal_magnitudes(a_max):
+    """A subnormal magnitude lands in bin 0 as in the reference, whose
+    product flushes it, even where the row's scale would lift it above."""
+    rng = np.random.default_rng(2)
+    a = np.concatenate([rng.uniform(0, 1.2e-38, 500),
+                        rng.uniform(0, a_max, 500)]).astype(np.float32)
+    scale = np.float32(256.0) / np.float32(a_max)
+    want = np.asarray(ref.bin_index(jnp.asarray(a), jnp.float32(scale), 256))
+    got = port.bin_index(torch.from_numpy(a), torch.tensor(scale), 256)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got.numpy()[a < port.FLT_MIN].any()

@@ -10,7 +10,11 @@ version, the ``topk_threshold`` driver and ``stc_compress_kernel(selector=
   for p in {0.001, 0.01, 0.1};
 * ``selector="bisect"``: ternary message and residual within 1e-6 of the
   reference's, count exact, and the same mask as ``selector="hist"`` on
-  continuous data.
+  continuous data;
+* the edge cases of ``tests/_bisect_cases.py`` (all zero, subnormal, k =
+  n, ``iters = 0``, ties, n below 32, fewer non-zeros than k): ``lo``
+  bitwise, counts exact where R1 does not apply, subnormals counted as
+  zeros, as XLA's flush-to-zero makes them.
 """
 
 import os
@@ -20,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _bisect_cases import EDGE_CASES, FLT_MIN, edge_row
 from repro.core.compression import get_stc_backend as ref_backend
 from repro.kernels import stc_compress_kernel as ref_stc_kernel
 from repro.kernels import threshold_stats as ref_stats
@@ -148,3 +153,74 @@ def test_unknown_selector_raises():
     with pytest.raises(ValueError, match="selector"):
         rk.stc_compress_kernel(torch.zeros(8), torch.zeros(8), 0.5,
                                selector="sort")
+
+
+# ---------------------------------------------------------------------------
+# The cases the fused bisection kernel must get right, against the reference
+# in interpret mode: ``lo`` bitwise; the count exact where R1 does not apply
+# (lo > 0) and at lo = 0 the normal non-zeros; Σ within rtol 1e-6.
+# Subnormal values count as zeros (XLA flushes them).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("iters", [0, 32])
+@pytest.mark.parametrize("case,k", EDGE_CASES)
+def test_topk_threshold_edge_cases_match_reference(case, k, iters):
+    x = edge_row(case, np.random.default_rng(k))
+    t_r, c_r, s_r = ref_topk(jnp.asarray(x), k, iters=iters, interpret=True)
+    t, c, s = rk.topk_threshold(torch.from_numpy(x), k, iters=iters)
+    np.testing.assert_array_equal(t.numpy().view(np.uint32),
+                                  np.asarray(t_r).view(np.uint32))
+    a = np.abs(x)
+    normal = a >= FLT_MIN
+    if float(t) > 0:                          # R1 does not apply
+        assert int(c) == int(c_r)
+        assert int(c) >= k or normal.sum() < k
+    else:                 # lo = 0: the normal non-zeros (R1: every element)
+        assert int(c) == int(normal.sum()) and int(c_r) == x.size
+        assert normal.sum() < k or iters == 0
+    want = a[normal & (a >= float(t))].astype(np.float64).sum()
+    np.testing.assert_allclose(float(s), want, rtol=1e-6)
+    np.testing.assert_allclose(float(s), float(s_r), rtol=1e-6)
+
+
+def test_bisection_of_subnormals_is_the_all_zero_bisection():
+    """1,000 values of N(0, 1)·1e-40, k = 10: the reference flushes every
+    one, so ``lo`` is 0 and Σ is 0 (its count is 1,000 by R1); the port
+    counts no non-zero."""
+    x = (np.random.default_rng(5).standard_normal(1000) * 1e-40).astype(
+        np.float32)
+    t_r, c_r, s_r = ref_topk(jnp.asarray(x), 10, interpret=True)
+    t, c, s = rk.topk_threshold(torch.from_numpy(x), 10)
+    assert np.asarray(t_r).view(np.uint32) == t.numpy().view(np.uint32) == 0
+    assert int(c_r) == 1000 and int(c) == 0
+    assert float(s_r) == float(s) == 0.0
+
+
+@pytest.mark.parametrize("t", [0.0, 1e-40, FLT_MIN, 0.3, -1.0])
+def test_threshold_stats_subnormals_count_as_zero(t):
+    """Subnormal values of x never count, and a subnormal threshold acts as
+    0 (the count then covers the normal non-zeros; the reference counts
+    every element there, R1)."""
+    x = edge_row("subnormal_mix", np.random.default_rng(9))
+    x[:4] = [FLT_MIN, -FLT_MIN, 1e-40, -1e-40]
+    cnt_r, sum_r = ref_stats(jnp.asarray(x), jnp.float32(t), interpret=True)
+    cnt, total = rk.threshold_stats(torch.from_numpy(x), t)
+    a = np.abs(x)
+    counted = (a >= FLT_MIN) & (a >= np.float32(t if t >= FLT_MIN else 0.0))
+    assert int(cnt) == int(counted.sum())
+    if t >= FLT_MIN:
+        assert int(cnt) == int(cnt_r)
+    else:
+        assert int(cnt_r) == x.size
+    np.testing.assert_allclose(float(total),
+                               a[counted].astype(np.float64).sum(), rtol=1e-6)
+    np.testing.assert_allclose(float(total), float(sum_r), rtol=1e-6)
+
+
+def test_topk_threshold_plain_is_the_cpu_route():
+    x = torch.from_numpy(_rand(5000, 3))
+    got = rk.topk_threshold(x, 50)
+    want = rk.topk_threshold_plain(x, 50)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="iters"):
+        rk.topk_threshold(x, 50, iters=-1)
