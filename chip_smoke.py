@@ -2,15 +2,16 @@
 """On-card check of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --signsgd-round   # only the signSGD round's phases
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
-1. build the nine CUDA kernels from ``src/repro_torch/csrc`` into
+1. build the nine CUDA sources from ``src/repro_torch/csrc`` into
    ``build/kernels/`` (one ``nvcc`` per source, in parallel) and print the
    registers and shared memory (``-Xptxas -v``) of the histogram,
-   ``bin_select``, ``pack_chunks``, ``golomb_decode``, ``threshold_stats``
-   and ``bisect_select``, and the atomics,
-   conversions and fp64 adds in the histogram's SASS;
+   ``bin_select``, ``pack_bits``, ``pack_chunks``, ``unpack_bits``,
+   ``golomb_decode``, ``threshold_stats`` and ``bisect_select``, and the
+   atomics, conversions and fp64 adds in the histogram's SASS;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and on adversarial inputs: ``stc_apply`` bitwise,
    histogram counts exact and sums within rtol 1e-6 (normal, skewed and
@@ -19,9 +20,13 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    within rtol 1e-6 (two calls identical) on normal, carried-like (~99 %
    in bin 0), skewed, tied, constant, all-zero and fewer-non-zeros-than-k
    rows and per-row k, selection threshold and count exact (also against
-   the ``"torch"`` route and the CPU), ``pack_bits`` and ``pack_chunks``
-   words identical (also to the host packer), ``unpack_bits`` bits and
-   zero counts identical (also to the host unpack), ``golomb_decode``
+   the ``"torch"`` route and the CPU), ``pack_bits`` (one plane and
+   batches whose rows start off 16-byte boundaries),
+   ``pack_sign_planes`` (rows of ±step with -0.0, subnormals, ±inf and
+   NaN) and ``pack_chunks`` words identical (also to the host packer),
+   ``unpack_bits`` bits and zero counts identical (also to the host
+   unpack, one plane and batches), ``sign_plane_tally`` bitwise its plain
+   version and the host accumulator's loop, ``golomb_decode``
    fields identical and raising on the same inputs (valid batches, the
    decoder's chunk-boundary traps, a cnn round, 300 corrupt batches and
    the 60 mutations of the reference's wire fuzz test), ``threshold_stats``
@@ -65,10 +70,13 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    messages (accumulator sum bitwise the CPU's, global-delta positions and
    signs exact, µ within rtol 1e-6), and ``golomb_decode`` on the last
    one's batch against its plain version and the numpy scan; then signSGD
-   through the same ingest (``wire_backend="kernel"``, its sign planes
-   through ``pack_bits`` and ``unpack_bits``), 3 lock-step rounds with
-   unpacked bits and global delta identical, and ``unpack_bits`` at that
-   path's own word count;
+   through the same ingest (``wire_backend="kernel"``): one
+   ``pack_sign_planes`` launch (the round's upstream batch) and one
+   ``sign_plane_tally`` launch (the ingest) a round and no ``pack_bits``
+   or ``unpack_bits``, 3 lock-step rounds card against CPU with wire
+   batches (also the host packer's), unpacked bits, accumulator (also the
+   host backend's) and global delta identical, and both kernels on the
+   last one's messages and words;
 5. the bisection path: ``stc_compress_kernel(selector="bisect")`` at the
    cnn's width, which must launch ``bisect_select`` once, ``stc_apply``
    once and ``threshold_stats`` never; then ``threshold_stats`` through
@@ -81,16 +89,23 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    the carried matrices of a lock-step round and on a normal matrix, and
    at 1, 2 and 4 CTAs an SM; ``bin_select`` on those carried matrices
    beside ``torch.topk``, with its four passes by ``torch.profiler``;
-   ``pack_chunks`` on a real round's upstream chunks; ``bisect_select``
-   per step and host included, beside ``torch.topk``, and at n = 17 and
-   n = 4,000,037 beside it),
+   ``pack_chunks`` on a real round's upstream chunks; the sign-plane
+   kernels on a signSGD round's messages and words, beside ten one-plane
+   launches and, for the tally, the host loop it replaces;
+   ``bisect_select`` per step and host included, beside ``torch.topk``,
+   and at n = 17 and n = 4,000,037 beside it),
    the k-selections beside ``torch.topk`` (on the carried matrices host
    included and in device time, on a normal matrix host included), and a
    dense and an
    ingest round split into phases (with the ``"kernel"`` and the host
    wire backends, in turns), and the ingest decode of one round's batch
    split into words up, the decode, fields down and ``np.add.at``, beside
-   the numpy field scan on the same batch.
+   the numpy field scan on the same batch, and a signSGD ingest round split
+   into phases (both wire backends, in turns).
+
+``--signsgd-round`` runs the last of these alone on the package of the
+tree the file sits in: a copy inside a parent checkout unpacked beside
+the change times the parent.
 
 Prints the timing lines, the TF32 flags, the card's name and power limit,
 a ``{"kernels": [...]}`` line, and as its last line
@@ -166,13 +181,14 @@ def sass_opcodes(cuobjdump: str, binary: Path, prefixes) -> dict:
 
 
 def print_build_notes() -> None:
-    """``-Xptxas -v`` of the six redesigned kernels, the atomics,
+    """``-Xptxas -v`` of the eight redesigned kernels, the atomics,
     conversions, fp64 adds and votes in the histogram's SASS, and the SASS
     of a plain fp64 ``atomicAdd`` to shared memory (whether it compiles to
     a compare-and-swap loop)."""
     from repro_torch.kernels import _build
-    for name in ("histogram", "bin_select", "pack_chunks", "golomb_decode",
-                 "threshold_stats", "bisect_select"):
+    for name in ("histogram", "bin_select", "pack_bits", "pack_chunks",
+                 "unpack_bits", "golomb_decode", "threshold_stats",
+                 "bisect_select"):
         notes = [line.split(":", 1)[-1].strip()
                  for line in _build.build_log(name).splitlines()
                  if "Used" in line or "spill" in line]
@@ -273,14 +289,32 @@ def check_kernels(torch, np, rk):
             f"{ops}")
     print(f"histogram: device operations in one call (torch.profiler): "
           f"{ops if ops is not None else 'not seen by the profiler'}")
-    errs["pack_bits"] = max(check_pack_bits(torch, np, rk, rng, m)
-                            for m in (1, 31, 32, 1_000_003, 2_400_000))
+    errs["pack_bits"] = max(
+        [check_pack_bits(torch, np, rk, rng, m)
+         for m in (1, 31, 32, 1_000_003, 2_400_000)]
+        + [check_pack_bits(torch, np, rk, rng, m, rows)
+           for rows, m in ((3, 1), (3, 33), (10, 1000), (10, MAIN_N),
+                           (4, 4096), (2, 1_000_003))])
+    errs["pack_sign_planes"] = max(
+        check_pack_sign_planes(torch, np, rk, sign_rows(np, rng, rows, n))
+        for rows, n in ((1, 1), (3, 31), (3, 33), (10, 1000),
+                        (1, MAIN_N), (MAIN_ROWS, MAIN_N), (2, 1_000_003)))
     errs["pack_chunks"] = max(check_pack_chunks(torch, np, rk, *chunk_set(
         np, rng, count, gaps)) for count, gaps in ((1, False), (33, True),
                                                    (61_480, True),
                                                    (1_000_003, False)))
-    errs["unpack_bits"] = max(check_unpack_bits(torch, np, rk, rng, w)
-                              for w in (1, 2, 9608, 1_000_003))
+    errs["unpack_bits"] = max(
+        [check_unpack_bits(torch, np, rk, rng, w)
+         for w in (1, 2, 9608, 1_000_003)]
+        + [check_unpack_bits(torch, np, rk, rng, w, rows)
+           for rows, w in ((3, 1), (MAIN_ROWS, 9608))])
+    errs["sign_plane_tally"] = max(
+        check_sign_plane_tally(
+            torch, np, rk, rng, rng.integers(0, 1 << 32, (rows, w),
+                                             dtype=np.uint64)
+            .astype(np.uint32), rng.uniform(0, 2, rows))
+        for rows, w in ((1, 1), (3, 2), (MAIN_ROWS, 32), (MAIN_ROWS, 9608),
+                        (64, 9608)))
     errs["golomb_decode"] = check_golomb_cases(torch, np, rk)
     errs["threshold_stats"] = check_threshold_stats(torch, np, rk, rng)
     errs["bisection"] = check_bisection(torch, np, rk, rng)
@@ -463,38 +497,135 @@ def words_err(np, got, want) -> float:
                  .max(initial=0))
 
 
-def check_pack_bits(torch, np, rk, rng, m) -> float:
-    """``pack_bits`` on ``m`` random card bits against its plain version
-    and the host packer; returns the words' max abs difference (0.0)."""
+def check_pack_bits(torch, np, rk, rng, m, rows=None) -> float:
+    """``pack_bits`` on ``m`` random card bits (or ``pack_bits_batched`` on
+    ``rows`` rows of ``m``: rows start off 16-byte boundaries unless 16
+    divides m) against its plain version and the host packer, with bytes
+    other than 0 and 1 among the bits; one launch a call, two calls
+    identical.  Returns the words' max abs difference (0.0)."""
     from repro_torch.core.wire import _pack_bits_numpy
-    bits_np = (rng.random(m) < 0.3).astype(np.uint8)
+    shape = (m,) if rows is None else (rows, m)
+    bits_np = ((rng.random(shape) < 0.3) * rng.integers(1, 256, shape)) \
+        .astype(np.uint8)
     bits = torch.from_numpy(bits_np).to("cuda")
-    w_k = rk.pack_bits(bits).cpu().numpy().view(np.uint32)
-    w_p = rk.pack_bits_plain(bits).cpu().numpy().view(np.uint32)
-    w_np = _pack_bits_numpy(bits_np)
+    pack = rk.pack_bits if rows is None else rk.pack_bits_batched
+    before = rk.LAUNCHES.counts["pack_bits"]
+    got = pack(bits)
+    again = pack(bits)
+    require(rk.LAUNCHES.counts["pack_bits"] == before + 2,
+            f"one pack_bits call is not one launch at {shape}")
+    require(torch.equal(got, again), f"two pack_bits calls differ at {shape}")
+    plain = (rk.pack_bits_plain if rows is None
+             else rk.pack_bits_batched_plain)
+    w_k = got.cpu().numpy().view(np.uint32)
+    w_p = plain(bits).cpu().numpy().view(np.uint32)
+    w_np = np.stack([_pack_bits_numpy(r != 0)
+                     for r in bits_np.reshape(-1, m)]).reshape(w_k.shape)
     err = max(words_err(np, w_k, w_p), words_err(np, w_k, w_np))
-    require(err == 0.0, f"pack_bits words differ at m={m} (max {err})")
+    require(err == 0.0, f"pack_bits words differ at {shape} (max {err})")
     return err
 
 
-def check_unpack_bits(torch, np, rk, rng, n_words) -> float:
-    """``unpack_bits`` on ``n_words`` random card words (the edge words 0,
-    1, 0x80000000 and 0xFFFFFFFF first) against its plain version and the
-    host unpack: bits and zero counts identical; returns 0.0."""
+def sign_rows(np, rng, rows, n):
+    """``rows`` fp32 rows of length ``n`` of ±2e-4 and 0 (signSGD messages)
+    with the edge values of the sign test among them: -0.0, subnormals of
+    both signs, ±inf, NaN of both signs, the least normal and the largest
+    float."""
+    edge = np.array([2e-4, -2e-4, 0.0, -0.0, 1e-40, -1e-40, 1.4e-45,
+                     -1.4e-45, np.inf, -np.inf, np.nan, FLT_MIN, 3.4e38],
+                    np.float32)
+    x = (np.sign(rng.standard_normal((rows, n))) * 2e-4).astype(np.float32)
+    pick = rng.random((rows, n)) < 0.05
+    x[pick] = rng.choice(edge, int(pick.sum()))
+    flat = x.reshape(-1)
+    flat[:min(edge.size, flat.size)] = edge[:flat.size]
+    flat[-1] = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+    return x
+
+
+def check_pack_sign_planes(torch, np, rk, x_np) -> float:
+    """``pack_sign_planes`` on the card rows ``x_np`` against its plain
+    version and numpy's ``x > 0`` through the host packer; one launch a
+    call, two calls identical.  Returns the words' max abs difference."""
+    from repro_torch.core.wire import _pack_bits_numpy
+    x = torch.from_numpy(np.ascontiguousarray(x_np)).to("cuda")
+    before = rk.LAUNCHES.counts["pack_sign_planes"]
+    got = rk.pack_sign_planes(x)
+    again = rk.pack_sign_planes(x)
+    shape = tuple(x.shape)
+    require(rk.LAUNCHES.counts["pack_sign_planes"] == before + 2,
+            f"one pack_sign_planes call is not one launch at {shape}")
+    require(torch.equal(got, again),
+            f"two pack_sign_planes calls differ at {shape}")
+    w_k = got.cpu().numpy().view(np.uint32)
+    w_p = rk.pack_sign_planes_plain(x.cpu()).numpy().view(np.uint32)
+    w_np = np.stack([_pack_bits_numpy((r > 0).astype(np.uint8))
+                     for r in x_np])
+    err = max(words_err(np, w_k, w_p), words_err(np, w_k, w_np))
+    require(err == 0.0, f"pack_sign_planes words differ at {shape}")
+    return err
+
+
+def check_sign_plane_tally(torch, np, rk, rng, words_np, weights) -> float:
+    """``sign_plane_tally`` on the card words ``words_np`` ((B, W) uint32)
+    into a sum that already holds values, against its plain version on the
+    CPU and the host accumulator's ``add_sign_plane`` loop, bitwise; one
+    launch a call.  Returns the largest abs difference (0.0)."""
+    from repro_torch.core.ingest import IngestAccumulator
+    from repro_torch.core.wire import words_to_bits
+    rows, n_words = words_np.shape
+    n = 32 * n_words - int(rng.integers(0, 32))
+    start = rng.standard_normal(n) * 1e-4
+    acc = IngestAccumulator(n)
+    acc.sum[:] = start
+    for i in range(rows):
+        acc.add_sign_plane(words_to_bits(words_np[i], n), 2e-4,
+                           float(weights[i]))
+    words = torch.from_numpy(words_np.view(np.int32))
+    w = torch.from_numpy(np.asarray(weights, np.float64))
+    total = torch.from_numpy(start.copy()).to("cuda")
+    before = rk.LAUNCHES.counts["sign_plane_tally"]
+    rk.sign_plane_tally(words.to("cuda"), 2e-4, w.to("cuda"), total)
+    require(rk.LAUNCHES.counts["sign_plane_tally"] == before + 1,
+            f"one sign_plane_tally call is not one launch at {rows} rows")
+    plain = rk.sign_plane_tally(words, 2e-4, w,
+                                torch.from_numpy(start.copy()))
+    got = total.cpu().numpy()
+    require(np.array_equal(got.view(np.uint64), plain.numpy().view(np.uint64))
+            and np.array_equal(got.view(np.uint64), acc.sum.view(np.uint64)),
+            f"sign_plane_tally differs from its plain version or the host "
+            f"loop at ({rows}, {n_words}), n={n}")
+    return float(np.abs(got - acc.sum).max(initial=0.0))
+
+
+def check_unpack_bits(torch, np, rk, rng, n_words, rows=None) -> float:
+    """``unpack_bits`` on ``n_words`` random card words (or
+    ``unpack_words_batched`` on ``rows`` rows of them; the edge words 0, 1,
+    0x80000000 and 0xFFFFFFFF first) against its plain version and the
+    host unpack: bits and zero counts identical, one launch a call;
+    returns 0.0."""
     from repro_torch.core.wire import _unpack_bits_numpy
-    w = rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
+    shape = (n_words,) if rows is None else (rows, n_words)
+    w = rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
     edge = np.array([0, 1, 0x80000000, 0xFFFFFFFF], np.uint32)
-    w[:min(n_words, 4)] = edge[:n_words]
+    w.reshape(-1)[:min(w.size, 4)] = edge[:w.size]
     words = torch.from_numpy(w.view(np.int32)).to("cuda")
-    bits, zeros = rk.unpack_words_with_counts(words)
+    unpack = (rk.unpack_words_with_counts if rows is None
+              else rk.unpack_words_batched)
+    before = rk.LAUNCHES.counts["unpack_bits"]
+    bits, zeros = unpack(words)
+    require(rk.LAUNCHES.counts["unpack_bits"] == before + 1,
+            f"one unpack_bits call is not one launch at {shape}")
     bits_p, zeros_p = rk.unpack_words_plain(words)
+    w = w.reshape(-1)
     bits_np = _unpack_bits_numpy(w)
     zeros_np = 32 - bits_np.reshape(-1, 32).sum(axis=1, dtype=np.int64)
-    got_bits, got_zeros = bits.cpu().numpy(), zeros.cpu().numpy()
+    got_bits = bits.cpu().numpy().reshape(-1)
+    got_zeros = zeros.cpu().numpy().reshape(-1)
     err = max(float(np.abs(got_bits.astype(np.int64) - bits_np).max()),
               float(np.abs(got_zeros - zeros_np).max()))
     require(torch.equal(bits, bits_p) and torch.equal(zeros, zeros_p)
-            and err == 0.0, f"unpack_bits differs at W={n_words}")
+            and err == 0.0, f"unpack_bits differs at {shape}")
     return err
 
 
@@ -1054,12 +1185,19 @@ def check_golomb_at_path(torch, np, rk, proto, batch) -> float:
     return err
 
 
+SIGN_KERNELS = ("pack_sign_planes", "sign_plane_tally")
+
+
 def check_signsgd_ingest(torch, np, rk, rounds=3):
     """signSGD through the fused ingest: the cnn trainer's rounds on the
-    card (counters set to 0 just before; ``pack_bits`` and ``unpack_bits``
-    must launch), then 3 lock-step rounds card against CPU from its state:
-    messages, wire words, unpacked sign bits, accumulator and global delta
-    identical.  Returns the launch counts and shapes of its rounds."""
+    card (counters set to 0 just before): one ``pack_sign_planes`` launch
+    (the upstream batch) and one ``sign_plane_tally`` launch a round, and
+    no per-plane ``pack_bits`` or ``unpack_bits``; then 3 lock-step rounds
+    card against CPU from its state: messages, wire words (also against the
+    host packer), unpacked sign bits, accumulator (also against the host
+    backend's default loop) and global delta identical.  Returns the launch
+    counts and shapes of its rounds, and the last lock-step round's
+    messages, batch and weights."""
     from repro_torch.core import wire
     from repro_torch.fed.loop import local_sgd
     tr = make_trainer("cuda", torch, ingest=True, codec="signsgd")
@@ -1069,10 +1207,17 @@ def check_signsgd_ingest(torch, np, rk, rounds=3):
     torch.cuda.synchronize()
     launches = dict(rk.LAUNCHES.counts)
     shapes = dict(rk.LAUNCHES.shapes)
-    for name in ("pack_bits", "unpack_bits"):
-        require(launches[name] > 0,
-                f"kernel {name} never launched on the signSGD ingest path")
+    require(all(launches[k] == rounds for k in SIGN_KERNELS)
+            and launches["pack_bits"] == launches["unpack_bits"] == 0,
+            f"the signSGD ingest path launched pack_sign_planes "
+            f"{launches['pack_sign_planes']}, sign_plane_tally "
+            f"{launches['sign_plane_tally']}, pack_bits "
+            f"{launches['pack_bits']} and unpack_bits "
+            f"{launches['unpack_bits']} times in {rounds} rounds, not once "
+            f"a round each of the first two and never the last two")
+    require(bool(torch.isfinite(tr.params_vec).all()), "non-finite params")
     proto, p = tr.protocol, tr.env.participants_per_round
+    host = dataclasses.replace(proto, wire_backend="numpy")
     w = tr._participation_weights_np(np.ones(p), np.zeros(p))
     params = tr.params_vec.clone()
     for r in range(rounds):
@@ -1088,8 +1233,15 @@ def check_signsgd_ingest(torch, np, rk, rounds=3):
                 f"signSGD lock-step round {r}: messages differ")
         batch = proto.encode_wire_batch(msgs, direction="up")
         batch_c = proto.encode_wire_batch(msgs_c, direction="up")
-        require(words_err(np, batch.words, batch_c.words) == 0.0,
-                f"signSGD lock-step round {r}: wire words differ")
+        batch_h = host.encode_wire_batch(msgs_c, direction="up")
+        for other in (batch_c, batch_h):
+            require(words_err(np, batch.words, other.words) == 0.0
+                    and all(np.array_equal(getattr(batch, f),
+                                           getattr(other, f))
+                            for f in ("word_start", "word_count", "bit_len",
+                                      "mu", "nnz"))
+                    and batch.numel == other.numel,
+                    f"signSGD lock-step round {r}: wire batches differ")
         for i in range(p):
             bits = wire.sign_plane_bits(batch.message(i), backend="kernel",
                                         device=tr.device)
@@ -1103,8 +1255,16 @@ def check_signsgd_ingest(torch, np, rk, rounds=3):
         acc_c = proto.make_ingest(tr.numel)
         proto.ingest_wire_batch(acc_c, batch_c, w, direction="up",
                                 device="cpu")
-        require(np.array_equal(acc.sum, acc_c.sum),
-                f"signSGD lock-step round {r}: accumulators differ")
+        acc_h = host.make_ingest(tr.numel)
+        host.ingest_wire_batch(acc_h, batch_h, w, direction="up")
+        for other in (acc_c, acc_h):
+            require(np.array_equal(acc.sum.view(np.uint64),
+                                   other.sum.view(np.uint64))
+                    and (acc.nnz, acc.n_msgs, acc.weight_mass,
+                         acc.stream_bits)
+                    == (other.nnz, other.n_msgs, other.weight_mass,
+                        other.stream_bits),
+                    f"signSGD lock-step round {r}: accumulators differ")
         gd, _, _ = proto.aggregate_ingest(acc, None)
         gd_c, _, _ = proto.aggregate_ingest(acc_c, None)
         require(torch.equal(gd, gd_c),
@@ -1112,9 +1272,10 @@ def check_signsgd_ingest(torch, np, rk, rounds=3):
         params = params + gd.to(tr.device)
     print(f"signSGD ingest: {rounds} rounds on the card, launches "
           f"{json.dumps(launches)}; {rounds} lock-step rounds card vs CPU: "
-          f"messages, words, unpacked bits, accumulator and global delta "
-          f"identical")
-    return launches, shapes
+          f"messages, words, unpacked bits, accumulator (also the host "
+          f"backend's) and global delta identical")
+    return launches, shapes, {"msgs": msgs, "batch": batch, "weights": w,
+                              "trainer": tr}
 
 
 def run_bisection(torch, np, rk):
@@ -1386,14 +1547,128 @@ def bisect_row(torch, rk, launches, errs, x1, bound):
     return row
 
 
-def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
+def sign_plane_kernel_rows(torch, np, rk, shapes, launches, errs, signsgd,
+                           bound):
+    """The four sign-plane rows on the last signSGD lock-step round: the
+    path's kernels ``pack_sign_planes`` on its (B, n) messages and
+    ``sign_plane_tally`` on its (B, W) words into an fp64 sum of n, and the
+    uint8 forms no path launches (``pack_bits``, ``unpack_bits``: 0
+    launches, timed at one plane and at the batch, through their own
+    entries).  Beside the kernels: their plain versions on the card, ten
+    one-plane launches (what the path ran before it was batched), and for
+    the tally the host loop it replaces (``add_sign_plane`` over the
+    unpacked planes, host clock) and the ingest step host included (words
+    and sum up, one launch, sum down)."""
+    from repro_torch.core.ingest import IngestAccumulator
+    from repro_torch.core.wire import words_to_bits
+    msgs = signsgd["msgs"].contiguous()
+    rows, n = shapes["pack_sign_planes"]
+    require(tuple(msgs.shape) == (rows, n),
+            f"signSGD messages {tuple(msgs.shape)} are not the path's "
+            f"pack_sign_planes shape {(rows, n)}")
+    batch, weights = signsgd["batch"], signsgd["weights"]
+    n_words = -(-n // 32)
+    words_np = batch.words.reshape(rows, n_words)
+    words = torch.from_numpy(words_np.view(np.int32)).to("cuda")
+    w64 = torch.from_numpy(np.asarray(weights, np.float64)).to("cuda")
+    total = torch.zeros(n, dtype=torch.float64, device="cuda")
+    bits = (msgs > 0).to(torch.uint8)
+    planes = [bits[i] for i in range(rows)]
+    word_rows = [words[i] for i in range(rows)]
+
+    def ten_packs():
+        for plane in planes:
+            rk.pack_bits(plane)
+
+    def ten_unpacks():
+        for row in word_rows:
+            rk.unpack_words_with_counts(row)
+
+    def host_loop():
+        acc = IngestAccumulator(n)
+        for i in range(rows):
+            acc.add_sign_plane(words_to_bits(words_np[i], n), 2e-4,
+                               float(weights[i]))
+
+    def tally_step():
+        host = np.zeros(n)
+        t = torch.from_numpy(host).to("cuda")
+        rk.sign_plane_tally(torch.from_numpy(words_np.view(np.int32))
+                            .to("cuda"), 2e-4, torch.from_numpy(
+                                np.asarray(weights, np.float64)).to("cuda"),
+                            t)
+        torch.from_numpy(host).copy_(t)
+
+    def plain_tally():
+        rk.sign_plane_tally_plain(words, 2e-4, w64, total)
+
+    out = [{
+        "name": "pack_sign_planes", "route": "cuda",
+        "source": "src/repro_torch/csrc/pack_bits.cu",
+        "replaces": "src/repro/kernels/bitpack.py:59",
+        "launches": launches["pack_sign_planes"],
+        "max_abs_err": errs["pack_sign_planes"],
+        "ms": event_ms(torch, lambda: rk.pack_sign_planes(msgs)),
+        "plain_ms": event_ms(torch, lambda: rk.pack_sign_planes_plain(msgs)),
+        # fp32 values read once, words written once
+        "bound_ms": bound(4 * rows * n + 4 * rows * n_words),
+        "bound_by": "bytes", "library_ms": None,
+        "ms_b1": event_ms(torch, lambda: rk.pack_sign_planes(msgs[:1])),
+        "bound_ms_b1": bound(4 * n + 4 * n_words),
+        "ms_ten_pack_bits_launches": event_ms(torch, ten_packs)}, {
+        "name": "pack_bits", "route": "cuda",
+        "source": "src/repro_torch/csrc/pack_bits.cu",
+        "replaces": "src/repro/kernels/bitpack.py:59",
+        "launches": launches["pack_bits"],
+        "max_abs_err": errs["pack_bits"],
+        "ms": event_ms(torch, lambda: rk.pack_bits(planes[0])),
+        "plain_ms": event_ms(torch, lambda: rk.pack_bits_plain(planes[0])),
+        "bound_ms": bound(n + 4 * n_words), "bound_by": "bytes",
+        "library_ms": None, "on_path": False,
+        "ms_batched": event_ms(torch, lambda: rk.pack_bits_batched(bits)),
+        "bound_ms_batched": bound(rows * (n + 4 * n_words))}, {
+        "name": "sign_plane_tally", "route": "cuda",
+        "source": "src/repro_torch/csrc/unpack_bits.cu",
+        "replaces": "src/repro/kernels/wiredecode.py:57",
+        "launches": launches["sign_plane_tally"],
+        "max_abs_err": errs["sign_plane_tally"],
+        "ms": event_ms(torch, lambda: rk.sign_plane_tally(words, 2e-4, w64,
+                                                          total)),
+        "plain_ms": event_ms(torch, plain_tally, iters=10),
+        # words and weights read once, the fp64 sum read and written once
+        "bound_ms": bound(4 * rows * n_words + 8 * rows + 16 * n),
+        "bound_by": "bytes", "library_ms": None,
+        "host_loop_ms": event_ms(torch, host_loop, iters=5,
+                                 hold_stream=False),
+        "step_ms_host": event_ms(torch, tally_step, iters=20,
+                                 hold_stream=False),
+        "ms_ten_unpack_bits_launches": event_ms(torch, ten_unpacks)}, {
+        "name": "unpack_bits", "route": "cuda",
+        "source": "src/repro_torch/csrc/unpack_bits.cu",
+        "replaces": "src/repro/kernels/wiredecode.py:57",
+        "launches": launches["unpack_bits"],
+        "max_abs_err": errs["unpack_bits"],
+        "ms": event_ms(torch, lambda: rk.unpack_words_with_counts(
+            word_rows[0])),
+        "plain_ms": event_ms(torch, lambda: rk.unpack_words_plain(
+            word_rows[0])),
+        "bound_ms": bound(4 * n_words + 32 * n_words + 4 * n_words),
+        "bound_by": "bytes", "library_ms": None, "on_path": False,
+        "ms_batched": event_ms(torch, lambda: rk.unpack_words_batched(words)),
+        "bound_ms_batched": bound(rows * 40 * n_words)}]
+    return out
+
+
+def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in,
+                 signsgd):
     """Device time of each kernel at its path's shapes beside its plain
     version, its byte bound and (where one PyTorch call computes the same
     function) that call; the k-selections beside ``torch.topk``.  ``last``
     is the last lock-step round: the histogram is timed on its carried
     matrices (the main path's inputs) and on a normal matrix,
     ``pack_chunks`` on the chunks of its upstream batch; ``golomb_decode``
-    on the last ingest lock-step round's batch."""
+    on the last ingest lock-step round's batch; the sign-plane kernels on
+    the last signSGD lock-step round's messages and batch (``signsgd``)."""
     from repro_torch.core.selection import bin_index
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -1415,15 +1690,9 @@ def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
     hist_ms = time_histogram(torch, rk, {
         "carried": (carried, c_scale), "normal": (x, scale),
         "server_carried": (server, row_scale(torch, server))})
-    m = shapes["pack_bits"][0]
-    bits = torch.from_numpy((rng.random(m) < 0.3).astype(np.uint8)).to(dev)
     vals, lens, offs, up_bits = upstream_chunks(np, last)
     up_words = up_bits // 32
     chunks = chunk_tensors(torch, np, vals, lens, offs)
-    n_words = shapes["unpack_bits"][0]
-    words = torch.from_numpy(rng.integers(
-        0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
-        .view(np.int32)).to(dev)
     n_stats = shapes["bisect_select"][0]   # threshold_stats's own row
     x1 = x[0, :n_stats].contiguous()
     t1 = x1.abs().quantile(1 - P_STC)
@@ -1484,26 +1753,8 @@ def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in):
             iters=20, hold_stream=False),
         "bound_ms": bound(20 * len(vals) + 4 * up_words), "bound_by": "bytes",
         "library_ms": None, "chunks": len(vals), "words": up_words})
-    n_pack_words = -(-m // 32)
-    out.append({
-        "name": "pack_bits", "route": "cuda",
-        "source": "src/repro_torch/csrc/pack_bits.cu",
-        "replaces": "src/repro/kernels/bitpack.py:59",
-        "launches": launches["pack_bits"], "max_abs_err": errs["pack_bits"],
-        "ms": event_ms(torch, lambda: rk.pack_bits(bits)),
-        "plain_ms": event_ms(torch, lambda: rk.pack_bits_plain(bits)),
-        "bound_ms": bound(m + 4 * n_pack_words), "bound_by": "bytes",
-        "library_ms": None})
-    out.append({
-        "name": "unpack_bits", "route": "cuda",
-        "source": "src/repro_torch/csrc/unpack_bits.cu",
-        "replaces": "src/repro/kernels/wiredecode.py:57",
-        "launches": launches["unpack_bits"],
-        "max_abs_err": errs["unpack_bits"],
-        "ms": event_ms(torch, lambda: rk.unpack_words_with_counts(words)),
-        "plain_ms": event_ms(torch, lambda: rk.unpack_words_plain(words)),
-        "bound_ms": bound(4 * n_words + 32 * n_words + 4 * n_words),
-        "bound_by": "bytes", "library_ms": None})
+    out.extend(sign_plane_kernel_rows(torch, np, rk, shapes, launches, errs,
+                                      signsgd, bound))
     out.append(golomb_row(torch, np, rk, launches, errs, batch_in, P_STC,
                           bound))
     out.append({
@@ -1716,6 +1967,88 @@ def time_ingest_round(torch, np, tr):
     return med
 
 
+def time_signsgd_round(torch, np, tr, reps=5):
+    """One signSGD ingest round split into its phases, state left
+    untouched, median of ``reps``, host clock after ``synchronize``.
+    ``wire_encode`` + ``tally`` are the trainer's (``wire_backend=
+    "kernel"``); the ``*_numpy`` pair runs the same messages through the
+    host wire backend, in turns with it; ``finalize`` is the sign of the
+    accumulated mean, ``ledger`` the downstream message.  Uses only entry
+    points that every slice of the port has, so it also times an older
+    tree (``--signsgd-round``)."""
+    from repro_torch.fed.loop import local_sgd
+    proto, p = tr.protocol, tr.env.participants_per_round
+    host = dataclasses.replace(proto, wire_backend="numpy")
+    names = ("local_sgd", "encode", "wire_encode", "tally",
+             "wire_encode_numpy", "tally_numpy", "finalize", "ledger")
+    phases = {name: [] for name in names + ("round",)}
+    w = tr._participation_weights_np(np.ones(p), np.zeros(p))
+
+    def sync_now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for _ in range(reps):
+        sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
+        xs, ys = tr._sample_batches(sel, proto.local_iters)
+        idx = torch.as_tensor(sel, device=tr.device)
+        ts = [sync_now()]
+        deltas, _ = local_sgd(tr.apply_fn, tr.spec, tr.params_vec,
+                              tr.client_mom[idx], xs, ys, tr.tcfg.lr,
+                              tr.tcfg.momentum)
+        ts.append(sync_now())
+        msgs, _, _ = proto.encode_batch(deltas, None)
+        ts.append(sync_now())
+        batch = proto.encode_wire_batch(msgs, direction="up")
+        ts.append(sync_now())
+        acc = proto.make_ingest(tr.numel)
+        proto.ingest_wire_batch(acc, batch, w, direction="up",
+                                device=tr.device)
+        ts.append(sync_now())
+        batch_n = host.encode_wire_batch(msgs, direction="up")
+        ts.append(sync_now())
+        acc_n = host.make_ingest(tr.numel)
+        host.ingest_wire_batch(acc_n, batch_n, w, direction="up")
+        ts.append(sync_now())
+        gd, _, _ = proto.aggregate_ingest(acc, tr.server_state)
+        gd = gd.to(tr.device)
+        ts.append(sync_now())
+        proto.encode_wire(gd, direction="down")
+        ts.append(sync_now())
+        require(np.array_equal(acc.sum, acc_n.sum),
+                "the kernel and host wire backends tally differently")
+        for name, t0, t1 in zip(names, ts, ts[1:]):
+            phases[name].append((t1 - t0) * 1e3)
+    for _ in range(reps):
+        t0 = sync_now()
+        tr.run_round()
+        phases["round"].append((sync_now() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in phases.items()}
+    print(f"signSGD ingest round phases (median of {reps}, ms, host clock "
+          f"after synchronize): " + json.dumps({k: round(v, 3)
+                                                for k, v in med.items()}))
+    return med
+
+
+def signsgd_round_only(torch, np) -> int:
+    """``--signsgd-round``: the signSGD ingest round's phases alone, on the
+    tree this file sits in (a parent unpacked beside the change runs this
+    file's copy against its own package), then the card's line."""
+    tr = make_trainer("cuda", torch, ingest=True, codec="signsgd")
+    require(tr.ingest, "the signSGD trainer is not on the ingest path")
+    tr.run(2, eval_every=2)                      # warm-up: builds, caches
+    torch.cuda.synchronize()
+    time_signsgd_round(torch, np, tr)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60, check=True).stdout.strip()
+    print(f"card after the timing (SM clock, max SM clock, power draw, "
+          f"temperature): {clocks}")
+    print(card_line())
+    return 0
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1734,6 +2067,12 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--signsgd-round"]:
+        try:
+            return signsgd_round_only(torch, np)
+        except (Failure, RuntimeError, subprocess.SubprocessError) as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
     try:
         t0 = time.perf_counter()
         rk.build_all()
@@ -1758,32 +2097,41 @@ def main() -> int:
                                     check_golomb_at_path(
                                         torch, np, rk, tr_in.protocol,
                                         batch_in))
-        launches_sg, shapes_sg = check_signsgd_ingest(torch, np, rk)
-        w_sg = shapes_sg["unpack_bits"][0]
-        errs["unpack_bits"] = max(errs["unpack_bits"], check_unpack_bits(
-            torch, np, rk, np.random.default_rng(4), w_sg))
-        print(f"unpack_bits at the signSGD path's W={w_sg}: bits and zero "
-              f"counts identical to its plain version and the host unpack")
-        m_sg = shapes_sg["pack_bits"][0]
-        errs["pack_bits"] = max(errs["pack_bits"], check_pack_bits(
-            torch, np, rk, np.random.default_rng(2), m_sg))
-        print(f"pack_bits at the signSGD path's m={m_sg}: words identical "
-              f"to its plain version and the host packer")
+        launches_sg, shapes_sg, signsgd = check_signsgd_ingest(torch, np,
+                                                              rk)
+        msgs_sg = signsgd["msgs"].cpu().numpy()
+        errs["pack_sign_planes"] = max(
+            errs["pack_sign_planes"],
+            check_pack_sign_planes(torch, np, rk, msgs_sg))
+        words_sg = signsgd["batch"].words.reshape(msgs_sg.shape[0], -1)
+        errs["sign_plane_tally"] = max(
+            errs["sign_plane_tally"], check_sign_plane_tally(
+                torch, np, rk, np.random.default_rng(4), words_sg,
+                signsgd["weights"]))
+        print(f"pack_sign_planes at the signSGD path's "
+              f"{shapes_sg['pack_sign_planes']} and sign_plane_tally at its "
+              f"{shapes_sg['sign_plane_tally']}, on a lock-step round's "
+              f"messages and words: identical to their plain versions and "
+              f"the host packer and accumulator")
         launches_bis, shapes_bis = run_bisection(torch, np, rk)
         launches = {**launches,
                     "golomb_decode": launches_in["golomb_decode"],
                     "unpack_bits": launches_sg["unpack_bits"],
                     "pack_bits": launches_sg["pack_bits"],
+                    "pack_sign_planes": launches_sg["pack_sign_planes"],
+                    "sign_plane_tally": launches_sg["sign_plane_tally"],
                     "threshold_stats": launches_bis["threshold_stats"],
                     "bisect_select": launches_bis["bisect_select"]}
-        shapes = {**shapes, "unpack_bits": shapes_sg["unpack_bits"],
-                  "pack_bits": shapes_sg["pack_bits"],
+        shapes = {**shapes,
+                  "pack_sign_planes": shapes_sg["pack_sign_planes"],
+                  "sign_plane_tally": shapes_sg["sign_plane_tally"],
                   "bisect_select": shapes_bis["bisect_select"]}
         rows = time_kernels(torch, np, rk, shapes, launches, errs, last,
-                            batch_in)
+                            batch_in, signsgd)
         time_round(torch, np, tr)
         time_ingest_round(torch, np, tr_in)
         time_decode_split(torch, np, rk, tr_in.protocol, batch_in)
+        time_signsgd_round(torch, np, signsgd["trainer"])
         for row in rows:
             require(all(isinstance(row[f], (int, float)) and math.isfinite(
                 row[f]) for f in ("ms", "plain_ms", "bound_ms")),

@@ -24,7 +24,10 @@ and implementing a small interface that the federated trainer
   wire messages scatter into one host :class:`~repro_torch.core.ingest.
   IngestAccumulator`, bitwise equal to the dense oracle.  The ingest and
   validation methods take ``device=``, where the ``"kernel"`` wire backend
-  decodes the streams (CUDA unless the caller names the CPU).
+  decodes the streams (CUDA unless the caller names the CPU).  On that
+  backend signSGD keeps a round's sign planes on the device both ways:
+  one pack of the cohort's fp32 messages, and one tally of the planes into
+  the accumulator's sum.
 
 This slice ports the base class, :class:`StcCodec` and the flat path of
 :class:`SignSGDCodec`; the other paper codecs (baseline, fedavg, topk,
@@ -486,10 +489,27 @@ class SignSGDCodec(Codec):
         msg, stats = sign_compress(delta, self.sign_step)
         return msg, state, stats
 
+    def _planes_on_device(self, msg) -> bool:
+        """The ``"kernel"`` backend packs a tensor's sign planes where the
+        tensor lies, straight from its fp32 values."""
+        return self.wire_backend == "kernel" and isinstance(msg,
+                                                            torch.Tensor)
+
     def encode_wire(self, msg, *, direction="up"):
+        if self._planes_on_device(msg):
+            return wire.pack_sign_planes_batch(
+                msg.reshape(1, -1), self.sign_step).message(0)
         return wire.pack_sign_words(_host(msg), self.sign_step,
                                     backend=self.wire_backend,
                                     device=_device_of(msg))
+
+    def encode_wire_batch(self, msgs, *, direction="up"):
+        # one pack_sign_planes launch for the round; the batch is the
+        # default loop's, field for field
+        if self._planes_on_device(msgs) and msgs.shape[0] > 0:
+            return wire.pack_sign_planes_batch(
+                msgs.reshape(msgs.shape[0], -1), self.sign_step)
+        return super().encode_wire_batch(msgs, direction=direction)
 
     def decode_wire(self, msg, *, direction="up"):
         return wire.unpack_sign_words(msg)
@@ -515,6 +535,39 @@ class SignSGDCodec(Codec):
         bits01 = wire.sign_plane_bits(msg, backend=self.wire_backend,
                                       device=device)
         acc.add_sign_plane(bits01, self.sign_step, weight, offset=offset)
+
+    def ingest_wire_batch(self, acc, batch, weights, *, direction="up",
+                          device=None):
+        """On the ``"kernel"`` backend the whole round is one
+        :func:`repro_torch.kernels.wiredecode.sign_plane_tally` on
+        ``device`` (its plain version on the CPU): every message is checked
+        first (``bit_len == numel`` and within its words, else
+        :class:`wire.WireDecodeError` with the accumulator untouched), then
+        accounted in order as the default loop does, then the words and
+        ``acc.sum`` go to the device, the planes are added in message order
+        and the sum comes back, bitwise the default loop's."""
+        if self.wire_backend != "kernel":
+            return super().ingest_wire_batch(acc, batch, weights,
+                                             direction=direction,
+                                             device=device)
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels.wiredecode import sign_plane_tally
+        w = np.asarray(weights, np.float64)
+        rows = wire.sign_plane_rows(batch)
+        for i in range(batch.n_msgs):
+            acc.begin_message(float(w[i]), bits=self.measured_message_bits(
+                batch.message(i)))
+        if batch.n_msgs == 0 or batch.numel == 0:
+            return
+        acc.nnz += batch.n_msgs * int(batch.numel)
+        dev = resolve_device(device)
+        host = torch.from_numpy(acc.sum)
+        total = host.to(dev)
+        sign_plane_tally(torch.from_numpy(rows.view(np.int32)).to(dev),
+                         self.sign_step,
+                         torch.from_numpy(w).to(dev), total)
+        if total is not host:
+            host.copy_(total)
 
     def finalize_ingest(self, combined, server_state):
         # sign(weighted mean) == sign(weighted vote tally): the arrived mass

@@ -4,7 +4,11 @@ The port's numpy copy of ``repro/core/wire.py``: every stream it packs is
 byte-identical to the reference's.  Only the ``"kernel"`` backend differs:
 its packers, its ternary field decoder and its sign-plane unpacker are the
 CUDA kernels of :mod:`repro_torch.kernels.bitpack` (Golomb chunks and sign
-planes) and :mod:`repro_torch.kernels.wiredecode`.
+planes) and :mod:`repro_torch.kernels.wiredecode`.  Two entries serve the
+signSGD codec's ``"kernel"`` backend on tensor rounds:
+:func:`pack_sign_planes_batch` packs a round's fp32 messages where they
+lie, and :func:`sign_plane_rows` checks a batch's planes and lays their
+words out for the ingest's one-launch tally.
 
 The paper's communication claims rest on the REAL Golomb-encoded ternary
 bitstream (Algorithms 3-4, Eqs. 15-17).  The per-bit host loop in
@@ -83,8 +87,10 @@ __all__ = [
     "decode_ternary_fields",
     "decode_ternary_fields_batch",
     "pack_sign_words",
+    "pack_sign_planes_batch",
     "unpack_sign_words",
     "sign_plane_bits",
+    "sign_plane_rows",
     "concat_messages",
     "words_to_bits",
     "words_to_bytes",
@@ -819,6 +825,25 @@ def pack_sign_words(tensor: np.ndarray, step: float, *,
                        int(x.size))
 
 
+def pack_sign_planes_batch(x, step: float) -> WireBatch:
+    """The sign planes of a ``(P, n)`` fp32 tensor, packed on the tensor's
+    own device in one launch of
+    :func:`repro_torch.kernels.bitpack.pack_sign_planes` (its plain version
+    on the CPU); only the words come to the host.  The batch is
+    :func:`concat_messages` of :func:`pack_sign_words` of each row, field
+    for field: every row is padded to whole words."""
+    from repro_torch.kernels.bitpack import pack_sign_planes
+    rows, n = x.shape
+    words = pack_sign_planes(x).cpu().numpy().view(np.uint32)
+    n_words = words.shape[1]
+    return WireBatch(words.reshape(-1),
+                     np.arange(rows, dtype=np.int64) * n_words,
+                     np.full(rows, n_words, np.int64),
+                     np.full(rows, n, np.int64),
+                     np.full(rows, float(step), np.float64),
+                     np.full(rows, n, np.int64), int(n))
+
+
 def unpack_sign_words(msg: WireMessage) -> np.ndarray:
     bits = words_to_bits(msg.words, msg.bit_len)
     return np.where(bits == 1, np.float32(msg.mu),
@@ -834,6 +859,24 @@ def sign_plane_bits(msg: WireMessage, *, backend: str = "numpy",
     _check_bit_len(msg.bit_len, words.size)
     return get_wire_backend(backend, device).unpack_bits(words)[
         : int(msg.bit_len)]
+
+
+def sign_plane_rows(batch: WireBatch) -> np.ndarray:
+    """Every message's first ``ceil(numel / 32)`` words as one ``(P, W)``
+    uint32 array, after each message's checks, in order: a sign plane is
+    exactly ``numel`` bits, and ``bit_len`` must fit its words; either
+    raises :class:`WireDecodeError` before any row is returned."""
+    n_words = -(-int(batch.numel) // 32)
+    rows = []
+    for i in range(batch.n_msgs):
+        msg = batch.message(i)
+        if int(msg.bit_len) != int(batch.numel):
+            raise WireDecodeError("corrupt sign plane: bit_len != numel")
+        _check_bit_len(msg.bit_len, msg.words.size)
+        rows.append(msg.words[:n_words])
+    if not rows:
+        return np.zeros((0, n_words), np.uint32)
+    return np.ascontiguousarray(np.stack(rows), np.uint32)
 
 
 # ---------------------------------------------------------------------------

@@ -23,9 +23,10 @@ with ``ctypes``; every C entry takes its pointers and PyTorch's current
 stream as ``void*`` and returns ``cudaGetLastError()``, which
 :func:`check` turns into an exception.
 
-``LAUNCHES`` counts kernel launches by name.  A wrapper records one launch
-where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+``LAUNCHES`` counts kernel launches by name: one name a source, and one
+more for each source's second kernel (``COUNTED``).  A wrapper records one
+launch where it launches its kernel and nowhere else, so a run can show
+that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -40,14 +41,17 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "LAUNCHES", "LaunchCounter", "build_all", "build_log",
-           "library", "entry", "check", "stream_ptr"]
+__all__ = ["SOURCES", "COUNTED", "LAUNCHES", "LaunchCounter", "build_all",
+           "build_log", "library", "entry", "check", "stream_ptr", "on_card"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("stc_apply", "histogram", "bin_select", "pack_bits",
            "pack_chunks", "unpack_bits", "golomb_decode", "threshold_stats",
            "bisect_select")
+# the launch counters: each source's kernel, plus the fp32 sign-plane pack
+# of pack_bits.cu and the sign-plane tally of unpack_bits.cu
+COUNTED = SOURCES + ("pack_sign_planes", "sign_plane_tally")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-ftz=true", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,7 +65,7 @@ class LaunchCounter:
     launch (the shapes the main path handed it)."""
 
     def __init__(self):
-        self.counts: dict[str, int] = {name: 0 for name in SOURCES}
+        self.counts: dict[str, int] = {name: 0 for name in COUNTED}
         self.shapes: dict[str, tuple] = {}
 
     def record(self, name: str, shape: tuple) -> None:
@@ -154,6 +158,17 @@ def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Where a wrapper runs: True for a CUDA tensor (it launches its
+    kernel), False for a CPU tensor (its plain version); raises for any
+    other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -11,9 +11,15 @@ bits, with the word's zero count beside it,
 over ALL ``32 * n_words`` bits (word padding included), for the host field
 scan to parse.  Two kernels take its place here:
 
-* :func:`unpack_words_with_counts` / :func:`unpack_bits_words`
-  (``csrc/unpack_bits.cu``): the same unpacking, for signSGD's dense sign
-  planes, whose bits are the message;
+* :func:`unpack_words_batched` (``csrc/unpack_bits.cu``): the same
+  unpacking over a ``(B, W)`` batch of word rows in one launch;
+  :func:`unpack_words_with_counts` / :func:`unpack_bits_words` are its
+  one-row case, for signSGD's dense sign planes, whose bits are the
+  message;
+* :func:`sign_plane_tally` (``csrc/unpack_bits.cu``): the unpack fused
+  with what the signSGD ingest does with the bits, a batch of sign planes
+  added into the fp64 accumulator sum in message order, so no bit plane is
+  ever written;
 * :func:`decode_golomb_fields` (``csrc/golomb_decode.cu``): the ternary
   stream's Golomb codewords parsed on the card into ``(seg, positions,
   signs)`` -- what the unpack plus ``core/wire.py::_decode_stream_fields``
@@ -22,7 +28,8 @@ scan to parse.  Two kernels take its place here:
 Words come in as int32 tensors holding the uint32 bit patterns (as
 :func:`.bitpack.pack_bits` returns them).  On a CUDA tensor the wrappers
 launch their kernels; on a CPU tensor they run their plain versions
-(:func:`unpack_words_plain`, :func:`decode_golomb_fields_plain`).
+(:func:`unpack_words_plain`, :func:`sign_plane_tally_plain`,
+:func:`decode_golomb_fields_plain`).
 """
 
 from __future__ import annotations
@@ -36,36 +43,54 @@ from ..core.selection import PASSES
 from ..core.wire import _MAX_B_STAR, WireDecodeError
 from . import _build
 
-__all__ = ["unpack_words_with_counts", "unpack_bits_words",
-           "unpack_words_plain", "decode_golomb_fields",
+__all__ = ["unpack_words_batched", "unpack_words_with_counts",
+           "unpack_bits_words", "unpack_words_plain", "sign_plane_tally",
+           "sign_plane_tally_plain", "decode_golomb_fields",
            "decode_golomb_fields_plain"]
 
 _SHIFTS = list(range(31, -1, -1))
 
 
 def unpack_words_plain(words: torch.Tensor):
-    """Plain PyTorch version: ``(bits uint8 (32W,), zeros int32 (W,))``."""
+    """Plain PyTorch version: ``(bits uint8 (..., 32W), zeros int32 (...,
+    W))`` for a ``(W,)`` or ``(B, W)`` word tensor."""
     u = words.to(torch.int64) & 0xFFFFFFFF
     shifts = torch.tensor(_SHIFTS, dtype=torch.int64, device=words.device)
-    bits = ((u[:, None] >> shifts) & 1).to(torch.uint8)
-    zeros = 32 - bits.sum(dim=1, dtype=torch.int32)
-    return bits.reshape(-1), zeros
+    bits = ((u[..., None] >> shifts) & 1).to(torch.uint8)
+    zeros = 32 - bits.sum(dim=-1, dtype=torch.int32)
+    return bits.reshape(*words.shape[:-1], -1), zeros
 
 
 def _launch(words: torch.Tensor):
     fn = _build.entry("unpack_bits", "unpack_bits_u32",
                       [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
                                                ctypes.c_void_p])
-    n_words = words.numel()
-    bits = torch.empty(32 * n_words, dtype=torch.uint8, device=words.device)
-    zeros = torch.empty(n_words, dtype=torch.int32, device=words.device)
-    if n_words == 0:
+    rows, n_words = words.shape
+    bits = torch.empty((rows, 32 * n_words), dtype=torch.uint8,
+                       device=words.device)
+    zeros = torch.empty((rows, n_words), dtype=torch.int32,
+                        device=words.device)
+    if words.numel() == 0:
         return bits, zeros
-    err = fn(words.data_ptr(), bits.data_ptr(), zeros.data_ptr(), n_words,
-             _build.stream_ptr(words.device))
+    err = fn(words.data_ptr(), bits.data_ptr(), zeros.data_ptr(),
+             words.numel(), _build.stream_ptr(words.device))
     _build.check("unpack_bits", err)
     _build.LAUNCHES.record("unpack_bits", words.shape)
     return bits, zeros
+
+
+def unpack_words_batched(words: torch.Tensor):
+    """A ``(B, W)`` int32 word tensor -> ``(bits (B, 32W) uint8, zeros (B,
+    W) int32)`` in one launch: row ``i``'s stream bit ``t`` from word ``[i,
+    t >> 5]`` at bit ``31 - (t & 31)``, and the number of 0-bits of every
+    word."""
+    if words.ndim != 2 or words.dtype != torch.int32:
+        raise ValueError(f"words must be a (B, W) int32 tensor, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    PASSES.record("unpack_bits")
+    if not _build.on_card(words):
+        return unpack_words_plain(words)
+    return _launch(words.contiguous())
 
 
 def unpack_words_with_counts(words: torch.Tensor):
@@ -75,12 +100,8 @@ def unpack_words_with_counts(words: torch.Tensor):
     if words.ndim != 1 or words.dtype != torch.int32:
         raise ValueError(f"words must be a flat int32 tensor, got "
                          f"{tuple(words.shape)} {words.dtype}")
-    PASSES.record("unpack_bits")
-    if words.device.type == "cpu":
-        return unpack_words_plain(words)
-    if words.device.type != "cuda":
-        raise ValueError(f"unsupported device {words.device}")
-    return _launch(words.contiguous())
+    bits, zeros = unpack_words_batched(words.reshape(1, -1))
+    return bits[0], zeros[0]
 
 
 def unpack_bits_words(words: torch.Tensor) -> torch.Tensor:
@@ -88,6 +109,83 @@ def unpack_bits_words(words: torch.Tensor) -> torch.Tensor:
     zero counts are computed and dropped, as in the reference."""
     bits, _ = unpack_words_with_counts(words)
     return bits
+
+
+# ---------------------------------------------------------------------------
+# signSGD's sign planes tallied into the ingest sum (csrc/unpack_bits.cu)
+# ---------------------------------------------------------------------------
+
+def _step64(step: float) -> float:
+    """``f64(f32(step))``: the plane's value as the host accumulator adds
+    it (``np.float32(step)`` widened)."""
+    return float(torch.tensor(float(step), dtype=torch.float32))
+
+
+def sign_plane_tally_plain(words: torch.Tensor, step: float,
+                           weights: torch.Tensor,
+                           total: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version, the host loop of
+    ``IngestAccumulator.add_sign_plane`` in torch fp64: message by message,
+    the plane's ``±f32(step)`` widened, times its weight (rounded), added
+    into ``total`` (rounded), in place."""
+    n = total.numel()
+    v = torch.tensor(_step64(step), dtype=torch.float64, device=total.device)
+    for i in range(words.shape[0]):
+        bits = unpack_words_plain(words[i])[0][:n]
+        total += torch.where(bits == 1, v, -v) * weights[i]
+    return total
+
+
+def _launch_tally(words, step, weights, total) -> None:
+    fn = _build.entry("unpack_bits", "sign_plane_tally_f64",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+                      + [ctypes.c_double, ctypes.c_void_p])
+    rows, n_words = words.shape
+    if rows == 0 or total.numel() == 0:
+        return
+    err = fn(words.data_ptr(), weights.data_ptr(), total.data_ptr(), rows,
+             n_words, total.numel(), _step64(step),
+             _build.stream_ptr(words.device))
+    _build.check("sign_plane_tally", err)
+    _build.LAUNCHES.record("sign_plane_tally", words.shape)
+
+
+def sign_plane_tally(words: torch.Tensor, step: float,
+                     weights: torch.Tensor,
+                     total: torch.Tensor) -> torch.Tensor:
+    """Add ``B`` sign planes into the fp64 sum ``total`` (``(n,)``, in
+    place, returned), in message order: for each coordinate ``j`` and
+    ``i = 0 .. B - 1`` in turn,
+
+        total[j] = total[j] + f64(bit(i, j) ? f32(step) : -f32(step))
+                   * weights[i]
+
+    with the product and the add each rounded in fp64, bitwise the host
+    accumulator's ``add_sign_plane`` loop.  ``words`` is ``(B, ceil(n /
+    32))`` int32 (row ``i``'s bit ``j`` in word ``[i, j >> 5]`` at bit
+    ``31 - (j & 31)``), ``weights`` ``(B,)`` fp64; one launch on the card,
+    where the planes are never unpacked into memory."""
+    if words.ndim != 2 or words.dtype != torch.int32:
+        raise ValueError(f"words must be a (B, W) int32 tensor, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    if total.ndim != 1 or total.dtype != torch.float64:
+        raise ValueError(f"total must be a flat float64 tensor, got "
+                         f"{tuple(total.shape)} {total.dtype}")
+    if words.shape[1] != -(-total.numel() // 32):
+        raise ValueError(f"{words.shape[1]} words a row do not hold "
+                         f"{total.numel()} coordinates")
+    if weights.shape != (words.shape[0],) or weights.dtype != torch.float64:
+        raise ValueError(f"weights must be ({words.shape[0]},) float64, got "
+                         f"{tuple(weights.shape)} {weights.dtype}")
+    if not words.device == weights.device == total.device:
+        raise ValueError("words, weights and total must be on one device")
+    PASSES.record("sign_plane_tally")
+    if not _build.on_card(total):
+        return sign_plane_tally_plain(words, step, weights, total)
+    if not total.is_contiguous():
+        raise ValueError("total must be contiguous: it is updated in place")
+    _launch_tally(words.contiguous(), step, weights.contiguous(), total)
+    return total
 
 
 # ---------------------------------------------------------------------------

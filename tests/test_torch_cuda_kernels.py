@@ -268,6 +268,149 @@ def test_unpack_bits(dev, n_words):
     assert rk.LAUNCHES.counts["unpack_bits"] == before + 2
 
 
+# -------------------------------------------- signSGD's sign planes
+
+_SIGN_EDGE = np.array([2e-4, -2e-4, 0.0, -0.0, 1e-40, -1e-40, 1.4e-45,
+                       -1.4e-45, np.inf, -np.inf, np.nan, 1.1754944e-38,
+                       3.4e38], np.float32)
+
+
+def _sign_rows(rows, n, seed):
+    """signSGD-like rows (±2e-4, 0) with every edge value of the sign test
+    among them, a NaN with its sign bit last."""
+    rng = np.random.default_rng(seed)
+    x = (np.sign(rng.standard_normal((rows, n))) * 2e-4).astype(np.float32)
+    pick = rng.random((rows, n)) < 0.05
+    x[pick] = rng.choice(_SIGN_EDGE, int(pick.sum()))
+    flat = x.reshape(-1)
+    flat[:min(_SIGN_EDGE.size, flat.size)] = _SIGN_EDGE[:flat.size]
+    flat[-1] = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+    return x
+
+
+def _host_sign_words(x):
+    return np.stack([wire._pack_bits_numpy((r > 0).astype(np.uint8))
+                     for r in x])
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (3, 31), (3, 33), (10, 1000),
+                                    (1, 307_434), (10, 307_434)])
+def test_pack_sign_planes_bitwise(dev, rows, n):
+    x_np = _sign_rows(rows, n, rows * n)
+    x = torch.from_numpy(x_np).to(dev)
+    before = rk.LAUNCHES.counts["pack_sign_planes"]
+    got = rk.pack_sign_planes(x)
+    again = rk.pack_sign_planes(x)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["pack_sign_planes"] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), rk.pack_sign_planes_plain(x.cpu()))
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  _host_sign_words(x_np))
+
+
+@pytest.mark.parametrize("rows,m", [(3, 1), (3, 33), (10, 1000),
+                                    (4, 4096), (10, 307_434)])
+def test_pack_bits_batched(dev, rows, m):
+    """Rows start off 16-byte boundaries unless 16 divides m; bytes other
+    than 0 and 1 pack as 1."""
+    rng = np.random.default_rng(m)
+    bits_np = ((rng.random((rows, m)) < 0.3)
+               * rng.integers(1, 256, (rows, m))).astype(np.uint8)
+    bits = torch.from_numpy(bits_np).to(dev)
+    before = rk.LAUNCHES.counts["pack_bits"]
+    got = rk.pack_bits_batched(bits)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["pack_bits"] == before + 1
+    assert torch.equal(got, rk.pack_bits_batched_plain(bits))
+    assert torch.equal(got, rk.pack_bits_batched(bits))
+    for i in (0, rows - 1):
+        assert torch.equal(got[i], rk.pack_bits(bits[i].contiguous()))
+
+
+@pytest.mark.parametrize("rows,n_words", [(3, 1), (10, 9608)])
+def test_unpack_words_batched(dev, rows, n_words):
+    w = np.random.default_rng(n_words).integers(
+        0, 1 << 32, (rows, n_words), dtype=np.uint64).astype(np.uint32)
+    words = torch.from_numpy(w.view(np.int32)).to(dev)
+    before = rk.LAUNCHES.counts["unpack_bits"]
+    bits, zeros = rk.unpack_words_batched(words)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["unpack_bits"] == before + 1
+    bits_p, zeros_p = rk.unpack_words_plain(words)
+    assert torch.equal(bits, bits_p) and torch.equal(zeros, zeros_p)
+    assert torch.equal(bits[rows - 1],
+                       rk.unpack_bits_words(words[rows - 1].contiguous()))
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (3, 33), (10, 1000),
+                                    (10, 307_434), (64, 307_434)])
+def test_sign_plane_tally_bitwise(dev, rows, n):
+    """Onto a sum that holds values: bitwise the plain version on the CPU
+    and the host accumulator's ``add_sign_plane`` loop; one launch."""
+    from repro_torch.core.ingest import IngestAccumulator
+    rng = np.random.default_rng(rows * n)
+    n_words = -(-n // 32)
+    w_np = rng.integers(0, 1 << 32, (rows, n_words),
+                        dtype=np.uint64).astype(np.uint32)
+    weights = rng.uniform(0, 2, rows)
+    weights[0] = 1 / 3
+    start = rng.standard_normal(n) * 1e-4
+    acc = IngestAccumulator(n)
+    acc.sum[:] = start
+    for i in range(rows):
+        acc.add_sign_plane(wire.words_to_bits(w_np[i], n), 2e-4,
+                           float(weights[i]))
+    words = torch.from_numpy(w_np.view(np.int32))
+    w64 = torch.from_numpy(weights)
+    total = torch.from_numpy(start.copy()).to(dev)
+    before = rk.LAUNCHES.counts["sign_plane_tally"]
+    rk.sign_plane_tally(words.to(dev), 2e-4, w64.to(dev), total)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["sign_plane_tally"] == before + 1
+    got = total.cpu().numpy().view(np.uint64)
+    plain = rk.sign_plane_tally(words, 2e-4, w64,
+                                torch.from_numpy(start.copy()))
+    np.testing.assert_array_equal(got, plain.numpy().view(np.uint64))
+    np.testing.assert_array_equal(got, acc.sum.view(np.uint64))
+
+
+def test_signsgd_codec_packs_and_tallies_a_round_in_one_launch_each(dev):
+    """The codec's ``"kernel"`` wire on card messages: one
+    ``pack_sign_planes`` for the batch, one ``sign_plane_tally`` for the
+    ingest, no per-plane ``pack_bits``/``unpack_bits``; the batch and the
+    accumulator equal the CPU's and the host backend's."""
+    from repro_torch.core import make_protocol
+    port = make_protocol("signsgd", wire_backend="kernel")
+    host = make_protocol("signsgd")
+    msgs_np = _sign_rows(10, 307_434, 7)
+    msgs = torch.from_numpy(msgs_np).to(dev)
+    w = np.linspace(0.1, 1.0, 10)
+    before = dict(rk.LAUNCHES.counts)
+    batch = port.encode_wire_batch(msgs)
+    acc = port.make_ingest(307_434)
+    acc.sum[:] = 0.125
+    port.ingest_wire_batch(acc, batch, w, device=dev)
+    torch.cuda.synchronize()
+    after = rk.LAUNCHES.counts
+    assert after["pack_sign_planes"] == before["pack_sign_planes"] + 1
+    assert after["sign_plane_tally"] == before["sign_plane_tally"] + 1
+    assert after["pack_bits"] == before["pack_bits"]
+    assert after["unpack_bits"] == before["unpack_bits"]
+    batch_h = host.encode_wire_batch(msgs_np)
+    for field in ("words", "word_start", "word_count", "bit_len", "mu",
+                  "nnz"):
+        np.testing.assert_array_equal(getattr(batch, field),
+                                      getattr(batch_h, field))
+    acc_h = host.make_ingest(307_434)
+    acc_h.sum[:] = 0.125
+    host.ingest_wire_batch(acc_h, batch_h, w)
+    np.testing.assert_array_equal(acc.sum.view(np.uint64),
+                                  acc_h.sum.view(np.uint64))
+    assert (acc.nnz, acc.n_msgs, acc.weight_mass, acc.stream_bits) == \
+        (acc_h.nnz, acc_h.n_msgs, acc_h.weight_mass, acc_h.stream_bits)
+
+
 @pytest.mark.parametrize("q", [0.0, 0.5, 0.98, 2.0])
 def test_threshold_stats(dev, q):
     x = _rows(dev, (307_434,), 3)
