@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --signsgd-round   # only the signSGD round's phases
+    python3 chip_smoke.py --paper-codecs    # only phase 7
+    python3 chip_smoke.py --buffered        # only phase 8
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
@@ -103,9 +105,34 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    the numpy field scan on the same batch, and a signSGD ingest round split
    into phases (both wire backends, in turns).
 
-``--signsgd-round`` runs the last of these alone on the package of the
-tree the file sits in: a copy inside a parent checkout unpacked beside
-the change times the parent.
+7. the paper's comparison codecs on the same cnn and data: ``baseline``,
+   ``fedavg`` (10 local iterations a round), ``topk`` (p = 1/50 up) and
+   ``ternquant``, at lr 0.01 (at the demo's 0.05 their training is
+   unstable: FedAvg reaches NaN, in the JAX package too, and card and CPU
+   part ways), 20 local iterations each (fedavg: 2 rounds) on the card
+   (counters set to 0 just before) and on the CPU from the same initial
+   parameters: accuracy within 0.03 and the four analytic ledger columns
+   equal; top-k launches the histogram and ``bin_select`` exactly once a
+   round and nothing else, the other three no kernel; then 3 lock-step
+   rounds card vs CPU (top-k messages, masks, counts and residuals
+   bitwise; baseline and FedAvg messages bitwise; TernQuant masks exact,
+   client and server side, and µ within rtol 1e-6), and each codec's
+   round split into ``local_sgd``, ``encode``, ``apply`` and ``ledger``;
+8. the buffered trainer: STC (p = 1/50 both ways) under
+   ``BufferedFederatedTrainer`` with the default ``LatencyModel`` and a
+   deadline of 0.5 (its median latency), 10 rounds on the dense route and
+   with ``TrainerConfig(ingest=True)``, card and CPU: ``arrival_log``
+   identical, accuracy within 0.03, ``bits_up`` within 2 %, and the
+   launches the arrival log implies (the clients' STC every round, the
+   server's each round that aggregated, one ``golomb_decode`` an ingested
+   arrival); whole rounds timed; then ``deadline=inf`` against the
+   synchronous trainer on the card, 3 rounds a route: parameters, ledger
+   and wire log bitwise.
+
+``--signsgd-round`` runs the last of the timings of 6 alone on the package
+of the tree the file sits in: a copy inside a parent checkout unpacked
+beside the change times the parent.  ``--paper-codecs`` and
+``--buffered`` run phase 7 or 8 alone.
 
 Prints the timing lines, the TF32 flags, the card's name and power limit,
 a ``{"kernels": [...]}`` line, and as its last line
@@ -821,7 +848,22 @@ DENSE_KERNELS = ("stc_apply", "histogram", "bin_select", "pack_chunks")
 INGEST_KERNELS = DENSE_KERNELS + ("golomb_decode",)
 
 
-def make_trainer(device, torch, ingest=False, codec="stc"):
+# each codec's settings on the cnn: examples/federated_noniid.py's
+# DEMO_OVERRIDES, and the "kernel" backends where a codec has them
+CODEC_KW = {
+    "stc": dict(sparsity_up=P_STC, sparsity_down=P_STC, backend="kernel",
+                wire_backend="kernel"),
+    "signsgd": dict(wire_backend="kernel"),
+    "topk": dict(sparsity_up=P_STC),
+    "fedavg": dict(local_iters=10),
+}
+
+
+def make_trainer(device, torch, ingest=False, codec="stc", buffered=None,
+                 lr=0.05):
+    """The cnn trainer of ``examples/federated_noniid.py`` with ``codec``;
+    ``buffered`` (a dict of ``BufferedFederatedTrainer`` keywords) makes it
+    the buffered trainer."""
     from repro_torch.core import make_protocol
     from repro_torch.data import make_image_classification
     from repro_torch.fed import FedEnvironment, FederatedTrainer, \
@@ -830,14 +872,13 @@ def make_trainer(device, torch, ingest=False, codec="stc"):
     train, test = make_image_classification(seed=0, n=6000)
     env = FedEnvironment(n_clients=10, participation=1.0,
                          classes_per_client=2, batch_size=20)
-    if codec == "stc":
-        proto = make_protocol("stc", sparsity_up=P_STC, sparsity_down=P_STC,
-                              backend="kernel", wire_backend="kernel")
-    else:
-        proto = make_protocol(codec, wire_backend="kernel")
-    return FederatedTrainer(MODEL_ZOO["cnn"], train, test, env, proto,
-                            TrainerConfig(lr=0.05, ingest=ingest),
-                            device=device)
+    proto = make_protocol(codec, **CODEC_KW.get(codec, {}))
+    args = (MODEL_ZOO["cnn"], train, test, env, proto,
+            TrainerConfig(lr=lr, ingest=ingest))
+    if buffered is not None:
+        from repro_torch.fed import BufferedFederatedTrainer
+        return BufferedFederatedTrainer(*args, **buffered, device=device)
+    return FederatedTrainer(*args, device=device)
 
 
 def run_trainers(torch, rk, ingest=False):
@@ -2030,7 +2071,7 @@ def time_signsgd_round(torch, np, tr, reps=5):
     return med
 
 
-def signsgd_round_only(torch, np) -> int:
+def signsgd_round_only(torch, np) -> None:
     """``--signsgd-round``: the signSGD ingest round's phases alone, on the
     tree this file sits in (a parent unpacked beside the change runs this
     file's copy against its own package), then the card's line."""
@@ -2046,7 +2087,333 @@ def signsgd_round_only(torch, np) -> int:
     print(f"card after the timing (SM clock, max SM clock, power draw, "
           f"temperature): {clocks}")
     print(card_line())
-    return 0
+
+
+# ---------------------------------------------------------------- phase 7
+
+PAPER_CODECS = ("baseline", "fedavg", "topk", "ternquant")
+SELECTION_KERNELS = ("histogram", "bin_select")
+CODEC_ITERS = 20       # local iterations a codec run (fedavg: 2 rounds of 10)
+# at the demo's lr 0.05 the dense codecs' cnn training is unstable (FedAvg's
+# ten local steps reach NaN in its first round, in the JAX package too, and
+# baseline's accuracy swings between evaluations, so that card and CPU part
+# ways); at 0.01 all four train stably
+CODEC_LR = 0.01
+LEDGER_COLS = ("bits_up", "bits_down", "bits_up_analytic",
+               "bits_down_analytic")
+
+
+def ulps_from(np, a, delta):
+    """How many fp32 ulps of ``delta`` separate ``a`` from it."""
+    return float((np.float64(a) - np.float64(delta))
+                 / np.spacing(np.float32(delta)))
+
+
+def check_codec_lockstep(torch, np, tr, rounds=3):
+    """The card's encode and apply phases of a paper codec against the CPU's
+    on the same inputs, round by round from the trained state: the card's
+    local-SGD deltas, residuals and parameters, and (server side) the
+    card's combined mean.  top-k: messages, masks, counts and residuals
+    bitwise; baseline and FedAvg: messages bitwise; TernQuant: masks exact
+    (a differing element is printed with its distance from Δ in ulps) and
+    µ within rtol 1e-6, client and server side.  The trainer's state is
+    left as it was; only its data stream advances."""
+    from repro_torch.core.compression import ternary_quantize
+    from repro_torch.core.residual import (ResidualState,
+                                           compress_with_feedback)
+    from repro_torch.core.selection import flush_subnormal
+    from repro_torch.fed.loop import local_sgd
+    proto, p = tr.protocol, tr.env.participants_per_round
+    ones = torch.ones(p, device=tr.device)
+    zeros = torch.zeros(p, device=tr.device)
+    params = tr.params_vec.clone()
+    client_res = (None if tr.client_state is None
+                  else tr.client_state.residual.clone())
+    server = tr.server_state
+    worst = {"mu_rtol": 0.0}
+
+    def bitwise(what, got, want):
+        require(np.array_equal(got.cpu().numpy().view(np.int32),
+                               want.numpy().view(np.int32)),
+                f"{proto.name} lock-step round {r}: {what} differ")
+
+    def same_ternary(what, got, want, st, st_c, carried):
+        """Masks exact and µ within rtol 1e-6; ``carried`` (CPU) locates a
+        differing element against Δ."""
+        mask, mask_c = got.cpu() != 0, want != 0
+        if not torch.equal(mask, mask_c):
+            a = flush_subnormal(carried).abs().reshape(mask.shape)
+            delta = proto.theta * (a.sum(-1, dtype=torch.float64)
+                                   .to(torch.float32) / a.shape[-1])
+            for row, col in (mask != mask_c).nonzero().tolist()[:20]:
+                print(f"{proto.name} lock-step round {r}: {what} mask "
+                      f"differs at ({row}, {col}): |x| = "
+                      f"{float(a[row, col])!r}, Δ = {float(delta[row])!r}, "
+                      f"{ulps_from(np, float(a[row, col]), float(delta[row])):+.2f} ulps")
+        require(torch.equal(mask, mask_c),
+                f"{proto.name} lock-step round {r}: {what} masks differ")
+        require(torch.equal(torch.sign(got.cpu()), torch.sign(want)),
+                f"{proto.name} lock-step round {r}: {what} signs differ")
+        require(torch.equal(st.nnz.cpu(), st_c.nnz),
+                f"{proto.name} lock-step round {r}: {what} counts differ")
+        mu_c = st_c.mu.reshape(-1).double()
+        rel = float(((st.mu.cpu().reshape(-1).double() - mu_c).abs()
+                     / mu_c.abs().clamp(min=1e-300)).max())
+        require(rel <= 1e-6, f"{proto.name} lock-step round {r}: {what} µ "
+                             f"off by rtol {rel:.3e} > 1e-6")
+        worst["mu_rtol"] = max(worst["mu_rtol"], rel)
+
+    for r in range(rounds):
+        sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
+        xs, ys = tr._sample_batches(sel, proto.local_iters)
+        idx = torch.as_tensor(sel, device=tr.device)
+        deltas, _ = local_sgd(tr.apply_fn, tr.spec, params,
+                              tr.client_mom[idx], xs, ys, tr.tcfg.lr,
+                              tr.tcfg.momentum)
+        cs = cs_c = None
+        if client_res is not None:
+            cs = ResidualState(client_res[idx])
+            cs_c = ResidualState(client_res[idx].cpu())
+        msgs, cst, st = proto.encode_batch(deltas, cs)
+        msgs_c, cst_c, st_c = proto.encode_batch(deltas.cpu(), cs_c)
+        gd, sst, sg = proto.aggregate(msgs, server, mask=ones,
+                                      staleness=zeros)
+        if proto.name == "ternquant":
+            carried = deltas.cpu() + cs_c.residual
+            same_ternary("client messages", msgs, msgs_c, st, st_c, carried)
+            # the server's quantization on the card's combined mean
+            mean = proto.combine(msgs, ones, zeros)
+            gd_c, _, sg_c = compress_with_feedback(
+                mean.cpu(), ResidualState(server.residual.cpu()),
+                lambda v: ternary_quantize(v, proto.theta))
+            same_ternary("server message", gd[None], gd_c[None], sg, sg_c,
+                         (mean.cpu() + server.residual.cpu())[None])
+        else:
+            bitwise("messages", msgs, msgs_c)
+        if proto.name == "topk":
+            require(torch.equal(msgs.cpu() != 0, msgs_c != 0)
+                    and torch.equal(st.nnz.cpu(), st_c.nnz),
+                    f"topk lock-step round {r}: masks or counts differ")
+            bitwise("residuals", cst.residual, cst_c.residual)
+        if client_res is not None:
+            client_res[idx] = cst.residual
+        server = sst
+        params = params + gd
+    print(f"{proto.name} lock-step ({rounds} rounds, card vs CPU from the "
+          f"same inputs): "
+          + ("messages bitwise" if proto.name in ("baseline", "fedavg")
+             else "messages, masks, counts and residuals bitwise"
+             if proto.name == "topk"
+             else f"masks exact, {json.dumps(worst)}"))
+
+
+def time_codec_round(torch, np, tr, reps=5):
+    """One round of a paper codec split into its phases, host clock after
+    ``synchronize``, median of ``reps``: ``local_sgd``, ``encode``,
+    ``apply`` (the trainer's aggregate and update, state untouched) and
+    ``ledger`` (the analytic bits and the update cache's push of the global
+    delta, as the trainer books them), then whole rounds."""
+    from repro_torch.core.residual import take_states
+    from repro_torch.fed.loop import local_sgd
+    proto, p = tr.protocol, tr.env.participants_per_round
+    names = ("local_sgd", "encode", "apply", "ledger")
+    phases = {name: [] for name in names + ("round",)}
+
+    def sync_now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for _ in range(reps):
+        sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
+        xs, ys = tr._sample_batches(sel, proto.local_iters)
+        idx = torch.as_tensor(sel, device=tr.device)
+        ts = [sync_now()]
+        deltas, _ = local_sgd(tr.apply_fn, tr.spec, tr.params_vec,
+                              tr.client_mom[idx], xs, ys, tr.tcfg.lr,
+                              tr.tcfg.momentum)
+        ts.append(sync_now())
+        msgs, _, _ = proto.encode_batch(deltas,
+                                        take_states(tr.client_state, idx))
+        ts.append(sync_now())
+        _, _, gd = tr._apply_fn(tr.params_vec, tr.server_state, msgs,
+                                torch.ones(p, device=tr.device),
+                                torch.zeros(p, device=tr.device))
+        ts.append(sync_now())
+        tr._account(sel, msgs, gd)
+        ts.append(sync_now())
+        for name, t0, t1 in zip(names, ts, ts[1:]):
+            phases[name].append((t1 - t0) * 1e3)
+    for _ in range(reps):
+        t0 = sync_now()
+        tr.run_round()
+        phases["round"].append((sync_now() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in phases.items()}
+    print(f"{proto.name} round phases (median of {reps}, ms, host clock "
+          f"after synchronize): " + json.dumps({k: round(v, 3)
+                                                for k, v in med.items()}))
+    return med
+
+
+def run_paper_codecs(torch, np, rk):
+    """The paper's comparison codecs on the cnn (``CODEC_ITERS`` local
+    iterations each), on the card (counters set to 0 just before) and on the
+    CPU from the same initial parameters: accuracy within 0.03 and the four
+    (analytic) ledger columns equal; top-k launches the histogram and
+    ``bin_select`` exactly once a round and nothing else, the others no
+    kernel at all.  Then each codec's lock-step rounds and its round
+    phases.  Returns the launch counts and shapes by codec."""
+    out = {}
+    for name in PAPER_CODECS:
+        gpu = make_trainer("cuda", torch, codec=name, lr=CODEC_LR)
+        require(gpu.numel == MAIN_N, f"cnn has {gpu.numel} parameters")
+        rounds = max(CODEC_ITERS // gpu.protocol.local_iters, 1)
+        rk.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        h_gpu = gpu.run(rounds, eval_every=rounds)[-1]
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        launches = dict(rk.LAUNCHES.counts)
+        shapes = dict(rk.LAUNCHES.shapes)
+        require(bool(torch.isfinite(gpu.params_vec).all()),
+                f"{name}: non-finite params")
+        want = {k: (rounds if name == "topk" and k in SELECTION_KERNELS
+                    else 0) for k in launches}
+        require(launches == want,
+                f"{name} launched {json.dumps(launches)} in {rounds} "
+                f"rounds, not {json.dumps(want)}")
+        cpu = make_trainer("cpu", torch, codec=name, lr=CODEC_LR)
+        t0 = time.perf_counter()
+        h_cpu = cpu.run(rounds, eval_every=rounds)[-1]
+        cpu_s = time.perf_counter() - t0
+        require(rk.LAUNCHES.counts == launches,
+                f"{name}: the CPU run launched a CUDA kernel")
+        d_acc = abs(h_gpu["acc"] - h_cpu["acc"])
+        print(f"{name} trainer: cnn, {rounds} rounds of "
+              f"{gpu.protocol.local_iters} local iterations | card "
+              f"acc={h_gpu['acc']:.4f} ({gpu_s:.1f} s) | cpu "
+              f"acc={h_cpu['acc']:.4f} ({cpu_s:.1f} s) | ledger "
+              f"{json.dumps({k: h_gpu[k] for k in LEDGER_COLS})} | "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}"
+              f" shapes {json.dumps({k: list(v) for k, v in shapes.items()})}")
+        require(d_acc <= 0.03, f"{name}: accuracy differs by {d_acc:.4f}")
+        for col in LEDGER_COLS:
+            require(h_gpu[col] == h_cpu[col],
+                    f"{name}: {col} {h_gpu[col]} on the card, {h_cpu[col]} "
+                    f"on the CPU")
+        check_codec_lockstep(torch, np, gpu)
+        time_codec_round(torch, np, gpu)
+        out[name] = (launches, shapes)
+    print(f"card: {card_line()}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 8
+
+BUFFERED_ROUNDS = 10
+BUFFERED_DEADLINE = 0.5   # the default LatencyModel's median latency
+
+
+def run_buffered(torch, np, rk):
+    """STC (p = 1/50 both ways) under ``BufferedFederatedTrainer`` with the
+    default ``LatencyModel`` and a deadline at its median latency, on the
+    dense route and with ``TrainerConfig(ingest=True)``, ``BUFFERED_ROUNDS``
+    rounds each on the card (counters set to 0 just before) and on the CPU:
+    ``arrival_log`` identical, accuracy within 0.03 and ``bits_up`` within
+    2 %.  Then ``deadline=inf`` against the synchronous trainer on the card,
+    3 rounds: parameters and the ledger bitwise.  Returns the launch counts
+    and shapes by route."""
+    from repro_torch.fed import LatencyModel
+    finite = {"latency": LatencyModel(), "deadline": BUFFERED_DEADLINE}
+    out = {}
+    for ingest in (False, True):
+        route = "ingest" if ingest else "dense"
+        gpu = make_trainer("cuda", torch, ingest=ingest, buffered=finite)
+        require(gpu.ingest == ingest, f"buffered {route}: not on its route")
+        rk.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        h_gpu = gpu.run(BUFFERED_ROUNDS, eval_every=BUFFERED_ROUNDS)[-1]
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        launches = dict(rk.LAUNCHES.counts)
+        shapes = dict(rk.LAUNCHES.shapes)
+        log = gpu.arrival_log
+        require(bool(torch.isfinite(gpu.params_vec).all()),
+                f"buffered {route}: non-finite params")
+        require(any(row["staleness_max"] > 0 for row in log)
+                and any(row["arrived"] < row["dispatched"] for row in log),
+                f"buffered {route}: no straggler in {BUFFERED_ROUNDS} rounds")
+        cpu = make_trainer("cpu", torch, ingest=ingest, buffered=finite)
+        t0 = time.perf_counter()
+        h_cpu = cpu.run(BUFFERED_ROUNDS, eval_every=BUFFERED_ROUNDS)[-1]
+        cpu_s = time.perf_counter() - t0
+        require(rk.LAUNCHES.counts == launches,
+                f"buffered {route}: the CPU run launched a CUDA kernel")
+        require(cpu.arrival_log == log,
+                f"buffered {route}: arrival logs differ card vs CPU")
+        d_acc = abs(h_gpu["acc"] - h_cpu["acc"])
+        d_up = abs(h_gpu["bits_up"] / h_cpu["bits_up"] - 1.0)
+        print(f"buffered {route}: cnn, STC, {BUFFERED_ROUNDS} rounds, "
+              f"deadline {BUFFERED_DEADLINE} | card acc={h_gpu['acc']:.4f} "
+              f"bits_up={h_gpu['bits_up']:.0f} ({gpu_s:.1f} s) | cpu "
+              f"acc={h_cpu['acc']:.4f} bits_up={h_cpu['bits_up']:.0f} "
+              f"({cpu_s:.1f} s) | |d acc|={d_acc:.4f} "
+              f"|d bits_up|={d_up:.4%} | arrivals "
+              f"{json.dumps([[r['arrived'], r['aggregated'], r['staleness_max']] for r in log])}"
+              f" | launches {json.dumps({k: v for k, v in launches.items() if v})}"
+              f" shapes {json.dumps({k: list(v) for k, v in shapes.items()})}")
+        require(d_acc <= 0.03, f"buffered {route}: accuracy differs by "
+                               f"{d_acc:.4f} > 0.03")
+        require(d_up <= 0.02, f"buffered {route}: bits_up differs by "
+                              f"{d_up:.4%} > 2%")
+        # the clients' STC every round, the server's each round that
+        # aggregated; one decode an ingested arrival
+        agg = [row["aggregated"] for row in log]
+        stc = BUFFERED_ROUNDS + sum(a > 0 for a in agg)
+        want = {"histogram": stc, "bin_select": stc, "stc_apply": stc,
+                "golomb_decode": sum(agg) if ingest else 0}
+        got = {k: launches[k] for k in want}
+        require(got == want, f"buffered {route}: launched {json.dumps(got)}"
+                             f", not {json.dumps(want)}")
+        require(launches["pack_chunks"] > 0 and launches["unpack_bits"] == 0
+                and launches["pack_bits"] == 0,
+                f"buffered {route}: the wire did not go through pack_chunks "
+                f"alone")
+        time_buffered_round(torch, gpu, route)
+        out[route] = (launches, shapes)
+    for ingest in (False, True):
+        sync = make_trainer("cuda", torch, ingest=ingest)
+        inf = make_trainer("cuda", torch, ingest=ingest,
+                           buffered={"latency": LatencyModel()})
+        sync.run(3, eval_every=3)
+        inf.run(3, eval_every=3)
+        torch.cuda.synchronize()
+        require(torch.equal(sync.params_vec, inf.params_vec)
+                and all(getattr(sync, c) == getattr(inf, c)
+                        for c in LEDGER_COLS)
+                and sync.wire_log == inf.wire_log,
+                f"deadline=inf differs from the synchronous trainer on the "
+                f"card ({'ingest' if ingest else 'dense'} route)")
+    print("buffered deadline=inf: parameters, ledger and wire log bitwise "
+          "the synchronous trainer's on the card, 3 rounds, dense and "
+          "ingest routes")
+    print(f"card: {card_line()}")
+    return out
+
+
+def time_buffered_round(torch, tr, route, reps=5):
+    """Whole buffered rounds on the card, host clock after ``synchronize``,
+    median of ``reps``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_round()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"buffered {route} round (median of {reps}, ms, host clock after "
+          f"synchronize): {statistics.median(times):.3f} "
+          f"(all: {json.dumps([round(t, 3) for t in times])})")
+    return statistics.median(times)
 
 
 # ------------------------------------------------------------------- main
@@ -2067,12 +2434,20 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
         return 2
-    if sys.argv[1:] == ["--signsgd-round"]:
+    alone = {"--signsgd-round": lambda: signsgd_round_only(torch, np),
+             "--paper-codecs": lambda: run_paper_codecs(torch, np, rk),
+             "--buffered": lambda: run_buffered(torch, np, rk)}
+    if len(sys.argv) == 2 and sys.argv[1] in alone:
         try:
-            return signsgd_round_only(torch, np)
+            alone[sys.argv[1]]()
+            return 0
         except (Failure, RuntimeError, subprocess.SubprocessError) as exc:
             print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
             return 1
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; options: "
+              f"{', '.join(alone)}", file=sys.stderr)
+        return 2
     try:
         t0 = time.perf_counter()
         rk.build_all()
@@ -2132,6 +2507,17 @@ def main() -> int:
         time_ingest_round(torch, np, tr_in)
         time_decode_split(torch, np, rk, tr_in.protocol, batch_in)
         time_signsgd_round(torch, np, signsgd["trainer"])
+        codecs = run_paper_codecs(torch, np, rk)
+        buffered = run_buffered(torch, np, rk)
+        # launches on the paths of phases 7 and 8, beside each kernel's
+        # main-path count
+        for row in rows:
+            name = {"magnitude_histogram": "histogram"}.get(row["name"],
+                                                            row["name"])
+            row["launches_other_paths"] = {
+                path: runs[path][0][name]
+                for runs in (codecs, buffered) for path in runs
+                if runs[path][0].get(name)}
         for row in rows:
             require(all(isinstance(row[f], (int, float)) and math.isfinite(
                 row[f]) for f in ("ms", "plain_ms", "bound_ms")),

@@ -1,0 +1,78 @@
+"""The paper's headline experiment on the PyTorch/CUDA port: every
+registered codec on non-iid federated data (every client holds TWO
+classes), CNN on a synthetic CIFAR-shaped task.  The twin of
+``examples/federated_noniid.py``, with the same flags and overrides.
+
+    PYTHONPATH=src python examples/federated_noniid_torch.py [--rounds 40]
+    PYTHONPATH=src python examples/federated_noniid_torch.py --protocols stc ternquant
+    PYTHONPATH=src python examples/federated_noniid_torch.py --device cpu
+
+Runs on the CUDA card unless ``--device cpu`` is given.  Protocols come
+from the port's codec registry (``repro_torch.core.registered_protocols``).
+"""
+
+import argparse
+import time
+
+from repro_torch.core import make_protocol, registered_protocols
+from repro_torch.data import make_image_classification
+from repro_torch.fed import FedEnvironment, FederatedTrainer, TrainerConfig
+from repro_torch.models import MODEL_ZOO
+
+# demo-sized hyperparameter overrides (the registry defaults are the paper's
+# full-scale settings: p=1/400, n=400 local iterations)
+DEMO_OVERRIDES = {
+    "stc": dict(sparsity_up=1 / 50, sparsity_down=1 / 50),
+    "topk": dict(sparsity_up=1 / 50),
+    "fedavg": dict(local_iters=10),
+}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rounds", type=int, default=40)
+    ap.add_argument("--model", default="cnn", choices=("cnn", "mlp", "logreg",
+                                                       "lstm"))
+    ap.add_argument("--classes-per-client", type=int, default=2)
+    ap.add_argument("--protocols", nargs="+", default=None,
+                    metavar="NAME", help="codec names to run (default: every "
+                    f"registered codec: {', '.join(registered_protocols())})")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args()
+
+    if args.model == "lstm":
+        from repro_torch.data import make_sequence_classification
+        train, test = make_sequence_classification(seed=0, n=6000)
+    elif args.model == "cnn":
+        train, test = make_image_classification(seed=0, n=6000)
+    else:
+        from repro_torch.data import make_classification
+        train, test = make_classification(seed=0, n=6000)
+
+    env = FedEnvironment(n_clients=10, participation=1.0,
+                         classes_per_client=args.classes_per_client,
+                         batch_size=20)
+    print(f"model={args.model}  clients=10/10  "
+          f"classes/client={args.classes_per_client}")
+    print(f"{'method':>10s} {'acc':>6s} {'upMB':>9s} {'downMB':>9s} "
+          f"{'iters':>6s} {'time':>5s}")
+
+    for pname in args.protocols or registered_protocols():
+        proto = make_protocol(pname, **DEMO_OVERRIDES.get(pname, {}))
+        # a delay-period codec (fedavg) does local_iters work per round
+        rounds = max(args.rounds // proto.local_iters, 1)
+        t0 = time.time()
+        tr = FederatedTrainer(MODEL_ZOO[args.model], train, test, env, proto,
+                              TrainerConfig(lr=0.05), device=args.device)
+        h = tr.run(rounds, eval_every=rounds)[-1]
+        print(f"{pname:>10s} {h['acc']:6.3f} {h['bits_up']/8e6:9.2f} "
+              f"{h['bits_down']/8e6:9.2f} {h['iterations']:6d} "
+              f"{time.time()-t0:4.0f}s")
+
+    print("\nexpected (paper): STC matches/beats the others at a fraction "
+          "of the bits; signSGD degrades hardest under non-iid.")
+
+
+if __name__ == "__main__":
+    main()

@@ -2,15 +2,18 @@
 
 from .aggregation import AggregationRule, MeanRule, make_rule
 from .compression import (CompressionStats, flatten_pytree, get_stc_backend,
-                          stc_compress, unflatten_pytree)
+                          stc_compress, ternary_quantize, top_k_sparsify,
+                          unflatten_pytree)
 from .ingest import IngestAccumulator
-from .protocols import (Codec, SignSGDCodec, StcCodec, make_protocol,
+from .protocols import (BaselineCodec, Codec, FedAvgCodec, SignSGDCodec,
+                        StcCodec, TernQuantCodec, TopKCodec, make_protocol,
                         register_protocol, registered_protocols)
-from .residual import ResidualState, init_residual
+from .residual import ResidualState, compress_with_feedback, init_residual
 
 __all__ = ["AggregationRule", "MeanRule", "make_rule", "CompressionStats",
            "flatten_pytree", "unflatten_pytree", "get_stc_backend",
-           "stc_compress", "IngestAccumulator", "Codec", "StcCodec",
-           "SignSGDCodec", "make_protocol",
-           "register_protocol", "registered_protocols", "ResidualState",
-           "init_residual"]
+           "stc_compress", "top_k_sparsify", "ternary_quantize",
+           "IngestAccumulator", "Codec", "BaselineCodec", "FedAvgCodec",
+           "SignSGDCodec", "TopKCodec", "StcCodec", "TernQuantCodec",
+           "make_protocol", "register_protocol", "registered_protocols",
+           "ResidualState", "init_residual", "compress_with_feedback"]

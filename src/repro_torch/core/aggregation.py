@@ -99,7 +99,12 @@ class MeanRule(AggregationRule):
     def combine_weighted(self, msgs, weights):
         if weights is None:
             return msgs.mean(dim=0)
-        total = weights.sum()
+        # the weight mass summed in arrival order, one fp32 add at a time,
+        # as XLA reduces a cohort-sized vector (torch.sum's vectorized
+        # order moves its last bit, and the mean's with it)
+        total = weights.new_zeros(())
+        for w in weights:
+            total = total + w
         denom = torch.where(total > 0, total, torch.ones_like(total))
         wb = weights.reshape((msgs.shape[0],) + (1,) * (msgs.ndim - 1))
         return (msgs * wb).sum(dim=0) / denom

@@ -3,7 +3,9 @@
 Counterpart of ``repro/core/compression.py``, in PyTorch:
 
 * ``top_k_mask``  -- the mask of the k largest magnitudes (ties kept)
+* ``top_k_sparsify`` -- top-k magnitude sparsification (Aji & Heafield '17)
 * ``ternarize``   -- Algorithm 1 lines 6-8: kept entries -> ``{-µ, 0, +µ}``
+* ``ternary_quantize`` -- dense TWN ternary quantization (T-FedAvg)
 * ``stc_compress`` -- sparsify + ternarize in one call (the STC operator)
 * ``sign_compress`` / ``majority_vote_sign`` -- signSGD and its
   (weighted) majority vote
@@ -21,6 +23,12 @@ computes them under XLA's flush-to-zero: never selected or counted, no part
 of µ, a residual of 0 and a sign of 0 (``core.selection.flush_subnormal``).
 The ``"torch"`` route flushes the operands and the result of every fp32 sum
 as XLA does, so its residuals are the reference's bit for bit.
+
+The top-k operators select through the ``"kernel"`` backend's exact
+k-selection (the histogram and ``bin_select`` kernels on the card, their
+plain versions on the CPU), one launch of each for a ``(B, n)`` batch.
+Each operator has a batched form over the rows of a ``(B, n)`` matrix
+(``*_batch``); the single-vector form is a batch of one row.
 """
 
 from __future__ import annotations
@@ -35,7 +43,12 @@ from .selection import flush_subnormal
 __all__ = [
     "CompressionStats",
     "top_k_mask",
+    "top_k_mask_batch",
+    "top_k_sparsify",
+    "top_k_sparsify_batch",
     "ternarize",
+    "ternary_quantize",
+    "ternary_quantize_batch",
     "stc_compress",
     "sign_compress",
     "majority_vote_sign",
@@ -63,13 +76,40 @@ def _k_from_p(n: int, p: float) -> int:
     return max(int(n * p), 1)
 
 
+def top_k_mask_batch(x: torch.Tensor, k):
+    """Per row of ``(B, n)`` ``x``: the mask of ``|x| >= v`` with v the
+    k-th largest magnitude (ties kept, as in Algorithm 1 line 5; zeros and
+    subnormals never kept), and its count.  ``k`` is an int or one per
+    row.  The selection is the ``"kernel"`` backend's: no top-k or sort on
+    the card."""
+    a = flush_subnormal(x.to(torch.float32)).abs()
+    thresh, cnt, _ = get_stc_backend("kernel").select_batch(a, k)
+    return (a >= thresh[:, None]) & (a > 0.0), cnt
+
+
 def top_k_mask(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Mask of ``|x| >= v`` with v the k-th largest magnitude of flattened
-    ``x`` (ties kept, as in Algorithm 1 line 5); zeros and subnormals never
-    kept."""
-    a = flush_subnormal(x).abs()
-    v = torch.topk(a.reshape(-1), k).values[-1]
-    return (a >= v) & (a > 0.0)
+    """The mask of :func:`top_k_mask_batch` over flattened ``x``."""
+    return top_k_mask_batch(x.reshape(1, -1), k)[0].reshape(x.shape)
+
+
+def top_k_sparsify_batch(x: torch.Tensor, p: float):
+    """``top_p%`` operator of Eq. (8) on every row of ``(B, n)`` ``x``:
+    keep the fraction-p largest magnitudes (``k = max(int(n·p), 1)``) with
+    their values.  A row with fewer non-zeros than k keeps its non-zeros.
+    Returns ``(out, CompressionStats)`` with ``(B,)`` statistics (µ = 0)."""
+    rows, n = x.shape
+    mask, cnt = top_k_mask_batch(x, _k_from_p(n, p))
+    out = torch.where(mask, x, torch.zeros_like(x))
+    stats = CompressionStats(
+        nnz=cnt, numel=torch.full((rows,), n),
+        mu=torch.zeros(rows, dtype=x.dtype, device=x.device))
+    return out, stats
+
+
+def top_k_sparsify(x: torch.Tensor, p: float):
+    """:func:`top_k_sparsify_batch` over flattened ``x``."""
+    out, stats = top_k_sparsify_batch(x.reshape(1, -1), p)
+    return out.reshape(x.shape), CompressionStats(*(s[0] for s in stats))
 
 
 def ternarize(x: torch.Tensor, mask: torch.Tensor):
@@ -88,6 +128,41 @@ def stc_compress(x: torch.Tensor, p: float):
     stats = CompressionStats(nnz=mask.sum(), numel=torch.tensor(x.numel()),
                              mu=mu)
     return tern, stats
+
+
+def ternary_quantize_batch(x: torch.Tensor, theta: float = 0.75):
+    """Dense ternary quantization (TWN thresholding; T-FedAvg, Xu et al.
+    '20) of every row of ``(B, n)`` ``x``: keep ``|x| > Δ`` with
+    ``Δ = θ·mean(|x|)`` and map the survivors to ``{-µ, +µ}``, µ the mean
+    kept magnitude.  Both sums are taken in fp64; the mean is divided in
+    fp64 by a tensor (CUDA divides by a Python scalar through its
+    reciprocal, which is not correctly rounded) and rounded once to fp32,
+    µ divided in fp32 as the reference divides it.  So the card and the CPU
+    agree on Δ and µ; against the reference's fp32 reductions they may
+    differ in the last ulp (ROADMAP R7).  Subnormals count as zeros.
+    Returns ``(out, CompressionStats)`` with ``(B,)`` statistics."""
+    xf = flush_subnormal(x.to(torch.float32))
+    a = xf.abs()
+    total = a.sum(dim=-1, dtype=torch.float64)
+    mean = (total / torch.full_like(total, a.shape[-1])).to(torch.float32)
+    delta = flush_subnormal(theta * mean)
+    mask = a > delta[:, None]
+    cnt = mask.sum(dim=-1, dtype=torch.int32)
+    kept = torch.where(mask, a, torch.zeros_like(a)).sum(
+        dim=-1, dtype=torch.float64).to(torch.float32)
+    mu = flush_subnormal(kept / torch.clamp(cnt, min=1).to(torch.float32))
+    out = torch.where(mask, mu[:, None] * torch.sign(xf),
+                      torch.zeros_like(xf)).to(x.dtype)
+    stats = CompressionStats(nnz=cnt, numel=torch.full((x.shape[0],),
+                                                       x.shape[-1]),
+                             mu=mu.to(x.dtype))
+    return out, stats
+
+
+def ternary_quantize(x: torch.Tensor, theta: float = 0.75):
+    """:func:`ternary_quantize_batch` over flattened ``x``."""
+    out, stats = ternary_quantize_batch(x.reshape(1, -1), theta)
+    return out.reshape(x.shape), CompressionStats(*(s[0] for s in stats))
 
 
 def sign_compress(x: torch.Tensor, step: float):

@@ -29,10 +29,11 @@ and implementing a small interface that the federated trainer
   one pack of the cohort's fp32 messages, and one tally of the planes into
   the accumulator's sum.
 
-This slice ports the base class, :class:`StcCodec` and the flat path of
-:class:`SignSGDCodec`; the other paper codecs (baseline, fedavg, topk,
-ternquant) are still to port, and so are screening rules on the ingest
-path.
+The paper's comparison set (Table I) is ported on the flat path:
+:class:`BaselineCodec`, :class:`FedAvgCodec`, :class:`SignSGDCodec`,
+:class:`TopKCodec`, :class:`StcCodec` and :class:`TernQuantCodec`,
+registered in the reference's order.  The tree path, chunked codecs and
+screening rules on the ingest path are still to port.
 """
 
 from __future__ import annotations
@@ -47,14 +48,18 @@ import torch
 from . import golomb, wire
 from .aggregation import AggregationRule, MeanRule, make_rule
 from .compression import (CompressionStats, get_stc_backend,
-                          majority_vote_sign, sign_compress)
+                          majority_vote_sign, sign_compress,
+                          ternary_quantize, ternary_quantize_batch,
+                          top_k_sparsify, top_k_sparsify_batch)
 from .ingest import IngestAccumulator
 from .registry import lookup as _registry_lookup, resolve as _registry_resolve
-from .residual import ResidualState, init_residual, map_states, take_states
+from .residual import (ResidualState, compress_with_feedback, init_residual,
+                       map_states, take_states)
 
 __all__ = ["Codec", "make_protocol", "register_protocol",
-           "registered_protocols", "get_protocol_class", "StcCodec",
-           "SignSGDCodec"]
+           "registered_protocols", "get_protocol_class", "BaselineCodec",
+           "FedAvgCodec", "SignSGDCodec", "TopKCodec", "StcCodec",
+           "TernQuantCodec"]
 
 _REGISTRY: dict[str, type["Codec"]] = {}
 
@@ -89,11 +94,43 @@ def get_protocol_class(name: str) -> type["Codec"]:
     return _registry_lookup("protocol", name, _REGISTRY)
 
 
+# the pre-registry Protocol dataclass carried EVERY protocol's fields; the
+# factory still accepts this set on any codec, dropping the ones a codec
+# does not declare (they were functionally inert)
+_LEGACY_FIELDS = frozenset({"sparsity_up", "sparsity_down", "sign_step",
+                            "error_feedback", "backend", "local_iters"})
+
+
+def _instantiate_protocol(cls: type["Codec"], overrides: dict) -> "Codec":
+    """``make_protocol``'s keyword handling: declared fields pass through,
+    legacy fields drop silently when inert (and raise ``ValueError`` when
+    they contradict a ClassVar), anything else is a ``TypeError`` naming
+    the declared fields."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in overrides.items():
+        if k in fields:
+            kwargs[k] = v
+        elif k in _LEGACY_FIELDS:
+            cur = getattr(cls, k, None)
+            if cur is not None and cur != v:
+                raise ValueError(
+                    f"{cls.name!r} fixes {k}={cur!r}; "
+                    f"override is not supported")
+        else:
+            raise TypeError(
+                f"{cls.name!r} codec has no field {k!r}; declared fields: "
+                f"{sorted(fields)}")
+    return cls(**kwargs)
+
+
 def make_protocol(name, **overrides) -> "Codec":
     """Factory with the paper's default hyperparameters (Section VI).
-    Accepts a registered name (plus field overrides) or an already-built
-    :class:`Codec` instance, which passes through untouched."""
-    return _registry_resolve("protocol", name, _REGISTRY, Codec, **overrides)
+    Accepts a registered name (plus field overrides, and the legacy fields
+    of :data:`_LEGACY_FIELDS`) or an already-built :class:`Codec` instance,
+    which passes through untouched."""
+    return _registry_resolve("protocol", name, _REGISTRY, Codec,
+                             instantiate=_instantiate_protocol, **overrides)
 
 
 def _host(x) -> np.ndarray:
@@ -340,129 +377,40 @@ class _ErrorFeedbackMixin:
         return init_residual(numel, device)
 
 
+# ---------------------------------------------------------------------------
+# the paper's comparison set (Table I)
+# ---------------------------------------------------------------------------
+
+
 @register_protocol
 @dataclasses.dataclass(frozen=True)
-class StcCodec(_ErrorFeedbackMixin, Codec):
-    """The paper's contribution: bidirectional sparse ternary compression +
-    error feedback + Golomb-coded messages."""
+class BaselineCodec(Codec):
+    """Uncompressed distributed SGD: dense fp32 both ways."""
 
-    name: ClassVar[str] = "stc"
-
-    sparsity_up: float = 1 / 400
-    sparsity_down: float = 1 / 400
-    backend: str = "kernel"                 # STC impl: "kernel" | "torch"
-    wire_backend: str = "numpy"             # wire packer: "numpy" | "kernel"
-
-    wire_format: ClassVar[bool] = True      # Golomb position stream (Alg. 3)
-    wire_header_bits: ClassVar[float] = 32.0  # fp32 µ per message (Eq. 15)
-    supports_ingest: ClassVar[bool] = True
-    #: fused-ingest decode block: rows are grouped so each multi-segment
-    #: decode pass touches at most this many stream words
-    ingest_block_words: ClassVar[int] = 1 << 16
-
-    def init_server_state(self, numel: int, device=None) -> ResidualState:
-        return init_residual(numel, device)
-
-    def _wire_p(self, direction: str) -> float:
-        return self.sparsity_up if direction == "up" else self.sparsity_down
-
-    def encode_wire(self, msg, *, direction="up"):
-        return wire.encode_ternary_words(
-            _host(msg), self._wire_p(direction), backend=self.wire_backend,
-            device=_device_of(msg))
-
-    def decode_wire(self, msg, *, direction="up"):
-        return wire.decode_ternary_words(msg, self._wire_p(direction))
-
-    def validate_wire(self, msg, *, direction="up", device=None):
-        # fields-only parse: every decoder corruption check fires without
-        # materializing the dense vector
-        wire.decode_ternary_fields(msg, self._wire_p(direction),
-                                   backend=self.wire_backend, device=device)
-
-    def wire_norm(self, msg):
-        # nnz coordinates of magnitude |µ| exactly (abs: a negated µ must
-        # not give a negative norm)
-        return abs(float(msg.mu)) * math.sqrt(max(int(msg.nnz), 0))
-
-    def encode_wire_batch(self, msgs, *, direction="up"):
-        return wire.encode_ternary_words_batch(
-            _host(msgs), self._wire_p(direction), backend=self.wire_backend,
-            device=_device_of(msgs))
-
-    def wire_bound_bits(self, numel, nnz, direction="up"):
-        return golomb.stc_stream_bound_bits(numel, nnz,
-                                            self._wire_p(direction))
+    name: ClassVar[str] = "baseline"
 
     def encode(self, delta, state):
-        be = get_stc_backend(self.backend)
-        msg, new_res, stats = be.compress_with_residual(
-            delta, state.residual, self.sparsity_up)
-        return msg, ResidualState(residual=new_res), stats
-
-    def encode_batch(self, deltas, states):
-        # one batched backend call: one launch per kernel for the round
-        be = get_stc_backend(self.backend)
-        msgs, new_res, stats = be.compress_with_residual_batch(
-            deltas, states.residual, self.sparsity_up)
-        return msgs, ResidualState(residual=new_res), stats
-
-    def aggregate(self, msgs, server_state, mask=None, staleness=None):
-        be = get_stc_backend(self.backend)
-        mean = self.combine(msgs, mask, staleness)
-        out, new_res, stats = be.compress_with_residual(
-            mean, server_state.residual, self.sparsity_down)
-        return out, ResidualState(residual=new_res), stats
-
-    # ---- fused ingest: Golomb fields -> accumulator scatter ----
-    def ingest_wire_chunk(self, acc, msg, weight, *, direction="up",
-                          offset=0, device=None):
-        pos, signs = wire.decode_ternary_fields(
-            msg, self._wire_p(direction), backend=self.wire_backend,
-            device=device)
-        acc.scatter_ternary(pos, signs, msg.mu, weight, offset=offset)
-
-    def ingest_wire_batch(self, acc, batch, weights, *, direction="up",
-                          device=None):
-        # multi-segment field decode + one scatter per bounded word block
-        # (bitwise the sequential ingest_wire loop: np.add.at applies in
-        # element order, and the fields come out message-major)
-        w = np.asarray(weights, np.float64)
-        for i in range(batch.n_msgs):
-            acc.begin_message(float(w[i]),
-                              bits=float(batch.bit_len[i])
-                              + self.wire_header_bits)
-        p = self._wire_p(direction)
-        i0, n_msgs = 0, batch.n_msgs
-        while i0 < n_msgs:
-            i1, words = i0, 0
-            while i1 < n_msgs and (i1 == i0
-                                   or words + int(batch.word_count[i1])
-                                   <= self.ingest_block_words):
-                words += int(batch.word_count[i1])
-                i1 += 1
-            sub = batch.rows(i0, i1)
-            seg, pos, signs = wire.decode_ternary_fields_batch(
-                sub, p, backend=self.wire_backend, device=device)
-            acc.scatter_ternary_batch(seg, pos, signs, sub.mu, w[i0:i1])
-            i0 = i1
-
-    def finalize_ingest(self, combined, server_state):
-        # the host mean goes to the server residual's device, then through
-        # the codec's STC backend, as in aggregate
-        be = get_stc_backend(self.backend)
-        res = server_state.residual
-        mean = torch.from_numpy(np.asarray(combined, np.float32)).to(
-            res.device)
-        out, new_res, stats = be.compress_with_residual(
-            mean, res, self.sparsity_down)
-        return out, ResidualState(residual=new_res), stats
+        stats = CompressionStats(nnz=torch.tensor(delta.numel()),
+                                 numel=torch.tensor(delta.numel()),
+                                 mu=torch.tensor(0.0))
+        return delta, state, stats
 
     def upload_bits(self, numel: int) -> float:
-        return golomb.stc_message_bits(numel, self.sparsity_up)
+        return golomb.fedavg_message_bits(numel)
 
     def download_bits(self, numel: int, n_participating: int = 1) -> float:
-        return golomb.stc_message_bits(numel, self.sparsity_down)
+        return golomb.fedavg_message_bits(numel)
+
+
+@register_protocol
+@dataclasses.dataclass(frozen=True)
+class FedAvgCodec(BaselineCodec):
+    """Federated Averaging: dense messages every ``local_iters``
+    iterations."""
+
+    name: ClassVar[str] = "fedavg"
+
+    local_iters: int = 400
 
 
 @register_protocol
@@ -599,3 +547,222 @@ class SignSGDCodec(Codec):
 
     def download_bits(self, numel: int, n_participating: int = 1) -> float:
         return golomb.signsgd_message_bits(numel)
+
+
+# top-k's sparse message: 16-bit positions (the paper's own accounting for
+# the comparison baseline, Appx. A) + one fp32 value per surviving entry
+_TOPK_POSITION_BITS = 16.0
+_TOPK_VALUE_BITS = 32.0
+
+
+@register_protocol
+@dataclasses.dataclass(frozen=True)
+class TopKCodec(_ErrorFeedbackMixin, Codec):
+    """Upload-only top-k sparsification + error feedback (Aji/Lin).  The
+    round's selection is the exact histogram k-selection of the
+    ``"kernel"`` STC backend (its plain versions on the CPU)."""
+
+    name: ClassVar[str] = "topk"
+
+    sparsity_up: float = 1 / 400
+
+    def encode(self, delta, state):
+        return compress_with_feedback(
+            delta, state, lambda v: top_k_sparsify(v, self.sparsity_up))
+
+    def encode_batch(self, deltas, states):
+        # one selection for the round: one histogram and one bin_select
+        # launch on the card
+        return compress_with_feedback(
+            deltas, states,
+            lambda v: top_k_sparsify_batch(v, self.sparsity_up))
+
+    def _message_bits(self, numel: int, nnz: int) -> float:
+        """Sparse message cost shared by the up/down ledger entries: 16-bit
+        positions + 32-bit values, densifying to plain fp32 when full."""
+        if nnz >= numel:
+            return golomb.fedavg_message_bits(numel)
+        return nnz * (_TOPK_POSITION_BITS + _TOPK_VALUE_BITS)
+
+    def upload_bits(self, numel: int) -> float:
+        k = max(int(numel * self.sparsity_up), 1)
+        return self._message_bits(numel, k)
+
+    def download_bits(self, numel: int, n_participating: int = 1) -> float:
+        # upload-only compression: downstream density grows with clients
+        # (Section V-A) until the update is effectively dense
+        k = max(int(numel * self.sparsity_up), 1)
+        return self._message_bits(numel, min(k * n_participating, numel))
+
+
+@register_protocol
+@dataclasses.dataclass(frozen=True)
+class StcCodec(_ErrorFeedbackMixin, Codec):
+    """The paper's contribution: bidirectional sparse ternary compression +
+    error feedback + Golomb-coded messages."""
+
+    name: ClassVar[str] = "stc"
+
+    sparsity_up: float = 1 / 400
+    sparsity_down: float = 1 / 400
+    backend: str = "kernel"                 # STC impl: "kernel" | "torch"
+    wire_backend: str = "numpy"             # wire packer: "numpy" | "kernel"
+
+    wire_format: ClassVar[bool] = True      # Golomb position stream (Alg. 3)
+    wire_header_bits: ClassVar[float] = 32.0  # fp32 µ per message (Eq. 15)
+    supports_ingest: ClassVar[bool] = True
+    #: fused-ingest decode block: rows are grouped so each multi-segment
+    #: decode pass touches at most this many stream words
+    ingest_block_words: ClassVar[int] = 1 << 16
+
+    def init_server_state(self, numel: int, device=None) -> ResidualState:
+        return init_residual(numel, device)
+
+    def _wire_p(self, direction: str) -> float:
+        return self.sparsity_up if direction == "up" else self.sparsity_down
+
+    def encode_wire(self, msg, *, direction="up"):
+        return wire.encode_ternary_words(
+            _host(msg), self._wire_p(direction), backend=self.wire_backend,
+            device=_device_of(msg))
+
+    def decode_wire(self, msg, *, direction="up"):
+        return wire.decode_ternary_words(msg, self._wire_p(direction))
+
+    def validate_wire(self, msg, *, direction="up", device=None):
+        # fields-only parse: every decoder corruption check fires without
+        # materializing the dense vector
+        wire.decode_ternary_fields(msg, self._wire_p(direction),
+                                   backend=self.wire_backend, device=device)
+
+    def wire_norm(self, msg):
+        # nnz coordinates of magnitude |µ| exactly (abs: a negated µ must
+        # not give a negative norm)
+        return abs(float(msg.mu)) * math.sqrt(max(int(msg.nnz), 0))
+
+    def encode_wire_batch(self, msgs, *, direction="up"):
+        return wire.encode_ternary_words_batch(
+            _host(msgs), self._wire_p(direction), backend=self.wire_backend,
+            device=_device_of(msgs))
+
+    def wire_bound_bits(self, numel, nnz, direction="up"):
+        return golomb.stc_stream_bound_bits(numel, nnz,
+                                            self._wire_p(direction))
+
+    def encode(self, delta, state):
+        be = get_stc_backend(self.backend)
+        msg, new_res, stats = be.compress_with_residual(
+            delta, state.residual, self.sparsity_up)
+        return msg, ResidualState(residual=new_res), stats
+
+    def encode_batch(self, deltas, states):
+        # one batched backend call: one launch per kernel for the round
+        be = get_stc_backend(self.backend)
+        msgs, new_res, stats = be.compress_with_residual_batch(
+            deltas, states.residual, self.sparsity_up)
+        return msgs, ResidualState(residual=new_res), stats
+
+    def aggregate(self, msgs, server_state, mask=None, staleness=None):
+        be = get_stc_backend(self.backend)
+        mean = self.combine(msgs, mask, staleness)
+        out, new_res, stats = be.compress_with_residual(
+            mean, server_state.residual, self.sparsity_down)
+        return out, ResidualState(residual=new_res), stats
+
+    # ---- fused ingest: Golomb fields -> accumulator scatter ----
+    def ingest_wire_chunk(self, acc, msg, weight, *, direction="up",
+                          offset=0, device=None):
+        pos, signs = wire.decode_ternary_fields(
+            msg, self._wire_p(direction), backend=self.wire_backend,
+            device=device)
+        acc.scatter_ternary(pos, signs, msg.mu, weight, offset=offset)
+
+    def ingest_wire_batch(self, acc, batch, weights, *, direction="up",
+                          device=None):
+        # multi-segment field decode + one scatter per bounded word block
+        # (bitwise the sequential ingest_wire loop: np.add.at applies in
+        # element order, and the fields come out message-major)
+        w = np.asarray(weights, np.float64)
+        for i in range(batch.n_msgs):
+            acc.begin_message(float(w[i]),
+                              bits=float(batch.bit_len[i])
+                              + self.wire_header_bits)
+        p = self._wire_p(direction)
+        i0, n_msgs = 0, batch.n_msgs
+        while i0 < n_msgs:
+            i1, words = i0, 0
+            while i1 < n_msgs and (i1 == i0
+                                   or words + int(batch.word_count[i1])
+                                   <= self.ingest_block_words):
+                words += int(batch.word_count[i1])
+                i1 += 1
+            sub = batch.rows(i0, i1)
+            seg, pos, signs = wire.decode_ternary_fields_batch(
+                sub, p, backend=self.wire_backend, device=device)
+            acc.scatter_ternary_batch(seg, pos, signs, sub.mu, w[i0:i1])
+            i0 = i1
+
+    def finalize_ingest(self, combined, server_state):
+        # the host mean goes to the server residual's device, then through
+        # the codec's STC backend, as in aggregate
+        be = get_stc_backend(self.backend)
+        res = server_state.residual
+        mean = torch.from_numpy(np.asarray(combined, np.float32)).to(
+            res.device)
+        out, new_res, stats = be.compress_with_residual(
+            mean, res, self.sparsity_down)
+        return out, ResidualState(residual=new_res), stats
+
+    def upload_bits(self, numel: int) -> float:
+        return golomb.stc_message_bits(numel, self.sparsity_up)
+
+    def download_bits(self, numel: int, n_participating: int = 1) -> float:
+        return golomb.stc_message_bits(numel, self.sparsity_down)
+
+
+@register_protocol
+@dataclasses.dataclass(frozen=True)
+class TernQuantCodec(_ErrorFeedbackMixin, Codec):
+    """Dense ternary quantization à la T-FedAvg (Xu et al., 2020).
+
+    Every coordinate is quantized to {-µ, 0, +µ} with TWN thresholding
+    (Δ = θ·mean|x|) and error feedback on both sides; the wire format is an
+    uncoded dense ternary stream (log2(3) bits/weight -- no position
+    coding), so the ledger is analytic.  Ingest is dense only: the
+    messages come to the host accumulator as fp32 vectors.
+    """
+
+    name: ClassVar[str] = "ternquant"
+
+    theta: float = 0.75                     # TWN threshold factor
+
+    supports_ingest: ClassVar[bool] = True  # dense ingest only (no wire)
+
+    def init_server_state(self, numel: int, device=None) -> ResidualState:
+        return init_residual(numel, device)
+
+    def encode(self, delta, state):
+        return compress_with_feedback(
+            delta, state, lambda v: ternary_quantize(v, self.theta))
+
+    def encode_batch(self, deltas, states):
+        return compress_with_feedback(
+            deltas, states, lambda v: ternary_quantize_batch(v, self.theta))
+
+    def aggregate(self, msgs, server_state, mask=None, staleness=None):
+        mean = self.combine(msgs, mask, staleness)
+        return compress_with_feedback(
+            mean, server_state, lambda v: ternary_quantize(v, self.theta))
+
+    def finalize_ingest(self, combined, server_state):
+        # the host mean goes to the server residual's device
+        mean = torch.from_numpy(np.asarray(combined, np.float32)).to(
+            server_state.residual.device)
+        return compress_with_feedback(
+            mean, server_state, lambda v: ternary_quantize(v, self.theta))
+
+    def upload_bits(self, numel: int) -> float:
+        return golomb.ternary_dense_bits(numel)
+
+    def download_bits(self, numel: int, n_participating: int = 1) -> float:
+        return golomb.ternary_dense_bits(numel)

@@ -16,12 +16,14 @@ or None (a stateless codec).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["ResidualState", "init_residual", "map_states", "stack_states",
-           "take_states", "scatter_states"]
+from .selection import flush_subnormal
+
+__all__ = ["ResidualState", "init_residual", "compress_with_feedback",
+           "map_states", "stack_states", "take_states", "scatter_states"]
 
 
 class ResidualState(NamedTuple):
@@ -33,6 +35,22 @@ class ResidualState(NamedTuple):
 def init_residual(numel: int, device=None) -> ResidualState:
     return ResidualState(residual=torch.zeros(numel, dtype=torch.float32,
                                               device=device))
+
+
+def compress_with_feedback(update: torch.Tensor, state: ResidualState,
+                           compress_fn: Callable):
+    """One error-feedback step: ``ΔW~ = C(ΔW + A)``, ``A' = (ΔW + A) -
+    ΔW~``.  ``update`` and ``state.residual`` are ``(n,)`` with a
+    single-vector ``compress_fn`` or ``(B, n)`` with a batched one.  Each
+    operand and result of the two fp32 sums is flushed as XLA flushes it
+    (subnormals count as zeros), so the residual is the reference's bit for
+    bit given the same compressed message.  Returns ``(compressed,
+    new_state, stats)``."""
+    carried = flush_subnormal(flush_subnormal(update.to(torch.float32))
+                              + flush_subnormal(state.residual))
+    compressed, stats = compress_fn(carried)
+    new_res = flush_subnormal(carried - compressed.to(torch.float32))
+    return compressed, ResidualState(residual=new_res), stats
 
 
 def map_states(fn, *states):

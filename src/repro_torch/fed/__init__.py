@@ -1,7 +1,10 @@
-"""The federated environment and the synchronous trainer."""
+"""The federated environment, client arrival simulation and the trainers
+(synchronous and deadline-buffered)."""
 
+from .arrivals import Arrival, ArrivalSimulator, LatencyModel
 from .environment import FedEnvironment, split_data, volume_fractions
-from .loop import FederatedTrainer, TrainerConfig
+from .loop import BufferedFederatedTrainer, FederatedTrainer, TrainerConfig
 
 __all__ = ["FedEnvironment", "split_data", "volume_fractions",
-           "FederatedTrainer", "TrainerConfig"]
+           "FederatedTrainer", "BufferedFederatedTrainer", "TrainerConfig",
+           "Arrival", "ArrivalSimulator", "LatencyModel"]

@@ -1,7 +1,9 @@
-"""The synchronous federated trainer -- Algorithm 2 of the paper, end to end.
+"""Federated trainers -- Algorithm 2 of the paper, end to end.
 
-Counterpart of ``repro/fed/loop.py``'s :class:`FederatedTrainer`.  A round
-has two phases, as in the reference:
+Counterpart of ``repro/fed/loop.py``: the synchronous
+:class:`FederatedTrainer` and the deadline-buffered
+:class:`BufferedFederatedTrainer`.  A round has two phases, as in the
+reference:
 
 * ``encode`` (:func:`build_encode_phase`) -- local SGD on every sampled
   client, the whole cohort at once through ``torch.func.vmap`` over
@@ -28,15 +30,24 @@ ingest instead: the round's messages are encoded to the wire, decoded
 (through the ``"kernel"`` wire backend's decode kernels on the trainer's
 device, or on the host) and scattered into one host
 :class:`~repro_torch.core.ingest.IngestAccumulator`, and the codec
-finalizes the round from it; the ledger reuses the encoded batch.
+finalizes the round from it; the ledger reuses the encoded batch.  A codec
+without a wire format (``ternquant``) ingests its messages densely, and its
+ledger is analytic.
 
-Still to port: chunked codecs (``TrainerConfig.chunks`` / ``p_fn``),
-adaptive controllers (``controller``) and the buffered trainer.
+:class:`BufferedFederatedTrainer` puts the
+:mod:`repro_torch.fed.arrivals` simulator between the two phases: the
+server aggregates whatever landed by the round's deadline,
+staleness-weighted.  With ``deadline=inf`` it is the synchronous trainer
+bit for bit.
+
+Still to port: chunked codecs (``TrainerConfig.chunks`` / ``p_fn``) and
+adaptive controllers (``controller``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Callable, Optional
 
@@ -52,10 +63,11 @@ from repro_torch.core.residual import (scatter_states, stack_states,
                                        take_states)
 from repro_torch.data.synthetic import Dataset
 from repro_torch.device import resolve_device
+from repro_torch.fed.arrivals import ArrivalSimulator, LatencyModel
 from repro_torch.fed.environment import FedEnvironment, split_data
 
-__all__ = ["FederatedTrainer", "TrainerConfig", "build_encode_phase",
-           "build_apply_phase", "local_sgd"]
+__all__ = ["FederatedTrainer", "BufferedFederatedTrainer", "TrainerConfig",
+           "build_encode_phase", "build_apply_phase", "local_sgd"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,22 +272,34 @@ class FederatedTrainer:
         ).numpy().astype(np.float64)
 
     def _ingest_round(self, msgs, mask, staleness):
-        """Fused streaming aggregation: the round's wire messages scatter
-        into an O(numel) host accumulator (decoded on the trainer's device
-        by the ``"kernel"`` wire backend) instead of a dense combine.
-        Returns the applied global delta and the encoded batch, which the
-        measured ledger reuses."""
+        """Fused streaming aggregation: the round's messages scatter into an
+        O(numel) host accumulator instead of a dense combine -- wire codecs
+        through their decoded fields (decoded on the trainer's device by
+        the ``"kernel"`` wire backend), the others densely.  Returns the
+        applied global delta and the encoded batch (None for a wire-less
+        codec), which the measured ledger reuses."""
         proto = self.protocol
         w = self._participation_weights_np(mask, staleness)
         acc = proto.make_ingest(self.numel)
-        batch = proto.encode_wire_batch(msgs, direction="up")
-        proto.ingest_wire_batch(acc, batch, w, direction="up",
-                                device=self.device)
-        gd, self.server_state, _ = proto.aggregate_ingest(acc,
-                                                          self.server_state)
+        batch = None
+        if proto.wire_format:
+            batch = proto.encode_wire_batch(msgs, direction="up")
+            proto.ingest_wire_batch(acc, batch, w, direction="up",
+                                    device=self.device)
+        else:
+            host = msgs.detach().cpu().numpy()
+            for i in range(host.shape[0]):
+                proto.ingest_dense(acc, host[i], float(w[i]))
+        return self._finalize_ingest(acc), batch
+
+    def _finalize_ingest(self, acc):
+        """Finalize a round from its accumulator and apply it; returns the
+        global delta on the trainer's device."""
+        gd, self.server_state, _ = self.protocol.aggregate_ingest(
+            acc, self.server_state)
         gd = gd.to(self.device)
         self.params_vec = self.params_vec + gd
-        return gd, batch
+        return gd
 
     def run_round(self):
         p = self.env.participants_per_round
@@ -295,21 +319,36 @@ class FederatedTrainer:
         """Bit ledger + partial-participation sync cost of one round;
         ``batch`` is the round's encoded upstream batch where the ingest
         path already built it."""
-        proto, p = self.protocol, len(sel)
-        up_analytic = p * proto.upload_bits(self.numel)
-        per_update_analytic = proto.download_bits(self.numel,
-                                                  n_participating=p)
-        model_bits = 32.0 * self.numel
+        proto = self.protocol
+        up_analytic = len(sel) * proto.upload_bits(self.numel)
+        up, per_update = up_analytic, None
         if self.measure_bits:
             if batch is None:
                 batch = proto.encode_wire_batch(msgs, direction="up")
             up = proto.measured_batch_bits(batch)
-            down_msg = proto.encode_wire(global_delta, direction="down")
-            per_update = proto.measured_message_bits(down_msg)
-            self._log_wire_round(np.asarray(batch.nnz), down_msg, up,
-                                 per_update)
-        else:
-            up, per_update = up_analytic, per_update_analytic
+            per_update = self._downstream_bits(global_delta, up,
+                                               np.asarray(batch.nnz))
+        self._book(sel, up, up_analytic, per_update, global_delta)
+
+    def _downstream_bits(self, global_delta, up=None, nnz_up=None):
+        """Measured bits of the round's downstream message; given the
+        upstream ``nnz_up`` it also logs the round's wire row."""
+        down_msg = self.protocol.encode_wire(global_delta, direction="down")
+        per_update = self.protocol.measured_message_bits(down_msg)
+        if nnz_up is not None:
+            self._log_wire_round(nnz_up, down_msg, up, per_update)
+        return per_update
+
+    def _book(self, sel, up, up_analytic, per_update, global_delta):
+        """Add a round's upstream bits and the cohort ``sel``'s download
+        cost through the update cache; ``per_update`` None is the analytic
+        downstream message."""
+        proto = self.protocol
+        per_update_analytic = proto.download_bits(self.numel,
+                                                  n_participating=len(sel))
+        if per_update is None:
+            per_update = per_update_analytic
+        model_bits = 32.0 * self.numel
         self.bits_up += up
         self.bits_up_analytic += up_analytic
         skipped = self.round - self.last_seen[sel]
@@ -335,6 +374,10 @@ class FederatedTrainer:
             "bits_down_per_update_bound": dn_bound,
         })
 
+    def _history_extra(self) -> dict:
+        """Trainer-specific columns appended to every history record."""
+        return {}
+
     @torch.no_grad()
     def evaluate(self) -> float:
         params = unflatten_pytree(self.params_vec, self.spec)
@@ -353,7 +396,7 @@ class FederatedTrainer:
             self.run_round()
             if (r + 1) % eval_every == 0 or r == n_rounds - 1:
                 acc = self.evaluate()
-                self.history.append({
+                rec = {
                     "round": self.round,
                     "iterations": self.round * self.protocol.local_iters,
                     "acc": acc,
@@ -362,8 +405,140 @@ class FederatedTrainer:
                     "bits_up_analytic": self.bits_up_analytic,
                     "bits_down_analytic": self.bits_down_analytic,
                     "measured": self.measure_bits,
-                })
+                }
+                rec.update(self._history_extra())
+                self.history.append(rec)
                 if verbose:
                     print(f"round {self.round:5d} acc={acc:.4f} "
                           f"upMB={self.bits_up/8e6:.1f}")
         return self.history
+
+
+class BufferedFederatedTrainer(FederatedTrainer):
+    """Deadline-based buffered (async) aggregation -- the low-participation
+    regime of the paper's §V.
+
+    Per round a fresh cohort is dispatched (downloading the current model:
+    its sync cost is accounted here, through the update cache), computes
+    and encodes against the model at dispatch time, and hands its messages
+    to the :class:`~repro_torch.fed.arrivals.ArrivalSimulator`.  The server
+    aggregates everything that landed by this round's deadline -- on-time
+    updates plus stragglers buffered from earlier rounds -- each weighted
+    by the codec's staleness decay:
+
+    * dense route: the arrivals' rows, kept on the trainer's device, in a
+      buffer of ``p·ceil(kept/p)`` rows whose zero-weight padding the
+      codec's masked ``aggregate`` ignores;
+    * ingest route (``TrainerConfig(ingest=True)``): each arrival scatters
+      into the host accumulator as it lands -- a wire codec ships its wire
+      messages through the simulator and ingests each with
+      ``ingest_wire`` (the ``"kernel"`` wire backend decodes it on the
+      trainer's device), the others with ``ingest_dense``.
+
+    Messages staler than ``max_staleness`` rounds are dropped; their upload
+    bits are still accounted on arrival.  A round where nothing arrives
+    leaves the model and the server codec state untouched and uploads zero
+    bits.  ``deadline=math.inf`` makes every update punctual: the trainer
+    is then the synchronous :class:`FederatedTrainer` bit for bit.
+    """
+
+    def __init__(self, model, train: Dataset, test: Dataset,
+                 env: FedEnvironment, protocol: Codec,
+                 tcfg: TrainerConfig = TrainerConfig(),
+                 latency: Optional[LatencyModel] = None,
+                 deadline: float = math.inf, max_staleness: int = 8, *,
+                 device=None):
+        super().__init__(model, train, test, env, protocol, tcfg,
+                         device=device)
+        self.deadline = float(deadline)
+        self.max_staleness = int(max_staleness)
+        self.sim = ArrivalSimulator(latency or LatencyModel(),
+                                    n_clients=env.n_clients,
+                                    deadline=deadline, seed=tcfg.seed + 2)
+        self.n_dropped = 0               # arrivals past the buffer horizon
+        self.arrival_log: list[dict] = []
+
+    def run_round(self):
+        proto, p = self.protocol, self.env.participants_per_round
+        sel = self.rng.choice(self.env.n_clients, size=p, replace=False)
+        xs, ys = self._sample_batches(sel, proto.local_iters)
+        msgs = self._dispatch(sel, xs, ys)
+        wire_payloads = self.ingest and proto.wire_format
+        if wire_payloads:
+            # the wire messages travel: what a fleet server receives
+            batch = proto.encode_wire_batch(msgs, direction="up")
+            payloads = [batch.message(i) for i in range(batch.n_msgs)]
+        else:
+            payloads = list(msgs)
+        self.sim.dispatch(self.round, sel, payloads)
+        arrivals = self.sim.collect(self.round)
+        kept = [a for a in arrivals
+                if self.round - a.sent_round <= self.max_staleness]
+        dropped = len(arrivals) - len(kept)
+        self.n_dropped += dropped
+        staleness = np.asarray([self.round - a.sent_round for a in kept],
+                               np.float32)
+
+        if kept and self.ingest:
+            w = self._participation_weights_np(
+                np.ones(len(kept), np.float32), staleness)
+            acc = proto.make_ingest(self.numel)
+            for a, wi in zip(kept, w):
+                if wire_payloads:
+                    proto.ingest_wire(acc, a.payload, float(wi),
+                                      direction="up", device=self.device)
+                else:
+                    proto.ingest_dense(acc, a.payload.cpu().numpy(),
+                                       float(wi))
+            global_delta = self._finalize_ingest(acc)
+        elif kept:
+            # a multiple of the cohort size (== p when everyone is on
+            # time); zero-weight padding rows are invisible to the masked
+            # aggregate
+            kpad = p * math.ceil(len(kept) / p)
+            buf = torch.zeros((kpad, self.numel), dtype=msgs.dtype,
+                              device=self.device)
+            buf[:len(kept)] = torch.stack([a.payload for a in kept])
+            mask = np.zeros(kpad, np.float32)
+            mask[:len(kept)] = 1.0
+            stale = np.zeros(kpad, np.float32)
+            stale[:len(kept)] = staleness
+            global_delta = self._apply_update(buf, mask, stale)
+        else:
+            # nothing reached the server: params + server codec state frozen
+            global_delta = torch.zeros(self.numel, dtype=torch.float32,
+                                       device=self.device)
+
+        # upstream bits are accounted when the bytes reach the server
+        # (dropped stragglers included); the downstream sync cost at
+        # dispatch, when the cohort pulled the current model
+        up_analytic = len(arrivals) * proto.upload_bits(self.numel)
+        up, per_update = up_analytic, None
+        if self.measure_bits:
+            if arrivals and wire_payloads:
+                up = float(sum(proto.measured_message_bits(a.payload)
+                               for a in arrivals))
+                nnz_up = [a.payload.nnz for a in arrivals]
+            elif arrivals:
+                batch = proto.encode_wire_batch(
+                    torch.stack([a.payload for a in arrivals]),
+                    direction="up")
+                up = proto.measured_batch_bits(batch)
+                nnz_up = np.asarray(batch.nnz)
+            else:
+                up, nnz_up = 0.0, None   # no arrivals: no wire row
+            per_update = self._downstream_bits(global_delta, up, nnz_up)
+        self._book(sel, up, up_analytic, per_update, global_delta)
+        self.arrival_log.append({
+            "round": self.round, "dispatched": p, "arrived": len(arrivals),
+            "aggregated": len(kept), "dropped": dropped,
+            "staleness_max": int(staleness.max()) if kept else 0,
+            "pending": self.sim.pending_count(),
+        })
+        self.round += 1
+
+    def _history_extra(self) -> dict:
+        last = self.arrival_log[-1] if self.arrival_log else {}
+        return {"n_dropped": self.n_dropped,
+                "pending": self.sim.pending_count(),
+                "aggregated": last.get("aggregated", 0)}

@@ -636,3 +636,115 @@ def test_golomb_decode_all_ones_and_zero_buffers(dev, b):
             for nnz in {0, 1, bit_len // (b + 2)}:
                 _golomb_kernel_vs_plain(dev, words, [0], [bit_len], [nnz],
                                         10**9, b)
+
+
+def _codec_rows(seed, rows, n):
+    """Carried-like rows of a top-k / TernQuant round: heavy-tailed, one
+    with fewer non-zeros than k, one of zeros, one of subnormals among a
+    few normals."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_t(1.5, (rows, n)).astype(np.float32)
+    x[1] = 0.0
+    x[1, rng.choice(n, 3, replace=False)] = 1.0
+    x[2] = 0.0
+    x[3] = (rng.standard_normal(n) * 1e-40).astype(np.float32)
+    x[3, rng.choice(n, 5, replace=False)] = rng.standard_normal(5)
+    return x
+
+
+def test_topk_encode_on_the_card_bitwise_its_cpu_route(dev):
+    """``TopKCodec.encode_batch`` at the cnn round's (10, 307,434): one
+    histogram and one ``bin_select`` launch, and messages, counts and
+    residuals bitwise the CPU's (the kernels' plain versions)."""
+    from repro_torch.core import make_protocol
+    from repro_torch.core.residual import ResidualState
+    codec = make_protocol("topk", sparsity_up=1 / 50)
+    d = _codec_rows(11, 10, 307_434)
+    r = _codec_rows(12, 10, 307_434) * np.float32(0.01)
+    before = dict(rk.LAUNCHES.counts)
+    msgs, st, stats = codec.encode_batch(
+        torch.from_numpy(d).to(dev), ResidualState(torch.from_numpy(r).to(dev)))
+    torch.cuda.synchronize()
+    after = rk.LAUNCHES.counts
+    assert after["histogram"] == before["histogram"] + 1
+    assert after["bin_select"] == before["bin_select"] + 1
+    assert after["stc_apply"] == before["stc_apply"]
+    msgs_c, st_c, stats_c = codec.encode_batch(
+        torch.from_numpy(d), ResidualState(torch.from_numpy(r)))
+    for got, want in ((msgs, msgs_c), (st.residual, st_c.residual)):
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                      want.numpy().view(np.int32))
+    assert torch.equal(stats.nnz.cpu(), stats_c.nnz)
+
+
+def test_ternquant_encode_on_the_card_masks_exact(dev):
+    """``TernQuantCodec.encode_batch`` on the card launches no selection
+    kernel; its masks equal the CPU's and µ is within rtol 1e-6 (the two
+    fp64 sums round once to fp32)."""
+    from repro_torch.core import make_protocol
+    from repro_torch.core.residual import ResidualState
+    codec = make_protocol("ternquant")
+    d = _codec_rows(13, 10, 307_434)
+    before = dict(rk.LAUNCHES.counts)
+    msgs, _, stats = codec.encode_batch(
+        torch.from_numpy(d).to(dev),
+        ResidualState(torch.zeros(d.shape, device=dev)))
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts == before
+    msgs_c, _, stats_c = codec.encode_batch(
+        torch.from_numpy(d), ResidualState(torch.zeros(d.shape)))
+    assert torch.equal(msgs.cpu() != 0, msgs_c != 0)
+    assert torch.equal(torch.sign(msgs.cpu()), torch.sign(msgs_c))
+    assert torch.equal(stats.nnz.cpu(), stats_c.nnz)
+    assert torch.allclose(stats.mu.cpu(), stats_c.mu, rtol=1e-6, atol=0.0)
+
+
+def test_buffered_padded_batch_through_the_kernels(dev):
+    """The buffered STC trainer on the card with stragglers: the padded
+    aggregation buffer (a multiple of the cohort, zero-weight padding) is
+    combined on the card and the server's STC runs through the kernels;
+    the arrival log equals the CPU run's and the first round's global
+    delta has the CPU's positions and signs."""
+    from repro_torch.core import make_protocol
+    from repro_torch.data import make_classification
+    from repro_torch.fed import (BufferedFederatedTrainer, FedEnvironment,
+                                 LatencyModel, TrainerConfig)
+    from repro_torch.models import MODEL_ZOO
+    train, test = make_classification(seed=0, n=2000)
+    env = FedEnvironment(n_clients=10, participation=0.5,
+                         classes_per_client=2, batch_size=20)
+    runs = []
+    for device in (dev, "cpu"):
+        tr = BufferedFederatedTrainer(
+            MODEL_ZOO["logreg"], train, test, env,
+            make_protocol("stc", sparsity_up=1 / 20, sparsity_down=1 / 20),
+            TrainerConfig(lr=0.05), latency=LatencyModel(
+                mean=1.2, sigma=0.6, hetero=0.5, straggler_frac=0.2,
+                straggler_scale=4.0), deadline=1.0, max_staleness=2,
+            device=device)
+        bufs, deltas = [], []
+        apply_update = tr._apply_update
+
+        def record(msgs, mask, staleness, apply_update=apply_update,
+                   bufs=bufs, deltas=deltas):
+            bufs.append((tuple(msgs.shape), msgs.device.type,
+                         np.asarray(mask).tolist()))
+            out = apply_update(msgs, mask, staleness)
+            deltas.append(out.cpu())
+            return out
+
+        tr._apply_update = record
+        before = dict(rk.LAUNCHES.counts)
+        tr.run(4, eval_every=4)
+        runs.append((tr, bufs, deltas, {k: rk.LAUNCHES.counts[k] - before[k]
+                                        for k in before}))
+    (card, bufs, deltas, launches), (cpu, bufs_c, deltas_c, _) = runs
+    assert card.arrival_log == cpu.arrival_log
+    assert [b[0] for b in bufs] == [b[0] for b in bufs_c]
+    assert all(shape[0] % 5 == 0 and kind == "cuda"
+               for shape, kind, _ in bufs)
+    assert any(0.0 in mask for _, _, mask in bufs)          # padding rows
+    assert launches["histogram"] == launches["bin_select"] == \
+        4 + len(bufs)                       # every encode, every aggregate
+    assert launches["stc_apply"] == 4 + len(bufs)
+    assert torch.equal(torch.sign(deltas[0]), torch.sign(deltas_c[0]))

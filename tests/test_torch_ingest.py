@@ -63,7 +63,8 @@ def _ref_codec(name):
 
 
 def _ingest_codecs():
-    return [n for n in registered_protocols() if _codec(n).supports_ingest]
+    return [n for n in registered_protocols()
+            if make_protocol(n).supports_ingest]
 
 
 def _round_msgs(codec, P, numel, seed):
@@ -115,7 +116,7 @@ def _assert_fused_is_oracle(codec, numel, seed, P=4):
 
 class TestFusedMatchesOracle:
     def test_ingest_codecs_registered(self):
-        assert _ingest_codecs() == ["signsgd", "stc"]
+        assert _ingest_codecs() == ["signsgd", "stc", "ternquant"]
 
     @pytest.mark.parametrize("wire_backend", WIRE_BACKENDS)
     @pytest.mark.parametrize("name", ["signsgd", "stc"])

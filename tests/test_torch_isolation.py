@@ -35,7 +35,9 @@ def test_every_module_is_listed():
                  "repro_torch.core.wire", "repro_torch.models.paper_models",
                  "repro_torch.core.ingest", "repro_torch.kernels.wiredecode",
                  "repro_torch.kernels.topk_threshold",
-                 "repro_torch.kernels.bitpack"):
+                 "repro_torch.kernels.bitpack", "repro_torch.fed.arrivals",
+                 "repro_torch.core.residual", "repro_torch.core.protocols",
+                 "repro_torch.core.compression"):
         assert name in mods
 
 
