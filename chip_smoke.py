@@ -5,6 +5,8 @@
     python3 chip_smoke.py --signsgd-round   # only the signSGD round's phases
     python3 chip_smoke.py --paper-codecs    # only phase 7
     python3 chip_smoke.py --buffered        # only phase 8
+    python3 chip_smoke.py --chunked         # only phase 9
+    python3 chip_smoke.py --drift-witness   # phase 9's runs, one ulp apart
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
@@ -127,12 +129,45 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    server's each round that aggregated, one ``golomb_decode`` an ingested
    arrival); whole rounds timed; then ``deadline=inf`` against the
    synchronous trainer on the card, 3 rounds a route: parameters, ledger
-   and wire log bitwise.
+   and wire log bitwise;
+9. the chunked codec states and the adaptive controllers on the same cnn
+   at lr 0.05: ``chunks="whole"`` against the flat trainer on the card (5
+   rounds; parameters, ledger and wire log bitwise); then
+   ``chunks=4096`` (79 chunks in 6 width groups), 40 rounds on the dense
+   and the ingest route, card (counters set to 0 just before) against CPU
+   (accuracy within 0.03, ``bits_up`` within 2 %, analytic columns equal,
+   the upstream messages' non-zeros summed over the run within rtol 1e-4:
+   every chunk keeps its fixed k, ties aside), the launch log showing one
+   histogram, ``bin_select`` and ``stc_apply`` launch a round at (790,
+   4096) and at (79, 4096), two ``pack_chunks`` a width group a round (up
+   and down) and on the ingest route one ``golomb_decode`` a width group a
+   round; one round of each under
+   ``torch.profiler`` (two of each STC kernel, no ``topk``/``sort``); 3
+   lock-step rounds from the trained dense state (both selections'
+   thresholds and counts, masks, wire words and the ingest accumulator
+   exact, µ within rtol 1e-6), ``bin_select`` against its plain version at
+   both shapes and ``stc_compress_blocks`` with host and device ks under
+   ``set_sync_debug_mode("error")``; then ``residual_mass`` (budget 1.0)
+   and ``snr_constant`` (snr 3, ema 0.5), 40 dense rounds card against CPU
+   (at 10 and 20 rounds the cnn is still unconverged and card and CPU
+   parted by up to 0.21 in accuracy while their lock-step rounds were
+   exact; ``--drift-witness`` measures how far one ulp moves a run there),
+   each with 2 lock-step rounds (per-chunk ks and EMA states identical, the
+   dynamic selection exact, the adaptive encode under
+   ``set_sync_debug_mode("error")`` with one launch of each STC kernel);
+   then the chunked rounds split into phases and the STC kernels timed at
+   the chunked shapes beside their bounds, ``golomb_decode`` on the largest
+   width group's sub-streams.
 
 ``--signsgd-round`` runs the last of the timings of 6 alone on the package
 of the tree the file sits in: a copy inside a parent checkout unpacked
-beside the change times the parent.  ``--paper-codecs`` and
-``--buffered`` run phase 7 or 8 alone.
+beside the change times the parent.  ``--paper-codecs``, ``--buffered``
+and ``--chunked`` run phase 7, 8 or 9 alone.  ``--drift-witness`` trains
+phase 9's dense and ``residual_mass`` runs 20 rounds on the card twice, on
+the card and the CPU with one parameter and with every parameter moved by
+one ulp, on the CPU, and on the CPU with one thread, and prints their
+accuracies every 5 rounds: how far the card's own variation and ulps on
+one device part two runs, beside the card-CPU gap.
 
 Prints the timing lines, the TF32 flags, the card's name and power limit,
 a ``{"kernels": [...]}`` line, and as its last line
@@ -860,10 +895,11 @@ CODEC_KW = {
 
 
 def make_trainer(device, torch, ingest=False, codec="stc", buffered=None,
-                 lr=0.05):
+                 lr=0.05, **cfg):
     """The cnn trainer of ``examples/federated_noniid.py`` with ``codec``;
     ``buffered`` (a dict of ``BufferedFederatedTrainer`` keywords) makes it
-    the buffered trainer."""
+    the buffered trainer; ``cfg`` are further ``TrainerConfig`` fields
+    (``chunks``, ``controller``)."""
     from repro_torch.core import make_protocol
     from repro_torch.data import make_image_classification
     from repro_torch.fed import FedEnvironment, FederatedTrainer, \
@@ -874,7 +910,7 @@ def make_trainer(device, torch, ingest=False, codec="stc", buffered=None,
                          classes_per_client=2, batch_size=20)
     proto = make_protocol(codec, **CODEC_KW.get(codec, {}))
     args = (MODEL_ZOO["cnn"], train, test, env, proto,
-            TrainerConfig(lr=lr, ingest=ingest))
+            TrainerConfig(lr=lr, ingest=ingest, **cfg))
     if buffered is not None:
         from repro_torch.fed import BufferedFederatedTrainer
         return BufferedFederatedTrainer(*args, **buffered, device=device)
@@ -1098,7 +1134,8 @@ def check_lockstep(torch, np, rk, tr, rounds=3):
 def check_carried_selection(torch, rk, last) -> float:
     """On the last lock-step round's carried matrices, the clients' (10, n)
     and the server's (1, n): ``bin_select`` against its plain version;
-    ``stc_compress_batch`` under ``torch.cuda.set_sync_debug_mode("error")``
+    ``stc_compress_batch`` (the flat trainer's ``"kernel"`` STC, through
+    ``stc_compress_rows``) under ``torch.cuda.set_sync_debug_mode("error")``
     (after a first call, which may grow the scratch); and the selection
     under ``torch.profiler``, which must show no ``aten::topk``,
     ``aten::sort`` or ``aten::kthvalue``.  Returns the sums' largest abs
@@ -2416,6 +2453,703 @@ def time_buffered_round(torch, tr, route, reps=5):
     return statistics.median(times)
 
 
+# ---------------------------------------------------------------- phase 9
+
+CHUNK = 4096              # the cnn at 4096: 79 chunks in 6 width groups
+# card against CPU compares accuracies only once the cnn has converged:
+# at 10 and 20 rounds (accuracy 0.4-0.9) local SGD's ulp drift, and the
+# card's own run-to-run variation, moved the two apart by 0.05-0.21
+# (``--drift-witness`` shows one ulp on one device doing the same)
+CHUNKED_ROUNDS = 40
+WITNESS_ROUNDS = 20
+CHUNKED_CONTROLLERS = (("residual_mass", {"budget": 1.0}),
+                       ("snr_constant", {"snr": 3.0, "ema": 0.5}))
+STC_KERNELS = ("histogram", "bin_select", "stc_apply")
+BANNED_OPS = {"aten::topk", "aten::sort", "aten::kthvalue"}
+
+
+class launch_log:
+    """Every launch the wrappers record, as ``(name, shape)``, while the
+    context is open (the counters count on as always)."""
+
+    def __init__(self, rk):
+        self.rk, self.log = rk, []
+
+    def __enter__(self):
+        real = type(self.rk.LAUNCHES).record
+        counter = self.rk.LAUNCHES
+
+        def record(name, shape):
+            self.log.append((name, tuple(shape)))
+            real(counter, name, shape)
+        counter.record = record
+        return self.log
+
+    def __exit__(self, *exc):
+        del self.rk.LAUNCHES.record
+
+
+def chunked_shapes(tr):
+    """The chunked STC selections' shapes: the clients' ``(P * C, W)`` and
+    the server's ``(C, W)``."""
+    spec, p = tr.protocol.spec, tr.env.participants_per_round
+    return (p * spec.n_chunks, spec.chunk_numel), (spec.n_chunks,
+                                                   spec.chunk_numel)
+
+
+def require_stc_launches(log, tr, rounds, what):
+    """Exactly one histogram, ``bin_select`` and ``stc_apply`` launch a
+    round at each of the chunked selections' shapes, and none other."""
+    up, down = chunked_shapes(tr)
+    for name in STC_KERNELS:
+        got = {}
+        for n, shape in log:
+            if n == name:
+                got[shape] = got.get(shape, 0) + 1
+        require(got == {up: rounds, down: rounds},
+                f"{what}: {name} launched {got} in {rounds} rounds, not "
+                f"once a round at {up} and at {down}")
+
+
+def check_whole_vector(torch):
+    """``chunks="whole"`` against the flat trainer on the card, 5 dense
+    rounds: parameters, the four ledger columns and the wire log bitwise."""
+    flat = make_trainer("cuda", torch)
+    whole = make_trainer("cuda", torch, chunks="whole")
+    require(whole.protocol.spec.is_whole_vector(),
+            "chunks='whole' is not one whole-vector chunk")
+    flat.run(5, eval_every=5)
+    whole.run(5, eval_every=5)
+    torch.cuda.synchronize()
+    require(torch.equal(flat.params_vec, whole.params_vec)
+            and all(getattr(flat, c) == getattr(whole, c)
+                    for c in LEDGER_COLS)
+            and flat.wire_log == whole.wire_log,
+            "chunks='whole' differs from the flat trainer on the card")
+    print("chunked whole vector: parameters, ledger and wire log bitwise the "
+          "flat trainer's on the card, 5 rounds")
+
+
+def count_nnz_up(np, tr):
+    """Total the upstream messages' non-zeros of every round ``tr`` runs
+    from now on; returns a one-element list that holds the total."""
+    total, book = [0], tr._downstream_bits
+
+    def counting(global_delta, up=None, nnz_up=None):
+        if nnz_up is not None:
+            total[0] += int(np.sum(np.asarray(nnz_up, np.int64)))
+        return book(global_delta, up, nnz_up)
+    tr._downstream_bits = counting
+    return total
+
+
+def chunked_kw(controller=None):
+    """``TrainerConfig`` fields of phase 9's runs: ``chunks=4096`` and a new
+    controller instance where one is named."""
+    kw = {"chunks": CHUNK}
+    if controller:
+        from repro_torch.core import make_controller
+        kw["controller"] = make_controller(controller[0], **controller[1])
+    return kw
+
+
+def run_chunked_trainers(torch, np, rk, ingest=False, controller=None,
+                         rounds=CHUNKED_ROUNDS, lockstep=None):
+    """The cnn at ``chunks=4096`` on the card (counters set to 0 just
+    before) and on the CPU: accuracy within 0.03, ``bits_up`` within 2 %,
+    the analytic columns equal, and with a fixed k a chunk the upstream
+    non-zeros of the whole run within rtol 1e-4 (a wrong selection moves
+    them by a count a row a round; only ties at a threshold may); one
+    histogram, ``bin_select`` and ``stc_apply`` launch a round at each
+    selection's shape, two ``pack_chunks`` a width group a round; on the
+    ingest route one ``golomb_decode`` a width group a round.
+    ``lockstep(tr)`` runs on the card's trained trainer before the CPU
+    run.  Returns the card's trainer, its launches, what ``lockstep``
+    returned and both runs' accuracies at each evaluation."""
+    route = controller[0] if controller else ("ingest" if ingest else "dense")
+    gpu = make_trainer("cuda", torch, ingest=ingest, **chunked_kw(controller))
+    spec, groups = gpu.protocol.spec, gpu.protocol._groups()
+    require(gpu.ingest == ingest and spec.n_chunks == 79 and len(groups) == 6,
+            f"chunked {route}: {spec.n_chunks} chunks in {len(groups)} groups")
+    evals = max(rounds // 4, 1)
+    nnz_gpu = count_nnz_up(np, gpu)
+    rk.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with launch_log(rk) as log:
+        h_gpu = gpu.run(rounds, eval_every=evals)
+        torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches, nnz_gpu = dict(rk.LAUNCHES.counts), nnz_gpu[0]
+    require(bool(torch.isfinite(gpu.params_vec).all()),
+            f"chunked {route}: non-finite params")
+    require_stc_launches(log, gpu, rounds, f"chunked {route}")
+    require(launches["pack_chunks"] == 2 * len(groups) * rounds
+            and launches["pack_bits"] == 0 and launches["unpack_bits"] == 0,
+            f"chunked {route}: the wire packed {launches['pack_chunks']} times "
+            f"with pack_chunks in {rounds} rounds, not twice a width group a "
+            f"round (up and down), {launches['pack_bits']} with pack_bits")
+    if ingest:
+        require(launches["golomb_decode"] == len(groups) * rounds,
+                f"chunked ingest decoded {launches['golomb_decode']} times in "
+                f"{rounds} rounds, not once a width group a round")
+    params = gpu.params_vec.clone()
+    checked = lockstep(gpu) if lockstep is not None else None
+    before = dict(rk.LAUNCHES.counts)
+    cpu = make_trainer("cpu", torch, ingest=ingest, **chunked_kw(controller))
+    nnz_cpu = count_nnz_up(np, cpu)
+    t0 = time.perf_counter()
+    h_cpu = cpu.run(rounds, eval_every=evals)
+    cpu_s = time.perf_counter() - t0
+    require(rk.LAUNCHES.counts == before,
+            f"chunked {route}: the CPU run launched a CUDA kernel")
+    accs = [[round(h["acc"], 4) for h in hist] for hist in (h_gpu, h_cpu)]
+    h_gpu, h_cpu = h_gpu[-1], h_cpu[-1]
+    d_acc = abs(h_gpu["acc"] - h_cpu["acc"])
+    d_up = abs(h_gpu["bits_up"] / h_cpu["bits_up"] - 1.0)
+    d_nnz = abs(nnz_gpu / nnz_cpu[0] - 1.0)
+    d_params = float((params.cpu() - cpu.params_vec).norm()
+                     / cpu.params_vec.norm())
+    print(f"chunked {route}: cnn, chunks={CHUNK} ({spec.n_chunks} chunks, "
+          f"widths {[g[0] for g in groups]}), {rounds} rounds | card "
+          f"acc={h_gpu['acc']:.4f} bits_up={h_gpu['bits_up']:.0f} "
+          f"bits_down={h_gpu['bits_down']:.0f} ({gpu_s:.1f} s) | cpu "
+          f"acc={h_cpu['acc']:.4f} bits_up={h_cpu['bits_up']:.0f} "
+          f"({cpu_s:.1f} s) | |d acc|={d_acc:.4f} |d bits_up|={d_up:.4%} "
+          f"nnz_up card {nnz_gpu} cpu {nnz_cpu[0]} (|d|={d_nnz:.3e}) "
+          f"|d params|/|params|={d_params:.3e} | acc every {evals} rounds "
+          f"card {accs[0]} cpu {accs[1]} | launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    require(d_acc <= 0.03, f"chunked {route}: accuracy differs by {d_acc:.4f}")
+    require(d_up <= 0.02, f"chunked {route}: bits_up differs by {d_up:.4%}")
+    if controller is None:
+        require(d_nnz <= 1e-4,
+                f"chunked {route}: the upstream non-zeros differ by "
+                f"{d_nnz:.3e} ({nnz_gpu} on the card, {nnz_cpu[0]} on the "
+                f"CPU)")
+    for col in ("bits_up_analytic", "bits_down_analytic"):
+        require(h_gpu[col] == h_cpu[col],
+                f"chunked {route}: {col} {h_gpu[col]} on the card, "
+                f"{h_cpu[col]} on the CPU")
+    return gpu, launches, checked, accs
+
+
+def perturbed(torch, tr, how):
+    """Move ``tr``'s parameters by one ulp: ``"one"`` the first up, ``"all"``
+    every non-zero one up or down by a sign drawn from a seeded generator."""
+    v = tr.params_vec.clone()
+    inf = torch.full_like(v, math.inf)
+    if how == "one":
+        require(float(v[0]) != 0.0, "the first parameter is zero")
+        v[0] = torch.nextafter(v[0], inf[0])
+    else:
+        up = torch.rand(v.shape, generator=torch.Generator().manual_seed(7))
+        away = torch.where(up.to(v.device) < 0.5, inf, -inf)
+        v = torch.where(v != 0, torch.nextafter(v, away), v)
+    tr.params_vec = v
+
+
+WITNESS_RUNS = (("card", "cuda", None, None),
+                ("card again", "cuda", None, None),
+                ("card +1 ulp", "cuda", "one", None),
+                ("card +-1 ulp all", "cuda", "all", None),
+                ("cpu", "cpu", None, None),
+                ("cpu +1 ulp", "cpu", "one", None),
+                ("cpu +-1 ulp all", "cpu", "all", None),
+                ("cpu 1 thread", "cpu", None, 1))
+
+
+def drift_witness(torch, np, rk, rounds=WITNESS_ROUNDS):
+    """How far runs part at the depths where phase 9 does not compare
+    accuracies: the dense and ``residual_mass`` runs of phase 9, ``rounds``
+    rounds, accuracy every 5, on the card twice, on the card and on the CPU
+    with the first parameter moved up by one ulp and with every parameter
+    moved by one ulp, on the CPU, and on the CPU with one thread (another
+    reduction order in local SGD).  Prints the accuracies and each run's
+    largest gap from the unperturbed run on its device and from the CPU's;
+    checks only that every run stays finite."""
+    t0 = time.perf_counter()
+    out, threads = {}, torch.get_num_threads()
+    for controller in (None, CHUNKED_CONTROLLERS[0]):
+        route = controller[0] if controller else "dense"
+        accs = {}
+        for name, device, how, n_threads in WITNESS_RUNS:
+            tr = make_trainer(device, torch, **chunked_kw(controller))
+            if how:
+                perturbed(torch, tr, how)
+            torch.set_num_threads(n_threads or threads)
+            try:
+                hist = tr.run(rounds, eval_every=5)
+            finally:
+                torch.set_num_threads(threads)
+            require(bool(torch.isfinite(tr.params_vec).all()),
+                    f"drift witness {route} {name}: non-finite params")
+            accs[name] = [round(h["acc"], 4) for h in hist]
+
+        def gap(a, b):
+            return round(max(abs(x - y) for x, y in zip(accs[a], accs[b])),
+                         4)
+        gaps = {"card": {"vs cpu": gap("cpu", "card")}}
+        for name, device, *_ in WITNESS_RUNS[1:]:
+            if name != "cpu":
+                gaps[name] = {"vs cpu": gap("cpu", name)}
+                if device == "cuda":
+                    gaps[name]["vs card"] = gap("card", name)
+        print(f"drift witness, chunked {route}: cnn, chunks={CHUNK}, "
+              f"{rounds} rounds, accuracy every 5 rounds "
+              f"{json.dumps(accs)} | largest gap "
+              f"{json.dumps(gaps)}")
+        out[route] = gaps
+    print(f"drift witness took {time.perf_counter() - t0:.1f} s "
+          f"({threads} CPU threads)")
+    print(f"card: {card_line()}")
+    return out
+
+
+def profile_round(torch, tr, what):
+    """One whole round under ``torch.profiler``: no ``topk``/``sort`` op,
+    and (where the profiler sees the card) one histogram, one ``bin_select``
+    final pass and one ``stc_apply`` kernel a selection, two selections."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run_round()
+        torch.cuda.synchronize()
+    ops = {e.name for e in prof.events() if e.device_type != DeviceType.CUDA}
+    require(not (BANNED_OPS & ops),
+            f"{what}: a round called {sorted(BANNED_OPS & ops)}")
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    seen = {k: sum(k in n for n in kernels)
+            for k in ("magnitude_histogram_kernel", "final_pass_kernel",
+                      "stc_apply_kernel")}
+    if kernels:
+        require(all(v == 2 for v in seen.values()),
+                f"{what}: the profiler saw {seen} in one round, not two each")
+    print(f"{what} round under torch.profiler: no topk/sort op; device "
+          f"kernels {json.dumps(seen) if kernels else 'not seen'}")
+
+
+def check_chunked_lockstep(torch, np, rk, tr, rounds=3):
+    """The chunked STC's encode, apply, ledger and ingest on the card
+    against the CPU's on the same inputs, round by round from the trained
+    state: thresholds and counts of both selections exact, masks and signs
+    exact, µ within rtol 1e-6, residuals and parameters within 1e-6 of
+    ``|value| + µ``, wire words identical to the host packer's and the
+    ingest accumulator bitwise the CPU decode's and the host backend's.
+    The server's CPU side runs on the card's combined mean.  Returns the
+    last round's carried matrices and upstream batch."""
+    from repro_torch.core.chunking import chunk_codec
+    from repro_torch.core.compression import get_stc_backend
+    from repro_torch.core.residual import (ResidualState, map_states,
+                                           take_states)
+    from repro_torch.fed.loop import local_sgd
+    proto, p = tr.protocol, tr.env.participants_per_round
+    spec, W = proto.spec, proto.spec.chunk_numel
+    host = chunk_codec(dataclasses.replace(proto.base, wire_backend="numpy"),
+                       spec)
+    be = get_stc_backend("kernel")
+    ks_up = np.tile(spec.chunk_ks(proto._chunk_ps("up")), p)
+    ks_down = spec.chunk_ks(proto._chunk_ps("down"))
+    ones = torch.ones(p, device=tr.device)
+    zeros = torch.zeros(p, device=tr.device)
+    w = tr._participation_weights_np(np.ones(p), np.zeros(p))
+    params = tr.params_vec.clone()
+    cstate = map_states(torch.clone, tr.client_state)
+    sstate = map_states(torch.clone, tr.server_state)
+    cpu = lambda st: map_states(lambda x: x.cpu(), st)   # noqa: E731
+    worst = {"mu_rtol": 0.0, "sum_rtol": 0.0, "residual_abs": 0.0}
+
+    def same_selection(what, x, ks):
+        got = be.select_batch(x, ks)
+        want = be.select_batch(x.cpu(), ks)
+        require(torch.equal(got[0].cpu(), want[0])
+                and torch.equal(got[1].cpu(), want[1]),
+                f"chunked lock-step round {r}: {what} thresholds or counts "
+                f"differ card vs CPU")
+        rel = float(((got[2].cpu() - want[2]).abs()
+                     / want[2].abs().clamp(min=1e-30)).max())
+        require(rel <= 1e-6, f"chunked lock-step round {r}: {what} sums off "
+                             f"by rtol {rel:.3e}")
+        worst["sum_rtol"] = max(worst["sum_rtol"], rel)
+
+    def same_message(what, got, want):
+        require(torch.equal(torch.sign(got.cpu()), torch.sign(want)),
+                f"chunked lock-step round {r}: {what} masks or signs differ")
+        mu = spec.split(got.cpu()).abs().amax(dim=-1)
+        mu_c = spec.split(want).abs().amax(dim=-1)
+        rel = float(((mu - mu_c).abs() / mu_c.clamp(min=1e-30)).max())
+        require(rel <= 1e-6, f"chunked lock-step round {r}: {what} µ off by "
+                             f"rtol {rel:.3e}")
+        worst["mu_rtol"] = max(worst["mu_rtol"], rel)
+        return mu_c
+
+    def close(what, got, want, mu):
+        gap = (got.cpu() - want).abs()
+        tol = 1e-6 * (want.abs() + mu[..., None])
+        require(bool((gap <= tol).all()), f"chunked lock-step round {r}: "
+                f"{what} beyond 1e-6 of |value| + µ")
+        worst["residual_abs"] = max(worst["residual_abs"],
+                                    float(gap.max()))
+
+    decodes = rk.LAUNCHES.counts["golomb_decode"]
+    for r in range(rounds):
+        sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
+        xs, ys = tr._sample_batches(sel, proto.local_iters)
+        idx = torch.as_tensor(sel, device=tr.device)
+        deltas, _ = local_sgd(tr.apply_fn, tr.spec, params,
+                              tr.client_mom[idx], xs, ys, tr.tcfg.lr,
+                              tr.tcfg.momentum)
+        cs = take_states(cstate, idx)
+        carried = (spec.split(deltas) + cs.residual).reshape(-1, W)
+        same_selection("encode", carried, ks_up)
+        msgs, cs_new, _ = proto.encode_batch(deltas, cs)
+        msgs_c, cs_c, _ = proto.encode_batch(deltas.cpu(), cpu(cs))
+        mu_c = same_message("client messages", msgs, msgs_c)
+        close("client residuals", cs_new.residual, cs_c.residual, mu_c)
+
+        # the card's combined mean, as the codec forms it (over the blocks)
+        mean = spec.merge(proto.combine(spec.split(msgs), ones, zeros))
+        server_carried = spec.split(mean) + sstate.residual
+        same_selection("server", server_carried, ks_down)
+        gd, ss_new, _ = proto.aggregate(msgs, sstate, mask=ones,
+                                        staleness=zeros)
+        # one row: the CPU's combine of the card's mean is that mean
+        gd_c, ss_c, _ = proto.aggregate(mean.cpu()[None], cpu(sstate))
+        mu_s = same_message("server message", gd[None], gd_c[None])
+        close("server residual", ss_new.residual, ss_c.residual, mu_s[0])
+
+        batch = proto.encode_wire_batch(msgs, direction="up")
+        batch_h = host.encode_wire_batch(msgs.cpu().numpy(), direction="up")
+        down = proto.encode_wire(gd, direction="down").batch
+        down_h = host.encode_wire(gd.cpu().numpy(), direction="down").batch
+        for got, want in ((batch, batch_h), (down, down_h)):
+            require(all(np.array_equal(g.words, h.words)
+                        and np.array_equal(g.bit_len, h.bit_len)
+                        for g, h in zip(got.batches, want.batches)),
+                    f"chunked lock-step round {r}: wire words differ from "
+                    f"the host packer's")
+        accs = []
+        for codec, b, dev in ((proto, batch, tr.device), (proto, batch, "cpu"),
+                              (host, batch_h, "cpu")):
+            acc = codec.make_ingest(tr.numel)
+            codec.ingest_wire_batch(acc, b, w, direction="up", device=dev)
+            accs.append(acc)
+        require(all(a.sum.tobytes() == accs[0].sum.tobytes()
+                    and a.weight_mass == accs[0].weight_mass
+                    and a.stream_bits == accs[0].stream_bits
+                    for a in accs[1:]),
+                f"chunked lock-step round {r}: ingest accumulators differ")
+        cstate.residual[idx] = cs_new.residual
+        sstate = ss_new
+        params = params + gd
+    require(rk.LAUNCHES.counts["golomb_decode"] > decodes,
+            "the chunked lock-step ingest did not decode through "
+            "golomb_decode")
+    print(f"chunked lock-step ({rounds} rounds, card vs CPU from the same "
+          f"inputs): thresholds, counts, masks, words and accumulator exact; "
+          f"{json.dumps(worst)}")
+    return {"carried": carried.contiguous(),
+            "server_carried": server_carried.contiguous(),
+            "ks_up": ks_up, "ks_down": ks_down, "batch": batch}
+
+
+def check_chunked_selection(torch, rk, last):
+    """On the last chunked lock-step round's matrices, (790, 4096) and (79,
+    4096): ``bin_select`` against its plain version, then
+    ``stc_compress_blocks`` with the fixed per-row ks and with ks as a
+    device tensor under ``set_sync_debug_mode("error")`` (one histogram, one
+    ``bin_select`` and one ``stc_apply`` launch a call; the device ks give
+    the fixed ks' result), and the selection under ``torch.profiler``: no
+    ``topk`` or ``sort``.  Returns the sums' largest abs difference."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.compression import stc_compress_blocks
+    err = 0.0
+    for name, ks in (("carried", last["ks_up"]),
+                     ("server_carried", last["ks_down"])):
+        x = last[name]
+        err = max(err, check_bin_select(torch, rk, x, ks))
+        kt = torch.as_tensor(ks, dtype=torch.int32).to(x.device)
+        want = stc_compress_blocks(x, ks)
+        torch.cuda.synchronize()
+        before = dict(rk.LAUNCHES.counts)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = stc_compress_blocks(x, ks)
+            dyn = stc_compress_blocks(x, kt, k_cap=int(ks.max()))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(all(rk.LAUNCHES.counts[k] == before[k] + 2
+                    for k in STC_KERNELS),
+                f"stc_compress_blocks on the {name} matrix did not launch "
+                f"each STC kernel once a call")
+        require(all(torch.equal(g, w) for g, w in zip(got, want))
+                and all(torch.equal(g, w) for g, w in zip(dyn, want)),
+                f"stc_compress_blocks on the {name} matrix: fixed and device "
+                f"ks differ, or two calls differ")
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            stc_compress_blocks(x, kt, k_cap=int(ks.max()))
+            torch.cuda.synchronize()
+        banned = BANNED_OPS & {e.name for e in prof.events()}
+        require(not banned, f"the chunked selection called {sorted(banned)}")
+        print(f"chunked selection on the {name} matrix {tuple(x.shape)}: "
+              f"bin_select identical to its plain version; "
+              f"stc_compress_blocks with host and device ks identical, one "
+              f"launch of each kernel a call, under "
+              f"set_sync_debug_mode('error'); no topk/sort")
+    return err
+
+
+def check_adaptive_lockstep(torch, np, rk, tr, rounds=2):
+    """A controller's rounds on the card against the CPU from the same
+    inputs: per-chunk ks and (SNR) the EMA state of clients and server
+    identical, the dynamic selection's thresholds and counts exact, masks
+    exact and µ within rtol 1e-6; the clients' adaptive block encode runs
+    under ``set_sync_debug_mode("error")`` and launches one histogram, one
+    ``bin_select`` and one ``stc_apply``."""
+    from repro_torch.core.compression import get_stc_backend
+    from repro_torch.core.residual import map_states, take_states
+    from repro_torch.fed.loop import local_sgd
+    proto, p = tr.protocol, tr.env.participants_per_round
+    spec, W, ctrl = proto.spec, proto.spec.chunk_numel, proto.controller
+    be = get_stc_backend("kernel")
+    base_up, caps_up = proto._ctrl_geometry("up")
+    ones = torch.ones(p, device=tr.device)
+    zeros = torch.zeros(p, device=tr.device)
+    params = tr.params_vec.clone()
+    cstate = map_states(torch.clone, tr.client_state)
+    sstate = map_states(torch.clone, tr.server_state)
+    cpu = lambda st: map_states(lambda x: x.cpu(), st)   # noqa: E731
+
+    def same(what, got, want):
+        require(got is None and want is None
+                or got.cpu().numpy().tobytes() == want.numpy().tobytes(),
+                f"{ctrl.name} lock-step round {r}: {what} differ card vs CPU")
+
+    for r in range(rounds):
+        sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
+        xs, ys = tr._sample_batches(sel, proto.local_iters)
+        idx = torch.as_tensor(sel, device=tr.device)
+        deltas, _ = local_sgd(tr.apply_fn, tr.spec, params,
+                              tr.client_mom[idx], xs, ys, tr.tcfg.lr,
+                              tr.tcfg.momentum)
+        cs = take_states(cstate, idx)
+        base_st, ctrl_st = proto._split_ctrl(cs)
+        blocks = spec.split(deltas)
+        carried = blocks + base_st.residual
+        ks, st_new = ctrl.chunk_ks(carried, ctrl_st, base_ks=base_up,
+                                   caps=caps_up)
+        ks_c, st_c = ctrl.chunk_ks(carried.cpu(), cpu(ctrl_st),
+                                   base_ks=base_up, caps=caps_up)
+        same("client ks", ks, ks_c)
+        same("client controller states", st_new, st_c)
+        k_cap = int(caps_up.max())
+        got = be.select_batch_dynamic(carried.reshape(-1, W), ks.reshape(-1),
+                                      k_cap)
+        want = be.select_batch_dynamic(carried.reshape(-1, W).cpu(),
+                                       ks_c.reshape(-1), k_cap)
+        same("dynamic thresholds", got[0], want[0])
+        same("dynamic counts", got[1], want[1])
+        torch.cuda.synchronize()
+        before = dict(rk.LAUNCHES.counts)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            proto.base.encode_chunk_blocks_adaptive(
+                blocks, base_st, ctrl, ctrl_st, base_ks=base_up, caps=caps_up)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(all(rk.LAUNCHES.counts[k] == before[k] + 1
+                    for k in STC_KERNELS),
+                f"{ctrl.name}: the adaptive encode did not launch each STC "
+                f"kernel once")
+        msgs, cs_new, _ = proto.encode_batch(deltas, cs)
+        msgs_c, _, _ = proto.encode_batch(deltas.cpu(), cpu(cs))
+        require(torch.equal(torch.sign(msgs.cpu()), torch.sign(msgs_c)),
+                f"{ctrl.name} lock-step round {r}: masks or signs differ")
+        mean = spec.merge(proto.combine(spec.split(msgs), ones, zeros))
+        gd, ss_new, _ = proto.aggregate(msgs, sstate, mask=ones,
+                                        staleness=zeros)
+        gd_c, ss_c, _ = proto.aggregate(mean.cpu()[None], cpu(sstate))
+        require(torch.equal(torch.sign(gd.cpu()), torch.sign(gd_c)),
+                f"{ctrl.name} lock-step round {r}: server masks differ")
+        if ctrl.stateful:
+            same("server controller states", ss_new["ctrl"], ss_c["ctrl"])
+        map_states(lambda full, new: full.index_copy_(0, idx, new), cstate,
+                   cs_new)
+        sstate = ss_new
+        params = params + gd
+    print(f"{ctrl.name} lock-step ({rounds} rounds, card vs CPU from the same "
+          f"inputs): per-chunk ks{', EMA states' if ctrl.stateful else ''}, "
+          f"dynamic thresholds, counts and masks identical; the adaptive "
+          f"encode ran under set_sync_debug_mode('error'), one launch of "
+          f"each STC kernel")
+
+
+def time_chunked_round(torch, np, tr, reps=5):
+    """One chunked round (with the trainer's controller, if it has one)
+    split into its phases, state left untouched, median of ``reps``, host
+    clock after ``synchronize``: ``local_sgd``, ``encode``, ``apply`` and
+    ``ledger`` (the upstream batch and the downstream message); on an
+    ingest trainer ``wire_encode``,
+    ``decode_scatter`` (the fused ingest), ``finalize`` and ``ledger`` (the
+    downstream message) in place of ``apply``."""
+    from repro_torch.core.residual import take_states
+    from repro_torch.fed.loop import local_sgd
+    proto, p = tr.protocol, tr.env.participants_per_round
+    names = (("local_sgd", "encode", "wire_encode", "decode_scatter",
+              "finalize", "ledger") if tr.ingest
+             else ("local_sgd", "encode", "apply", "ledger"))
+    phases = {name: [] for name in names + ("round",)}
+    w = tr._participation_weights_np(np.ones(p), np.zeros(p))
+
+    def sync_now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for _ in range(reps):
+        sel = tr.rng.choice(tr.env.n_clients, size=p, replace=False)
+        xs, ys = tr._sample_batches(sel, proto.local_iters)
+        idx = torch.as_tensor(sel, device=tr.device)
+        ts = [sync_now()]
+        deltas, _ = local_sgd(tr.apply_fn, tr.spec, tr.params_vec,
+                              tr.client_mom[idx], xs, ys, tr.tcfg.lr,
+                              tr.tcfg.momentum)
+        ts.append(sync_now())
+        msgs, _, _ = proto.encode_batch(deltas,
+                                        take_states(tr.client_state, idx))
+        ts.append(sync_now())
+        if tr.ingest:
+            batch = proto.encode_wire_batch(msgs, direction="up")
+            ts.append(sync_now())
+            acc = proto.make_ingest(tr.numel)
+            proto.ingest_wire_batch(acc, batch, w, direction="up",
+                                    device=tr.device)
+            ts.append(sync_now())
+            gd, _, _ = proto.aggregate_ingest(acc, tr.server_state)
+            ts.append(sync_now())
+            proto.encode_wire(gd, direction="down")
+        else:
+            _, _, gd = tr._apply_fn(tr.params_vec, tr.server_state, msgs,
+                                    torch.ones(p, device=tr.device),
+                                    torch.zeros(p, device=tr.device))
+            ts.append(sync_now())
+            proto.encode_wire_batch(msgs, direction="up")
+            proto.encode_wire(gd, direction="down")
+        ts.append(sync_now())
+        for name, t0, t1 in zip(names, ts, ts[1:]):
+            phases[name].append((t1 - t0) * 1e3)
+    for _ in range(reps):
+        t0 = sync_now()
+        tr.run_round()
+        phases["round"].append((sync_now() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in phases.items()}
+    ctrl = proto.controller.name if proto.controller else None
+    print(f"chunked {ctrl or ('ingest' if tr.ingest else 'dense')} round "
+          f"phases (median of {reps}, ms, host clock after synchronize): "
+          + json.dumps({k: round(v, 3) for k, v in med.items()}))
+    return med
+
+
+def time_chunked_kernels(torch, np, rk, last):
+    """Device time of the STC kernels at the chunked selections' shapes
+    (the last lock-step round's matrices) beside their plain versions,
+    their byte bounds and the library call; ``golomb_decode`` on the
+    largest width group's upstream sub-streams.  Returns, by kernel, the
+    keys to add to its row of the ``kernels`` line."""
+    from repro_torch.core.compression import get_stc_backend
+    from repro_torch.core.selection import bin_index
+
+    def bound(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    out = {"histogram": {}, "bin_select": {}, "stc_apply": {}}
+    for name, ks in (("carried", last["ks_up"]),
+                     ("server_carried", last["ks_down"])):
+        x = last[name]
+        rows, n = x.shape
+        tag = f"_{rows}x{n}"
+        scale, b, r, _ = select_inputs(torch, x, ks)
+        t, c, s = get_stc_backend("kernel").select_batch(x, ks)
+        mu = s / torch.clamp(c, min=1).to(torch.float32)
+        a = x.abs()
+        k_max = int(ks.max())
+        flat_bins = (bin_index(a, scale[:, None], 256).to(torch.int64)
+                     + 256 * torch.arange(rows, device=x.device)[:, None]
+                     ).reshape(-1)
+        rows_out = {
+            "histogram": (lambda: rk.magnitude_histogram_batched(x, scale),
+                          lambda: rk.magnitude_histogram_plain(x, scale),
+                          4 * rows * n + 4 * rows + 8 * 256 * rows,
+                          lambda: (torch.bincount(flat_bins,
+                                                  minlength=256 * rows),
+                                   torch.bincount(flat_bins,
+                                                  weights=a.reshape(-1),
+                                                  minlength=256 * rows))),
+            "bin_select": (lambda: rk.candidate_select_batched(x, scale, b,
+                                                               r),
+                           lambda: rk.candidate_select_plain(x, scale, b, r),
+                           4 * rows * n + 20 * rows + 12 * rows,
+                           lambda: torch.topk(a, k_max, dim=1)),
+            "stc_apply": (lambda: rk.stc_apply_batched(x, t, mu),
+                          lambda: rk.stc_apply_plain(x, t, mu),
+                          3 * 4 * rows * n + 8 * rows, None)}
+        for kname, (kernel, plain, nbytes, lib) in rows_out.items():
+            out[kname].update({
+                "ms" + tag: event_ms(torch, kernel),
+                "plain_ms" + tag: event_ms(torch, plain, iters=10,
+                                           hold_stream=False),
+                "bound_ms" + tag: bound(nbytes),
+                "library_ms" + tag: (event_ms(torch, lib) if lib is not None
+                                     else None)})
+        sel = {"host": event_ms(torch, lambda: rk.hist_topk_threshold_batched(
+                   x, ks), iters=20, hold_stream=False),
+               "device": event_ms(torch, lambda: rk.hist_topk_threshold_batched(
+                   x, ks), iters=20)}
+        out["bin_select"]["selection_ms" + tag] = sel
+    batch = last["batch"]
+    big = max(batch.batches, key=lambda wb: wb.words.size)
+    row = golomb_row(torch, np, rk, {"golomb_decode": 0},
+                     {"golomb_decode": 0.0}, big, P_STC,
+                     lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3)
+    out["golomb_decode"] = {
+        "ms_chunked_group": row["ms"],
+        "bound_ms_chunked_group": row["bound_ms"],
+        "plain_ms_chunked_group": row["plain_ms"],
+        "words_chunked_group": row["words"],
+        "segments_chunked_group": row["segments"]}
+    print(f"chunked kernel times (ms, device): {json.dumps(out)}")
+    return out
+
+
+def run_chunked(torch, np, rk):
+    """Phase 9: the chunked ``(layer, chunk)`` STC codec and the adaptive
+    controllers on the cnn at full width.  Returns ``(launches by path,
+    keys by kernel for the kernels line, max errors)``."""
+    t0 = time.perf_counter()
+    check_whole_vector(torch)
+    paths, errs = {}, {"bin_select": 0.0}
+    tr_d, paths["chunked_dense"], last, _ = run_chunked_trainers(
+        torch, np, rk, lockstep=lambda tr: (
+            profile_round(torch, tr, "chunked dense"),
+            check_chunked_lockstep(torch, np, rk, tr))[1])
+    errs["bin_select"] = check_chunked_selection(torch, rk, last)
+    tr_i, paths["chunked_ingest"], _, _ = run_chunked_trainers(
+        torch, np, rk, ingest=True,
+        lockstep=lambda tr: profile_round(torch, tr, "chunked ingest"))
+    adaptive = []
+    for controller in CHUNKED_CONTROLLERS:
+        tr_a, paths[controller[0]], _, _ = run_chunked_trainers(
+            torch, np, rk, controller=controller,
+            lockstep=lambda tr: check_adaptive_lockstep(torch, np, rk, tr))
+        adaptive.append(tr_a)
+    for tr in (tr_d, tr_i, *adaptive):
+        time_chunked_round(torch, np, tr)
+    extra = time_chunked_kernels(torch, np, rk, last)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    print(f"card: {card_line()}")
+    return paths, extra, errs
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2436,7 +3170,9 @@ def main() -> int:
         return 2
     alone = {"--signsgd-round": lambda: signsgd_round_only(torch, np),
              "--paper-codecs": lambda: run_paper_codecs(torch, np, rk),
-             "--buffered": lambda: run_buffered(torch, np, rk)}
+             "--buffered": lambda: run_buffered(torch, np, rk),
+             "--chunked": lambda: run_chunked(torch, np, rk),
+             "--drift-witness": lambda: drift_witness(torch, np, rk)}
     if len(sys.argv) == 2 and sys.argv[1] in alone:
         try:
             alone[sys.argv[1]]()
@@ -2509,8 +3245,9 @@ def main() -> int:
         time_signsgd_round(torch, np, signsgd["trainer"])
         codecs = run_paper_codecs(torch, np, rk)
         buffered = run_buffered(torch, np, rk)
-        # launches on the paths of phases 7 and 8, beside each kernel's
-        # main-path count
+        chunked, chunked_ms, chunked_errs = run_chunked(torch, np, rk)
+        # launches on the paths of phases 7, 8 and 9, beside each kernel's
+        # main-path count; the kernels' times at the chunked shapes
         for row in rows:
             name = {"magnitude_histogram": "histogram"}.get(row["name"],
                                                             row["name"])
@@ -2518,6 +3255,13 @@ def main() -> int:
                 path: runs[path][0][name]
                 for runs in (codecs, buffered) for path in runs
                 if runs[path][0].get(name)}
+            row["launches_other_paths"].update({
+                path: counts[name] for path, counts in chunked.items()
+                if counts.get(name)})
+            row.update(chunked_ms.get(name, {}))
+            if name in chunked_errs:
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         chunked_errs[name])
         for row in rows:
             require(all(isinstance(row[f], (int, float)) and math.isfinite(
                 row[f]) for f in ("ms", "plain_ms", "bound_ms")),

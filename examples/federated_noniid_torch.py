@@ -6,6 +6,7 @@ classes), CNN on a synthetic CIFAR-shaped task.  The twin of
     PYTHONPATH=src python examples/federated_noniid_torch.py [--rounds 40]
     PYTHONPATH=src python examples/federated_noniid_torch.py --protocols stc ternquant
     PYTHONPATH=src python examples/federated_noniid_torch.py --device cpu
+    PYTHONPATH=src python examples/federated_noniid_torch.py --chunks 4096
 
 Runs on the CUDA card unless ``--device cpu`` is given.  Protocols come
 from the port's codec registry (``repro_torch.core.registered_protocols``).
@@ -37,9 +38,16 @@ def main():
     ap.add_argument("--protocols", nargs="+", default=None,
                     metavar="NAME", help="codec names to run (default: every "
                     f"registered codec: {', '.join(registered_protocols())})")
+    ap.add_argument("--chunks", default=None,
+                    help="chunked (layer, chunk) codec states: an int chunk "
+                         "size, or 'whole' for the single whole-vector chunk "
+                         "(the flat path, bit for bit)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args()
+    chunks = None
+    if args.chunks is not None:
+        chunks = args.chunks if args.chunks == "whole" else int(args.chunks)
 
     if args.model == "lstm":
         from repro_torch.data import make_sequence_classification
@@ -64,7 +72,8 @@ def main():
         rounds = max(args.rounds // proto.local_iters, 1)
         t0 = time.time()
         tr = FederatedTrainer(MODEL_ZOO[args.model], train, test, env, proto,
-                              TrainerConfig(lr=0.05), device=args.device)
+                              TrainerConfig(lr=0.05, chunks=chunks),
+                              device=args.device)
         h = tr.run(rounds, eval_every=rounds)[-1]
         print(f"{pname:>10s} {h['acc']:6.3f} {h['bits_up']/8e6:9.2f} "
               f"{h['bits_down']/8e6:9.2f} {h['iterations']:6d} "

@@ -16,7 +16,13 @@ Counterpart of ``repro/core/compression.py``, in PyTorch:
 * the ``StcBackend`` registry: ``"torch"`` (``torch.topk`` selection, the
   counterpart of the reference's ``"jnp"`` and the tests' oracle) and
   ``"kernel"`` (the histogram selection and fused apply kernels of
-  :mod:`repro_torch.kernels`, the default).
+  :mod:`repro_torch.kernels`, the default);
+* ``stc_compress_blocks`` / ``select_batch_dynamic`` -- STC over
+  independent rows with a k per row, the core of the chunked ``(layer,
+  chunk)`` codecs (:mod:`repro_torch.core.chunking`); the ks may be a
+  tensor computed on the device (the adaptive controllers of
+  :mod:`repro_torch.core.adaptive`), which the ``"kernel"`` route selects
+  by without reading them back.
 
 Subnormal fp32 values (``|x| < FLT_MIN``) count as zero, as the reference
 computes them under XLA's flush-to-zero: never selected or counted, no part
@@ -57,6 +63,8 @@ __all__ = [
     "tree_leaves",
     "tree_map",
     "StcBackend",
+    "select_batch_dynamic",
+    "stc_compress_blocks",
     "register_stc_backend",
     "get_stc_backend",
     "STC_BACKENDS",
@@ -273,13 +281,21 @@ class StcBackend(NamedTuple):
     ``compress_with_residual_batch(deltas (B, n), residuals (B, n), p)``
     return ``(msg, new_residual, CompressionStats)``.  ``select_batch(x (B,
     n), ks)`` is the per-row exact k-selection, ``(thresh, count, sum_abs)``
-    of shape (B,).
+    of shape (B,), for ks given on the host; ``select_batch_dynamic(x, ks,
+    k_cap)`` the same for a ``(B,)`` integer tensor of ks (the adaptive
+    controllers' ks), clipped into ``[1, k_cap]``.  ``carry(deltas,
+    residuals)`` is the route's carried sum and ``compress_rows(carried,
+    ks, k_cap)`` its STC over the carried rows with per-row ks (a tensor
+    of ks needs ``k_cap``), ``(tern, residual, count, mu)``.
     """
 
     name: str
     compress_with_residual: object
     compress_with_residual_batch: object
     select_batch: object = None
+    select_batch_dynamic: object = None
+    carry: object = None
+    compress_rows: object = None
 
 
 def _static_ks(ks, n_rows: int, n: int) -> np.ndarray:
@@ -290,6 +306,22 @@ def _static_ks(ks, n_rows: int, n: int) -> np.ndarray:
     return arr
 
 
+def _k_cap(k_cap: int, n: int) -> int:
+    k_cap = min(int(k_cap), n)
+    if k_cap < 1:
+        raise ValueError(f"k_cap must be >= 1, got {k_cap}")
+    return k_cap
+
+
+def _mask_stats(a: torch.Tensor, v: torch.Tensor):
+    """Count and mass of ``a >= v`` and ``> 0`` per row, mask-then-reduce
+    as the reference's ``"jnp"`` selection reduces them."""
+    mask = (a >= v[:, None]) & (a > 0.0)
+    cnt = mask.sum(dim=1, dtype=torch.int32)
+    sums = torch.where(mask, a, torch.zeros_like(a)).sum(dim=1)
+    return v, cnt, sums
+
+
 def _torch_select_batch(x: torch.Tensor, ks):
     """Per-row exact k-selection via one ``torch.topk`` gather; count and
     sum are mask-then-reduce, as in the reference's ``_jnp_select_batch``."""
@@ -298,26 +330,75 @@ def _torch_select_batch(x: torch.Tensor, ks):
     a = flush_subnormal(x.to(torch.float32)).abs()
     topc = torch.topk(a, min(int(ks.max()), n), dim=1).values
     kj = torch.tensor(ks, dtype=torch.int64, device=x.device)
-    v = topc.gather(1, (kj - 1)[:, None])[:, 0]
-    mask = (a >= v[:, None]) & (a > 0.0)
-    cnt = mask.sum(dim=1, dtype=torch.int32)
-    sums = torch.where(mask, a, torch.zeros_like(a)).sum(dim=1)
-    return v, cnt, sums
+    return _mask_stats(a, topc.gather(1, (kj - 1)[:, None])[:, 0])
+
+
+def _torch_select_batch_dynamic(x: torch.Tensor, ks, k_cap: int):
+    """Per-row k-selection with per-row ks that may live on the device, as
+    the reference's ``_jnp_select_batch_dynamic``: one ``torch.topk`` of
+    width ``k_cap``, then each row's threshold gathered at ``ks[b] - 1``
+    (ks clipped into ``[1, k_cap]``)."""
+    bsz, n = x.shape
+    k_cap = _k_cap(k_cap, n)
+    a = flush_subnormal(x.to(torch.float32)).abs()
+    topc = torch.topk(a, k_cap, dim=1).values
+    kj = torch.clamp(torch.as_tensor(ks, device=x.device).to(torch.int64)
+                     .reshape(-1).expand(bsz), 1, k_cap)
+    return _mask_stats(a, topc.gather(1, (kj - 1)[:, None])[:, 0])
+
+
+def _torch_carry(deltas, residuals):
+    """The carried sum with its operands and result flushed, as XLA
+    computes it."""
+    return flush_subnormal(flush_subnormal(deltas.to(torch.float32))
+                           + flush_subnormal(residuals.to(torch.float32)))
+
+
+def _torch_apply_batch(carried, thresh, mu):
+    """``(tern, residual)``: kept entries ``|c| >= t & |c| > 0`` become
+    ``µ·sign(c)``; the residual is ``c - tern``, flushed."""
+    c = flush_subnormal(carried)
+    a = c.abs()
+    mask = (a >= thresh[:, None]) & (a > 0.0)
+    tern = torch.where(mask, mu[:, None] * torch.sign(c), torch.zeros_like(c))
+    return tern, flush_subnormal(c - tern)
+
+
+def _torch_compress_rows(carried: torch.Tensor, ks, k_cap=None):
+    """The ``"torch"`` route's STC over the rows of ``carried`` with
+    per-row ks: ``(tern, residual, count, mu)``.  A tensor of ks takes the
+    dynamic selection, bounded by ``k_cap``."""
+    if isinstance(ks, torch.Tensor):
+        if k_cap is None:
+            raise ValueError(
+                "per-row ks computed as a tensor (adaptive controller) "
+                "require a static k_cap bound; pass k_cap=int(caps.max())")
+        thresh, cnt, sums = _torch_select_batch_dynamic(carried, ks,
+                                                        int(k_cap))
+    else:
+        thresh, cnt, sums = _torch_select_batch(carried, ks)
+    mu = sums / torch.clamp(cnt, min=1).to(torch.float32)
+    tern, res = _torch_apply_batch(carried, thresh, mu)
+    return tern, res, cnt, mu
+
+
+def _stc_rows(be: StcBackend, carried: torch.Tensor, ks, k_cap=None):
+    """STC over the rows of ``carried`` with per-row ks through backend
+    ``be``'s ``compress_rows``: ``(tern, residual, count, mu)``."""
+    if be.compress_rows is None:
+        raise NotImplementedError(
+            f"STC backend {be.name!r} does not implement compress_rows; "
+            "chunked (layer, chunk) selection requires it -- see "
+            "StcBackend.compress_rows")
+    return be.compress_rows(carried, ks, k_cap)
 
 
 def _torch_compress_with_residual_batch(deltas, residuals, p: float):
-    carried = flush_subnormal(flush_subnormal(deltas.to(torch.float32))
-                              + flush_subnormal(residuals.to(torch.float32)))
-    k = _k_from_p(carried.shape[1], p)
-    thresh, cnt, sums = _torch_select_batch(carried, k)
-    mu = sums / torch.clamp(cnt, min=1).to(torch.float32)
-    a = carried.abs()
-    mask = (a >= thresh[:, None]) & (a > 0.0)
-    tern = torch.where(mask, mu[:, None] * torch.sign(carried),
-                       torch.zeros_like(carried))
+    carried = _torch_carry(deltas, residuals)
+    tern, res, cnt, mu = _torch_compress_rows(
+        carried, _k_from_p(carried.shape[1], p))
     numel = torch.full((carried.shape[0],), carried.shape[1])
-    return (tern, flush_subnormal(carried - tern),
-            CompressionStats(nnz=cnt, numel=numel, mu=mu))
+    return tern, res, CompressionStats(nnz=cnt, numel=numel, mu=mu)
 
 
 def _single(batch_fn):
@@ -329,11 +410,42 @@ def _single(batch_fn):
     return single
 
 
+def select_batch_dynamic(x: torch.Tensor, ks, k_cap: int, *,
+                         backend: str = "kernel"):
+    """Registry dispatch for the selection with per-row ks that may live on
+    the device: ``(thresh, count, sum_abs)`` of shape (B,), ks clipped into
+    ``[1, min(k_cap, n)]``."""
+    return get_stc_backend(backend).select_batch_dynamic(x, ks, k_cap)
+
+
+def stc_compress_blocks(carried: torch.Tensor, ks, *, backend: str = "kernel",
+                        k_cap=None):
+    """STC over independent ``(B, block_numel)`` rows with a k per row.
+
+    The chunked-codec core: every row (one ``(layer, chunk)`` block,
+    zero-padded past its valid length -- padding is never selected, since
+    zeros are not) gets its own threshold and ternary magnitude.  Returns
+    ``(tern, count, mu)`` with ``tern`` of the input shape and (B,)
+    count and µ.  A single whole-vector row is the flat operator's.
+
+    ``ks`` is a static int or per-row host array, or an integer tensor
+    (the adaptive controllers', on the device), which needs the static
+    ceiling ``k_cap``.  The ``"kernel"`` route is
+    ``kernels/ops.py::stc_compress_rows``, the flat round's composition: a
+    device tensor of ks is clipped where it lies and never read back, and
+    the selection is the histogram and ``bin_select`` kernels and the
+    ternarize ``stc_apply``, one launch each."""
+    be = get_stc_backend(backend)
+    tern, _, cnt, mu = _stc_rows(be, carried.to(torch.float32), ks, k_cap)
+    return tern, cnt, mu
+
+
 STC_BACKENDS: dict[str, StcBackend] = {
     "torch": StcBackend("torch",
                         _single(_torch_compress_with_residual_batch),
                         _torch_compress_with_residual_batch,
-                        _torch_select_batch),
+                        _torch_select_batch, _torch_select_batch_dynamic,
+                        _torch_carry, _torch_compress_rows),
 }
 
 
@@ -344,18 +456,40 @@ def register_stc_backend(backend: StcBackend) -> None:
 def _make_kernel_backend() -> StcBackend:
     # lazy: keeps core import-light (layering: kernels -> core, never back)
     from repro_torch.kernels import (hist_topk_threshold_batched,
-                                     stc_compress_batch)
+                                     stc_compress_batch, stc_compress_rows)
 
     def batch(deltas, residuals, p: float):
         tern, new_res, mu, _, nnz = stc_compress_batch(deltas, residuals, p)
         numel = torch.full((deltas.shape[0],), deltas.shape[1])
         return tern, new_res, CompressionStats(nnz=nnz, numel=numel, mu=mu)
 
-    def select(x, ks):
-        return hist_topk_threshold_batched(
-            x, _static_ks(ks, x.shape[0], x.shape[1]))
+    def rows(carried, ks, k_cap=None):
+        tern, res, mu, _, cnt = stc_compress_rows(carried, ks, k_cap=k_cap)
+        return tern, res, cnt, mu
 
-    return StcBackend("kernel", _single(batch), batch, select)
+    def select(x, ks):
+        arr = _static_ks(ks, x.shape[0], x.shape[1])
+        # a shared k stays an int: the selection fills it on the device
+        return hist_topk_threshold_batched(x, ks if np.ndim(ks) == 0
+                                           else arr)
+
+    def select_dynamic(x, ks, k_cap: int):
+        # the same exact histogram route: for ks <= k_cap it is the static
+        # selection, so no top-k of width k_cap is needed
+        k_cap = _k_cap(k_cap, x.shape[1])
+        if not isinstance(ks, torch.Tensor):
+            return select(x, np.clip(np.asarray(ks, np.int64), 1, k_cap))
+        kj = torch.clamp(ks.to(device=x.device, dtype=torch.int64)
+                         .reshape(-1), 1, k_cap)
+        return hist_topk_threshold_batched(x, kj)
+
+    def carry(deltas, residuals):
+        # one add, as kernels/ops.py::stc_compress_batch forms it (ROADMAP
+        # Queue 3, R5)
+        return deltas.to(torch.float32) + residuals.to(torch.float32)
+
+    return StcBackend("kernel", _single(batch), batch, select,
+                      select_dynamic, carry, rows)
 
 
 def get_stc_backend(name: str) -> StcBackend:

@@ -93,11 +93,14 @@ class IngestAccumulator:
 
     def scatter_ternary_batch(self, seg: np.ndarray, positions: np.ndarray,
                               signs: np.ndarray, mus: np.ndarray,
-                              weights: np.ndarray) -> None:
-        """A whole batch's fields in ONE scatter.
+                              weights: np.ndarray, *,
+                              offsets: np.ndarray = None) -> None:
+        """A whole batch's fields in ONE scatter; ``offsets`` (one per row,
+        e.g. each chunk sub-stream's ``ChunkSpec.chunk_start``) shifts each
+        row's positions into its flat slice.
 
-        ``np.add.at`` applies element-order, and the fields are message-major
-        in stream order, so this is bitwise the sequential per-message
+        ``np.add.at`` applies element-order, and the fields are row-major
+        in stream order, so this is bitwise the sequential per-row
         :meth:`scatter_ternary` loop."""
         if positions.size == 0:
             return
@@ -105,6 +108,8 @@ class IngestAccumulator:
         mu32 = np.asarray(mus, np.float64).astype(np.float32)
         w64 = np.asarray(weights, np.float64)
         contrib = (signs * mu32[seg]).astype(np.float64) * w64[seg]
+        if offsets is not None:
+            positions = positions + np.asarray(offsets, np.int64)[seg]
         np.add.at(self.sum, positions, contrib)
 
     def add_sign_plane(self, bits01: np.ndarray, step: float, weight: float,

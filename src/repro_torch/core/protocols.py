@@ -29,11 +29,16 @@ and implementing a small interface that the federated trainer
   one pack of the cohort's fp32 messages, and one tally of the planes into
   the accumulator's sum.
 
-The paper's comparison set (Table I) is ported on the flat path:
+* the chunked ``(layer, chunk)`` block path (``chunk_blocks``,
+  ``encode_chunk_blocks[_adaptive]``, ``aggregate_chunk_blocks[_adaptive]``)
+  that :class:`~repro_torch.core.chunking.ChunkedCodec` drives: STC
+  compresses every ``(client, chunk)`` row of a round in one selection.
+
+The paper's comparison set (Table I) is ported:
 :class:`BaselineCodec`, :class:`FedAvgCodec`, :class:`SignSGDCodec`,
 :class:`TopKCodec`, :class:`StcCodec` and :class:`TernQuantCodec`,
-registered in the reference's order.  The tree path, chunked codecs and
-screening rules on the ingest path are still to port.
+registered in the reference's order; each runs chunked too.  The tree
+path and screening rules on the ingest path are still to port.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import torch
 
 from . import golomb, wire
 from .aggregation import AggregationRule, MeanRule, make_rule
-from .compression import (CompressionStats, get_stc_backend,
+from .compression import (CompressionStats, _stc_rows, get_stc_backend,
                           majority_vote_sign, sign_compress,
                           ternary_quantize, ternary_quantize_batch,
                           top_k_sparsify, top_k_sparsify_batch)
@@ -190,6 +195,48 @@ class Codec:
                 map_states(lambda *xs: torch.stack(xs), *states),
                 CompressionStats(*(torch.stack(s) for s in zip(*stats))))
 
+    # -- chunked (layer, chunk) block path ------------------------------------
+    # A codec with ``chunk_blocks = True`` compresses a zero-padded
+    # (P, n_chunks, chunk_numel) block tensor in ONE fused call with a static
+    # per-chunk k vector, instead of the generic per-group path of
+    # :class:`repro_torch.core.chunking.ChunkedCodec`.  Contract: each block
+    # is compressed exactly as the flat codec would compress its unpadded
+    # slice (padding is zero and is never selected).
+
+    chunk_blocks: ClassVar[bool] = False
+
+    def encode_chunk_blocks(self, blocks, states, *, ks):
+        """Fused chunked upstream compression; see ``chunk_blocks`` above."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no fused chunk-blocks path")
+
+    def aggregate_chunk_blocks(self, blocks, server_state, *, ks, mask=None,
+                               staleness=None):
+        """Fused chunked aggregation + downstream compression."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no fused chunk-blocks path")
+
+    # Adaptive-controller variants (repro_torch.core.adaptive): the per-chunk
+    # k comes from a controller that observes the carried blocks, and its
+    # state (if any) threads through the call.  Only meaningful for
+    # ``chunk_blocks = True`` codecs.
+
+    def encode_chunk_blocks_adaptive(self, blocks, states, controller,
+                                     ctrl_state, *, base_ks, caps):
+        """Fused upstream compression with controller-chosen per-chunk k.
+
+        Returns ``(tern, new_states, new_ctrl_state, stats)``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no adaptive chunk-blocks path")
+
+    def aggregate_chunk_blocks_adaptive(self, blocks, server_state,
+                                        controller, ctrl_state, *, base_ks,
+                                        caps, mask=None, staleness=None):
+        """Fused aggregation + downstream compression with controller-chosen
+        per-chunk k.  Returns ``(out, new_state, new_ctrl_state, stats)``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no adaptive chunk-blocks path")
+
     # -- server side (aggregation + downstream) -----------------------------
     def participation_weights(self, mask, staleness=None) -> torch.Tensor:
         """Per-message combining weights ``w_i = mask_i * (1+s_i)^-decay``;
@@ -264,9 +311,12 @@ class Codec:
         raise NotImplementedError(
             f"{type(self).__name__} has no wire-norm estimate")
 
-    def encode_wire_batch(self, msgs, *,
-                          direction: str = "up") -> wire.WireBatch:
-        """Serialize a stacked (P, numel) round of messages."""
+    def encode_wire_batch(self, msgs, *, direction: str = "up",
+                          device=None) -> wire.WireBatch:
+        """Serialize a stacked (P, numel) round of messages.  ``device`` is
+        where a wire backend that packs on a device packs a host array
+        (None: a tensor's own device, or the default); the default loops
+        :meth:`encode_wire`."""
         return wire.concat_messages([
             self.encode_wire(m, direction=direction) for m in msgs])
 
@@ -356,6 +406,20 @@ class Codec:
         for i, w in enumerate(np.asarray(weights, np.float64)):
             self.ingest_wire(acc, batch.message(i), float(w),
                              direction=direction, device=device)
+
+    def ingest_wire_rows(self, acc: IngestAccumulator, batch, weights,
+                         offsets, *, direction: str = "up",
+                         device=None) -> None:
+        """Scatter every row of ``batch`` with its weight at its flat
+        offset, in row order, with no per-message bookkeeping (the chunked
+        ingest's sub-streams).  The default loops
+        :meth:`ingest_wire_chunk`; STC overrides it with a fused decode."""
+        w = np.asarray(weights, np.float64)
+        offs = np.asarray(offsets, np.int64)
+        for i in range(batch.n_msgs):
+            self.ingest_wire_chunk(acc, batch.message(i), float(w[i]),
+                                   direction=direction, offset=int(offs[i]),
+                                   device=device)
 
     def finalize_ingest(self, combined: np.ndarray, server_state):
         """Downstream compression of the accumulator's fp32 weighted mean;
@@ -451,9 +515,13 @@ class SignSGDCodec(Codec):
                                     backend=self.wire_backend,
                                     device=_device_of(msg))
 
-    def encode_wire_batch(self, msgs, *, direction="up"):
+    def encode_wire_batch(self, msgs, *, direction="up", device=None):
         # one pack_sign_planes launch for the round; the batch is the
         # default loop's, field for field
+        if self.wire_backend == "kernel" and device is not None \
+                and not isinstance(msgs, torch.Tensor):
+            msgs = torch.from_numpy(np.ascontiguousarray(msgs, np.float32)) \
+                .to(device)
         if self._planes_on_device(msgs) and msgs.shape[0] > 0:
             return wire.pack_sign_planes_batch(
                 msgs.reshape(msgs.shape[0], -1), self.sign_step)
@@ -640,10 +708,10 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
         # not give a negative norm)
         return abs(float(msg.mu)) * math.sqrt(max(int(msg.nnz), 0))
 
-    def encode_wire_batch(self, msgs, *, direction="up"):
+    def encode_wire_batch(self, msgs, *, direction="up", device=None):
         return wire.encode_ternary_words_batch(
             _host(msgs), self._wire_p(direction), backend=self.wire_backend,
-            device=_device_of(msgs))
+            device=_device_of(msgs) if device is None else device)
 
     def wire_bound_bits(self, numel, nnz, direction="up"):
         return golomb.stc_stream_bound_bits(numel, nnz,
@@ -679,19 +747,26 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
 
     def ingest_wire_batch(self, acc, batch, weights, *, direction="up",
                           device=None):
-        # multi-segment field decode + one scatter per bounded word block
-        # (bitwise the sequential ingest_wire loop: np.add.at applies in
-        # element order, and the fields come out message-major)
         w = np.asarray(weights, np.float64)
         for i in range(batch.n_msgs):
             acc.begin_message(float(w[i]),
                               bits=float(batch.bit_len[i])
                               + self.wire_header_bits)
+        self.ingest_wire_rows(acc, batch, w, np.zeros(batch.n_msgs, np.int64),
+                              direction=direction, device=device)
+
+    def ingest_wire_rows(self, acc, batch, weights, offsets, *,
+                         direction="up", device=None):
+        # multi-segment field decode + one scatter per bounded word block
+        # (bitwise the sequential ingest_wire_chunk loop: np.add.at applies
+        # in element order, and the fields come out row-major)
+        w = np.asarray(weights, np.float64)
+        offs = np.asarray(offsets, np.int64)
         p = self._wire_p(direction)
-        i0, n_msgs = 0, batch.n_msgs
-        while i0 < n_msgs:
+        i0, n_rows = 0, batch.n_msgs
+        while i0 < n_rows:
             i1, words = i0, 0
-            while i1 < n_msgs and (i1 == i0
+            while i1 < n_rows and (i1 == i0
                                    or words + int(batch.word_count[i1])
                                    <= self.ingest_block_words):
                 words += int(batch.word_count[i1])
@@ -699,7 +774,8 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
             sub = batch.rows(i0, i1)
             seg, pos, signs = wire.decode_ternary_fields_batch(
                 sub, p, backend=self.wire_backend, device=device)
-            acc.scatter_ternary_batch(seg, pos, signs, sub.mu, w[i0:i1])
+            acc.scatter_ternary_batch(seg, pos, signs, sub.mu, w[i0:i1],
+                                      offsets=offs[i0:i1])
             i0 = i1
 
     def finalize_ingest(self, combined, server_state):
@@ -712,6 +788,70 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
         out, new_res, stats = be.compress_with_residual(
             mean, res, self.sparsity_down)
         return out, ResidualState(residual=new_res), stats
+
+    # ---- fused chunked block path (repro_torch.core.chunking) ----
+    chunk_blocks: ClassVar[bool] = True
+
+    def _blocks(self, carried, ks, k_cap=None):
+        """STC over the (rows, W) carried rows with per-row ks: one
+        selection and one apply for every row (on the ``"kernel"`` route
+        one histogram, one ``bin_select`` and one ``stc_apply`` launch)."""
+        return _stc_rows(get_stc_backend(self.backend), carried, ks, k_cap)
+
+    def _carried(self, blocks, residual):
+        return get_stc_backend(self.backend).carry(blocks, residual)
+
+    def _client_blocks(self, carried, ks, k_cap=None):
+        P, C, W = carried.shape
+        tern, res, cnt, mu = self._blocks(carried.reshape(P * C, W), ks,
+                                          k_cap)
+        stats = CompressionStats(nnz=cnt.reshape(P, C).sum(dim=1),
+                                 numel=torch.full((P,), C * W),
+                                 mu=mu.reshape(P, C).mean(dim=1))
+        return (tern.reshape(P, C, W),
+                ResidualState(residual=res.reshape(P, C, W)), stats)
+
+    def _server_blocks(self, carried, ks, k_cap=None):
+        tern, res, cnt, mu = self._blocks(carried, ks, k_cap)
+        stats = CompressionStats(nnz=cnt.sum(),
+                                 numel=torch.tensor(carried.numel()),
+                                 mu=mu.mean())
+        return tern, ResidualState(residual=res), stats
+
+    def encode_chunk_blocks(self, blocks, states, *, ks):
+        """One selection over every (client, chunk) row."""
+        return self._client_blocks(self._carried(blocks, states.residual),
+                                   np.tile(np.asarray(ks), blocks.shape[0]))
+
+    def aggregate_chunk_blocks(self, blocks, server_state, *, ks, mask=None,
+                               staleness=None):
+        mean = self.combine(blocks, mask, staleness)          # (C, W)
+        return self._server_blocks(self._carried(mean, server_state.residual),
+                                   ks)
+
+    def encode_chunk_blocks_adaptive(self, blocks, states, controller,
+                                     ctrl_state, *, base_ks, caps):
+        """Controller-chosen per-(client, chunk) k: the controller observes
+        the carried (update + residual) blocks and picks the ks on their
+        device, bounded by the static ``caps``; then one dynamic selection
+        compresses every row, reading no k back."""
+        carried = self._carried(blocks, states.residual)
+        ks, new_ctrl = controller.chunk_ks(carried, ctrl_state,
+                                           base_ks=base_ks, caps=caps)
+        tern, new_states, stats = self._client_blocks(
+            carried, ks.reshape(-1), int(np.asarray(caps).max()))
+        return tern, new_states, new_ctrl, stats
+
+    def aggregate_chunk_blocks_adaptive(self, blocks, server_state,
+                                        controller, ctrl_state, *, base_ks,
+                                        caps, mask=None, staleness=None):
+        mean = self.combine(blocks, mask, staleness)          # (C, W)
+        carried = self._carried(mean, server_state.residual)
+        ks, new_ctrl = controller.chunk_ks(carried[None], ctrl_state,
+                                           base_ks=base_ks, caps=caps)
+        out, new_state, stats = self._server_blocks(
+            carried, ks.reshape(-1), int(np.asarray(caps).max()))
+        return out, new_state, new_ctrl, stats
 
     def upload_bits(self, numel: int) -> float:
         return golomb.stc_message_bits(numel, self.sparsity_up)

@@ -40,8 +40,13 @@ server aggregates whatever landed by the round's deadline,
 staleness-weighted.  With ``deadline=inf`` it is the synchronous trainer
 bit for bit.
 
-Still to port: chunked codecs (``TrainerConfig.chunks`` / ``p_fn``) and
-adaptive controllers (``controller``).
+``TrainerConfig(chunks=...)`` wraps the codec into per-``(layer, chunk)``
+block states (:mod:`repro_torch.core.chunking`): independent k-selection,
+µ, residuals and wire sub-streams per chunk, with ``p_fn(layer_name,
+depth)`` as the per-layer sparsity schedule and ``controller`` an adaptive
+per-chunk sparsity controller (:mod:`repro_torch.core.adaptive`);
+``chunks="whole"`` runs the chunked machinery over one whole-vector chunk,
+bit for bit the flat path.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ import torch
 from torch.func import grad, vmap
 
 from repro_torch.core.caching import UpdateCache
+from repro_torch.core.chunking import (chunk_codec, chunk_spec_from_tree,
+                                       whole_vector_spec)
 from repro_torch.core.compression import (flatten_pytree, tree_leaves,
                                           tree_map, unflatten_pytree)
 from repro_torch.core.protocols import Codec
@@ -80,9 +87,18 @@ class TrainerConfig:
     # analytic Eq. 1 ledger is always kept alongside); False forces
     # analytic-only accounting.
     measure_bits: bool | None = None
-    # still to port: setting any of these raises NotImplementedError
+    # Chunked (layer, chunk) codec states: an int chunk size splits every
+    # layer into chunks of at most that many parameters (independent
+    # selection, µ, residuals and wire sub-stream per chunk); "whole" runs
+    # the chunked machinery over ONE whole-vector chunk (the flat path, bit
+    # for bit); None is the plain flat codec.  ``p_fn(layer_name, depth) ->
+    # p | None`` is the per-layer sparsity schedule (only with chunks).
     chunks: int | str | None = None
     p_fn: Optional[Callable] = None
+    # Adaptive per-chunk sparsity controller (repro_torch.core.adaptive): a
+    # registered name ("fixed", "residual_mass", "snr_constant") or a
+    # SparsityController instance; requires ``chunks``.  "fixed" (or None)
+    # keeps the static p_fn schedule.
     controller: object = None
     # Fused decode→aggregate server ingest (repro_torch.core.ingest): the
     # round's wire messages scatter into one O(numel) host accumulator
@@ -161,10 +177,18 @@ class FederatedTrainer:
     def __init__(self, model: tuple[Callable, Callable], train: Dataset,
                  test: Dataset, env: FedEnvironment, protocol: Codec,
                  tcfg: TrainerConfig = TrainerConfig(), *, device=None):
-        for field in ("chunks", "p_fn", "controller"):
-            if getattr(tcfg, field) is not None:
-                raise NotImplementedError(
-                    f"TrainerConfig({field}=...) is not ported yet")
+        params = model[0](torch.Generator().manual_seed(tcfg.seed))
+        vec, self.spec = flatten_pytree(params)
+        self.numel = int(vec.numel())
+        if tcfg.chunks is not None:
+            cspec = (whole_vector_spec(self.numel) if tcfg.chunks == "whole"
+                     else chunk_spec_from_tree(params, int(tcfg.chunks)))
+            protocol = chunk_codec(protocol, cspec, p_fn=tcfg.p_fn,
+                                   controller=tcfg.controller)
+        elif tcfg.controller is not None:
+            raise ValueError(
+                "TrainerConfig(controller=...) needs per-chunk states; set "
+                "TrainerConfig(chunks=...) (e.g. chunks='whole')")
         self.ingest = bool(tcfg.ingest)
         if self.ingest and not protocol.supports_ingest:
             raise ValueError(
@@ -189,11 +213,7 @@ class FederatedTrainer:
         self.train = train
         self.test = test
         self.protocol = protocol
-
-        params = model[0](torch.Generator().manual_seed(tcfg.seed))
-        vec, self.spec = flatten_pytree(params)
         self.params_vec = vec.to(self.device)
-        self.numel = int(vec.numel())
 
         self.splits = split_data(train.y, env, seed=tcfg.seed)
         self.rng = np.random.default_rng(tcfg.seed + 1)

@@ -34,7 +34,7 @@ from .hist_select import (candidate_select_batched, candidate_select_plain,
                           hist_topk_threshold_batched,
                           magnitude_histogram_batched,
                           magnitude_histogram_plain)
-from .ops import stc_compress_batch, stc_compress_kernel
+from .ops import stc_compress_batch, stc_compress_kernel, stc_compress_rows
 from .stc_compress import stc_apply_batched, stc_apply_plain
 from .topk_threshold import (threshold_stats, threshold_stats_plain,
                              topk_threshold, topk_threshold_plain)
@@ -46,6 +46,7 @@ from .wiredecode import (decode_golomb_fields, decode_golomb_fields_plain,
 __all__ = [
     "LAUNCHES",
     "build_all",
+    "stc_compress_rows",
     "stc_compress_batch",
     "stc_compress_kernel",
     "hist_topk_threshold_batched",

@@ -60,7 +60,7 @@ __all__ = ["NBINS", "DEFAULT_CAP", "magnitude_histogram_batched",
 _CTAS_PER_SM = 1
 _MIN_ELEMS_PER_CTA = 8192
 _MAX_CTA_ELEMS = 65000
-_MAX_ROWS = 65535               # the grid's y extent
+_MAX_ROWS = 65535               # the grid's y extent: rows a launch
 _SCRATCH: dict = {}             # (device index, stream) -> partials, tickets
 _SMS: dict = {}                 # device index -> SM count
 # the select: one 512-thread CTA an SM over the batch, none with fewer than
@@ -108,6 +108,22 @@ def _scratch(device: torch.device, stream: int, slots: int):
     return have
 
 
+def _row_batches(rows: int):
+    """``[r0, r1)`` row ranges of at most ``_MAX_ROWS`` rows, one a launch:
+    every row is independent, so a batch of more rows than the grid's y
+    extent is the launches over its ranges, in order."""
+    return [(r0, min(r0 + _MAX_ROWS, rows))
+            for r0 in range(0, rows, _MAX_ROWS)]
+
+
+def _sms(device: torch.device) -> int:
+    idx = device.index
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(device) \
+            .multi_processor_count
+    return _SMS[idx]
+
+
 def _launch(x, scale, bins):
     if bins != NBINS:
         raise ValueError(f"the CUDA histogram has {NBINS} bins, got {bins}")
@@ -119,25 +135,27 @@ def _launch(x, scale, bins):
     sums = torch.empty((rows, bins), dtype=torch.float32, device=x.device)
     if rows == 0 or n == 0:
         return cnt.zero_(), sums.zero_()
-    idx = x.device.index
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(x.device) \
-            .multi_processor_count
-    per_row = _grid(rows, n, _SMS[idx])
     stream = _build.stream_ptr(x.device)
-    part_cnt, part_sum, tickets = _scratch(x.device, stream, rows * per_row)
-    err = fn(x.data_ptr(), scale.data_ptr(), cnt.data_ptr(), sums.data_ptr(),
-             part_cnt.data_ptr(), part_sum.data_ptr(), tickets.data_ptr(),
-             rows, n, per_row, stream)
-    _build.check("histogram", err)
-    _build.LAUNCHES.record("histogram", x.shape)
+    for r0, r1 in _row_batches(rows):
+        per_row = _grid(r1 - r0, n, _sms(x.device))
+        part_cnt, part_sum, tickets = _scratch(x.device, stream,
+                                               (r1 - r0) * per_row)
+        err = fn(x.data_ptr() + 4 * r0 * n, scale.data_ptr() + 4 * r0,
+                 cnt.data_ptr() + 4 * r0 * bins,
+                 sums.data_ptr() + 4 * r0 * bins, part_cnt.data_ptr(),
+                 part_sum.data_ptr(), tickets.data_ptr(), r1 - r0, n,
+                 per_row, stream)
+        _build.check("histogram", err)
+        _build.LAUNCHES.record("histogram", (r1 - r0, n))
     return cnt, sums
 
 
 def magnitude_histogram_batched(x: torch.Tensor, scale: torch.Tensor, *,
                                 bins: int = NBINS):
     """Batched histogram over a ``(B, n)`` fp32 matrix with per-row
-    ``(B,)`` scale -> ``(B, bins)`` int32 counts and fp32 sums."""
+    ``(B,)`` scale -> ``(B, bins)`` int32 counts and fp32 sums.  On the
+    card a launch takes at most 65,535 rows; more rows take successive
+    launches."""
     if x.ndim != 2 or x.dtype != torch.float32:
         raise ValueError(f"x must be (B, n) float32, got {tuple(x.shape)} "
                          f"{x.dtype}")
@@ -152,16 +170,24 @@ def magnitude_histogram_batched(x: torch.Tensor, scale: torch.Tensor, *,
         return magnitude_histogram_plain(x, scale, bins)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if rows > _MAX_ROWS:
-        raise ValueError(f"at most {_MAX_ROWS} rows per launch, got {rows}")
     return _launch(x.contiguous(), scale.contiguous(), bins)
 
 
 def _row_ks(k, rows: int, n: int, device) -> torch.Tensor:
-    """``k`` (an int, or one per row on the host) as a ``(rows,)`` int64
-    tensor on ``device``, range-checked on the host.  A shared k becomes a
-    device fill and per-row ks an asynchronous copy from pinned memory, so
-    neither synchronizes."""
+    """``k`` as a ``(rows,)`` int64 tensor on ``device``.
+
+    An int or per-row ks on the host are range-checked on the host; a
+    shared k becomes a device fill and per-row ks an asynchronous copy from
+    pinned memory.  An integer tensor of ks (computed on the device, as the
+    adaptive controllers compute them) is clipped to ``[1, n]`` where it
+    lies and read nothing of back.  None of them synchronizes."""
+    if isinstance(k, torch.Tensor):
+        if k.dtype.is_floating_point or k.dtype == torch.bool \
+                or k.numel() not in (1, rows):
+            raise ValueError(f"k must be an integer tensor of one or {rows} "
+                             f"ks, got {tuple(k.shape)} {k.dtype}")
+        kj = k.to(device=device, dtype=torch.int64).reshape(-1)
+        return torch.clamp(kj.expand(rows), 1, max(n, 1))
     ks = np.asarray(k, np.int64).reshape(-1)
     if ks.size not in (1, rows):
         raise ValueError(f"k must be an int or ({rows},), got {ks.shape}")
@@ -248,20 +274,21 @@ def _launch_select(x, scale, b, r):
     total = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows == 0 or n == 0:
         return v.zero_(), cnt.zero_(), total.zero_()
-    idx = x.device.index
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(x.device) \
-            .multi_processor_count
-    per_row = max(1, min(-(-n // _MIN_ELEMS_PER_CTA), _SMS[idx] // rows))
     stream = _build.stream_ptr(x.device)
-    s = _select_scratch(x.device, stream, rows, rows * per_row)
-    err = fn(x.data_ptr(), scale.data_ptr(), b.data_ptr(), r.data_ptr(),
-             v.data_ptr(), cnt.data_ptr(), total.data_ptr(),
-             s["state"].data_ptr(), s["ghist"].data_ptr(),
-             s["part_cnt"].data_ptr(), s["part_sum"].data_ptr(),
-             s["tickets"].data_ptr(), rows, n, per_row, stream)
-    _build.check("bin_select", err)
-    _build.LAUNCHES.record("bin_select", x.shape)
+    for r0, r1 in _row_batches(rows):
+        m = r1 - r0
+        per_row = max(1, min(-(-n // _MIN_ELEMS_PER_CTA),
+                             _sms(x.device) // m))
+        s = _select_scratch(x.device, stream, m, m * per_row)
+        err = fn(x.data_ptr() + 4 * r0 * n, scale.data_ptr() + 4 * r0,
+                 b.data_ptr() + 8 * r0, r.data_ptr() + 8 * r0,
+                 v.data_ptr() + 4 * r0, cnt.data_ptr() + 4 * r0,
+                 total.data_ptr() + 4 * r0,
+                 s["state"].data_ptr(), s["ghist"].data_ptr(),
+                 s["part_cnt"].data_ptr(), s["part_sum"].data_ptr(),
+                 s["tickets"].data_ptr(), m, n, per_row, stream)
+        _build.check("bin_select", err)
+        _build.LAUNCHES.record("bin_select", (m, n))
     return v, cnt, total
 
 
@@ -276,7 +303,8 @@ def candidate_select_batched(x: torch.Tensor, scale: torch.Tensor,
 
     On a CUDA tensor it launches ``csrc/bin_select.cu``, which has no
     capacity limit and does not synchronize; on a CPU tensor it runs
-    :func:`candidate_select_plain`, the only place ``cap`` is read."""
+    :func:`candidate_select_plain`, the only place ``cap`` is read.  A
+    launch takes at most 65,535 rows; more rows take successive launches."""
     if x.ndim != 2 or x.dtype != torch.float32:
         raise ValueError(f"x must be (B, n) float32, got {tuple(x.shape)} "
                          f"{x.dtype}")
@@ -292,8 +320,6 @@ def candidate_select_batched(x: torch.Tensor, scale: torch.Tensor,
         return candidate_select_plain(x, scale, b, r, cap=cap)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if rows > _MAX_ROWS:
-        raise ValueError(f"at most {_MAX_ROWS} rows per launch, got {rows}")
     return _launch_select(x.contiguous(), scale.contiguous(), b.contiguous(),
                           r.contiguous())
 
@@ -302,7 +328,8 @@ def hist_topk_threshold_batched(x: torch.Tensor, k, *, bins: int = NBINS,
                                 cap: int = DEFAULT_CAP):
     """Exact per-row k-selection over ``(B, n)``.
 
-    ``k`` is an int shared by every row or a ``(B,)`` per-row vector.
+    ``k`` is an int shared by every row or a ``(B,)`` per-row vector, on
+    the host or (clipped to ``[1, n]``) an integer tensor on the device.
     Returns ``(thresh, count, sum_abs)`` of shape ``(B,)``: ``thresh`` the
     exact k-th largest magnitude, ``count`` the non-zeros at or above it
     (ties kept) and ``sum_abs`` their magnitude mass.

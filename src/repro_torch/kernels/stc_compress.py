@@ -38,6 +38,9 @@ def stc_apply_plain(carried: torch.Tensor, thresh: torch.Tensor,
     return tern, flush_subnormal(c - tern)
 
 
+_MAX_ROWS = 65535                # the grid's y extent: rows a launch
+
+
 def _launch(carried, thresh, mu):
     fn = _build.entry("stc_apply", "stc_apply_f32",
                       [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
@@ -45,18 +48,23 @@ def _launch(carried, thresh, mu):
     rows, n = carried.shape
     tern = torch.empty_like(carried)
     res = torch.empty_like(carried)
-    err = fn(carried.data_ptr(), thresh.data_ptr(), mu.data_ptr(),
-             tern.data_ptr(), res.data_ptr(), rows, n,
-             _build.stream_ptr(carried.device))
-    _build.check("stc_apply", err)
-    _build.LAUNCHES.record("stc_apply", carried.shape)
+    stream = _build.stream_ptr(carried.device)
+    for r0 in range(0, rows, _MAX_ROWS):
+        m = min(_MAX_ROWS, rows - r0)
+        err = fn(carried.data_ptr() + 4 * r0 * n, thresh.data_ptr() + 4 * r0,
+                 mu.data_ptr() + 4 * r0, tern.data_ptr() + 4 * r0 * n,
+                 res.data_ptr() + 4 * r0 * n, m, n, stream)
+        _build.check("stc_apply", err)
+        _build.LAUNCHES.record("stc_apply", (m, n))
     return tern, res
 
 
 def stc_apply_batched(carried: torch.Tensor, thresh: torch.Tensor,
                       mu: torch.Tensor):
     """Fused apply over a ``(B, n)`` fp32 carried matrix with per-row
-    ``(B,)`` threshold and magnitude.  Returns ``(tern, new_residual)``."""
+    ``(B,)`` threshold and magnitude.  Returns ``(tern, new_residual)``.
+    On the card a launch takes at most 65,535 rows; more rows take
+    successive launches."""
     if carried.ndim != 2 or carried.dtype != torch.float32:
         raise ValueError(f"carried must be (B, n) float32, got "
                          f"{tuple(carried.shape)} {carried.dtype}")
@@ -72,7 +80,5 @@ def stc_apply_batched(carried: torch.Tensor, thresh: torch.Tensor,
         return stc_apply_plain(carried, thresh, mu)
     if carried.device.type != "cuda":
         raise ValueError(f"unsupported device {carried.device}")
-    if rows > 65535:
-        raise ValueError(f"at most 65535 rows per launch, got {rows}")
     return _launch(carried.contiguous(), thresh.contiguous(),
                    mu.contiguous())

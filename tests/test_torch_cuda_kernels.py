@@ -748,3 +748,101 @@ def test_buffered_padded_batch_through_the_kernels(dev):
         4 + len(bufs)                       # every encode, every aggregate
     assert launches["stc_apply"] == 4 + len(bufs)
     assert torch.equal(torch.sign(deltas[0]), torch.sign(deltas_c[0]))
+
+
+def test_row_batches_beyond_the_grid(dev):
+    """70,000 short rows: the histogram, ``bin_select`` and ``stc_apply``
+    take two launches each (65,535 rows a launch at most) and give,
+    bitwise, what one launch gives on each half; counts equal the plain
+    versions'."""
+    rows, n = 70_000, 48
+    x = _rows(dev, (rows, n), 21) * 1e-2
+    x[7] = 0.0
+    ks = torch.from_numpy(np.random.default_rng(22).integers(
+        1, n, rows)).to(dev)
+    before = dict(rk.LAUNCHES.counts)
+    t, c, s = rk.hist_topk_threshold_batched(x, ks)
+    mu = s / torch.clamp(c, min=1).to(torch.float32)
+    tern, res = rk.stc_apply_batched(x, t, mu)
+    torch.cuda.synchronize()
+    for name in ("histogram", "bin_select", "stc_apply"):
+        assert rk.LAUNCHES.counts[name] == before[name] + 2
+    halves = [slice(0, 35_000), slice(35_000, rows)]
+    parts = [rk.hist_topk_threshold_batched(x[h], ks[h]) for h in halves]
+    for got, part in zip((t, c, s), zip(*parts)):
+        assert torch.equal(got, torch.cat(part))
+    applied = [rk.stc_apply_batched(x[h].contiguous(), t[h].contiguous(),
+                                    mu[h].contiguous()) for h in halves]
+    assert torch.equal(tern, torch.cat([a[0] for a in applied]))
+    assert torch.equal(res, torch.cat([a[1] for a in applied]))
+    t_c, c_c, _ = rk.hist_topk_threshold_batched(x.cpu(), ks.cpu())
+    assert torch.equal(t.cpu(), t_c) and torch.equal(c.cpu(), c_c)
+
+
+@pytest.mark.parametrize("rows", [79, 790])
+def test_stc_compress_blocks_fixed_and_device_ks(dev, rows):
+    """The chunked STC core at the cnn's chunked shapes: per-row ks on the
+    host and as a device tensor give the CPU plain route's thresholds,
+    counts and masks (µ within rtol 1e-6), one launch of each kernel a
+    call and no host synchronization."""
+    from repro_torch.core.compression import stc_compress_blocks
+    rng = np.random.default_rng(rows)
+    x_np = (rng.standard_normal((rows, 4096)) * 1e-3).astype(np.float32)
+    x_np[3, 100:] = 0.0
+    x_np[4] = 0.0
+    x = torch.from_numpy(x_np).to(dev)
+    ks = rng.integers(1, 330, rows)
+    kt = torch.from_numpy(ks.astype(np.int32)).to(dev)
+    want = stc_compress_blocks(torch.from_numpy(x_np), ks)
+    stc_compress_blocks(x, ks)                     # grows the scratch
+    torch.cuda.synchronize()
+    before = dict(rk.LAUNCHES.counts)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = stc_compress_blocks(x, ks)
+        dyn = stc_compress_blocks(x, kt, k_cap=330)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name in ("histogram", "bin_select", "stc_apply"):
+        assert rk.LAUNCHES.counts[name] == before[name] + 2
+    for out in (got, dyn):
+        assert torch.equal(torch.sign(out[0].cpu()), torch.sign(want[0]))
+        assert torch.equal(out[1].cpu(), want[1])
+        assert torch.allclose(out[2].cpu(), want[2], rtol=1e-6, atol=0.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, dyn))
+
+
+def test_chunked_ingest_decode_matches_per_chunk_loop(dev):
+    """The chunked ingest on the card (one ``golomb_decode`` a width group)
+    against the per-(message, chunk) loop of single decodes: the
+    accumulator bitwise."""
+    from repro_torch.core import Codec, make_protocol
+    from repro_torch.core.chunking import chunk_codec, chunk_spec_from_sizes
+    from repro_torch.core.residual import stack_states
+    cc = chunk_codec(make_protocol("stc", sparsity_up=1 / 20,
+                                   sparsity_down=1 / 20,
+                                   wire_backend="kernel"),
+                     chunk_spec_from_sizes([9000, 4096, 128, 10],
+                                           chunk_size=4096))
+    P, n = 10, cc.spec.numel
+    d = _rows(dev, (P, n), 23) * 1e-2
+    msgs, _, _ = cc.encode_batch(
+        d, stack_states(cc.init_client_state(n, dev), P))
+    batch = cc.encode_wire_batch(msgs)
+    w = np.linspace(0.5, 1.0, P)
+    before = rk.LAUNCHES.counts["golomb_decode"]
+    acc = cc.make_ingest(n)
+    cc.ingest_wire_batch(acc, batch, w, device=dev)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.counts["golomb_decode"] == before + len(batch.batches)
+    loop = cc.make_ingest(n)
+    for i in range(P):
+        loop.begin_message(float(w[i]), bits=float(batch.bit_len[i])
+                           + 32.0 * cc.spec.n_chunks)
+    starts = np.asarray(cc.spec.chunk_start)
+    for (valid, codec, idxs, _), wb in zip(cc._groups(), batch.batches):
+        Codec.ingest_wire_rows(codec, loop, wb, np.repeat(w, len(idxs)),
+                               np.tile(starts[list(idxs)], P), device=dev)
+    assert acc.sum.tobytes() == loop.sum.tobytes()
+    assert (acc.weight_mass, acc.nnz, acc.stream_bits) == \
+        (loop.weight_mass, loop.nnz, loop.stream_bits)

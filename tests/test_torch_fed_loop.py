@@ -309,8 +309,18 @@ def test_ingest_on_codec_without_ingest_path_is_loud():
                                  {"controller": "fixed"},
                                  {"p_fn": lambda name, depth: None}])
 def test_unported_options_raise(cfg):
-    with pytest.raises(NotImplementedError):
-        _tiny_trainer(**cfg)
+    """The options that raised NotImplementedError before the chunked
+    codecs were ported now behave as the reference's: chunks wrap the
+    codec, a controller without chunks is a ValueError, and a p_fn without
+    chunks is ignored.  None raises NotImplementedError."""
+    if "controller" in cfg:
+        with pytest.raises(ValueError, match="chunks"):
+            _tiny_trainer(**cfg)
+        return
+    tr = _tiny_trainer(lr=0.05, **cfg)
+    assert (tr.protocol.name == "chunked") == ("chunks" in cfg)
+    tr.run(1, eval_every=1)
+    assert torch.isfinite(tr.params_vec).all() and tr.bits_up > 0
 
 
 def test_partial_participation_round_and_ledger():
@@ -341,9 +351,11 @@ def test_residual_state_layout():
 
 
 def _both_trainers(codec, proto_kw, env_kw, cfg_kw, *, backend="kernel",
-                   data_n=2000, rounds=10):
+                   data_n=2000, rounds=10, ref_cfg_kw=None):
     """Both packages' trainers on logreg from the reference's initial
-    parameters; returns (reference, port, their last history rows)."""
+    parameters (``ref_cfg_kw``: the reference's config keywords where they
+    differ from ``cfg_kw``); returns (reference, port, their last history
+    rows)."""
     kw = dict(n_clients=10, participation=1.0, classes_per_client=2,
               batch_size=20)
     kw.update(env_kw)
@@ -354,7 +366,8 @@ def _both_trainers(codec, proto_kw, env_kw, cfg_kw, *, backend="kernel",
                         REF_ZOO["logreg"][0](jax.random.PRNGKey(0)))
     ref = RefTrainer(REF_ZOO["logreg"], ref_train, ref_test, RefEnv(**kw),
                      ref_make_protocol(codec, **proto_kw),
-                     RefConfig(lr=0.05, **cfg_kw))
+                     RefConfig(lr=0.05, **(cfg_kw if ref_cfg_kw is None
+                                           else ref_cfg_kw)))
     h_ref = ref.run(rounds, eval_every=rounds)[-1]
     extra = {"backend": backend} if codec == "stc" else {}
     port = FederatedTrainer(

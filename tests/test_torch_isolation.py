@@ -37,7 +37,8 @@ def test_every_module_is_listed():
                  "repro_torch.kernels.topk_threshold",
                  "repro_torch.kernels.bitpack", "repro_torch.fed.arrivals",
                  "repro_torch.core.residual", "repro_torch.core.protocols",
-                 "repro_torch.core.compression"):
+                 "repro_torch.core.compression", "repro_torch.core.adaptive",
+                 "repro_torch.core.chunking"):
         assert name in mods
 
 
