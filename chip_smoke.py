@@ -7,6 +7,7 @@
     python3 chip_smoke.py --buffered        # only phase 8
     python3 chip_smoke.py --chunked         # only phase 9
     python3 chip_smoke.py --drift-witness   # phase 9's runs, one ulp apart
+    python3 chip_smoke.py --events          # only phase 10
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
@@ -159,15 +160,37 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    the chunked shapes beside their bounds, ``golomb_decode`` on the largest
    width group's sub-streams.
 
+10. the event-driven server (``EventDrivenTrainer``) on the same cnn and
+   STC setting as 3: with its defaults (K = cohort, scenario "steady") 10
+   aggregations on the dense and the ingest route, parameters, ledger and
+   wire log bitwise the card's ``FederatedTrainer`` of 10 rounds; an
+   asynchronous fleet (K = 5, concurrency 10, max_staleness 8) on the
+   ingest route at lr 0.01 (at 0.05 its two aggregations a cohort make
+   training swing), 40 aggregations card against CPU: the event schedule (the
+   event log but its measured ``bits_up``) and the aggregation log
+   identical, accuracy within 0.03, ``bits_up`` within 2 %, and exactly
+   the launches the logs imply (two ``golomb_decode`` an admitted arrival:
+   validation and ingest); ``mean``, ``coordinate_median`` and
+   ``trimmed_mean`` under a 20 % sign-flip attack at 10x, 20 aggregations
+   each (accuracies printed), with 3 lock-step combines of the same buffer
+   card against CPU, bitwise; the norm screen (reject above 3x the median
+   honest wire norm of aggregation 0) on the ingest route under a 20 %
+   scale attack at 100x, 20 aggregations card against CPU: the screened
+   counts equal, above 0 in every aggregation with a Byzantine arrival;
+   a server kill at event 37 with a checkpoint every 5 events, resumed
+   into a fresh trainer to 20 aggregations: parameters, ledger, event,
+   aggregation and quarantine logs bitwise an uninterrupted card run; and
+   each route's aggregation split into phases.
+
 ``--signsgd-round`` runs the last of the timings of 6 alone on the package
 of the tree the file sits in: a copy inside a parent checkout unpacked
-beside the change times the parent.  ``--paper-codecs``, ``--buffered``
-and ``--chunked`` run phase 7, 8 or 9 alone.  ``--drift-witness`` trains
-phase 9's dense and ``residual_mass`` runs 20 rounds on the card twice, on
-the card and the CPU with one parameter and with every parameter moved by
-one ulp, on the CPU, and on the CPU with one thread, and prints their
-accuracies every 5 rounds: how far the card's own variation and ulps on
-one device part two runs, beside the card-CPU gap.
+beside the change times the parent.  ``--paper-codecs``, ``--buffered``,
+``--chunked`` and ``--events`` run phase 7, 8, 9 or 10 alone.
+``--drift-witness`` trains phase 9's dense and ``residual_mass`` runs 20
+rounds on the card twice, on the card and the CPU with one parameter and
+with every parameter moved by one ulp, on the CPU, and on the CPU with one
+thread, and prints their accuracies every 5 rounds: how far the card's own
+variation and ulps on one device part two runs, beside the card-CPU gap.
 
 Prints the timing lines, the TF32 flags, the card's name and power limit,
 a ``{"kernels": [...]}`` line, and as its last line
@@ -3150,6 +3173,393 @@ def run_chunked(torch, np, rk):
     return paths, extra, errs
 
 
+# --------------------------------------------------------------- phase 10
+
+EVENT_AGGS = 10           # K = cohort against the synchronous trainer
+ASYNC_AGGS = 40           # K = 5 of a cohort of 10, card against CPU
+ATTACK_AGGS = 20          # the robust rules and the norm screen under attack
+RESUME_AGGS = 20          # kill-and-resume against an uninterrupted run
+RESUME_KILL_AT = 37       # served events before the kill
+ASYNC_KW = {"k_arrivals": 5, "concurrency": 10, "max_staleness": 8}
+# two aggregations a cohort double the server's steps: at lr 0.05 the
+# asynchronous fleet swings (0.09 to 0.78 accuracy between 40 and 120
+# aggregations on the CPU), at 0.01 it converges, as phase 7's codecs do
+ASYNC_LR = 0.01
+SIGN_FLIP = {"scale": 10.0, "fraction": 0.2}
+SCALE_ATTACK = {"factor": 100.0, "fraction": 0.2}
+EVENT_PHASES = ("dispatch", "to_host", "validate", "ingest", "combine",
+                "ledger")
+
+
+def make_event_trainer(device, torch, ingest=False, rule=None, lr=0.05,
+                       **kw):
+    """Phase 3's cnn setting under ``EventDrivenTrainer`` (``kw`` are its
+    keywords); ``rule`` is the STC codec's aggregation rule."""
+    from repro_torch.core import make_protocol
+    from repro_torch.data import make_image_classification
+    from repro_torch.fed import (EventDrivenTrainer, FedEnvironment,
+                                 TrainerConfig)
+    from repro_torch.models import MODEL_ZOO
+    train, test = make_image_classification(seed=0, n=6000)
+    env = FedEnvironment(n_clients=10, participation=1.0,
+                         classes_per_client=2, batch_size=20)
+    proto_kw = dict(CODEC_KW["stc"])
+    if rule is not None:
+        proto_kw["rule"] = rule
+    return EventDrivenTrainer(MODEL_ZOO["cnn"], train, test, env,
+                              make_protocol("stc", **proto_kw),
+                              TrainerConfig(lr=lr, ingest=ingest),
+                              device=device, **kw)
+
+
+def schedule(log):
+    """An event log without its billing column: the event schedule."""
+    return [{k: v for k, v in r.items() if k != "bits_up"} for r in log]
+
+
+def run_on_card(torch, rk, tr, aggs):
+    """``aggs`` aggregations with the launch counters set to 0 just before;
+    returns the counts and the last history row."""
+    rk.LAUNCHES.reset()
+    h = tr.run(aggs, eval_every=aggs)[-1]
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(tr.params_vec).all()),
+            "non-finite parameters")
+    return dict(rk.LAUNCHES.counts), h
+
+
+def same_run(torch, a, b, what):
+    require(torch.equal(a.params_vec.cpu(), b.params_vec.cpu())
+            and all(getattr(a, c) == getattr(b, c) for c in LEDGER_COLS)
+            and a.wire_log == b.wire_log,
+            f"{what}: parameters, ledger or wire log differ")
+
+
+def stc_launches(tr):
+    """The STC kernels' launches an event run must show: the clients' STC
+    at each dispatch and the server's at each aggregation."""
+    n_disp = sum(r["kind"] == "dispatch" for r in tr.event_log)
+    return n_disp + len(tr.agg_log)
+
+
+def check_k_cohort(torch, rk):
+    """K = cohort: the event trainer with its defaults is the synchronous
+    trainer bit for bit on the card, on both routes."""
+    out = {}
+    for ingest in (False, True):
+        route = "ingest" if ingest else "dense"
+        sync = make_trainer("cuda", torch, ingest=ingest)
+        sync.run(EVENT_AGGS, eval_every=EVENT_AGGS)
+        ev = make_event_trainer("cuda", torch, ingest=ingest)
+        launches, h = run_on_card(torch, rk, ev, EVENT_AGGS)
+        same_run(torch, sync, ev, f"events K=cohort {route}")
+        require(ev.n_dropped == ev.n_lost == 0,
+                f"events K=cohort {route}: drops or losses")
+        stc = stc_launches(ev)
+        arrivals = sum(r["kind"] == "arrival" for r in ev.event_log)
+        want = {"histogram": stc, "bin_select": stc, "stc_apply": stc,
+                "golomb_decode": 2 * arrivals if ingest else 0}
+        got = {k: launches[k] for k in want}
+        require(got == want, f"events K=cohort {route}: launched "
+                             f"{json.dumps(got)}, not {json.dumps(want)}")
+        print(f"events K=cohort {route}: {EVENT_AGGS} aggregations, "
+              f"parameters, ledger and wire log bitwise the synchronous "
+              f"trainer's on the card | acc={h['acc']:.4f} | launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        out[f"events_{route}"] = launches
+    return out
+
+
+def check_async(torch, np, rk):
+    """K = 5 of a cohort of 10 on the ingest route, card against CPU: the
+    event schedule and the aggregation log identical, accuracy within
+    0.03, ``bits_up`` within 2 %, and the exact launches the logs imply."""
+    gpu = make_event_trainer("cuda", torch, ingest=True, lr=ASYNC_LR,
+                             **ASYNC_KW)
+    t0 = time.perf_counter()
+    launches, h_gpu = run_on_card(torch, rk, gpu, ASYNC_AGGS)
+    gpu_s = time.perf_counter() - t0
+    cpu = make_event_trainer("cpu", torch, ingest=True, lr=ASYNC_LR,
+                             **ASYNC_KW)
+    t0 = time.perf_counter()
+    h_cpu = cpu.run(ASYNC_AGGS, eval_every=ASYNC_AGGS)[-1]
+    cpu_s = time.perf_counter() - t0
+    require(schedule(gpu.event_log) == schedule(cpu.event_log),
+            "events async: the event schedules differ card vs CPU")
+    require(gpu.agg_log == cpu.agg_log,
+            "events async: the aggregation logs differ card vs CPU")
+    stale = [r["staleness"] for r in gpu.event_log if r["kind"] == "arrival"]
+    require(max(stale) > 0, "events async: no stale arrival")
+    d_acc = abs(h_gpu["acc"] - h_cpu["acc"])
+    d_up = abs(h_gpu["bits_up"] / h_cpu["bits_up"] - 1.0)
+    # each admitted STC arrival: one golomb_decode to validate, one to
+    # ingest (a zero-length stream, 32 bits of header alone, decodes none)
+    decodes = 2 * sum(r["kind"] == "arrival" and r["bits_up"] > 32
+                      for r in gpu.event_log)
+    stc = stc_launches(gpu)
+    want = {"golomb_decode": decodes, "histogram": stc, "bin_select": stc,
+            "stc_apply": stc, "pack_chunks": stc, "unpack_bits": 0,
+            "pack_bits": 0}
+    got = {k: launches[k] for k in want}
+    print(f"events async: cnn, ingest, lr {ASYNC_LR}, {ASYNC_AGGS} "
+          f"aggregations of {ASYNC_KW} | card acc={h_gpu['acc']:.4f} "
+          f"bits_up={h_gpu['bits_up']:.0f} ({gpu_s:.1f} s) | cpu "
+          f"acc={h_cpu['acc']:.4f} bits_up={h_cpu['bits_up']:.0f} "
+          f"({cpu_s:.1f} s) | |d acc|={d_acc:.4f} |d bits_up|={d_up:.4%} | "
+          f"staleness max {max(stale)}, mean {np.mean(stale):.3f} | "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    require(d_acc <= 0.03, f"events async: accuracy differs by {d_acc:.4f}")
+    require(d_up <= 0.02, f"events async: bits_up differs by {d_up:.4%}")
+    require(got == want, f"events async: launched {json.dumps(got)}, not "
+                         f"{json.dumps(want)}")
+    return {"events_async": launches}
+
+
+def record_combines(np, tr, keep):
+    """Keep the last ``keep`` dense aggregations' inputs (the buffer on the
+    trainer's device, mask, staleness)."""
+    seen = []
+    apply_update = tr._apply_update
+
+    def recording(msgs, mask, staleness):
+        seen.append((msgs.clone(), np.asarray(mask).copy(),
+                     np.asarray(staleness).copy()))
+        del seen[:-keep]
+        return apply_update(msgs, mask, staleness)
+
+    tr._apply_update = recording
+    return seen
+
+
+def check_robust_rules(torch, np, rk):
+    """The order-statistic rules (and the mean) under a 20 % sign-flip
+    attack at 10x, dense route on the card; then 3 aggregations' combines
+    on the same buffer, card against CPU, bitwise."""
+    from repro_torch.fed import make_fault
+    out, accs = {}, {}
+    for rule in ("mean", "coordinate_median", "trimmed_mean"):
+        tr = make_event_trainer("cuda", torch, rule=rule,
+                                faults=make_fault("sign-flip", **SIGN_FLIP))
+        launches, h = run_on_card(torch, rk, tr, ATTACK_AGGS)
+        accs[rule] = h["acc"]
+        stc = stc_launches(tr)
+        require(launches["histogram"] == launches["bin_select"]
+                == launches["stc_apply"] == stc,
+                f"events {rule}: STC launched {launches['histogram']} "
+                f"times, not {stc}")
+        out[f"events_{rule}"] = launches
+        if rule == "mean":
+            continue
+        seen = record_combines(np, tr, 3)
+        tr.run(3, eval_every=3)
+        for msgs, mask, stale in seen:
+            m = torch.from_numpy(mask)
+            s = torch.from_numpy(stale)
+            card = tr.protocol.combine(msgs, m.cuda(), s.cuda()).cpu()
+            host = tr.protocol.combine(msgs.cpu(), m, s)
+            require(torch.equal(card.view(torch.int32),
+                                host.view(torch.int32)),
+                    f"events {rule}: combine differs card vs CPU")
+        print(f"events {rule}: 3 lock-step combines of ({seen[0][0].shape[0]}"
+              f", {tr.numel}) bitwise card vs CPU")
+    print(f"events under sign-flip {json.dumps(SIGN_FLIP)}, "
+          f"{ATTACK_AGGS} aggregations, dense route, accuracy: "
+          f"{json.dumps(accs)}")
+    return out
+
+
+def screen_bound(torch, np):
+    """3x the median wire norm of aggregation 0's honest arrivals under
+    the scale attack."""
+    from repro_torch.fed import make_fault
+    fm = make_fault("scale-attack", **SCALE_ATTACK)
+    tr = make_event_trainer("cuda", torch, ingest=True, faults=fm)
+    seen = []
+    ingest_kept = tr._ingest_kept
+
+    def recording(kept, staleness):
+        seen.extend(kept)
+        return ingest_kept(kept, staleness)
+
+    tr._ingest_kept = recording
+    tr.run_round()
+    honest = [tr.protocol.wire_norm(r.payload) for r in seen
+              if not fm.is_byzantine(r.client)]
+    require(len(honest) < len(seen), "scale attack: no Byzantine arrival "
+                                     "in aggregation 0")
+    return 3.0 * float(np.median(honest))
+
+
+def screened_run(torch, rk, device, bound, aggs):
+    """The ingest route under the scale attack with the reject screen;
+    returns the trainer, its launches (card) and, per aggregation, the
+    screened count and whether a Byzantine client arrived."""
+    from repro_torch.core import make_rule
+    from repro_torch.fed import make_fault
+    fm = make_fault("scale-attack", **SCALE_ATTACK)
+    tr = make_event_trainer(
+        device, torch, ingest=True, faults=fm,
+        rule=make_rule("norm_screened_mean", policy="reject", bound=bound))
+    per_agg, byz = [], []
+    ingest_kept, finalize = tr._ingest_kept, tr._finalize_ingest
+
+    def kept_rec(kept, staleness):
+        byz.append(any(fm.is_byzantine(r.client) for r in kept))
+        return ingest_kept(kept, staleness)
+
+    def fin_rec(acc):
+        per_agg.append(acc.n_screened)
+        return finalize(acc)
+
+    tr._ingest_kept, tr._finalize_ingest = kept_rec, fin_rec
+    if device == "cuda":
+        launches, h = run_on_card(torch, rk, tr, aggs)
+    else:
+        launches, h = None, tr.run(aggs, eval_every=aggs)[-1]
+    return tr, launches, h, per_agg, byz
+
+
+def check_norm_screen(torch, np, rk):
+    bound = screen_bound(torch, np)
+    gpu, launches, h_gpu, scr_gpu, byz = screened_run(
+        torch, rk, "cuda", bound, ATTACK_AGGS)
+    cpu, _, h_cpu, scr_cpu, _ = screened_run(torch, rk, "cpu", bound,
+                                             ATTACK_AGGS)
+    print(f"events norm screen: reject above {bound:.6g} (3x the median "
+          f"honest wire norm of aggregation 0) under scale-attack "
+          f"{json.dumps(SCALE_ATTACK)}, ingest, {ATTACK_AGGS} aggregations "
+          f"| screened per aggregation card {scr_gpu} cpu {scr_cpu} | acc "
+          f"card {h_gpu['acc']:.4f} cpu {h_cpu['acc']:.4f} | launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    require(scr_gpu == scr_cpu, "events norm screen: screened counts "
+                                "differ card vs CPU")
+    require(all(n > 0 for n, b in zip(scr_gpu, byz) if b) and any(byz),
+            "events norm screen: an aggregation with a Byzantine arrival "
+            "screened nothing")
+    arrivals = sum(r["kind"] == "arrival" for r in gpu.event_log)
+    want = 2 * arrivals - sum(scr_gpu)
+    require(launches["golomb_decode"] == want,
+            f"events norm screen: golomb_decode launched "
+            f"{launches['golomb_decode']} times, not {want} (a rejected "
+            f"arrival is validated, not decoded)")
+    return {"events_screen": launches}
+
+
+def check_resume(torch, np, rk):
+    """Kill at event 37 with a checkpoint every 5 events, resume into a
+    fresh trainer with ``faults="none"``, run to 20 aggregations: bitwise
+    an uninterrupted card run."""
+    import tempfile
+    from repro_torch.fed import ServerKilled, make_fault
+    ref = make_event_trainer("cuda", torch, ingest=True, faults="none")
+    ref.run(RESUME_AGGS, eval_every=RESUME_AGGS)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ck = str(Path(tmp) / "events.ck")
+        killed = make_event_trainer(
+            "cuda", torch, ingest=True, ckpt_path=ck, ckpt_every=5,
+            faults=make_fault("server-kill", at_event=RESUME_KILL_AT))
+        t0 = time.perf_counter()
+        try:
+            killed.run(RESUME_AGGS, eval_every=RESUME_AGGS)
+            raise Failure("events resume: the server was not killed")
+        except ServerKilled:
+            pass
+        run_s = time.perf_counter() - t0
+        resumed = make_event_trainer("cuda", torch, ingest=True,
+                                     faults="none")
+        t0 = time.perf_counter()
+        resumed.restore_checkpoint(ck)
+        restore_s = time.perf_counter() - t0
+        size = Path(ck).stat().st_size
+    at = resumed.n_events_served
+    rk.LAUNCHES.reset()
+    while resumed.round < RESUME_AGGS:
+        resumed.run_round()
+    torch.cuda.synchronize()
+    launches = dict(rk.LAUNCHES.counts)
+    same_run(torch, ref, resumed, "events resume")
+    require(resumed.event_log == ref.event_log
+            and resumed.agg_log == ref.agg_log
+            and resumed.loop.quarantine_log == ref.loop.quarantine_log
+            and torch.equal(resumed.server_state.residual,
+                            ref.server_state.residual),
+            "events resume: logs or server state differ from the "
+            "uninterrupted run")
+    print(f"events resume: killed before event {RESUME_KILL_AT}, resumed at "
+          f"event {at} ({killed.round} aggregations done), run to "
+          f"{RESUME_AGGS}: bitwise the uninterrupted card run | checkpoint "
+          f"{size} bytes; killed run {run_s:.1f} s with "
+          f"{at // 5} checkpoints; restore {restore_s * 1e3:.0f} ms")
+    return {"events_resume": launches}
+
+
+def timed(torch, fn, sink, name):
+    """``fn`` adding its host-clock time (after ``synchronize``) to
+    ``sink[name]``."""
+    def wrapper(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sink[name] = sink.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+    return wrapper
+
+
+def time_event_phases(torch, tr, what, reps=5):
+    """The median of ``reps`` aggregations by phase, ms on the host clock
+    after ``synchronize``: dispatch (local SGD and encode), to_host (the
+    payload copy), validate, ingest or combine, ledger."""
+    sink = {}
+    tr._dispatch = timed(torch, tr._dispatch, sink, "dispatch")
+    tr._host_payloads = timed(torch, tr._host_payloads, sink, "to_host")
+    tr.loop.validator = timed(torch, tr.loop.validator, sink, "validate")
+    tr._ingest_kept = timed(torch, tr._ingest_kept, sink, "ingest")
+    tr._combine_kept = timed(torch, tr._combine_kept, sink, "combine")
+    tr._flush_ledger = timed(torch, tr._flush_ledger, sink, "ledger")
+    rows, totals = [], []
+    for _ in range(reps):
+        sink.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_round()
+        torch.cuda.synchronize()
+        totals.append((time.perf_counter() - t0) * 1e3)
+        rows.append(dict(sink))
+    med = {k: statistics.median(r.get(k, 0.0) for r in rows)
+           for k in EVENT_PHASES if any(k in r for r in rows)}
+    print(f"events {what} aggregation phases (median of {reps}, ms, host "
+          f"clock after synchronize): "
+          f"{json.dumps({k: round(v, 3) for k, v in med.items()})} | whole "
+          f"aggregation {statistics.median(totals):.3f}")
+    return med
+
+
+def run_events(torch, np, rk):
+    """Phase 10: the event-driven server on the card.  Returns the launch
+    counts by path."""
+    t0 = time.perf_counter()
+    paths = {}
+    paths.update(check_k_cohort(torch, rk))
+    paths.update(check_async(torch, np, rk))
+    paths.update(check_robust_rules(torch, np, rk))
+    paths.update(check_norm_screen(torch, np, rk))
+    paths.update(check_resume(torch, np, rk))
+    from repro_torch.fed import make_fault
+    for what, kw in (("ingest", {"ingest": True}),
+                     ("coordinate_median", {"rule": "coordinate_median",
+                                            "faults": make_fault(
+                                                "sign-flip", **SIGN_FLIP)}),
+                     ("trimmed_mean", {"rule": "trimmed_mean"})):
+        tr = make_event_trainer("cuda", torch, **kw)
+        tr.run(2, eval_every=2)
+        time_event_phases(torch, tr, what)
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    print(f"card: {card_line()}")
+    return paths
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3172,6 +3582,7 @@ def main() -> int:
              "--paper-codecs": lambda: run_paper_codecs(torch, np, rk),
              "--buffered": lambda: run_buffered(torch, np, rk),
              "--chunked": lambda: run_chunked(torch, np, rk),
+             "--events": lambda: run_events(torch, np, rk),
              "--drift-witness": lambda: drift_witness(torch, np, rk)}
     if len(sys.argv) == 2 and sys.argv[1] in alone:
         try:
@@ -3246,6 +3657,7 @@ def main() -> int:
         codecs = run_paper_codecs(torch, np, rk)
         buffered = run_buffered(torch, np, rk)
         chunked, chunked_ms, chunked_errs = run_chunked(torch, np, rk)
+        events = run_events(torch, np, rk)
         # launches on the paths of phases 7, 8 and 9, beside each kernel's
         # main-path count; the kernels' times at the chunked shapes
         for row in rows:
@@ -3256,7 +3668,8 @@ def main() -> int:
                 for runs in (codecs, buffered) for path in runs
                 if runs[path][0].get(name)}
             row["launches_other_paths"].update({
-                path: counts[name] for path, counts in chunked.items()
+                path: counts[name]
+                for runs in (chunked, events) for path, counts in runs.items()
                 if counts.get(name)})
             row.update(chunked_ms.get(name, {}))
             if name in chunked_errs:
@@ -3272,7 +3685,8 @@ def main() -> int:
         return 1
     print(f"tf32: cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"cudnn.deterministic={torch.backends.cudnn.deterministic}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -56,6 +56,7 @@ __all__ = [
     "ternary_quantize",
     "ternary_quantize_batch",
     "stc_compress",
+    "stc_compress_pytree",
     "sign_compress",
     "majority_vote_sign",
     "flatten_pytree",
@@ -171,6 +172,15 @@ def ternary_quantize(x: torch.Tensor, theta: float = 0.75):
     """:func:`ternary_quantize_batch` over flattened ``x``."""
     out, stats = ternary_quantize_batch(x.reshape(1, -1), theta)
     return out.reshape(x.shape), CompressionStats(*(s[0] for s in stats))
+
+
+def stc_compress_pytree(tree, p: float):
+    """STC over the globally flattened parameter tree (a dict of tensors;
+    the paper's semantics: one global top-k).  Returns ``(compressed_tree,
+    stats)``."""
+    vec, spec = flatten_pytree(tree)
+    tern, stats = stc_compress(vec, p)
+    return unflatten_pytree(tern, spec), stats
 
 
 def sign_compress(x: torch.Tensor, step: float):

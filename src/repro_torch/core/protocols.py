@@ -37,21 +37,27 @@ and implementing a small interface that the federated trainer
 The paper's comparison set (Table I) is ported:
 :class:`BaselineCodec`, :class:`FedAvgCodec`, :class:`SignSGDCodec`,
 :class:`TopKCodec`, :class:`StcCodec` and :class:`TernQuantCodec`,
-registered in the reference's order; each runs chunked too.  The tree
-path and screening rules on the ingest path are still to port.
+registered in the reference's order; each runs chunked too.  Under a
+screening rule (``norm_screened_mean``) the ingest screens each message by
+its norm: the dense message's in fp64, a wire message's from its side
+information (``wire_norm``).  The tree path (the mesh trainer's) is still
+to port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
+import warnings
 from typing import ClassVar, Optional
 
 import numpy as np
 import torch
 
 from . import golomb, wire
-from .aggregation import AggregationRule, MeanRule, make_rule
+from .aggregation import (AggregationRule, MeanRule, NormScreenedMeanRule,
+                          make_rule)
 from .compression import (CompressionStats, _stc_rows, get_stc_backend,
                           majority_vote_sign, sign_compress,
                           ternary_quantize, ternary_quantize_batch,
@@ -61,10 +67,10 @@ from .registry import lookup as _registry_lookup, resolve as _registry_resolve
 from .residual import (ResidualState, compress_with_feedback, init_residual,
                        map_states, take_states)
 
-__all__ = ["Codec", "make_protocol", "register_protocol",
-           "registered_protocols", "get_protocol_class", "BaselineCodec",
-           "FedAvgCodec", "SignSGDCodec", "TopKCodec", "StcCodec",
-           "TernQuantCodec"]
+__all__ = ["Codec", "Protocol", "make_protocol", "register_protocol",
+           "registered_protocols", "get_protocol_class", "PROTOCOLS",
+           "BaselineCodec", "FedAvgCodec", "SignSGDCodec", "TopKCodec",
+           "StcCodec", "TernQuantCodec"]
 
 _REGISTRY: dict[str, type["Codec"]] = {}
 
@@ -162,14 +168,66 @@ class Codec:
     # staleness-weighted combining: an update s rounds old enters the
     # weighted mean with weight (1+s)^-decay
     staleness_decay: float = 0.5
+    # DEPRECATED norm-bound screen: forwarded to
+    # ``rule=norm_screened_mean(bound=, policy=)`` with a DeprecationWarning;
+    # setting them alongside an explicit ``rule`` raises
+    norm_bound: Optional[float] = None
+    norm_policy: str = "clip"               # "clip" | "reject"
     # the server-side combine estimator: a registered AggregationRule name
     # or instance; None -> "mean"
     rule: Optional[AggregationRule] = None
 
     def __post_init__(self):
+        if self.norm_policy not in ("clip", "reject"):
+            raise ValueError(
+                f"norm_policy must be 'clip' or 'reject', "
+                f"got {self.norm_policy!r}")
+        if self.norm_bound is not None and not self.norm_bound > 0.0:
+            raise ValueError(
+                f"norm_bound must be > 0 (or None), got {self.norm_bound}")
+        rule = self.rule
+        if self.norm_bound is not None:
+            shim = NormScreenedMeanRule(bound=float(self.norm_bound),
+                                        policy=self.norm_policy)
+            if rule is None:
+                warnings.warn(
+                    "Codec(norm_bound=, norm_policy=) is deprecated; use "
+                    "rule=make_rule('norm_screened_mean', bound=..., "
+                    "policy=...) -- the shim forwards bit-identically for "
+                    "one release", DeprecationWarning, stacklevel=3)
+                rule = shim
+            elif rule != shim:
+                # an equal rule is dataclasses.replace() of an already
+                # shimmed codec: re-normalizing is not a conflict
+                raise ValueError(
+                    "norm_bound/norm_policy cannot be combined with an "
+                    "explicit aggregation rule; fold the screen into "
+                    "rule=make_rule('norm_screened_mean', bound=..., "
+                    "policy=...)")
         object.__setattr__(
-            self, "rule", make_rule(self.rule if self.rule is not None
-                                    else "mean"))
+            self, "rule", make_rule(rule if rule is not None else "mean"))
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        # a 2-argument aggregate predates the masked API: fail at class
+        # definition, naming the migration, instead of mis-aggregating
+        # masked rounds at run time
+        for meth in ("aggregate", "tree_reduce"):
+            fn = cls.__dict__.get(meth)
+            if fn is None or not callable(fn):
+                continue
+            try:
+                params = inspect.signature(fn).parameters
+            except (TypeError, ValueError):
+                continue
+            if any(p.kind is inspect.Parameter.VAR_KEYWORD
+                   for p in params.values()):
+                continue
+            if "mask" not in params or "staleness" not in params:
+                raise TypeError(
+                    f"{cls.__name__}.{meth} predates the masked aggregation "
+                    f"API: every codec now implements {meth}(..., mask=None, "
+                    "staleness=None)")
 
     # -- state ------------------------------------------------------------
     def init_client_state(self, numel: int, device=None):
@@ -370,16 +428,24 @@ class Codec:
                 "coordinates at once and cannot stream through "
                 "IngestAccumulator; use the dense aggregate path (trainers "
                 "asked for ingest=True fall back automatically)")
-        if self.rule.screens:
-            raise NotImplementedError(
-                f"aggregation rule {self.rule.name!r} screens messages; "
-                "screening on the ingest path is not ported yet")
         return IngestAccumulator(numel)
 
     def ingest_dense(self, acc: IngestAccumulator, vec: np.ndarray,
                      weight: float) -> None:
         """One dense (decoded, or never wire-encoded) host message into the
-        accumulator -- the fused wire paths' bit-exactness oracle."""
+        accumulator -- the fused wire paths' bit-exactness oracle.  Under a
+        screening rule the message's fp64 norm is screened first: a
+        rejected message counts with zero weight and adds nothing."""
+        if self.rule.screens:
+            norm = float(np.linalg.norm(np.asarray(vec, np.float64)))
+            scale, rejected = self.rule.screen_weight(norm)
+            if rejected:
+                acc.begin_message(0.0)
+                acc.note_screened()
+                return
+            acc.begin_message(weight)
+            acc.add_dense(vec, weight * scale)
+            return
         acc.begin_message(weight)
         acc.add_dense(vec, weight)
 
@@ -394,8 +460,22 @@ class Codec:
     def ingest_wire(self, acc: IngestAccumulator, msg, weight: float, *,
                     direction: str = "up", device=None) -> None:
         """One arriving wire message: account its weight and measured bits,
-        then scatter its decoded fields into the accumulator."""
-        acc.begin_message(weight, bits=self.measured_message_bits(msg))
+        then scatter its decoded fields into the accumulator.  Under a
+        screening rule the message's wire-side norm (``wire_norm``, host
+        fp64) is screened first: a rejected message still bills its bits
+        but enters with zero weight, and is not decoded."""
+        bits = self.measured_message_bits(msg)
+        if self.rule.screens:
+            scale, rejected = self.rule.screen_weight(self.wire_norm(msg))
+            if rejected:
+                acc.begin_message(0.0, bits=bits)
+                acc.note_screened()
+                return
+            acc.begin_message(weight, bits=bits)
+            self.ingest_wire_chunk(acc, msg, weight * scale,
+                                   direction=direction, device=device)
+            return
+        acc.begin_message(weight, bits=bits)
         self.ingest_wire_chunk(acc, msg, weight, direction=direction,
                                device=device)
 
@@ -562,7 +642,8 @@ class SignSGDCodec(Codec):
         accounted in order as the default loop does, then the words and
         ``acc.sum`` go to the device, the planes are added in message order
         and the sum comes back, bitwise the default loop's."""
-        if self.wire_backend != "kernel":
+        if self.wire_backend != "kernel" or self.rule.screens:
+            # (a screening rule screens message by message)
             return super().ingest_wire_batch(acc, batch, weights,
                                              direction=direction,
                                              device=device)
@@ -747,6 +828,13 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
 
     def ingest_wire_batch(self, acc, batch, weights, *, direction="up",
                           device=None):
+        if self.rule.screens:
+            # screened rounds take the per-message path: the screen is per
+            # message anyway, and a rejected row must not scatter or count
+            # non-zeros, so batch == oracle stays bitwise
+            return Codec.ingest_wire_batch(self, acc, batch, weights,
+                                           direction=direction,
+                                           device=device)
         w = np.asarray(weights, np.float64)
         for i in range(batch.n_msgs):
             acc.begin_message(float(w[i]),
@@ -906,3 +994,10 @@ class TernQuantCodec(_ErrorFeedbackMixin, Codec):
 
     def download_bits(self, numel: int, n_participating: int = 1) -> float:
         return golomb.ternary_dense_bits(numel)
+
+
+# The pre-registry name of :class:`Codec`, kept as an alias.
+Protocol = Codec
+
+# The paper's comparison set (Table I); the live registry may hold more.
+PROTOCOLS = ("baseline", "fedavg", "signsgd", "topk", "stc")

@@ -80,6 +80,7 @@ __all__ = [
     "WireBackend",
     "WireDecodeError",
     "get_wire_backend",
+    "register_wire_backend",
     "encode_ternary_words",
     "encode_ternary_words_batch",
     "decode_ternary_words",
@@ -356,6 +357,15 @@ WIRE_BACKENDS: dict[str, WireBackend] = {
     "numpy": WireBackend("numpy", _scatter_chunks_numpy, _pack_bits_numpy,
                          _unpack_bits_numpy, _decode_fields_numpy),
 }
+
+
+def register_wire_backend(backend: WireBackend) -> None:
+    """Add a host wire backend under ``backend.name`` (``"kernel"`` is
+    built per device by :func:`get_wire_backend` and cannot be replaced)."""
+    if backend.name == "kernel":
+        raise ValueError("the 'kernel' wire backend is built per device; "
+                         "register another name")
+    WIRE_BACKENDS[backend.name] = backend
 
 
 @functools.lru_cache(maxsize=None)

@@ -147,8 +147,8 @@ class ArrivalSimulator:
                                 latencies) -> None:
         """File one cohort's payloads under externally sampled latencies.
 
-        This is the hook a scenario library drives (the reference's
-        ``fed/scenarios.py``, not ported yet): it samples time-varying
+        This is the hook the scenario library drives: a
+        :class:`repro_torch.fed.scenarios.Scenario` samples time-varying
         latencies (and loss masks) itself and files only the surviving
         payloads here, reusing the simulator's deadline bucketing and
         buffer.

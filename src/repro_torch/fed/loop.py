@@ -23,7 +23,8 @@ Client sampling and mini-batches draw from the same
 ``np.random.default_rng(seed + 1)`` stream as the reference, so both
 trainers see the same data.  The trainer runs on CUDA unless it is given
 ``device="cpu"``; on the card it turns TF32 off for matmuls and
-convolutions, so that fp32 stays fp32.
+convolutions, so that fp32 stays fp32, and selects cuDNN's deterministic
+algorithms, so that a run repeats bit for bit.
 
 With ``TrainerConfig(ingest=True)`` the apply phase is the fused server
 ingest instead: the round's messages are encoded to the wire, decoded
@@ -104,6 +105,20 @@ class TrainerConfig:
     # round's wire messages scatter into one O(numel) host accumulator
     # instead of a dense (P, numel) combine.  Opt-in, as in the reference.
     ingest: bool = False
+
+
+def _map_tensors(fn, tree):
+    """``fn`` over every tensor of a state tree (NamedTuples, tuples,
+    lists, dicts); anything else (None, numpy) stays as it is."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_tensors(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    return tree
 
 
 def _cross_entropy(logits, y):
@@ -207,6 +222,9 @@ class FederatedTrainer:
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            # cuDNN's deterministic algorithms: a rerun (and a run resumed
+            # from a checkpoint) is then bitwise the same run
+            torch.backends.cudnn.deterministic = True
         self.apply_fn = model[1]
         self.env = env
         self.tcfg = tcfg
@@ -225,7 +243,8 @@ class FederatedTrainer:
             protocol.init_client_state(self.numel, self.device), c)
         self.server_state = protocol.init_server_state(self.numel,
                                                        self.device)
-        self.last_seen = np.zeros(c, dtype=np.int64)
+        self.last_seen = np.zeros(c, dtype=np.int64)  # round of last dispatch
+        self.seen_mask = np.zeros(c, dtype=bool)      # ever dispatched
         self.cache = UpdateCache(self.numel, max_rounds=64)
 
         self.round = 0
@@ -397,6 +416,58 @@ class FederatedTrainer:
     def _history_extra(self) -> dict:
         """Trainer-specific columns appended to every history record."""
         return {}
+
+    # ------------------------------------------------- crash-consistent state
+    def _base_state(self) -> dict:
+        """Every mutable field of the base trainer as a host composite (for
+        ``checkpoint.save_state``): parameters, per-client optimizer and
+        codec states, the server codec state (tensors copied to the host),
+        the numpy RNG's state, the update cache, ledgers and logs.  The
+        torch generator only seeds the parameters at construction, so it
+        holds no state a run goes on to use."""
+        return {
+            "round": self.round,
+            "params_vec": self.params_vec.cpu().clone(),
+            "client_mom": self.client_mom.cpu().clone(),
+            "client_state": _map_tensors(lambda t: t.cpu().clone(),
+                                         self.client_state),
+            "server_state": _map_tensors(lambda t: t.cpu().clone(),
+                                         self.server_state),
+            "last_seen": self.last_seen.copy(),
+            "seen_mask": self.seen_mask.copy(),
+            "rng": self.rng.bit_generator.state,
+            "cache": {"round": self.cache.round,
+                      "updates": list(self.cache._updates)},  # newest first
+            "bits": [self.bits_up, self.bits_down,
+                     self.bits_up_analytic, self.bits_down_analytic],
+            "wire_log": list(self.wire_log),
+            "history": list(self.history),
+        }
+
+    def _load_base_state(self, st: dict) -> None:
+        """Inverse of :meth:`_base_state` into an identically configured
+        trainer: the host tensors are copied to the trainer's device once,
+        here, and the state is restored bit for bit."""
+        def dev(t):
+            return torch.as_tensor(t).to(self.device, copy=True)
+        self.round = int(st["round"])
+        self.params_vec = dev(st["params_vec"])
+        self.client_mom = dev(st["client_mom"])
+        self.client_state = _map_tensors(dev, st["client_state"])
+        self.server_state = _map_tensors(dev, st["server_state"])
+        self.last_seen = np.asarray(st["last_seen"], np.int64).copy()
+        self.seen_mask = np.asarray(st["seen_mask"], bool).copy()
+        self.rng.bit_generator.state = st["rng"]
+        self.cache = UpdateCache(self.numel, max_rounds=self.cache.max_rounds)
+        self.cache.round = int(st["cache"]["round"])
+        for u in reversed(st["cache"]["updates"]):
+            self.cache._updates.appendleft(np.asarray(u, np.float32))
+        self.cache._cum = None
+        (self.bits_up, self.bits_down,
+         self.bits_up_analytic, self.bits_down_analytic) = \
+            [float(b) for b in st["bits"]]
+        self.wire_log = list(st["wire_log"])
+        self.history = list(st["history"])
 
     @torch.no_grad()
     def evaluate(self) -> float:

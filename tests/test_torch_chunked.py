@@ -613,3 +613,49 @@ def test_forwards_base_knobs_and_states():
     assert st["base"].residual.shape == (4, 8) and st["ctrl"].shape == (4,)
     stacked = stack_states(st, 3)
     assert map_states(lambda x: x.shape, stacked)["ctrl"] == (3, 4)
+
+
+def test_r9_chunked_ternquant_holds_what_holds():
+    """R9 (ROADMAP Queue 3): chunked TernQuant at ``chunks=32`` amplifies
+    R7's last-ulp µ and Δ into client mask flips after a few rounds, so the
+    trainers' parameters part.  What holds, over 8 logreg rounds from the
+    reference's initial parameters: the four ledger columns equal (the
+    ledger is analytic) and accuracy within 0.03; and on identical round
+    inputs (the port's trained client and server states, fresh deltas,
+    3 lock-step rounds), the signs of the messages and of the server's
+    output exact, their values (±µ) within rtol 1e-6."""
+    from repro.core.residual import ResidualState as RefResidualState
+    ref, port, h_ref, h = _both_trainers("ternquant", {}, {},
+                                         {"chunks": 32}, rounds=8)
+    assert isinstance(port.protocol, ChunkedCodec)
+    for col in _LEDGER:
+        assert h[col] == h_ref[col], col
+    assert abs(h["acc"] - h_ref["acc"]) <= 0.03
+    pc, rc = port.protocol, ref.protocol
+    states, server = port.client_state, port.server_state
+
+    def to_ref(st):
+        return RefResidualState(residual=jnp.asarray(st.residual.numpy()))
+
+    rng = np.random.default_rng(9)
+    P = states.residual.shape[0]
+    ones, zeros = np.ones(P, np.float32), np.zeros(P, np.float32)
+    for _ in range(3):
+        deltas = (rng.standard_normal((P, port.numel)) * 1e-2).astype(
+            np.float32)
+        m_p, new_states, _ = pc.encode_batch(torch.from_numpy(deltas),
+                                             states)
+        m_r, _, _ = rc.encode_batch(jnp.asarray(deltas), to_ref(states))
+        np.testing.assert_array_equal(np.sign(m_p.numpy()),
+                                      np.sign(np.asarray(m_r)))
+        np.testing.assert_allclose(m_p.numpy(), np.asarray(m_r), rtol=1e-6)
+        g_p, new_server, _ = pc.aggregate(m_p, server,
+                                          mask=torch.from_numpy(ones),
+                                          staleness=torch.from_numpy(zeros))
+        g_r, _, _ = rc.aggregate(jnp.asarray(m_p.numpy()), to_ref(server),
+                                 mask=jnp.asarray(ones),
+                                 staleness=jnp.asarray(zeros))
+        np.testing.assert_array_equal(np.sign(g_p.numpy()),
+                                      np.sign(np.asarray(g_r)))
+        np.testing.assert_allclose(g_p.numpy(), np.asarray(g_r), rtol=1e-6)
+        states, server = new_states, new_server

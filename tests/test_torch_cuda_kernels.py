@@ -846,3 +846,74 @@ def test_chunked_ingest_decode_matches_per_chunk_loop(dev):
     assert acc.sum.tobytes() == loop.sum.tobytes()
     assert (acc.weight_mass, acc.nnz, acc.stream_bits) == \
         (loop.weight_mass, loop.nnz, loop.stream_bits)
+
+
+@pytest.mark.parametrize("fault", ["bit-flip", "truncate"])
+def test_golomb_decode_fault_corruptions_same_verdict(dev, fault):
+    """The event server's corruptions (the ``bit-flip`` and ``truncate``
+    fault models on STC wire messages at p = 1/50): admission validation
+    and the screened ingest on the card raise ``WireDecodeError`` exactly
+    where they raise on the CPU, and the accumulators of the messages that
+    pass are identical."""
+    from repro_torch.core import make_protocol
+    from repro_torch.fed import make_fault
+    proto = make_protocol("stc", sparsity_up=1 / 50, wire_backend="kernel",
+                          rule="norm_screened_mean")
+    fm = make_fault(fault, prob=0.8, n_bits=2) if fault == "bit-flip" \
+        else make_fault(fault, prob=0.5)
+    rng = np.random.default_rng(11)
+    raised = 0
+    for d in range(120):
+        x = golomb_cases.ternary(rng, int(rng.integers(500, 20_000)), 1 / 50)
+        msg = fm.corrupt(wire.encode_ternary_words(x, 1 / 50), fm.rng(d))
+        got = _decode_verdict(lambda: proto.validate_wire(msg, device=dev))
+        want = _decode_verdict(lambda: proto.validate_wire(msg,
+                                                           device="cpu"))
+        assert (got == "raised") == (want == "raised"), d
+        raised += got == "raised"
+        if got != "raised":
+            accs = []
+            for where in (dev, "cpu"):
+                acc = proto.make_ingest(msg.numel)
+                proto.ingest_wire(acc, msg, 0.5, device=where)
+                accs.append(acc)
+            assert np.array_equal(accs[0].sum, accs[1].sum)
+            assert accs[0].n_screened == accs[1].n_screened
+    assert raised > 20
+
+
+def test_event_trainer_quarantines_on_the_card_as_on_the_cpu(dev):
+    """The event server under truncation on the ingest route, card against
+    CPU (logreg, 4 aggregations): the same events, the same quarantine log
+    and finite parameters; each admitted STC arrival launches
+    ``golomb_decode`` twice (validation and ingest)."""
+    from repro_torch.core import make_protocol
+    from repro_torch.data import make_classification
+    from repro_torch.fed import (EventDrivenTrainer, FedEnvironment,
+                                 TrainerConfig, make_fault)
+    from repro_torch.models import MODEL_ZOO
+
+    def run(device):
+        tr = EventDrivenTrainer(
+            MODEL_ZOO["logreg"], *make_classification(seed=0, n=900,
+                                                      n_test=240),
+            FedEnvironment(n_clients=8, participation=0.25,
+                           classes_per_client=2, batch_size=10),
+            make_protocol("stc", sparsity_up=1 / 20, sparsity_down=1 / 20,
+                          wire_backend="kernel"),
+            TrainerConfig(seed=0, ingest=True), scenario="flash-outage",
+            k_arrivals=2, concurrency=4, max_staleness=3,
+            faults=make_fault("truncate", prob=0.5), device=device)
+        before = rk.LAUNCHES.counts["golomb_decode"]
+        for _ in range(4):
+            tr.run_round()
+        return tr, rk.LAUNCHES.counts["golomb_decode"] - before
+
+    card, launched = run(dev)
+    cpu, _ = run("cpu")
+    kinds = [(r["kind"], r.get("client")) for r in card.event_log]
+    assert kinds == [(r["kind"], r.get("client")) for r in cpu.event_log]
+    assert card.loop.quarantine_log == cpu.loop.quarantine_log
+    assert card.loop.n_quarantined > 0
+    assert launched == 2 * card.loop.n_arrived
+    assert bool(torch.isfinite(card.params_vec).all())
