@@ -8,6 +8,7 @@
     python3 chip_smoke.py --chunked         # only phase 9
     python3 chip_smoke.py --drift-witness   # phase 9's runs, one ulp apart
     python3 chip_smoke.py --events          # only phase 10
+    python3 chip_smoke.py --mesh            # only phase 11
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
@@ -182,10 +183,33 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    aggregation and quarantine logs bitwise an uninterrupted card run; and
    each route's aggregation split into phases.
 
+11. the mesh trainer (``repro_torch.launch.train``) at SmolLM-135M's full
+   width and depth (30 layers, d 576, 9 heads with 3 kv heads, d_ff 1536,
+   vocab 49,152, tied; 134,515,008 parameters), the reference CLI's STC
+   setting (p = 1/50 both ways, lr 0.05, bf16 compute) on
+   ``make_lm_tokens(seed=0)`` in a 4 x 128 batch: one client with no
+   client axes, 10 steps (counters set to 0 just before): the loss finite
+   and falling, ``nnz_up`` / ``nnz_down`` k = 2,690,300 or k plus ties
+   (printed), and the histogram, ``bin_select`` and ``stc_apply`` each
+   launched exactly twice a step at (1, 134,515,008) and nothing else; from
+   that state the card's tree STC (encode and decode, also through the
+   codec) against the ``"torch"`` route on the CPU on the same trees
+   (thresholds, counts, positions and signs exact, µ within rtol 1e-6, the
+   excess over k ties at the threshold); the three kernels held against
+   their plain versions at (1, 134,515,008) and timed beside their bounds
+   and library calls; the step split into phases (median of 5) and the
+   ``WireLedger`` over 2 steps; then two client ranks (gloo, both on the
+   card, half the batch each), 3 steps and a masked step (1, 0), bitwise
+   the same composition in one process (two local steps, two
+   ``tree_encode``, (a + b) / 2, ``tree_decode``), rank 1's residual
+   unchanged by the masked step, and ``all_gather`` of CUDA tensors
+   through gloo checked.
+
 ``--signsgd-round`` runs the last of the timings of 6 alone on the package
 of the tree the file sits in: a copy inside a parent checkout unpacked
 beside the change times the parent.  ``--paper-codecs``, ``--buffered``,
-``--chunked`` and ``--events`` run phase 7, 8, 9 or 10 alone.
+``--chunked``, ``--events`` and ``--mesh`` run phase 7, 8, 9, 10 or 11
+alone.
 ``--drift-witness`` trains phase 9's dense and ``residual_mass`` runs 20
 rounds on the card twice, on the card and the CPU with one parameter and
 with every parameter moved by one ulp, on the CPU, and on the CPU with one
@@ -202,6 +226,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3560,9 +3585,510 @@ def run_events(torch, np, rk):
     return paths
 
 
+# --------------------------------------------------------------- phase 11
+
+MESH_ARCH = "smollm-135m"
+MESH_STEPS = 10
+MESH_RANK_STEPS = 3
+MESH_TC = {"protocol": "stc", "lr": 0.05, "sparsity_up": 1 / 50,
+           "sparsity_down": 1 / 50}
+MESH_KERNELS = ("histogram", "bin_select", "stc_apply")
+MESH_DIR = ROOT / "build" / "mesh_ranks"
+MESH_RANK_TIMEOUT = 420
+
+
+def mesh_setup(torch, np):
+    """SmolLM-135M at full width and depth, the reference CLI's STC
+    setting (bf16 compute) and ``make_lm_tokens(seed=0)`` in a 4 x 128
+    batch: ``(cfg, tc, batch)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.launch.train import TrainConfig
+    cfg = get_config(MESH_ARCH)
+    toks = make_lm_tokens(seed=0, n_tokens=4 * 128 + 1, vocab=cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(toks[:-1].reshape(4, 128)),
+             "labels": torch.from_numpy(toks[1:].reshape(4, 128))}
+    return cfg, TrainConfig(**MESH_TC), batch
+
+
+def mesh_delta(torch, cfg, tc, params, batch, rows, deterministic=True):
+    """One client's local SGD as the trainer computes it: ``-lr·grad`` of
+    the loss on ``rows`` of the batch, under the trainer's deterministic
+    algorithms (without them only to time what they cost)."""
+    import contextlib
+    from repro_torch.core.compression import _rebuild, tree_leaves
+    from repro_torch.launch.train import _deterministic
+    from repro_torch.models.transformer import lm_loss
+    dev = tree_leaves(params)[0].device
+    with (_deterministic(dev) if deterministic
+          else contextlib.nullcontext()):
+        leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+        loss = lm_loss(_rebuild(params, iter(leaves)), cfg,
+                       batch["tokens"][rows].to(dev),
+                       batch["labels"][rows].to(dev),
+                       compute_dtype=tc.compute_dtype)
+        grads = torch.autograd.grad(loss, leaves)
+    return _rebuild(params, iter(-tc.lr * g.to(torch.float32)
+                                 for g in grads))
+
+
+def params_digest(torch, np, params) -> str:
+    """SHA-256 of the parameters' fp32 bytes in flatten order."""
+    import hashlib
+    from repro_torch.core.compression import tree_leaves
+    h = hashlib.sha256()
+    for leaf in tree_leaves(params):
+        h.update(leaf.detach().to(torch.float32).contiguous().cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def mesh_single(torch, np, rk):
+    """11a: one client, no client axes, 10 steps on the card with the
+    counters set to 0 just before.  Returns ``(state, launches, cfg, tc,
+    batch)``."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import init_train_state, make_train_step
+    cfg, tc, batch = mesh_setup(torch, np)
+    numel = cfg.param_count()
+    k = max(int(numel * tc.sparsity_up), 1)
+    require(numel == 134_515_008 and k == 2_690_300,
+            f"SmolLM-135M has {numel} parameters, k = {k}")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tc, 1, key=0)
+    step = make_train_step(cfg, make_debug_mesh(data=1, model=1), tc)
+    torch.cuda.synchronize()
+    rk.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(MESH_STEPS):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = dict(rk.LAUNCHES.counts)
+    shapes = dict(rk.LAUNCHES.shapes)
+    losses = [float(m["loss"]) for m in metrics]
+    nnz = [(int(m["nnz_up"]), int(m["nnz_down"])) for m in metrics]
+    print(f"mesh single client: {MESH_STEPS} steps in {took:.2f} s, "
+          f"losses {json.dumps(losses)}; nnz (up, down) beside k = {k}: "
+          f"{nnz}; ties above k (up, down): "
+          f"{[(u - k, d - k) for u, d in nnz]}; launches "
+          f"{ {n: launches[n] for n in MESH_KERNELS} } at "
+          f"{ {n: shapes.get(n) for n in MESH_KERNELS} }; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    require(all(math.isfinite(x) for x in losses), f"loss not finite: "
+            f"{losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    require(all(u >= k and d >= k for u, d in nnz),
+            f"a selection kept fewer than k = {k}: {nnz}")
+    for name in MESH_KERNELS:
+        require(launches[name] == 2 * MESH_STEPS,
+                f"{name} launched {launches[name]} times in {MESH_STEPS} "
+                f"mesh steps, not twice a step")
+        require(shapes.get(name) == (1, numel),
+                f"{name}'s last launch was at {shapes.get(name)}, not "
+                f"(1, {numel})")
+    others = {n: c for n, c in launches.items()
+              if c and n not in MESH_KERNELS}
+    require(not others, f"the mesh step launched other kernels: {others}")
+    return state, launches, cfg, tc, batch
+
+
+def mesh_lockstep(torch, np, rk, state, cfg, tc, batch):
+    """11b: the card's ``tree_encode`` and ``tree_decode`` from the state
+    after 11a against the ``"torch"`` route on the CPU, on the same
+    trees: thresholds, counts, positions and signs exact, µ within rtol
+    1e-6, residuals within 1e-6 of ``|carried| + µ``; the excess of the
+    counts over k are ties at the threshold.  Returns the card's carried
+    row (for the kernel checks and times) and the excess."""
+    from repro_torch.core.compression import flatten_pytree, tree_map
+    from repro_torch.core.distributed import (
+        stc_compress_tree_with_residual, tree_add)
+    from repro_torch.launch.train import codec_for
+    numel = cfg.param_count()
+    k = max(int(numel * tc.sparsity_up), 1)
+    delta = mesh_delta(torch, cfg, tc, state["params"], batch, slice(0, 4))
+    cres = tree_map(lambda x: x[0], state["client_res"])
+    carried_up = tree_add(delta, cres)
+
+    def cpu(tree):
+        return tree_map(lambda x: x.cpu(), tree)
+
+    t_k, r_k, s_k = stc_compress_tree_with_residual(carried_up, tc.sparsity_up,
+                                                    backend="kernel")
+    t_c, r_c, s_c = stc_compress_tree_with_residual(cpu(carried_up),
+                                                    tc.sparsity_up,
+                                                    backend="torch")
+    sres = state["server_res"]
+    carried_down = tree_add(t_k, sres)
+    d_k, dr_k, ds_k = stc_compress_tree_with_residual(
+        carried_down, tc.sparsity_down, backend="kernel")
+    d_c, dr_c, ds_c = stc_compress_tree_with_residual(
+        cpu(carried_down), tc.sparsity_down, backend="torch")
+    # the codec's own tree path on the card is this composition
+    codec = codec_for(tc)
+    msg, _, m_up = codec.tree_encode(delta, cres, numel=numel)
+    down, _, m_down = codec.tree_decode(t_k, sres, numel=numel)
+    require(torch.equal(flatten_pytree(msg)[0], flatten_pytree(t_k)[0])
+            and torch.equal(flatten_pytree(down)[0],
+                            flatten_pytree(d_k)[0])
+            and int(m_up["nnz_up"]) == int(s_k.nnz)
+            and int(m_down["nnz_down"]) == int(ds_k.nnz),
+            "the codec's tree_encode / tree_decode differ from the tree "
+            "STC on the same trees")
+    excess = {}
+    for what, (tk, rk_, sk), (tc_, rc, sc), carried in (
+            ("encode", (t_k, r_k, s_k), (t_c, r_c, s_c), carried_up),
+            ("decode", (d_k, dr_k, ds_k), (d_c, dr_c, ds_c), carried_down)):
+        vk, _ = flatten_pytree(tk)
+        vc, _ = flatten_pytree(tc_)
+        vk = vk.cpu()
+        require(float(sk.thresh) == float(sc.thresh),
+                f"mesh {what}: thresholds differ card {float(sk.thresh)!r} "
+                f"CPU {float(sc.thresh)!r}")
+        require(int(sk.nnz) == int(sc.nnz),
+                f"mesh {what}: counts differ {int(sk.nnz)} {int(sc.nnz)}")
+        require(torch.equal(vk != 0, vc != 0)
+                and torch.equal(torch.sign(vk), torch.sign(vc)),
+                f"mesh {what}: positions or signs differ")
+        mu_k, mu_c = float(sk.mu), float(sc.mu)
+        require(abs(mu_k - mu_c) <= 1e-6 * abs(mu_c),
+                f"mesh {what}: µ {mu_k!r} against {mu_c!r}")
+        ck, _ = flatten_pytree(carried)
+        ck = ck.cpu()
+        res_k, _ = flatten_pytree(rk_)
+        res_c, _ = flatten_pytree(rc)
+        tol = 1e-6 * (ck.abs() + abs(mu_c))
+        require(bool(((res_k.cpu() - res_c).abs() <= tol).all()),
+                f"mesh {what}: residuals beyond 1e-6 of |carried| + µ")
+        a = ck.abs()
+        t = float(sc.thresh)
+        above, at = int((a > t).sum()), int((a >= t).sum())
+        require(above < k <= at == int(sc.nnz),
+                f"mesh {what}: count {int(sc.nnz)} is not k = {k} plus ties "
+                f"(> t: {above}, >= t: {at})")
+        excess[what] = at - k
+        print(f"mesh lock-step {what}: threshold {t!r}, count {int(sc.nnz)} "
+              f"(k = {k}, {at - k} ties at the threshold above k), µ card "
+              f"{mu_k!r} CPU {mu_c!r}: exact but µ")
+    row, _ = flatten_pytree(carried_up)
+    return row[None], excess
+
+
+def mesh_rank(rank, port, steps, out_dir):
+    """11c, one client rank (a spawned process): gloo on ``cuda:0``, the
+    full-width state from seed 0, ``steps`` STC steps on its half of the
+    batch, then one masked step with mask (1, 0).  Writes the digests of
+    the parameters after every step, whether its residual was unchanged by
+    the masked step, whether ``all_gather`` of CUDA tensors is right, and
+    its step times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed as rd
+    from repro_torch.core.compression import tree_leaves
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import (TrainConfig, init_train_state,
+                                          make_train_step)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        cfg, tc, batch = mesh_setup(torch, np)
+        mesh = make_debug_mesh(data=2, model=1)
+        state = init_train_state(cfg, tc, 2, key=0)
+        step = make_train_step(cfg, mesh, tc)
+        digests, times = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            digests.append(params_digest(torch, np, state["params"]))
+        masked = make_train_step(cfg, mesh, dataclasses.replace(
+            tc, masked=True))
+        before = [x.clone() for x in tree_leaves(state["client_res"])]
+        new_state, _ = masked(state, batch, torch.tensor([1.0, 0.0]),
+                              torch.zeros(2))
+        torch.cuda.synchronize()
+        unchanged = all(torch.equal(a, b) for a, b in zip(
+            before, tree_leaves(new_state["client_res"])))
+        digests.append(params_digest(torch, np, new_state["params"]))
+        # the order-statistic rules' all_gather, on CUDA tensors too
+        probe = torch.arange(4, dtype=torch.float32, device="cuda") + rank
+        gathered = rd.all_gather(probe, dist.group.WORLD)
+        gather_ok = torch.equal(gathered.cpu(), torch.stack(
+            [torch.arange(4, dtype=torch.float32) + r for r in range(2)]))
+        (out_dir / f"rank{rank}.json").write_text(json.dumps({
+            "digests": digests, "residual_unchanged": unchanged,
+            "all_gather_ok": gather_ok, "step_s": times,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_composition(torch, np, cfg, tc, batch, steps):
+    """The two-client composition in one process on the card: two local
+    steps, two ``tree_encode``, (a + b) / 2, ``tree_decode``; then the
+    masked step (1, 0): ``(1·a + 0·b) / 1``.  Returns the digests of the
+    parameters after every step."""
+    from repro_torch.core.compression import (flatten_pytree, tree_map,
+                                              unflatten_pytree)
+    from repro_torch.launch.train import codec_for, init_train_state
+    state = init_train_state(cfg, tc, 2, key=0)
+    codec = codec_for(tc)
+    numel = cfg.param_count()
+    dev = torch.device("cuda")
+    params = state["params"]
+    cres = [tree_map(lambda x: x[0].clone(), state["client_res"])
+            for _ in range(2)]
+    sres = state["server_res"]
+    digests = []
+    for i in range(steps + 1):
+        msgs = []
+        for r, rows in enumerate((slice(0, 2), slice(2, 4))):
+            delta = mesh_delta(torch, cfg, tc, params, batch, rows)
+            msg, new_cres, _ = codec.tree_encode(delta, cres[r], numel=numel)
+            if i < steps or r == 0:
+                cres[r] = new_cres
+            msgs.append(flatten_pytree(msg))
+        (va, spec), (vb, _) = msgs
+        if i < steps:
+            comb = (va + vb) / torch.tensor(2.0, device=dev)
+        else:
+            one, zero = (torch.tensor(1.0, device=dev),
+                         torch.tensor(0.0, device=dev))
+            comb = (one * va + zero * vb) / one
+        down, sres, _ = codec.tree_decode(unflatten_pytree(comb, spec), sres,
+                                          numel=numel)
+        params = tree_map(lambda p, d: (p.to(torch.float32)
+                                        + d.to(torch.float32)).to(p.dtype),
+                          params, down)
+        digests.append(params_digest(torch, np, params))
+    return digests
+
+
+def mesh_two_ranks(torch, np):
+    """11c: two client ranks on the card (gloo, ``make_debug_mesh(data=2,
+    model=1)``, half the batch each), 3 steps and one masked step, against
+    the same composition in one process: bitwise every step."""
+    import shutil
+    import socket
+    import torch.multiprocessing as mp
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(port, MESH_RANK_STEPS,
+                                              MESH_DIR),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            require(time.monotonic() < deadline,
+                    f"the two mesh ranks did not finish in "
+                    f"{MESH_RANK_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    took = time.perf_counter() - t0
+    ranks = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
+             for r in range(2)]
+    cfg, tc, batch = mesh_setup(torch, np)
+    want = mesh_composition(torch, np, cfg, tc, batch, MESH_RANK_STEPS)
+    for r, out in enumerate(ranks):
+        require(out["digests"] == want,
+                f"rank {r}'s parameters are not bitwise the in-process "
+                f"composition at steps "
+                f"{[i for i, (a, b) in enumerate(zip(out['digests'], want)) if a != b]}")
+        require(out["all_gather_ok"], f"rank {r}: all_gather of CUDA "
+                f"tensors gave wrong values")
+    require(ranks[1]["residual_unchanged"],
+            "the masked step (1, 0) changed rank 1's residual")
+    require(not ranks[0]["residual_unchanged"],
+            "the masked step (1, 0) left rank 0's residual unchanged")
+    print(f"mesh two ranks on the card: {MESH_RANK_STEPS} steps and one "
+          f"masked step bitwise the in-process composition; rank 1's "
+          f"residual unchanged under mask (1, 0); gloo's all_reduce and "
+          f"all_gather took the CUDA tensors (no host copy); step "
+          f"seconds {[o['step_s'] for o in ranks]}; peak GiB "
+          f"{[round(o['peak_gib'], 3) for o in ranks]}; {took:.1f} s with "
+          f"the ranks' start")
+    return ranks
+
+
+def median_s(torch, fn, reps=5):
+    """Median host-clock seconds of ``fn`` over ``reps`` calls, each
+    between two ``synchronize``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def time_mesh_step(torch, np, state, cfg, tc, batch):
+    """11d: the single-client step split into phases, median of 5, state
+    left untouched; the WireLedger over 2 measured steps."""
+    from repro_torch.core.compression import flatten_pytree, tree_map
+    from repro_torch.core.distributed import tree_add
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import (WireLedger, codec_for,
+                                          make_train_step)
+    codec = codec_for(tc)
+    numel = cfg.param_count()
+    params = state["params"]
+    cres = tree_map(lambda x: x[0], state["client_res"])
+    sres = state["server_res"]
+    step = make_train_step(cfg, make_debug_mesh(data=1, model=1), tc)
+    delta = mesh_delta(torch, cfg, tc, params, batch, slice(0, 4))
+    msg, _, _ = codec.tree_encode(delta, cres, numel=numel)
+    down, _, _ = codec.tree_decode(msg, sres, numel=numel)
+    carried = tree_add(delta, cres)
+    ms = {
+        "local_sgd": median_s(torch, lambda: mesh_delta(
+            torch, cfg, tc, params, batch, slice(0, 4))),
+        "flatten": median_s(torch, lambda: flatten_pytree(carried)),
+        "tree_encode": median_s(torch, lambda: codec.tree_encode(
+            delta, cres, numel=numel)),
+        "tree_reduce": median_s(torch, lambda: codec.tree_reduce(
+            msg, None, 1)),
+        "tree_decode": median_s(torch, lambda: codec.tree_decode(
+            msg, sres, numel=numel)),
+        "apply": median_s(torch, lambda: tree_map(
+            lambda p, d: (p.to(torch.float32) + d.to(torch.float32))
+            .to(p.dtype), params, down)),
+        "step": median_s(torch, lambda: step(state, batch)),
+    }
+    ms = {k: v * 1e3 for k, v in ms.items()}
+    ms["local_sgd_not_deterministic"] = 1e3 * median_s(
+        torch, lambda: mesh_delta(torch, cfg, tc, params, batch,
+                                  slice(0, 4), deterministic=False))
+    # device time of one call by torch.profiler, beside the host clock
+    for name, fn in (("local_sgd", lambda: mesh_delta(
+            torch, cfg, tc, params, batch, slice(0, 4))),
+            ("tree_encode", lambda: codec.tree_encode(delta, cres,
+                                                      numel=numel)),
+            ("step", lambda: step(state, batch))):
+        kt = kernel_times(torch, fn, calls=3) or {}
+        dev_ms = sum(kt.values())
+        top = sorted(kt.items(), key=lambda kv: -kv[1])[:6]
+        print(f"mesh {name}: device {dev_ms:.3f} ms of {ms[name]:.3f} ms "
+              f"host clock (idle share {1 - dev_ms / ms[name]:.3f}); "
+              f"{len(kt)} kernel names; longest "
+              f"{json.dumps({k: round(v, 4) for k, v in top})}")
+        ms[name + "_device"] = dev_ms
+    measured = make_train_step(cfg, make_debug_mesh(data=1, model=1),
+                               dataclasses.replace(tc, measure_wire=True))
+    ledger = WireLedger(codec, numel)
+    s = state
+    ledger_s = []
+    for _ in range(2):
+        s, _, (msgs, gd) = measured(s, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ledger.record_round(msgs, gd)
+        ledger_s.append(time.perf_counter() - t0)
+    ms["wire_ledger_2_steps"] = 1e3 * sum(ledger_s)
+    print(f"mesh step phases (ms, host clock after synchronize, median of "
+          f"5): {json.dumps(ms)}; WireLedger over 2 steps "
+          f"{json.dumps(ledger.summary())}")
+    return ms
+
+
+def mesh_kernel_rows(torch, rk, row, k):
+    """The three STC kernels at the mesh path's (1, 134,515,008) row:
+    each held against its plain version, then device times beside the
+    plain versions, the byte bounds and the library calls.  Returns
+    ``(keys by kernel, max errors)``."""
+    from repro_torch.core.selection import bin_index
+    n = row.shape[1]
+    tag = f"_1x{n}"
+    scale = row_scale(torch, row)
+    errs = {"histogram": check_histogram(torch, rk, row, scale),
+            "bin_select": check_bin_select(torch, rk, row, k)}
+    t, c, s = rk.hist_topk_threshold_batched(row, k)
+    mu = s / torch.clamp(c, min=1).to(torch.float32)
+    got = rk.stc_apply_batched(row, t, mu)
+    want = rk.stc_apply_plain(row, t, mu)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"stc_apply differs from its plain version at (1, {n})")
+    errs["stc_apply"] = 0.0
+    del got, want
+    s_in, b, r, cnt_b = select_inputs(torch, row, k)
+    a = row.abs()
+    bins = bin_index(a, scale[:, None], 256).to(torch.int64).reshape(-1)
+
+    def bound(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    kernels = {
+        "histogram": (lambda: rk.magnitude_histogram_batched(row, scale),
+                      lambda: rk.magnitude_histogram_plain(row, scale),
+                      4 * n + 4 + 8 * 256,
+                      lambda: (torch.bincount(bins, minlength=256),
+                               torch.bincount(bins, weights=a.reshape(-1),
+                                              minlength=256))),
+        "bin_select": (lambda: rk.candidate_select_batched(row, s_in, b, r),
+                       lambda: rk.candidate_select_plain(row, s_in, b, r),
+                       4 * n + 20 + 12,
+                       lambda: torch.topk(a, k, dim=1)),
+        "stc_apply": (lambda: rk.stc_apply_batched(row, t, mu),
+                      lambda: rk.stc_apply_plain(row, t, mu),
+                      3 * 4 * n + 8, None)}
+    out = {}
+    for name, (kernel, plain, nbytes, lib) in kernels.items():
+        out[name] = {
+            "ms" + tag: event_ms(torch, kernel, iters=20),
+            "plain_ms" + tag: event_ms(torch, plain, iters=3,
+                                       hold_stream=False),
+            "bound_ms" + tag: bound(nbytes),
+            "library_ms" + tag: (event_ms(torch, lib, iters=3,
+                                          hold_stream=False)
+                                 if lib is not None else None)}
+    out["bin_select"]["cnt_b" + tag] = int(cnt_b[0])
+    out["bin_select"]["pass_ms" + tag] = kernel_times(
+        torch, lambda: rk.candidate_select_batched(row, s_in, b, r), calls=3)
+    print(f"mesh kernels at (1, {n}), k = {k} (candidate bin holds "
+          f"{int(cnt_b[0])}): {json.dumps(out)}")
+    return out, errs
+
+
+def run_mesh(torch, np, rk):
+    """Phase 11: the mesh trainer on the card at SmolLM-135M's full width
+    and depth.  Returns ``(launches by path, keys by kernel for the
+    kernels line, max errors)``."""
+    t0 = time.perf_counter()
+    state, launches, cfg, tc, batch = mesh_single(torch, np, rk)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    row, _ = mesh_lockstep(torch, np, rk, state, cfg, tc, batch)
+    k = max(int(cfg.param_count() * tc.sparsity_up), 1)
+    extra, errs = mesh_kernel_rows(torch, rk, row.contiguous(), k)
+    del row
+    time_mesh_step(torch, np, state, cfg, tc, batch)
+    del state
+    torch.cuda.empty_cache()
+    mesh_two_ranks(torch, np)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s (peak memory of "
+          f"the 10 single-client steps {peak:.3f} GiB)")
+    print(f"card: {card_line()}")
+    return {"mesh": launches}, extra, errs
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
+    # cuBLAS's deterministic workspace, for the mesh trainer's bitwise ranks
+    # (phase 11); read when cuBLAS first starts, so set before torch loads
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import numpy as np
         import torch
@@ -3583,6 +4109,7 @@ def main() -> int:
              "--buffered": lambda: run_buffered(torch, np, rk),
              "--chunked": lambda: run_chunked(torch, np, rk),
              "--events": lambda: run_events(torch, np, rk),
+             "--mesh": lambda: run_mesh(torch, np, rk),
              "--drift-witness": lambda: drift_witness(torch, np, rk)}
     if len(sys.argv) == 2 and sys.argv[1] in alone:
         try:
@@ -3658,8 +4185,10 @@ def main() -> int:
         buffered = run_buffered(torch, np, rk)
         chunked, chunked_ms, chunked_errs = run_chunked(torch, np, rk)
         events = run_events(torch, np, rk)
-        # launches on the paths of phases 7, 8 and 9, beside each kernel's
-        # main-path count; the kernels' times at the chunked shapes
+        mesh, mesh_ms, mesh_errs = run_mesh(torch, np, rk)
+        # launches on the paths of phases 7 to 11, beside each kernel's
+        # main-path count; the kernels' times at the chunked shapes and at
+        # the mesh path's row
         for row in rows:
             name = {"magnitude_histogram": "histogram"}.get(row["name"],
                                                             row["name"])
@@ -3669,12 +4198,14 @@ def main() -> int:
                 if runs[path][0].get(name)}
             row["launches_other_paths"].update({
                 path: counts[name]
-                for runs in (chunked, events) for path, counts in runs.items()
-                if counts.get(name)})
+                for runs in (chunked, events, mesh)
+                for path, counts in runs.items() if counts.get(name)})
             row.update(chunked_ms.get(name, {}))
-            if name in chunked_errs:
-                row["max_abs_err"] = max(row["max_abs_err"],
-                                         chunked_errs[name])
+            row.update(mesh_ms.get(name, {}))
+            for errs_of in (chunked_errs, mesh_errs):
+                if name in errs_of:
+                    row["max_abs_err"] = max(row["max_abs_err"],
+                                             errs_of[name])
         for row in rows:
             require(all(isinstance(row[f], (int, float)) and math.isfinite(
                 row[f]) for f in ("ms", "plain_ms", "bound_ms")),

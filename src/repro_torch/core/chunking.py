@@ -48,9 +48,8 @@ group on the ``"kernel"`` wire backend); the ingest decodes each group's
 sub-streams together (one ``golomb_decode`` a bounded word block) and
 scatters them at their chunks' flat offsets, each coordinate's adds in
 message order, so the accumulator is bitwise the reference's per-chunk
-loop.  The reference's tree-path delegation (``tree_encode``,
-``tree_reduce``, ``tree_decode``) is not ported: the port has no tree
-path yet.
+loop.  On the mesh trainer's tree path a chunked codec delegates to its
+base codec, which chunks per leaf through its own ``chunk_size`` field.
 """
 
 from __future__ import annotations
@@ -664,6 +663,20 @@ class ChunkedCodec(Codec):
         if any(b is None for b in per_chunk):
             return None
         return float(sum(per_chunk))
+
+    # -- tree path: delegate to the base codec (the mesh trainer chunks
+    #    per leaf through the codec's own chunk_size field instead) ----------
+    def tree_encode(self, delta, residual, *, numel, iters=32):
+        return self.base.tree_encode(delta, residual, numel=numel,
+                                     iters=iters)
+
+    def tree_reduce(self, msgs, axes, n_clients, mask=None, staleness=None):
+        return self.base.tree_reduce(msgs, axes, n_clients, mask=mask,
+                                     staleness=staleness)
+
+    def tree_decode(self, combined, residual, *, numel, iters=32):
+        return self.base.tree_decode(combined, residual, numel=numel,
+                                     iters=iters)
 
 
 def chunk_codec(base: Codec, spec: ChunkSpec,

@@ -40,8 +40,14 @@ The paper's comparison set (Table I) is ported:
 registered in the reference's order; each runs chunked too.  Under a
 screening rule (``norm_screened_mean``) the ingest screens each message by
 its norm: the dense message's in fp64, a wire message's from its side
-information (``wire_norm``).  The tree path (the mesh trainer's) is still
-to port.
+information (``wire_norm``).
+
+* the tree path of the mesh trainer (:mod:`repro_torch.launch.train`):
+  ``has_client_state`` / ``has_server_state``, ``tree_encode``,
+  ``tree_reduce`` (the one collective, over the process group of the
+  client ranks) and ``tree_decode``, on parameter trees.  STC's tree
+  compression is the flat kernel composition over the flattened tree
+  (:mod:`repro_torch.core.distributed`).
 """
 
 from __future__ import annotations
@@ -58,14 +64,21 @@ import torch
 from . import golomb, wire
 from .aggregation import (AggregationRule, MeanRule, NormScreenedMeanRule,
                           make_rule)
-from .compression import (CompressionStats, _stc_rows, get_stc_backend,
-                          majority_vote_sign, sign_compress,
-                          ternary_quantize, ternary_quantize_batch,
-                          top_k_sparsify, top_k_sparsify_batch)
+from .compression import (CompressionStats, _stc_rows, _torch_carry,
+                          flatten_pytree, get_stc_backend, majority_vote_sign,
+                          sign_compress, ternary_quantize,
+                          ternary_quantize_batch, top_k_sparsify,
+                          top_k_sparsify_batch, tree_leaves, tree_map,
+                          unflatten_pytree)
+from .distributed import (all_gather, psum, sign_compress_tree,
+                          stc_compress_tree, stc_compress_tree_chunked,
+                          stc_compress_tree_with_residual,
+                          ternary_quantize_tree)
 from .ingest import IngestAccumulator
 from .registry import lookup as _registry_lookup, resolve as _registry_resolve
 from .residual import (ResidualState, compress_with_feedback, init_residual,
                        map_states, take_states)
+from .selection import flush_subnormal
 
 __all__ = ["Codec", "Protocol", "make_protocol", "register_protocol",
            "registered_protocols", "get_protocol_class", "PROTOCOLS",
@@ -513,6 +526,90 @@ class Codec:
         path and the dense oracle both end here, so they agree bitwise)."""
         return self.finalize_ingest(acc.combined(), server_state)
 
+    # -- tree path (the mesh trainer, repro_torch.launch.train) -------------
+    # ``axes`` is the process group of the client ranks (None: no client
+    # axes, one client); the leaves are dicts and lists of tensors.
+    def has_client_state(self) -> bool:
+        return self.init_client_state(0, "cpu") is not None
+
+    def has_server_state(self) -> bool:
+        return self.init_server_state(0, "cpu") is not None
+
+    def tree_encode(self, delta, residual, *, numel: int, iters: int = 32):
+        """Client-side compression over a parameter tree.  ``residual`` is
+        a bare fp32 tree (or None).  Returns (msg_tree, new_residual,
+        metrics)."""
+        return delta, residual, {}
+
+    def _tree_reduce_gather(self, msgs, axes, mask, staleness):
+        """Order-statistic rules need every rank's coordinates at once:
+        all_gather the message trees plus their weight mass, then run the
+        rule once per leaf."""
+        rule = self.rule
+        device = tree_leaves(msgs)[0].device
+        if mask is None:
+            mask = torch.ones((1,), dtype=torch.float32, device=device)
+        w = self.participation_weights(mask, staleness).to(device).sum()
+        if axes is None:
+            return tree_map(lambda t: rule.combine(t[None], w[None]), msgs)
+        ws = all_gather(w, axes)
+        return tree_map(lambda t: rule.combine(all_gather(t, axes), ws),
+                        msgs)
+
+    def tree_reduce(self, msgs, axes, n_clients: int, mask=None,
+                    staleness=None):
+        """The one protocol-level collective: combine the client ranks'
+        message trees over ``axes``.
+
+        Mean-family rules reduce by one ``all_reduce`` of the flattened
+        tree; other rules go through :meth:`_tree_reduce_gather`.
+        ``mask`` / ``staleness`` are THIS rank's slice of the per-client
+        vectors (shape ``(1,)``): a masked-out rank contributes zero
+        weight, and the weighted sum renormalizes by the total arrived
+        weight mass.  Divisions are by tensors (correctly rounded on the
+        card too).
+        """
+        if not isinstance(self.rule, MeanRule):
+            return self._tree_reduce_gather(msgs, axes, mask, staleness)
+        device = tree_leaves(msgs)[0].device
+        if mask is None and staleness is None:
+            if axes is None:
+                return msgs
+            n = torch.tensor(float(n_clients), device=device)
+            return _tree_collective(msgs, lambda v: psum(v, axes) / n)
+        if mask is None:
+            mask = torch.ones((1,), dtype=torch.float32, device=device)
+        w = self.participation_weights(mask, staleness).to(device).sum()
+        if axes is None:
+            denom = torch.where(w > 0, w, torch.ones_like(w))
+            return tree_map(lambda t: w * t / denom, msgs)
+        total = psum(w, axes)
+        denom = torch.where(total > 0, total, torch.ones_like(total))
+        return _tree_collective(msgs, lambda v: psum(w * v, axes) / denom)
+
+    def tree_decode(self, combined, residual, *, numel: int, iters: int = 32):
+        """Server-side downstream compression of the combined tree.
+        Returns (global_delta_tree, new_server_residual, metrics)."""
+        return combined, residual, {}
+
+
+def _tree_collective(tree, fn):
+    """``fn`` over the tree's leaves flattened into one fp32 vector (one
+    collective a tree), the result in the tree's structure."""
+    vec, spec = flatten_pytree(tree)
+    return unflatten_pytree(fn(vec), spec)
+
+
+def _tree_carry(delta, residual):
+    """The error-feedback carried tree ``delta + residual``, operands and
+    sum flushed as XLA computes them (the flat codecs' carried sum)."""
+    return tree_map(_torch_carry, delta, residual)
+
+
+def _tree_sub(carried, msg):
+    """The new residual tree ``carried - msg``, flushed."""
+    return tree_map(lambda c, t: flush_subnormal(c - t), carried, msg)
+
 
 class _ErrorFeedbackMixin:
     error_feedback: ClassVar[bool] = True
@@ -561,7 +658,7 @@ class FedAvgCodec(BaselineCodec):
 @dataclasses.dataclass(frozen=True)
 class SignSGDCodec(Codec):
     """signSGD with majority vote (Bernstein et al. '18); δ = ``sign_step``.
-    The flat path; the tree path waits for the mesh slice."""
+    Flat and tree paths."""
 
     name: ClassVar[str] = "signsgd"
 
@@ -697,6 +794,34 @@ class SignSGDCodec(Codec):
     def download_bits(self, numel: int, n_participating: int = 1) -> float:
         return golomb.signsgd_message_bits(numel)
 
+    # ---- tree path ----
+    def tree_encode(self, delta, residual, *, numel, iters=32):
+        return sign_compress_tree(delta, self.sign_step), residual, {}
+
+    def tree_reduce(self, msgs, axes, n_clients, mask=None, staleness=None):
+        if not isinstance(self.rule, MeanRule):
+            # gathered rule over the ±step trees; tree_decode's sign()
+            # re-quantizes the combined tree either way
+            return self._tree_reduce_gather(msgs, axes, mask, staleness)
+        if mask is None and staleness is None:
+            if axes is None:
+                return tree_map(torch.sign, msgs)
+            return _tree_collective(msgs, lambda v: psum(torch.sign(v), axes))
+        # weighted vote: an absent rank casts no vote (weight 0); no
+        # renormalization -- tree_decode takes the sign of the tally anyway
+        device = tree_leaves(msgs)[0].device
+        if mask is None:
+            mask = torch.ones((1,), dtype=torch.float32, device=device)
+        w = self.participation_weights(mask, staleness).to(device).sum()
+        if axes is None:
+            return tree_map(lambda t: w * torch.sign(t), msgs)
+        return _tree_collective(msgs,
+                                lambda v: psum(w * torch.sign(v), axes))
+
+    def tree_decode(self, combined, residual, *, numel, iters=32):
+        out = tree_map(lambda v: self.sign_step * torch.sign(v), combined)
+        return out, residual, {}
+
 
 # top-k's sparse message: 16-bit positions (the paper's own accounting for
 # the comparison baseline, Appx. A) + one fp32 value per surviving entry
@@ -743,6 +868,16 @@ class TopKCodec(_ErrorFeedbackMixin, Codec):
         k = max(int(numel * self.sparsity_up), 1)
         return self._message_bits(numel, min(k * n_participating, numel))
 
+    # ---- tree path ----
+    def tree_encode(self, delta, residual, *, numel, iters=32):
+        carried = _tree_carry(delta, residual)
+        _, st = stc_compress_tree(carried, self.sparsity_up, numel=numel,
+                                  iters=iters)
+        # pure top-k keeps magnitudes: mask = |x| >= thresh
+        msg = tree_map(lambda x: torch.where(x.abs() >= st.thresh, x,
+                                             torch.zeros_like(x)), carried)
+        return msg, _tree_sub(carried, msg), {"nnz_up": st.nnz}
+
 
 @register_protocol
 @dataclasses.dataclass(frozen=True)
@@ -756,6 +891,15 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
     sparsity_down: float = 1 / 400
     backend: str = "kernel"                 # STC impl: "kernel" | "torch"
     wire_backend: str = "numpy"             # wire packer: "numpy" | "kernel"
+    # tree-path chunking (the mesh trainer's TrainConfig.chunks): when set,
+    # tree_encode / tree_decode select per (leaf, chunk) block instead of
+    # one global top-k; ``p_fn(layer_name, depth)`` is the per-layer
+    # sparsity schedule and ``controller`` an adaptive per-chunk sparsity
+    # controller (repro_torch.core.adaptive).  These fields drive the TREE
+    # path only: the flat trainers chunk by wrapping (core.chunking).
+    chunk_size: Optional[int] = None
+    p_fn: Optional[object] = None
+    controller: Optional[object] = None
 
     wire_format: ClassVar[bool] = True      # Golomb position stream (Alg. 3)
     wire_header_bits: ClassVar[float] = 32.0  # fp32 µ per message (Eq. 15)
@@ -947,6 +1091,33 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
     def download_bits(self, numel: int, n_participating: int = 1) -> float:
         return golomb.stc_message_bits(numel, self.sparsity_down)
 
+    # ---- tree path ----
+    def _tree_stc(self, carried, p, numel):
+        """``(ternary, new_residual, stats)`` of the carried tree: one
+        global selection (on the ``"kernel"`` route one histogram, one
+        ``bin_select`` and one ``stc_apply`` launch over the flattened
+        tree), or per ``(leaf, chunk)`` block with ``chunk_size``."""
+        if self.chunk_size:
+            tern, st = stc_compress_tree_chunked(
+                carried, p, self.chunk_size, p_fn=self.p_fn,
+                backend=self.backend, controller=self.controller)
+            return tern, _tree_sub(carried, tern), st
+        return stc_compress_tree_with_residual(carried, p, numel=numel,
+                                               backend=self.backend)
+
+    def _tree_carried(self, delta, residual):
+        return tree_map(get_stc_backend(self.backend).carry, delta, residual)
+
+    def tree_encode(self, delta, residual, *, numel, iters=32):
+        tern, new_res, st = self._tree_stc(
+            self._tree_carried(delta, residual), self.sparsity_up, numel)
+        return tern, new_res, {"nnz_up": st.nnz}
+
+    def tree_decode(self, combined, residual, *, numel, iters=32):
+        down, new_res, st = self._tree_stc(
+            self._tree_carried(combined, residual), self.sparsity_down, numel)
+        return down, new_res, {"nnz_down": st.nnz}
+
 
 @register_protocol
 @dataclasses.dataclass(frozen=True)
@@ -994,6 +1165,17 @@ class TernQuantCodec(_ErrorFeedbackMixin, Codec):
 
     def download_bits(self, numel: int, n_participating: int = 1) -> float:
         return golomb.ternary_dense_bits(numel)
+
+    # ---- tree path ----
+    def tree_encode(self, delta, residual, *, numel, iters=32):
+        carried = _tree_carry(delta, residual)
+        tern, st = ternary_quantize_tree(carried, self.theta, numel=numel)
+        return tern, _tree_sub(carried, tern), {"nnz_up": st.nnz}
+
+    def tree_decode(self, combined, residual, *, numel, iters=32):
+        carried = _tree_carry(combined, residual)
+        down, st = ternary_quantize_tree(carried, self.theta, numel=numel)
+        return down, _tree_sub(carried, down), {"nnz_down": st.nnz}
 
 
 # The pre-registry name of :class:`Codec`, kept as an alias.

@@ -31,7 +31,10 @@ __all__ = ["logreg_init", "logreg_apply", "mlp_init_model", "mlp_apply_model",
 
 def params_from_jax(tree, device=None):
     """A parameter tree of numpy arrays (e.g. a JAX model's initial values
-    through ``np.asarray``) as the port's dict of tensors."""
+    through ``np.asarray``) as the port's dict of fp32 tensors: the paper
+    models' dicts and the TransformerLM's nested tree alike (its ``blocks``
+    list of ``norm1`` / ``mix`` / ``norm2`` / ``mlp`` dicts with the ``g``,
+    ``wq``, ``wk``, ... leaves), keys and list order kept."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -1,0 +1,167 @@
+"""TransformerLM: the dense ``"attn"`` / ``"local"`` blocks of a
+:class:`~repro_torch.models.config.ModelConfig` composed into a trainable
+causal LM.  Functional: parameters are nested dicts (and the ``blocks``
+list) of fp32 tensors in the reference's layout, so
+:func:`~repro_torch.models.paper_models.params_from_jax` hands a JAX
+model's values over and ``jax.tree.flatten`` order lines up.
+
+Counterpart of ``repro/models/transformer.py``:
+
+    init_model(cfg, key)                  -> params
+    forward(params, cfg, tokens, ...)     -> (logits, aux_loss)
+    lm_loss(params, cfg, tokens, labels)  -> scalar (chunked LM head optional)
+
+``cfg.remat`` checkpoints each block (``torch.utils.checkpoint``, not
+reentrant).  MLA, MoE, SSD and RG-LRU blocks, the encoder and the prefix
+embeddings raise ``NotImplementedError`` (ROADMAP Queue 1, the rest of the
+model zoo); the decode side (``init_cache``, ``decode_step``) comes with
+the serve path (Queue 1).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from . import attention
+from .config import ModelConfig
+from .layers import embed_init, mlp_apply, mlp_init, rms_norm, rms_norm_init
+
+__all__ = ["init_model", "forward", "lm_loss"]
+
+DENSE_KINDS = ("attn", "local")
+_LATER = ("is not ported yet (ROADMAP.md Queue 1: the rest of the model "
+          "zoo)")
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        if kind not in DENSE_KINDS:
+            raise NotImplementedError(f"block kind {kind!r} {_LATER}")
+    for what, present in (("moe", cfg.moe is not None),
+                          ("encoder", cfg.encoder is not None),
+                          ("n_prefix_tokens", bool(cfg.n_prefix_tokens))):
+        if present:
+            raise NotImplementedError(f"{cfg.name}: {what} {_LATER}")
+
+
+def _generator(key) -> torch.Generator:
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator().manual_seed(int(key))
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_block(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {
+        "norm1": rms_norm_init(d),
+        "mix": attention.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, hd,
+                                   bias=cfg.attn_bias),
+        "norm2": rms_norm_init(d),
+        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_act),
+    }
+
+
+def init_model(cfg: ModelConfig, key=0, device=None) -> dict:
+    """Random fp32 parameters from ``key`` (a seed or a CPU
+    ``torch.Generator``), drawn on the CPU and moved to ``device``."""
+    _require_dense(cfg)
+    gen = _generator(key)
+    params: dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model),
+        "blocks": [_init_block(cfg, gen) for _ in range(cfg.n_layers)],
+        "final_norm": rms_norm_init(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model)
+    if device is not None:
+        from ..core.compression import tree_map
+        params = tree_map(lambda t: t.to(device), params)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _block_apply(block, x, *, cfg: ModelConfig, kind: str, chunk: int):
+    h = rms_norm(block["norm1"], x, cfg.norm_eps)
+    window = cfg.sliding_window if kind == "local" else (
+        cfg.sliding_window if (kind == "attn" and cfg.sliding_window and
+                               len(cfg.block_pattern) == 1) else 0)
+    x = x + attention.attn_apply(
+        block["mix"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        causal=True, window=window, chunk=chunk)
+    h2 = rms_norm(block["norm2"], x, cfg.norm_eps)
+    mlp = {name: w.to(x.dtype) for name, w in block["mlp"].items()}
+    return x + mlp_apply(mlp, h2, cfg.mlp_act)
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            prefix: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
+            compute_dtype=torch.bfloat16, chunk: int = 1024,
+            return_hidden: bool = False):
+    """tokens: (B, S) integers.  Returns (logits (B, S, V), aux_loss); the
+    aux loss (MoE load balance) is 0 for the dense blocks."""
+    _require_dense(cfg)
+    if prefix is not None or frames is not None:
+        raise NotImplementedError(f"prefix / frames inputs {_LATER}")
+    x = F.embedding(tokens.long(), params["embed"]).to(compute_dtype)
+    for i, block in enumerate(params["blocks"]):
+        fn = functools.partial(_block_apply, cfg=cfg, kind=cfg.layer_kind(i),
+                               chunk=chunk)
+        if cfg.remat:
+            x = checkpoint(fn, block, x, use_reentrant=False)
+        else:
+            x = fn(block, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if return_hidden:
+        return x, aux
+    head = params.get("lm_head", params["embed"])
+    return x @ head.T.to(compute_dtype), aux
+
+
+def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, *, prefix=None, frames=None,
+            compute_dtype=torch.bfloat16, chunk: int = 1024) -> torch.Tensor:
+    """Causal LM cross-entropy (mean over tokens) + the aux loss.
+
+    The log-sum-exp runs in fp32 on fp32 logits.  With ``cfg.logit_chunk >
+    0`` the LM head and softmax run in sequence chunks, never materializing
+    the full (B, S, V) logits.
+    """
+    hidden, aux = forward(params, cfg, tokens, prefix=prefix, frames=frames,
+                          compute_dtype=compute_dtype, chunk=chunk,
+                          return_hidden=True)
+    head = params.get("lm_head", params["embed"]).T.to(compute_dtype)
+    labels = labels.long()
+
+    def ce(h_chunk, y_chunk):
+        logits = (h_chunk @ head).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, y_chunk[..., None], dim=-1)[..., 0]
+        return torch.sum(logz - gold)
+
+    b, s, _ = hidden.shape
+    lc = cfg.logit_chunk
+    if lc and s > lc and s % lc == 0:
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, s, lc):
+            total = total + ce(hidden[:, c0:c0 + lc], labels[:, c0:c0 + lc])
+    else:
+        total = ce(hidden, labels)
+    return total / (b * s) + aux

@@ -917,3 +917,52 @@ def test_event_trainer_quarantines_on_the_card_as_on_the_cpu(dev):
     assert card.loop.n_quarantined > 0
     assert launched == 2 * card.loop.n_arrived
     assert bool(torch.isfinite(card.params_vec).all())
+
+
+# -- the mesh trainer's row: SmolLM-135M flattened, (1, 134,515,008) -------
+
+MESH_N = 134_515_008
+MESH_K = 2_690_300                       # p = 1/50
+
+
+def _mesh_row(dev, kind):
+    """A (1, 134,515,008) row on the card: ``normal`` (x 1e-3) or
+    ``bf16`` (the same rounded to bf16: the tie-heavy grads of a bf16
+    step)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((1, MESH_N), generator=gen, device=dev) * 1e-3
+    return x.to(torch.bfloat16).to(torch.float32) if kind == "bf16" else x
+
+
+@pytest.mark.parametrize("kind", ["normal", "bf16"])
+def test_mesh_row_histogram(dev, kind):
+    x = _mesh_row(dev, kind)
+    scale = 256.0 / x.abs().amax(dim=1)
+    cnt, sums = rk.magnitude_histogram_batched(x, scale)
+    cnt_p, sums_p = rk.magnitude_histogram_plain(x, scale)
+    assert torch.equal(cnt, cnt_p) and int(cnt.sum()) == MESH_N
+    assert torch.allclose(sums, sums_p, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("kind", ["normal", "bf16"])
+def test_mesh_row_bin_select_and_selection(dev, kind):
+    x = _mesh_row(dev, kind)
+    scale, b, r = _select_inputs(x, MESH_K)
+    got = rk.candidate_select_batched(x, scale, b, r)
+    want = rk.candidate_select_plain(x, scale, b, r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.allclose(got[2], want[2], rtol=1e-6, atol=0.0)
+    t, c, _ = rk.hist_topk_threshold_batched(x, MESH_K)
+    a = x.abs()
+    assert int((a > t[0]).sum()) < MESH_K <= int((a >= t[0]).sum()) \
+        == int(c[0])
+
+
+@pytest.mark.parametrize("kind", ["normal", "bf16"])
+def test_mesh_row_stc_apply_bitwise(dev, kind):
+    x = _mesh_row(dev, kind)
+    t, c, s = rk.hist_topk_threshold_batched(x, MESH_K)
+    mu = s / c.to(torch.float32)
+    got = rk.stc_apply_batched(x, t, mu)
+    want = rk.stc_apply_plain(x, t, mu)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
