@@ -9,6 +9,7 @@
     python3 chip_smoke.py --drift-witness   # phase 9's runs, one ulp apart
     python3 chip_smoke.py --events          # only phase 10
     python3 chip_smoke.py --mesh            # only phase 11
+    python3 chip_smoke.py --serve           # only phase 12
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
@@ -205,11 +206,35 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    unchanged by the masked step, and ``all_gather`` of CUDA tensors
    through gloo checked.
 
+12. the LM's serve path (``repro_torch.launch.serve``) at SmolLM-135M's
+   full width and depth, serving phase 11's trained weights (alone:
+   ``init_model(CONFIG, 0)``), counters set to 0 just before and none of
+   the port's kernels launched (the serve path has no Pallas kernel in the
+   reference either): the weights through ``save_checkpoint`` ->
+   ``restore_checkpoint``, bitwise (file bytes and seconds printed); a
+   64-token prompt (batch 2) teacher-forced through ``make_decode_step``
+   at fp32, each step's logits against ``forward``'s within rtol 5e-3 /
+   atol 2e-3 (the reference's own decode test), and against the same
+   steps on the CPU within rtol 1e-4 / atol 1e-4 (about 25x the fp32
+   summation-order gap of decode against forward, which it prints); 32 greedy
+   steps on the card with the CPU decoding the card's tokens, argmax equal
+   wherever the top-2 gap exceeds twice that tolerance; a sliding window
+   of 64 (``s_cache`` 256: rings of 64) over 200 tokens against the
+   windowed ``forward``; bf16 ``make_prefill_step`` at (4, 512) against a
+   bf16 teacher-forced decode's last logits within 0.05 of the largest
+   logit; then the prefill of one 32,768-token prompt (prefill_32k's
+   length, batch cut from 32 to 1) and the decode step at batch 64 (cut
+   from decode_32k's 128, which would need 96.6 GB) against a 32,768-slot
+   bf16 cache of 48.3 GB, seeded random, ``idx`` at 32,768 - 24: 8
+   warm-up steps, one under ``set_sync_debug_mode("error")`` (no host sync
+   in a step) and one under ``torch.profiler`` (device time, idle share,
+   longest operations), then 16 timed steps beside the bytes bound.
+
 ``--signsgd-round`` runs the last of the timings of 6 alone on the package
 of the tree the file sits in: a copy inside a parent checkout unpacked
 beside the change times the parent.  ``--paper-codecs``, ``--buffered``,
-``--chunked``, ``--events`` and ``--mesh`` run phase 7, 8, 9, 10 or 11
-alone.
+``--chunked``, ``--events``, ``--mesh`` and ``--serve`` run phase 7, 8, 9,
+10, 11 or 12 alone.
 ``--drift-witness`` trains phase 9's dense and ``residual_mass`` runs 20
 rounds on the card twice, on the card and the CPU with one parameter and
 with every parameter moved by one ulp, on the CPU, and on the CPU with one
@@ -4065,7 +4090,7 @@ def mesh_kernel_rows(torch, rk, row, k):
 def run_mesh(torch, np, rk):
     """Phase 11: the mesh trainer on the card at SmolLM-135M's full width
     and depth.  Returns ``(launches by path, keys by kernel for the
-    kernels line, max errors)``."""
+    kernels line, max errors, the trained parameters)``."""
     t0 = time.perf_counter()
     state, launches, cfg, tc, batch = mesh_single(torch, np, rk)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4074,13 +4099,329 @@ def run_mesh(torch, np, rk):
     extra, errs = mesh_kernel_rows(torch, rk, row.contiguous(), k)
     del row
     time_mesh_step(torch, np, state, cfg, tc, batch)
+    params = state["params"]
     del state
     torch.cuda.empty_cache()
     mesh_two_ranks(torch, np)
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s (peak memory of "
           f"the 10 single-client steps {peak:.3f} GiB)")
     print(f"card: {card_line()}")
-    return {"mesh": launches}, extra, errs
+    return {"mesh": launches}, extra, errs, params
+
+
+# ---------------------------------------------------------------- phase 12
+
+SERVE_PROMPT = 64               # decode against forward, card against CPU
+SERVE_GREEDY = 32
+SERVE_BATCH = 2
+CARD_CPU_TOL = {"rtol": 1e-4, "atol": 1e-4}
+DECODE_FORWARD_TOL = {"rtol": 5e-3, "atol": 2e-3}   # tests/test_models.py
+RING = (64, 256, 200)           # window, s_cache, teacher-forced tokens
+BF16_PREFILL = (4, 512)
+BF16_TOL = 0.05                 # of the largest logit
+PREFILL = (1, 32_768)           # prefill_32k's length; batch 32 cut to 1
+DECODE = (64, 32_768)           # decode_32k's cache; batch 128 cut to 64
+DECODE_WARM, DECODE_TIMED = 8, 16
+SERVE_DIR = ROOT / "build" / "serve"
+
+
+def serve_tokens(torch, np, cfg, shape, seed):
+    from repro_torch.data import make_lm_tokens
+    n = math.prod(shape)
+    toks = make_lm_tokens(seed=seed, n_tokens=n, vocab=cfg.vocab_size)
+    return torch.from_numpy(toks.reshape(shape).astype(np.int64))
+
+
+def serve_checkpoint(torch, params):
+    """12.1: the weights to serve through ``save_checkpoint`` ->
+    ``restore_checkpoint``; every leaf must come back bitwise."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.compression import tree_leaves
+    path = SERVE_DIR / "params.ckpt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), params)
+    t1 = time.perf_counter()
+    back = restore_checkpoint(str(path), params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    leaves, got = tree_leaves(params), tree_leaves(back)
+    require(len(leaves) == len(got) and all(
+        g.device == w.device and g.dtype == w.dtype == torch.float32 and
+        torch.equal(g.view(torch.int32), w.view(torch.int32))
+        for g, w in zip(got, leaves)),
+        "restore_checkpoint did not give the fp32 leaves back bitwise")
+    size = path.stat().st_size
+    print(f"serve checkpoint: {len(leaves)} leaves, "
+          f"{sum(x.numel() for x in leaves)} parameters; file {size} bytes; "
+          f"save {t1 - t0:.2f} s, restore {t2 - t1:.2f} s; leaves bitwise")
+    path.unlink()
+    return back
+
+
+def serve_fp32_checks(torch, np, cfg, params):
+    """12.2 and 12.3: a 64-token prompt teacher-forced through
+    ``make_decode_step`` at fp32 on the card, each step's logits against
+    ``forward``'s; the same steps on the CPU; then 32 greedy steps on the
+    card, and the CPU decoding the card's tokens."""
+    from repro_torch.core.compression import tree_map
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.models import forward, init_cache
+    mesh = make_debug_mesh(data=1, model=1)
+    toks = serve_tokens(torch, np, cfg, (SERVE_BATCH, SERVE_PROMPT), seed=1)
+    steps = SERVE_PROMPT + SERVE_GREEDY
+    with torch.inference_mode():
+        full, _ = forward(params, cfg, toks.cuda(),
+                          compute_dtype=torch.float32)
+    dec_card = make_decode_step(cfg, mesh, torch.float32, device="cuda")
+    dec_cpu = make_decode_step(cfg, mesh, torch.float32, device="cpu")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    c_card = init_cache(cfg, SERVE_BATCH, steps, torch.float32, device="cuda")
+    c_cpu = init_cache(cfg, SERVE_BATCH, steps, torch.float32, device="cpu")
+    fwd_gap = card_cpu_gap = 0.0
+    for t in range(SERVE_PROMPT):
+        tok = toks[:, t:t + 1]
+        lg, c_card = dec_card(params, tok.cuda(), c_card)
+        lc, c_cpu = dec_cpu(cpu_params, tok, c_cpu)
+        lg, lc = lg[:, 0].cpu(), lc[:, 0]
+        want = full[:, t].cpu()
+        fwd_gap = max(fwd_gap, float((lg - want).abs().max()))
+        require(torch.allclose(lg, want, **DECODE_FORWARD_TOL),
+                f"decode step {t} differs from forward on the card by "
+                f"{float((lg - want).abs().max())}")
+        card_cpu_gap = max(card_cpu_gap, float((lg - lc).abs().max()))
+        require(torch.allclose(lg, lc, **CARD_CPU_TOL),
+                f"decode step {t}: card and CPU differ by "
+                f"{float((lg - lc).abs().max())}")
+    print(f"serve fp32, batch {SERVE_BATCH}, {SERVE_PROMPT}-token prompt: "
+          f"decode against forward on the card max |gap| {fwd_gap:.3e} "
+          f"(tolerance {DECODE_FORWARD_TOL}); card against CPU max |gap| "
+          f"{card_cpu_gap:.3e} (tolerance {CARD_CPU_TOL})")
+    same = checked = 0
+    greedy_gap = 0.0
+    tok = lg.argmax(dim=-1, keepdim=True)
+    for _ in range(SERVE_GREEDY):
+        lg, c_card = dec_card(params, tok.cuda(), c_card)
+        lc, c_cpu = dec_cpu(cpu_params, tok, c_cpu)
+        lg, lc = lg[:, 0].cpu(), lc[:, 0]
+        greedy_gap = max(greedy_gap, float((lg - lc).abs().max()))
+        require(torch.allclose(lg, lc, **CARD_CPU_TOL),
+                f"greedy decode: card and CPU differ by "
+                f"{float((lg - lc).abs().max())}")
+        # each logit may move by the tolerance: a top-2 gap above twice it
+        # cannot change order between the card and the CPU
+        top2 = lg.topk(2, dim=-1).values
+        tol = CARD_CPU_TOL["atol"] + CARD_CPU_TOL["rtol"] * top2[:, 0].abs()
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        tok = lg.argmax(dim=-1, keepdim=True)
+        agree = tok[:, 0] == lc.argmax(dim=-1)
+        require(bool(agree[clear].all()),
+                "greedy decode: card and CPU chose other tokens where the "
+                "top-2 gap exceeds the tolerance")
+        checked += int(clear.sum())
+        same += int(agree.sum())
+    print(f"serve greedy, {SERVE_GREEDY} steps: card and CPU logits max "
+          f"|gap| {greedy_gap:.3e}; tokens equal {same} of "
+          f"{SERVE_GREEDY * SERVE_BATCH} ({checked} with a top-2 gap above "
+          f"twice the tolerance, all of them equal)")
+    return {"decode_vs_forward": fwd_gap, "card_vs_cpu": max(
+        card_cpu_gap, greedy_gap)}
+
+
+def serve_ring_check(torch, np, cfg, params):
+    """12.4: sliding window 64 at full width, ``s_cache`` 256 (rings of
+    64), 200 teacher-forced tokens (the ring wraps three times) against the
+    windowed ``forward`` at fp32."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.models import forward, init_cache
+    window, s_cache, n = RING
+    cfg_w = dataclasses.replace(cfg, sliding_window=window)
+    toks = serve_tokens(torch, np, cfg, (SERVE_BATCH, n), seed=2).cuda()
+    with torch.inference_mode():
+        full, _ = forward(params, cfg_w, toks, compute_dtype=torch.float32)
+    caches = init_cache(cfg_w, SERVE_BATCH, s_cache, torch.float32)
+    require(all(c.ring and c.k.shape[1] == window for c in caches),
+            f"init_cache gave no rings of {window}")
+    dec = make_decode_step(cfg_w, make_debug_mesh(data=1, model=1),
+                           torch.float32)
+    gap = 0.0
+    for t in range(n):
+        lg, caches = dec(params, toks[:, t:t + 1], caches)
+        d = (lg[:, 0] - full[:, t]).abs().max()
+        gap = max(gap, float(d))
+        require(torch.allclose(lg[:, 0], full[:, t], **DECODE_FORWARD_TOL),
+                f"ring decode step {t} differs from the windowed forward by "
+                f"{float(d)}")
+    print(f"serve ring: window {window}, s_cache {s_cache}, {n} tokens "
+          f"(the ring wrapped {-(-n // window) - 1} times): max |gap| to the "
+          f"windowed forward {gap:.3e}")
+    return gap
+
+
+def serve_bf16_check(torch, np, cfg, params):
+    """12.5: ``make_prefill_step`` at (4, 512) in bf16 against the last
+    logits of a bf16 teacher-forced decode over the same prompt."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache
+    b, s = BF16_PREFILL
+    mesh = make_debug_mesh(data=1, model=1)
+    toks = serve_tokens(torch, np, cfg, (b, s), seed=3).cuda()
+    pre = make_prefill_step(cfg, mesh)(params, {"tokens": toks})[:, 0]
+    dec = make_decode_step(cfg, mesh)
+    caches = init_cache(cfg, b, s)
+    for t in range(s):
+        lg, caches = dec(params, toks[:, t:t + 1], caches)
+    lg = lg[:, 0].float()
+    pre = pre.float()
+    gap = float((lg - pre).abs().max())
+    top = float(pre.abs().max())
+    same = int((lg.argmax(-1) == pre.argmax(-1)).sum())
+    print(f"serve bf16: prefill ({b}, {s}) against {s} teacher-forced "
+          f"decode steps: last logits max |gap| {gap:.4f} of max |logit| "
+          f"{top:.4f} (tolerance {BF16_TOL} of it); argmax equal in {same} "
+          f"of {b} rows")
+    require(gap <= BF16_TOL * top, f"bf16 prefill and decode differ by "
+            f"{gap} > {BF16_TOL} x {top}")
+    return gap
+
+
+def time_prefill(torch, np, cfg, params):
+    """12.6a: one 32,768-token prompt through ``make_prefill_step``."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import make_prefill_step
+    b, s = PREFILL
+    toks = serve_tokens(torch, np, cfg, (b, s), seed=4).cuda()
+    prefill = make_prefill_step(cfg, make_debug_mesh(data=1, model=1))
+    torch.cuda.reset_peak_memory_stats()
+    out = prefill(params, {"tokens": toks})
+    require(tuple(out.shape) == (b, 1, cfg.vocab_size) and
+            bool(torch.isfinite(out).all()), "prefill logits not finite")
+    ms = 1e3 * median_s(torch, lambda: prefill(params, {"tokens": toks}),
+                        reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"serve prefill ({b}, {s}) bf16: {ms:.1f} ms (median of 3), "
+          f"{b * s / ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} GiB; "
+          f"card: {card_line()}")
+    return ms
+
+
+def time_decode(torch, np, cfg, params):
+    """12.6b: batch 64 against a 32,768-slot bf16 cache filled with seeded
+    random values, ``idx`` at 32,768 - 24: 8 warm-up steps (one under
+    ``set_sync_debug_mode("error")``, one under ``torch.profiler``), then 16
+    timed steps, each feeding back its argmax."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.compression import tree_leaves
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.models import init_cache
+    b, s = DECODE
+    caches = init_cache(cfg, b, s)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    start = torch.tensor(s - DECODE_WARM - DECODE_TIMED, dtype=torch.int32,
+                         device="cuda")
+    for i, c in enumerate(caches):
+        c.k.normal_(generator=gen)
+        c.v.normal_(generator=gen)
+        caches[i] = c._replace(idx=start.clone())
+    cache_bytes = sum(c.k.numel() * c.k.element_size() * 2 for c in caches)
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params))
+    dec = make_decode_step(cfg, make_debug_mesh(data=1, model=1))
+    tok = serve_tokens(torch, np, cfg, (b, 1), seed=6).cuda()
+    state = {"tok": tok, "caches": caches}
+
+    def step():
+        lg, state["caches"] = dec(params, state["tok"], state["caches"])
+        state["tok"] = lg.argmax(dim=-1)
+
+    for _ in range(DECODE_WARM - 2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    times: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    dev_ms = sum(times.values())
+    require(dev_ms > 0, "the profiler saw no device time in a decode step")
+    step_s = []
+    for _ in range(DECODE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    ms = 1e3 * statistics.median(step_s)
+    require(all(int(c.idx) == s for c in state["caches"]),
+            "the caches' idx did not reach the last slot")
+    require(bool(torch.isfinite(state["caches"][0].k[:, -1]).all()),
+            "decode wrote non-finite K")
+    bound_cache = cache_bytes / HBM_BYTES_PER_S * 1e3
+    bound = (cache_bytes + weight_bytes) / HBM_BYTES_PER_S * 1e3
+    top = [(name[:90], round(t, 3)) for name, t in
+           sorted(times.items(), key=lambda kv: -kv[1])[:6]]
+    print(f"serve decode, batch {b}, {s}-slot bf16 cache "
+          f"({cache_bytes / 1e9:.2f} GB): {ms:.2f} ms a step (median of "
+          f"{DECODE_TIMED}; steps {json.dumps([round(x * 1e3, 2) for x in step_s])}), "
+          f"{b / ms * 1e3:.0f} tokens/s; bound {bound:.2f} ms (the cache "
+          f"alone {bound_cache:.2f} ms, + fp32 weights {weight_bytes / 1e9:.3f}"
+          f" GB), {ms / bound:.1f}x it; no host sync in a step "
+          f"(set_sync_debug_mode('error')); card: {card_line()}")
+    print(f"serve decode step by torch.profiler: device {dev_ms:.2f} ms of "
+          f"{ms:.2f} ms (idle share {max(0.0, 1 - dev_ms / ms):.3f}); "
+          f"{len(times)} device operation names; longest "
+          f"{json.dumps(top)}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"ms": ms, "bound_ms": bound, "device_ms": dev_ms}
+
+
+def run_serve(torch, np, rk, params=None):
+    """Phase 12: the LM's serve path on the card at SmolLM-135M's full
+    width and depth, serving ``params`` (phase 11's trained weights in the
+    whole run; alone, ``init_model(CONFIG, 0)``).  Returns the serve
+    path's launch counts (none of the port's kernels)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    t0 = time.perf_counter()
+    cfg = get_config(MESH_ARCH)
+    require(cfg.param_count() == 134_515_008,
+            f"SmolLM-135M has {cfg.param_count()} parameters")
+    source = "phase 11's trained weights"
+    if params is None:
+        params = init_model(cfg, 0, "cuda")
+        source = "init_model(CONFIG, 0)"
+    rk.LAUNCHES.reset()
+    params = serve_checkpoint(torch, params)
+    serve_fp32_checks(torch, np, cfg, params)
+    serve_ring_check(torch, np, cfg, params)
+    serve_bf16_check(torch, np, cfg, params)
+    torch.cuda.empty_cache()
+    time_prefill(torch, np, cfg, params)
+    torch.cuda.empty_cache()
+    time_decode(torch, np, cfg, params)
+    launches = dict(rk.LAUNCHES.counts)
+    ran = {n: c for n, c in launches.items() if c}
+    require(not ran, f"the serve path launched the port's kernels: {ran}")
+    torch.cuda.empty_cache()
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s, serving "
+          f"{source}; the port's kernels launched on the serve path: none; "
+          f"card: {card_line()}")
+    return {"serve": launches}
 
 
 # ------------------------------------------------------------------- main
@@ -4110,6 +4451,7 @@ def main() -> int:
              "--chunked": lambda: run_chunked(torch, np, rk),
              "--events": lambda: run_events(torch, np, rk),
              "--mesh": lambda: run_mesh(torch, np, rk),
+             "--serve": lambda: run_serve(torch, np, rk),
              "--drift-witness": lambda: drift_witness(torch, np, rk)}
     if len(sys.argv) == 2 and sys.argv[1] in alone:
         try:
@@ -4185,8 +4527,10 @@ def main() -> int:
         buffered = run_buffered(torch, np, rk)
         chunked, chunked_ms, chunked_errs = run_chunked(torch, np, rk)
         events = run_events(torch, np, rk)
-        mesh, mesh_ms, mesh_errs = run_mesh(torch, np, rk)
-        # launches on the paths of phases 7 to 11, beside each kernel's
+        mesh, mesh_ms, mesh_errs, trained = run_mesh(torch, np, rk)
+        serve = run_serve(torch, np, rk, trained)
+        del trained
+        # launches on the paths of phases 7 to 12, beside each kernel's
         # main-path count; the kernels' times at the chunked shapes and at
         # the mesh path's row
         for row in rows:
@@ -4198,7 +4542,7 @@ def main() -> int:
                 if runs[path][0].get(name)}
             row["launches_other_paths"].update({
                 path: counts[name]
-                for runs in (chunked, events, mesh)
+                for runs in (chunked, events, mesh, serve)
                 for path, counts in runs.items() if counts.get(name)})
             row.update(chunked_ms.get(name, {}))
             row.update(mesh_ms.get(name, {}))

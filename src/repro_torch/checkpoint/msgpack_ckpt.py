@@ -1,7 +1,18 @@
-"""Tagged state checkpoints in a msgpack subset, compressed with zlib.
+"""Pytree and tagged state checkpoints in a msgpack subset, compressed
+with zlib.
 
-Counterpart of the reference's ``checkpoint/msgpack_ckpt.py``
-(``save_state`` / ``restore_state``).  The format is the reference's: a
+Counterpart of the reference's ``checkpoint/msgpack_ckpt.py``.
+
+``save_checkpoint`` / ``restore_checkpoint`` store a pytree (dicts,
+lists, tuples, None; tensor or numpy leaves) as the reference does: its
+leaves in ``jax.tree.flatten`` order (dict keys sorted), each as dtype,
+shape and raw bytes (bfloat16 as a uint16 view), beside a ``"treedef"``
+string that is the one ``str(jax.tree.flatten(tree)[1])`` gives, built
+here without JAX.  So a file of either package restores through the
+other's.
+
+``save_state`` / ``restore_state`` store a template-free composite.  The
+format is the reference's: a
 composite of Python scalars, numpy arrays, lists, tuples, sets, dicts and
 NamedTuples becomes a tree of msgpack values, every non-native value a
 ``[tag, ...]`` list:
@@ -38,7 +49,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["save_state", "restore_state", "packb", "unpackb"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "save_state",
+           "restore_state", "packb", "unpackb"]
 
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"  # little-endian 0xFD2FB528 frame header
 _BF16 = "bfloat16"
@@ -205,6 +217,100 @@ def unpackb(data: bytes):
     if end != len(data):
         raise ValueError(f"{len(data) - end} extra bytes after the object")
     return obj
+
+
+# ---------------------------------------------------------------------------
+# the pytree checkpoint
+# ---------------------------------------------------------------------------
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray))
+
+
+def _flatten(tree, leaves: list) -> str:
+    """Append ``tree``'s leaves to ``leaves`` in ``jax.tree.flatten`` order
+    and return its structure as ``str(PyTreeDef)`` spells it inside the
+    parentheses."""
+    if _is_leaf(tree):
+        leaves.append(tree)
+        return "*"
+    if tree is None:
+        return "None"
+    if type(tree) is dict:
+        return "{" + ", ".join(f"{k!r}: {_flatten(tree[k], leaves)}"
+                               for k in sorted(tree)) + "}"
+    if type(tree) is list:
+        return "[" + ", ".join(_flatten(v, leaves) for v in tree) + "]"
+    if type(tree) is tuple:
+        inner = [_flatten(v, leaves) for v in tree]
+        return "(" + ", ".join(inner) + ("," if len(inner) == 1 else "") + ")"
+    raise TypeError(f"a checkpoint tree holds dicts, lists, tuples, None and "
+                    f"tensor or array leaves, not {type(tree).__name__}")
+
+
+def _tree_flatten(tree) -> tuple:
+    """``(leaves, treedef string)``, as ``jax.tree.flatten`` and ``str``."""
+    leaves: list = []
+    return leaves, f"PyTreeDef({_flatten(tree, leaves)})"
+
+
+def _unflatten(like, leaves):
+    if _is_leaf(like):
+        return next(leaves)
+    if like is None:
+        return None
+    if type(like) is dict:
+        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    return type(like)(_unflatten(v, leaves) for v in like)
+
+
+def _pack_tree_leaf(x) -> dict:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous()
+        if x.dtype == torch.bfloat16:   # stored as the reference's uint16 view
+            return {"d": _BF16, "s": list(x.shape),
+                    "b": x.view(torch.int16).numpy().tobytes()}
+        x = x.numpy()
+    return _pack_leaf(x)
+
+
+def _unpack_tree_leaf(rec, like) -> torch.Tensor:
+    if rec["d"] == _BF16:
+        raw = np.frombuffer(rec["b"], np.uint16).reshape(rec["s"]).copy()
+        t = torch.from_numpy(raw).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(_unpack_leaf(rec))
+    return t.to(like.device) if isinstance(like, torch.Tensor) else t
+
+
+def save_checkpoint(path: str, tree) -> None:
+    """Write ``tree`` to ``path``: the treedef string and the leaves as
+    msgpack bytes, zlib-compressed, written atomically."""
+    leaves, treedef = _tree_flatten(tree)
+    payload = packb({"treedef": treedef,
+                     "leaves": [_pack_tree_leaf(x) for x in leaves]})
+    _write_atomic(path, zlib.compress(payload, 6))
+
+
+def restore_checkpoint(path: str, like):
+    """Restore into the structure of ``like`` (validates the leaf count and
+    the treedef string, raising ``ValueError`` as the reference does).
+    Leaves come back as tensors of the stored dtype and shape, each on its
+    template leaf's device (the CPU for a numpy template leaf)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    obj = unpackb(_decompress(path, raw))
+    template, treedef = _tree_flatten(like)
+    if len(obj["leaves"]) != len(template):
+        raise ValueError(
+            f"checkpoint has {len(obj['leaves'])} leaves, template has "
+            f"{len(template)}")
+    if obj["treedef"] != treedef:
+        raise ValueError("checkpoint tree structure mismatch")
+    restored = [_unpack_tree_leaf(r, t)
+                for r, t in zip(obj["leaves"], template)]
+    return _unflatten(like, iter(restored))
 
 
 # ---------------------------------------------------------------------------

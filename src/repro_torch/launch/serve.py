@@ -1,0 +1,80 @@
+"""Serving steps: prefill (a full forward over the prompt) and decode (one
+new token against the KV caches of :func:`repro_torch.models.init_cache`).
+
+Counterpart of ``repro/launch/serve.py``.  Both steps run under
+``torch.inference_mode()`` on the device the step was made for (the card
+unless ``device="cpu"``); the parameters and caches must live there, and
+token inputs are moved there.  The decode step writes the caches in place
+and makes no host sync, so a loop of steps runs ahead of the host.
+
+The batch axis is the caller's to shard: on a mesh with client axes
+(``pod``, ``data``) each rank passes its own rows, and no collective is
+needed.  ``cache_mode`` takes the reference's values; they only pin
+layouts under GSPMD, so on a mesh whose ``model`` axis is 1 every mode
+gives the same values.  ``model > 1`` raises ``NotImplementedError``: the
+port has no tensor parallelism yet (ROADMAP Queue 1), and the reference's
+``serve_state_structs`` (sharded shape stand-ins for its dry-run) waits
+for it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from ..models.config import ModelConfig
+from ..models.transformer import _require_dense, decode_step, forward
+from .train import _TENSOR_PARALLEL
+
+__all__ = ["CACHE_MODES", "make_prefill_step", "make_decode_step"]
+
+CACHE_MODES = ("heads", "batch", "local", "seq")
+
+
+def _check(cfg: ModelConfig, mesh) -> None:
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(_TENSOR_PARALLEL)
+    _require_dense(cfg)
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
+                      device=None):
+    """``prefill(params, batch) -> logits`` (batch: dict of inputs, with
+    ``tokens`` (B, S)).  The logits are the LAST position's only, (B, 1,
+    V): the realistic serving prefill, which never holds (B, S, V)."""
+    _check(cfg, mesh)
+    device = resolve_device(device)
+
+    def prefill(params, batch):
+        with torch.inference_mode():
+            hidden, _ = forward(params, cfg,
+                                torch.as_tensor(batch["tokens"]).to(device),
+                                prefix=batch.get("prefix"),
+                                frames=batch.get("frames"),
+                                compute_dtype=compute_dtype,
+                                return_hidden=True)
+            head = params.get("lm_head", params["embed"])
+            return hidden[:, -1:, :] @ head.T.to(hidden.dtype)
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
+                     cache_mode: str = "heads", device=None):
+    """``decode(params, token, caches, memory=None) -> (logits, caches)``.
+
+    ``token`` is (B, 1); the caches passed in are consumed (written in
+    place) and come back with their ``idx`` advanced on the device."""
+    if cache_mode not in CACHE_MODES:
+        raise ValueError(f"unknown cache_mode {cache_mode!r}; options: "
+                         f"{CACHE_MODES}")
+    _check(cfg, mesh)
+    device = resolve_device(device)
+
+    def decode(params, token, caches, memory=None):
+        with torch.inference_mode():
+            return decode_step(params, cfg, torch.as_tensor(token).to(device),
+                               caches, memory=memory,
+                               compute_dtype=compute_dtype)
+
+    return decode

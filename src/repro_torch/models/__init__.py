@@ -1,19 +1,20 @@
 """The model zoo, functional over dicts of tensors: the paper's small
-federated benchmarks and the dense TransformerLM of the LM configs.
+federated benchmarks and the dense TransformerLM of the LM configs, with
+its KV-cache decode (``init_cache``, ``decode_step``).
 
-Counterpart of ``repro/models``.  The decode side (``init_cache``,
-``decode_step``) and the encoder (``encode_frames``) are still to port
-(ROADMAP Queue 1).
+Counterpart of ``repro/models``.  The encoder (``encode_frames``) and the
+non-dense blocks are still to port (ROADMAP Queue 1).
 """
 
 from .config import (EncoderConfig, MLAConfig, ModelConfig, MoEConfig,
                      RGLRUConfig, SSMConfig)
 from .paper_models import MODEL_ZOO, params_from_jax
-from .transformer import forward, init_model, lm_loss
+from .transformer import decode_step, forward, init_cache, init_model, lm_loss
 from . import paper_models
 
 __all__ = [
     "EncoderConfig", "MLAConfig", "ModelConfig", "MoEConfig", "RGLRUConfig",
-    "SSMConfig", "forward", "init_model", "lm_loss", "paper_models",
+    "SSMConfig", "decode_step", "forward", "init_cache", "init_model",
+    "lm_loss", "paper_models",
     "MODEL_ZOO", "params_from_jax",
 ]

@@ -10,12 +10,16 @@ Counterpart of ``repro/models/transformer.py``:
     init_model(cfg, key)                  -> params
     forward(params, cfg, tokens, ...)     -> (logits, aux_loss)
     lm_loss(params, cfg, tokens, labels)  -> scalar (chunked LM head optional)
+    init_cache(cfg, batch, s_cache)       -> per-layer cache list
+    decode_step(params, cfg, token, caches, ...) -> (logits, caches)
 
 ``cfg.remat`` checkpoints each block (``torch.utils.checkpoint``, not
-reentrant).  MLA, MoE, SSD and RG-LRU blocks, the encoder and the prefix
-embeddings raise ``NotImplementedError`` (ROADMAP Queue 1, the rest of the
-model zoo); the decode side (``init_cache``, ``decode_step``) comes with
-the serve path (Queue 1).
+reentrant) while autograd records; with grad off (prefill, under
+``torch.inference_mode``) there is nothing to recompute, and the blocks
+run plainly.  ``decode_step`` writes each layer's KV cache in place
+(:func:`repro_torch.models.attention.attn_decode`).  MLA, MoE, SSD and
+RG-LRU blocks, the encoder and the prefix embeddings raise
+``NotImplementedError`` (ROADMAP Queue 1, the rest of the model zoo).
 """
 
 from __future__ import annotations
@@ -28,10 +32,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import attention
+from ..device import resolve_device
 from .config import ModelConfig
 from .layers import embed_init, mlp_apply, mlp_init, rms_norm, rms_norm_init
 
-__all__ = ["init_model", "forward", "lm_loss"]
+__all__ = ["init_model", "forward", "lm_loss", "init_cache", "decode_step"]
 
 DENSE_KINDS = ("attn", "local")
 _LATER = ("is not ported yet (ROADMAP.md Queue 1: the rest of the model "
@@ -95,11 +100,16 @@ def init_model(cfg: ModelConfig, key=0, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _uses_window(cfg: ModelConfig, kind: str) -> bool:
+    """'local' layers, and every layer of a pure-attn config with a
+    sliding window (the long_500k dense variant), attend a window."""
+    return kind == "local" or bool(cfg.sliding_window and
+                                   len(cfg.block_pattern) == 1)
+
+
 def _block_apply(block, x, *, cfg: ModelConfig, kind: str, chunk: int):
     h = rms_norm(block["norm1"], x, cfg.norm_eps)
-    window = cfg.sliding_window if kind == "local" else (
-        cfg.sliding_window if (kind == "attn" and cfg.sliding_window and
-                               len(cfg.block_pattern) == 1) else 0)
+    window = cfg.sliding_window if _uses_window(cfg, kind) else 0
     x = x + attention.attn_apply(
         block["mix"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
@@ -123,7 +133,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for i, block in enumerate(params["blocks"]):
         fn = functools.partial(_block_apply, cfg=cfg, kind=cfg.layer_kind(i),
                                chunk=chunk)
-        if cfg.remat:
+        if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(fn, block, x, use_reentrant=False)
         else:
             x = fn(block, x)
@@ -165,3 +175,53 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         total = ce(hidden, labels)
     return total / (b * s) + aux
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_cache: int,
+               dtype=torch.bfloat16, device=None) -> list:
+    """Per-layer KV caches on ``device`` (the card unless ``"cpu"``).
+    Windowed layers (``_uses_window``) get a ring buffer of the window when
+    it is shorter than ``s_cache``; the rest ``s_cache`` slots."""
+    _require_dense(cfg)
+    device = resolve_device(device)
+    caches = []
+    for i in range(cfg.n_layers):
+        use_window = _uses_window(cfg, cfg.layer_kind(i))
+        window = cfg.sliding_window
+        size = min(window, s_cache) if use_window and window else s_cache
+        caches.append(attention.init_kv_cache(
+            batch, size, cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
+            ring=bool(use_window and window and size < s_cache),
+            device=device))
+    return caches
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: list,
+                *, memory: Optional[torch.Tensor] = None,
+                compute_dtype=torch.bfloat16):
+    """One decode step. token: (B, 1) integers -> (logits (B,1,V), caches).
+    The caches passed in are consumed (written in place).  ``memory`` is
+    the reference's encoder output for cross-attention blocks; dense blocks
+    have none, so it goes unused, as in the reference."""
+    _require_dense(cfg)
+    x = F.embedding(token.long(), params["embed"]).to(compute_dtype)
+    new_caches = []
+    for block, cache in zip(params["blocks"], caches):
+        h = rms_norm(block["norm1"], x, cfg.norm_eps)
+        mix, cache = attention.attn_decode(
+            block["mix"], h, cache, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta)
+        x = x + mix
+        new_caches.append(cache)
+        h2 = rms_norm(block["norm2"], x, cfg.norm_eps)
+        mlp = {name: w.to(x.dtype) for name, w in block["mlp"].items()}
+        x = x + mlp_apply(mlp, h2, cfg.mlp_act)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    head = params.get("lm_head", params["embed"])
+    return x @ head.T.to(compute_dtype), new_caches

@@ -9,18 +9,33 @@
   restores through the port's ``restore_state`` to equal values.
 * The port writes zlib frames, and reads a zstd frame only where
   ``zstandard`` imports.
+* The pytree ``save_checkpoint`` / ``restore_checkpoint``: the treedef
+  string is ``str(jax.tree.flatten(tree)[1])`` on the smoke LMs' params
+  (smollm; qwen2 with QKV bias), a paper model's, the mesh trainer's
+  ``init_train_state`` and odd shapes of tree; files restore bitwise
+  across the port and the reference both ways (the reference's in zstd
+  and in zlib frames); a mismatched template raises ``ValueError``.
 """
 
 import os
 import sys
 import zlib
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import configs as ref_configs
 from repro.checkpoint import msgpack_ckpt as ref_ckpt
-from repro_torch.checkpoint import msgpack_ckpt, restore_state, save_state
+from repro.launch import train as ref_train
+from repro.models import init_model as ref_init_model
+from repro.models import paper_models as ref_paper_models
+from repro_torch import configs
+from repro_torch.checkpoint import (msgpack_ckpt, restore_checkpoint,
+                                    restore_state, save_checkpoint,
+                                    save_state)
 from repro_torch.checkpoint.msgpack_ckpt import packb, unpackb
 from repro_torch.core import make_protocol
 from repro_torch.core.residual import ResidualState
@@ -28,7 +43,8 @@ from repro_torch.core.wire import WireMessage
 from repro_torch.data import make_classification
 from repro_torch.fed import EventDrivenTrainer, FedEnvironment, TrainerConfig
 from repro_torch.fed import events
-from repro_torch.models import MODEL_ZOO
+from repro_torch.launch import train as port_train
+from repro_torch.models import MODEL_ZOO, init_model
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -202,3 +218,197 @@ def test_unknown_namedtuple_is_loud(tmp_path):
     save_state(path, {"m": WireMessage(np.zeros(1, np.uint32), 0, 0.0, 1, 0)})
     with pytest.raises(KeyError, match="WireMessage"):
         restore_state(path)
+
+
+# -- the pytree checkpoint ----------------------------------------------------
+
+TREE_ARCHS = ("smollm-135m", "qwen2-0.5b")
+
+
+def _port_tree(which):
+    if which in TREE_ARCHS:
+        return init_model(configs.get_smoke_config(which), 0)
+    if which == "lstm":
+        return MODEL_ZOO["lstm"][0](torch.Generator().manual_seed(0))
+    cfg = configs.get_smoke_config("smollm-135m")
+    tc = port_train.TrainConfig(protocol="stc", momentum=0.9)
+    return port_train.init_train_state(cfg, tc, 1, key=0, device="cpu")
+
+
+def _ref_tree(which):
+    key = jax.random.PRNGKey(0)
+    if which in TREE_ARCHS:
+        return ref_init_model(ref_configs.get_smoke_config(which), key)
+    if which == "lstm":
+        return ref_paper_models.MODEL_ZOO["lstm"][0](key)
+    cfg = ref_configs.get_smoke_config("smollm-135m")
+    tc = ref_train.TrainConfig(protocol="stc", momentum=0.9)
+    return ref_train.init_train_state(cfg, tc, 1, key)   # one rank's shapes
+
+
+TREES = TREE_ARCHS + ("lstm", "train_state")
+
+
+@pytest.mark.parametrize("which", TREES)
+def test_treedef_string_is_jaxs(which):
+    leaves, treedef = msgpack_ckpt._tree_flatten(_port_tree(which))
+    ref_leaves, ref_treedef = jax.tree.flatten(_ref_tree(which))
+    assert treedef == str(ref_treedef)
+    assert [tuple(x.shape) for x in leaves] == \
+        [tuple(x.shape) for x in ref_leaves]
+
+
+ODD_TREES = [None, (), [], {}, [[[]]], ((),), {"b": [1, (2, None)], "a": {}},
+             {"it's": 0, 'q"': [0]}, {2: 0, 1: [0]}, (0,), 0]
+
+
+@pytest.mark.parametrize("i", range(len(ODD_TREES)))
+def test_treedef_string_on_odd_trees(i):
+    def leafy(t, make):
+        if isinstance(t, int) and not isinstance(t, bool):
+            return make()
+        if isinstance(t, dict):
+            return {k: leafy(v, make) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(leafy(v, make) for v in t)
+        return t
+    tree = ODD_TREES[i]
+    _, treedef = msgpack_ckpt._tree_flatten(leafy(tree, lambda: torch.zeros(2)))
+    assert treedef == str(jax.tree.flatten(leafy(tree,
+                                                 lambda: np.zeros(2)))[1])
+
+
+@pytest.mark.parametrize("bad", [1.5, "s", object(), {"a": 3}])
+def test_checkpoint_refuses_other_node_types(bad, tmp_path):
+    with pytest.raises(TypeError, match=type(bad if not isinstance(bad, dict)
+                                             else 3).__name__):
+        save_checkpoint(str(tmp_path / "x.ck"), [torch.zeros(1), bad])
+    from repro_torch.models.attention import KVCache
+    with pytest.raises(TypeError, match="KVCache"):
+        save_checkpoint(str(tmp_path / "x.ck"),
+                        KVCache(torch.zeros(1), torch.zeros(1),
+                                torch.zeros(()), False))
+
+
+def _mixed_tree():
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 5), generator=g)
+    x[0, 0] = -0.0
+    return {"w": x, "h": x.to(torch.bfloat16), "i": torch.arange(4),
+            "step": torch.zeros((), dtype=torch.int32),
+            "m": torch.tensor([True, False]),
+            "l": [torch.randn((2,), generator=g, dtype=torch.float64),
+                  (torch.empty((0, 3)), None)]}
+
+
+def _bits(x):
+    x = np.asarray(x.view(torch.int16) if (isinstance(x, torch.Tensor) and
+                                           x.dtype == torch.bfloat16)
+                   else x)
+    return x.dtype.str, x.shape, x.tobytes()
+
+
+def _assert_bitwise(got, want):
+    got_leaves, got_def = msgpack_ckpt._tree_flatten(got)
+    want_leaves, want_def = msgpack_ckpt._tree_flatten(want)
+    assert got_def == want_def
+    for g, w in zip(got_leaves, want_leaves):
+        assert isinstance(g, torch.Tensor)
+        assert g.dtype == w.dtype
+        assert _bits(g) == _bits(w)
+
+
+@pytest.mark.parametrize("which", TREES[:1] + ("mixed",))
+def test_pytree_checkpoint_roundtrips_bitwise(which, tmp_path):
+    tree = _mixed_tree() if which == "mixed" else _port_tree(which)
+    path = str(tmp_path / "p.ck")
+    save_checkpoint(path, tree)
+    with open(path, "rb") as f:
+        assert zlib.decompress(f.read())          # a zlib frame
+    _assert_bitwise(restore_checkpoint(path, tree), tree)
+
+
+@pytest.mark.parametrize("which", TREES)
+def test_port_checkpoints_restore_bitwise_in_the_reference(which, tmp_path):
+    pytest.importorskip("msgpack")
+    tree = _port_tree(which)
+    path = str(tmp_path / "port.ck")
+    save_checkpoint(path, tree)
+    back = ref_ckpt.restore_checkpoint(path, _ref_tree(which))
+    got, _ = jax.tree.flatten(back)
+    want, _ = msgpack_ckpt._tree_flatten(tree)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g = np.asarray(g)
+        assert g.shape == tuple(w.shape)
+        assert g.tobytes() == w.numpy().tobytes()
+
+
+def test_bf16_leaves_cross_both_ways(tmp_path):
+    pytest.importorskip("msgpack")
+    tree = {"h": _mixed_tree()["h"]}
+    path = str(tmp_path / "bf16.ck")
+    save_checkpoint(path, tree)
+    ref_like = {"h": jnp.zeros((3, 5), jnp.bfloat16)}
+    back = ref_ckpt.restore_checkpoint(path, ref_like)["h"]
+    assert back.dtype == jnp.bfloat16
+    assert np.asarray(back).view(np.uint16).tobytes() == \
+        tree["h"].view(torch.int16).numpy().tobytes()
+    ref_ckpt.save_checkpoint(path, {"h": back})
+    _assert_bitwise(restore_checkpoint(path, tree), tree)
+
+
+@pytest.mark.parametrize("frame", ["zstd", "zlib"])
+@pytest.mark.parametrize("which", TREES)
+def test_reference_checkpoints_restore_bitwise_through_the_port(
+        which, frame, tmp_path, monkeypatch):
+    if frame == "zstd":
+        pytest.importorskip("zstandard")
+    else:
+        monkeypatch.setattr(ref_ckpt, "zstandard", None)
+    ref = _ref_tree(which)
+    path = str(tmp_path / "ref.ck")
+    ref_ckpt.save_checkpoint(path, ref)
+    with open(path, "rb") as f:
+        assert (f.read(4) == b"\x28\xb5\x2f\xfd") == (frame == "zstd")
+    got = restore_checkpoint(path, _port_tree(which))
+    got_leaves, _ = msgpack_ckpt._tree_flatten(got)
+    want, _ = jax.tree.flatten(ref)
+    assert len(got_leaves) == len(want)
+    for g, w in zip(got_leaves, want):
+        w = np.asarray(w)
+        assert g.device.type == "cpu"
+        assert str(g.numpy().dtype) == str(w.dtype)
+        assert g.numpy().tobytes() == w.tobytes()
+
+
+def test_restore_puts_leaves_on_the_template_devices(tmp_path):
+    tree = _mixed_tree()
+    path = str(tmp_path / "d.ck")
+    save_checkpoint(path, tree)
+    like = dict(tree, w=tree["w"].numpy())       # a numpy template leaf
+    got = restore_checkpoint(path, like)
+    assert isinstance(got["w"], torch.Tensor)
+    assert list(got) == sorted(like)             # as jax.tree.unflatten
+
+
+@pytest.mark.parametrize("how", ["count", "structure"])
+def test_mismatched_template_raises_as_the_reference(how, tmp_path):
+    tree = _port_tree("smollm-135m")
+    path = str(tmp_path / "m.ck")
+    save_checkpoint(path, tree)
+    if how == "count":
+        like = dict(tree, extra=torch.zeros(1))
+        ref_like = dict(_ref_tree("smollm-135m"), extra=jnp.zeros(1))
+        match = "leaves"
+    else:
+        like = dict(tree)
+        ref_like = dict(_ref_tree("smollm-135m"))
+        like["final_norm"] = [like.pop("final_norm")["g"]]
+        ref_like["final_norm"] = [ref_like.pop("final_norm")["g"]]
+        match = "structure"
+    with pytest.raises(ValueError, match=match):
+        restore_checkpoint(path, like)
+    pytest.importorskip("msgpack")
+    with pytest.raises(ValueError, match=match):
+        ref_ckpt.restore_checkpoint(path, ref_like)

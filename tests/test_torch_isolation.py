@@ -49,6 +49,7 @@ def test_every_module_is_listed():
                  "repro_torch.models.attention",
                  "repro_torch.models.transformer",
                  "repro_torch.launch.mesh", "repro_torch.launch.train",
+                 "repro_torch.launch.serve",
                  "repro_torch.sharding.rules"):
         assert name in mods
 
@@ -59,10 +60,11 @@ def test_every_module_is_listed():
 MESH_PATH_NAMES = frozenset()
 
 # What the port leaves of each newer surface for later slices (ROADMAP
-# Queue 1): the decode side and the encoder, tensor parallelism's shardings.
+# Queue 1): the encoder, tensor parallelism's shardings and serve structs.
 NOT_YET = {
-    "models": {"decode_step", "encode_frames", "init_cache"},
+    "models": {"encode_frames"},
     "launch.train": {"state_shardings", "batch_shardings"},
+    "launch.serve": {"serve_state_structs"},
     "launch.mesh": set(),
     "configs": set(),
     "core.distributed": set(),
@@ -128,6 +130,24 @@ runpy.run_path({str(ROOT / "examples" / "train_federated_lm_torch.py")!r},
     assert out.returncode == 0, out.stderr
     assert out.stdout.count("step ") == 2
     assert "nnz_up" in out.stdout and "final loss" in out.stdout
+
+
+def test_serve_twin_runs_on_the_cpu_without_jax():
+    code = _BLOCKER + f"""
+import runpy
+sys.argv = ["serve_decode_torch.py", "--device", "cpu", "--tokens", "4",
+            "--prompt-len", "5"]
+runpy.run_path({str(ROOT / "examples" / "serve_decode_torch.py")!r},
+               run_name="__main__")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "arch=smollm-135m-smoke  batch=2  generated 4 tokens/seq" in \
+        out.stdout
+    assert "tok/s" in out.stdout and "on CPU" in out.stdout
 
 
 def test_imports_without_jax_or_reference():
