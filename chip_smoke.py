@@ -10,6 +10,7 @@
     python3 chip_smoke.py --events          # only phase 10
     python3 chip_smoke.py --mesh            # only phase 11
     python3 chip_smoke.py --serve           # only phase 12
+    python3 chip_smoke.py --moe             # only phase 13
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
@@ -230,11 +231,38 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    in a step) and one under ``torch.profiler`` (device time, idle share,
    longest operations), then 16 timed steps beside the bytes bound.
 
+13. the MoE family (``models/moe.py``, ``models/mla.py``): DeepSeek-V2-Lite
+   at full width (d 2,048, 16 heads, MLA kv_lora 512, qk 128 + 64, v 128;
+   64 routed experts, top-6, d_expert 1,408, 2 shared; the first layer
+   dense at d_ff 10,944; vocab 102,400, untied), depth cut from 27 to 3
+   layers (1,670,133,760 parameters; the trainer holds about seven fp32
+   copies of them).  One MoE FFN at full width on a (2, 128) fp32 input
+   card against CPU (experts equal wherever the 6th and 7th router
+   probabilities are more than 1e-6 apart, outputs and aux loss within
+   1e-4 of the largest magnitude) and ragged against capacity dispatch at
+   factor 8 within 3e-5; the mesh trainer in phase 11's setting, one
+   client, 5 steps (counters set to 0 just before): the loss finite and
+   falling, ``nnz`` k = 33,402,675 plus ties, the histogram, ``bin_select``
+   and ``stc_apply`` each exactly twice a step at (1, 1,670,133,760) and
+   nothing else; two local SGD runs from one state bitwise equal with no
+   deterministic-mode warning; the step split into phases with its host
+   syncs counted; the three kernels against their plain versions at that
+   row and timed beside their bounds; then serving the trained weights
+   from memory: a 64-token fp32 prompt teacher-forced against ``forward``
+   on the card and for 16 steps against the CPU, bf16 prefill at (4, 512)
+   against a bf16 decode, the prefill of one 32,768-token prompt and the
+   decode step at decode_32k's batch of 128 against a 32,768-slot bf16
+   latent cache of 14.5 GB (exactly one host sync a MoE layer, under
+   ``torch.profiler``, 16 timed steps beside the bytes bound); and
+   ``granite-moe-3b-a800m`` and ``moonshot-v1-16b-a3b`` at their smoke
+   configs card against CPU at fp32 (a forward, a train step, 8 decode
+   steps).
+
 ``--signsgd-round`` runs the last of the timings of 6 alone on the package
 of the tree the file sits in: a copy inside a parent checkout unpacked
 beside the change times the parent.  ``--paper-codecs``, ``--buffered``,
-``--chunked``, ``--events``, ``--mesh`` and ``--serve`` run phase 7, 8, 9,
-10, 11 or 12 alone.
+``--chunked``, ``--events``, ``--mesh``, ``--serve`` and ``--moe`` run
+phase 7, 8, 9, 10, 11, 12 or 13 alone.
 ``--drift-witness`` trains phase 9's dense and ``residual_mass`` runs 20
 rounds on the card twice, on the card and the CPU with one parameter and
 with every parameter moved by one ulp, on the CPU, and on the CPU with one
@@ -3668,17 +3696,16 @@ def params_digest(torch, np, params) -> str:
     return h.hexdigest()
 
 
-def mesh_single(torch, np, rk):
-    """11a: one client, no client axes, 10 steps on the card with the
-    counters set to 0 just before.  Returns ``(state, launches, cfg, tc,
-    batch)``."""
+def mesh_single(torch, np, rk, cfg, tc, batch, steps, what="mesh"):
+    """11a (13b): one client, no client axes, ``steps`` steps on the card
+    with the counters set to 0 just before: the loss finite and falling,
+    ``nnz`` k or more, the histogram, ``bin_select`` and ``stc_apply``
+    exactly twice a step at (1, numel) and nothing else.  Returns
+    ``(state, launches)``."""
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.train import init_train_state, make_train_step
-    cfg, tc, batch = mesh_setup(torch, np)
     numel = cfg.param_count()
     k = max(int(numel * tc.sparsity_up), 1)
-    require(numel == 134_515_008 and k == 2_690_300,
-            f"SmolLM-135M has {numel} parameters, k = {k}")
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, tc, 1, key=0)
     step = make_train_step(cfg, make_debug_mesh(data=1, model=1), tc)
@@ -3686,7 +3713,7 @@ def mesh_single(torch, np, rk):
     rk.LAUNCHES.reset()
     t0 = time.perf_counter()
     metrics = []
-    for _ in range(MESH_STEPS):
+    for _ in range(steps):
         state, m = step(state, batch)
         metrics.append(m)
     torch.cuda.synchronize()
@@ -3695,7 +3722,7 @@ def mesh_single(torch, np, rk):
     shapes = dict(rk.LAUNCHES.shapes)
     losses = [float(m["loss"]) for m in metrics]
     nnz = [(int(m["nnz_up"]), int(m["nnz_down"])) for m in metrics]
-    print(f"mesh single client: {MESH_STEPS} steps in {took:.2f} s, "
+    print(f"{what} single client: {steps} steps in {took:.2f} s, "
           f"losses {json.dumps(losses)}; nnz (up, down) beside k = {k}: "
           f"{nnz}; ties above k (up, down): "
           f"{[(u - k, d - k) for u, d in nnz]}; launches "
@@ -3708,16 +3735,16 @@ def mesh_single(torch, np, rk):
     require(all(u >= k and d >= k for u, d in nnz),
             f"a selection kept fewer than k = {k}: {nnz}")
     for name in MESH_KERNELS:
-        require(launches[name] == 2 * MESH_STEPS,
-                f"{name} launched {launches[name]} times in {MESH_STEPS} "
-                f"mesh steps, not twice a step")
+        require(launches[name] == 2 * steps,
+                f"{name} launched {launches[name]} times in {steps} "
+                f"{what} steps, not twice a step")
         require(shapes.get(name) == (1, numel),
                 f"{name}'s last launch was at {shapes.get(name)}, not "
                 f"(1, {numel})")
     others = {n: c for n, c in launches.items()
               if c and n not in MESH_KERNELS}
-    require(not others, f"the mesh step launched other kernels: {others}")
-    return state, launches, cfg, tc, batch
+    require(not others, f"the {what} step launched other kernels: {others}")
+    return state, launches
 
 
 def mesh_lockstep(torch, np, rk, state, cfg, tc, batch):
@@ -3960,9 +3987,29 @@ def median_s(torch, fn, reps=5):
     return statistics.median(times)
 
 
-def time_mesh_step(torch, np, state, cfg, tc, batch):
-    """11d: the single-client step split into phases, median of 5, state
-    left untouched; the WireLedger over 2 measured steps."""
+def count_syncs(torch, fn) -> int:
+    """Host synchronizations in one call of ``fn``: the warnings of
+    ``set_sync_debug_mode("warn")`` (``.tolist()``, ``.item()``, a copy
+    from or to pageable host memory, ...)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def time_mesh_step(torch, np, state, cfg, tc, batch, what="mesh", reps=5,
+                   ledger_steps=2):
+    """11d (13b): the single-client step split into phases, median of
+    ``reps``, state left untouched, and its host syncs counted; the
+    WireLedger over ``ledger_steps`` measured steps.  Each phase's inputs
+    are made just before it and dropped after (at phase 13's row the card
+    holds no more than one phase's)."""
     from repro_torch.core.compression import flatten_pytree, tree_map
     from repro_torch.core.distributed import tree_add
     from repro_torch.launch.mesh import make_debug_mesh
@@ -3974,65 +4021,79 @@ def time_mesh_step(torch, np, state, cfg, tc, batch):
     cres = tree_map(lambda x: x[0], state["client_res"])
     sres = state["server_res"]
     step = make_train_step(cfg, make_debug_mesh(data=1, model=1), tc)
-    delta = mesh_delta(torch, cfg, tc, params, batch, slice(0, 4))
-    msg, _, _ = codec.tree_encode(delta, cres, numel=numel)
-    down, _, _ = codec.tree_decode(msg, sres, numel=numel)
-    carried = tree_add(delta, cres)
-    ms = {
-        "local_sgd": median_s(torch, lambda: mesh_delta(
-            torch, cfg, tc, params, batch, slice(0, 4))),
-        "flatten": median_s(torch, lambda: flatten_pytree(carried)),
-        "tree_encode": median_s(torch, lambda: codec.tree_encode(
-            delta, cres, numel=numel)),
-        "tree_reduce": median_s(torch, lambda: codec.tree_reduce(
-            msg, None, 1)),
-        "tree_decode": median_s(torch, lambda: codec.tree_decode(
-            msg, sres, numel=numel)),
-        "apply": median_s(torch, lambda: tree_map(
-            lambda p, d: (p.to(torch.float32) + d.to(torch.float32))
-            .to(p.dtype), params, down)),
-        "step": median_s(torch, lambda: step(state, batch)),
-    }
-    ms = {k: v * 1e3 for k, v in ms.items()}
-    ms["local_sgd_not_deterministic"] = 1e3 * median_s(
+    ms = {"step": median_s(torch, lambda: step(state, batch), reps)}
+    syncs = count_syncs(torch, lambda: step(state, batch))
+    syncs_sgd = count_syncs(torch, lambda: mesh_delta(
+        torch, cfg, tc, params, batch, slice(0, 4)))
+    ms["local_sgd"] = median_s(torch, lambda: mesh_delta(
+        torch, cfg, tc, params, batch, slice(0, 4)), reps)
+    ms["local_sgd_not_deterministic"] = median_s(
         torch, lambda: mesh_delta(torch, cfg, tc, params, batch,
-                                  slice(0, 4), deterministic=False))
-    # device time of one call by torch.profiler, beside the host clock
-    for name, fn in (("local_sgd", lambda: mesh_delta(
-            torch, cfg, tc, params, batch, slice(0, 4))),
-            ("tree_encode", lambda: codec.tree_encode(delta, cres,
-                                                      numel=numel)),
-            ("step", lambda: step(state, batch))):
-        kt = kernel_times(torch, fn, calls=3) or {}
+                                  slice(0, 4), deterministic=False), reps)
+    delta = mesh_delta(torch, cfg, tc, params, batch, slice(0, 4))
+    carried = tree_add(delta, cres)
+    ms["flatten"] = median_s(torch, lambda: flatten_pytree(carried), reps)
+    del carried
+    ms["tree_encode"] = median_s(torch, lambda: codec.tree_encode(
+        delta, cres, numel=numel), reps)
+    profiled = {"step": lambda: step(state, batch),
+                "local_sgd": lambda: mesh_delta(torch, cfg, tc, params,
+                                                batch, slice(0, 4)),
+                "tree_encode": lambda: codec.tree_encode(delta, cres,
+                                                         numel=numel)}
+    for name in ("step", "local_sgd", "tree_encode"):
+        # device time of one call by torch.profiler, beside the host clock
+        kt = kernel_times(torch, profiled[name], calls=3) or {}
         dev_ms = sum(kt.values())
         top = sorted(kt.items(), key=lambda kv: -kv[1])[:6]
-        print(f"mesh {name}: device {dev_ms:.3f} ms of {ms[name]:.3f} ms "
-              f"host clock (idle share {1 - dev_ms / ms[name]:.3f}); "
-              f"{len(kt)} kernel names; longest "
+        print(f"{what} {name}: device {dev_ms:.3f} ms of "
+              f"{1e3 * ms[name]:.3f} ms host clock (idle share "
+              f"{1 - dev_ms / (1e3 * ms[name]):.3f}); {len(kt)} kernel "
+              f"names; longest "
               f"{json.dumps({k: round(v, 4) for k, v in top})}")
-        ms[name + "_device"] = dev_ms
-    measured = make_train_step(cfg, make_debug_mesh(data=1, model=1),
-                               dataclasses.replace(tc, measure_wire=True))
+        ms[name + "_device"] = dev_ms / 1e3
+    del profiled
+    msg, _, _ = codec.tree_encode(delta, cres, numel=numel)
+    del delta
+    ms["tree_reduce"] = median_s(torch, lambda: codec.tree_reduce(
+        msg, None, 1), reps)
+    ms["tree_decode"] = median_s(torch, lambda: codec.tree_decode(
+        msg, sres, numel=numel), reps)
+    down, _, _ = codec.tree_decode(msg, sres, numel=numel)
+    del msg
+    ms["apply"] = median_s(torch, lambda: tree_map(
+        lambda p, d: (p.to(torch.float32) + d.to(torch.float32))
+        .to(p.dtype), params, down), reps)
+    del down
+    ms = {k: v * 1e3 for k, v in ms.items()}
     ledger = WireLedger(codec, numel)
-    s = state
-    ledger_s = []
-    for _ in range(2):
-        s, _, (msgs, gd) = measured(s, batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ledger.record_round(msgs, gd)
-        ledger_s.append(time.perf_counter() - t0)
-    ms["wire_ledger_2_steps"] = 1e3 * sum(ledger_s)
-    print(f"mesh step phases (ms, host clock after synchronize, median of "
-          f"5): {json.dumps(ms)}; WireLedger over 2 steps "
-          f"{json.dumps(ledger.summary())}")
+    if ledger_steps:
+        measured = make_train_step(cfg, make_debug_mesh(data=1, model=1),
+                                   dataclasses.replace(tc, measure_wire=True))
+        s = state
+        ledger_s = []
+        for _ in range(ledger_steps):
+            s, _, (msgs, gd) = measured(s, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ledger.record_round(msgs, gd)
+            ledger_s.append(time.perf_counter() - t0)
+        ms[f"wire_ledger_{ledger_steps}_steps"] = 1e3 * sum(ledger_s)
+    print(f"{what} step phases (ms, host clock after synchronize, median of "
+          f"{reps}): {json.dumps(ms)}; host syncs in a step: {syncs} "
+          f"({syncs_sgd} of them in local SGD)"
+          + (f"; WireLedger over {ledger_steps} steps "
+             f"{json.dumps(ledger.summary())}" if ledger_steps else ""))
+    ms["syncs_per_step"] = syncs
     return ms
 
 
-def mesh_kernel_rows(torch, rk, row, k):
-    """The three STC kernels at the mesh path's (1, 134,515,008) row:
-    each held against its plain version, then device times beside the
-    plain versions, the byte bounds and the library calls.  Returns
+def mesh_kernel_rows(torch, rk, row, k, plain_iters=3):
+    """The three STC kernels at a mesh path's (1, numel) row: each held
+    against its plain version, then device times beside the plain
+    versions (``plain_iters`` timed calls), the byte bounds and the
+    library calls, whose inputs are made last (at phase 13's row the card
+    holds a plain version's temporaries or theirs, not both).  Returns
     ``(keys by kernel, max errors)``."""
     from repro_torch.core.selection import bin_index
     n = row.shape[1]
@@ -4049,8 +4110,6 @@ def mesh_kernel_rows(torch, rk, row, k):
     errs["stc_apply"] = 0.0
     del got, want
     s_in, b, r, cnt_b = select_inputs(torch, row, k)
-    a = row.abs()
-    bins = bin_index(a, scale[:, None], 256).to(torch.int64).reshape(-1)
 
     def bound(nbytes):
         return nbytes / HBM_BYTES_PER_S * 1e3
@@ -4058,27 +4117,33 @@ def mesh_kernel_rows(torch, rk, row, k):
     kernels = {
         "histogram": (lambda: rk.magnitude_histogram_batched(row, scale),
                       lambda: rk.magnitude_histogram_plain(row, scale),
-                      4 * n + 4 + 8 * 256,
-                      lambda: (torch.bincount(bins, minlength=256),
-                               torch.bincount(bins, weights=a.reshape(-1),
-                                              minlength=256))),
+                      4 * n + 4 + 8 * 256),
         "bin_select": (lambda: rk.candidate_select_batched(row, s_in, b, r),
                        lambda: rk.candidate_select_plain(row, s_in, b, r),
-                       4 * n + 20 + 12,
-                       lambda: torch.topk(a, k, dim=1)),
+                       4 * n + 20 + 12),
         "stc_apply": (lambda: rk.stc_apply_batched(row, t, mu),
                       lambda: rk.stc_apply_plain(row, t, mu),
-                      3 * 4 * n + 8, None)}
+                      3 * 4 * n + 8)}
     out = {}
-    for name, (kernel, plain, nbytes, lib) in kernels.items():
+    for name, (kernel, plain, nbytes) in kernels.items():
         out[name] = {
             "ms" + tag: event_ms(torch, kernel, iters=20),
-            "plain_ms" + tag: event_ms(torch, plain, iters=3,
+            "plain_ms" + tag: event_ms(torch, plain, iters=plain_iters,
                                        hold_stream=False),
             "bound_ms" + tag: bound(nbytes),
-            "library_ms" + tag: (event_ms(torch, lib, iters=3,
-                                          hold_stream=False)
-                                 if lib is not None else None)}
+            "library_ms" + tag: None}
+    a = row.abs()
+    bins = bin_index(a, scale[:, None], 256).to(torch.int64).reshape(-1)
+    out["histogram"]["library_ms" + tag] = event_ms(
+        torch, lambda: (torch.bincount(bins, minlength=256),
+                        torch.bincount(bins, weights=a.reshape(-1),
+                                       minlength=256)),
+        iters=plain_iters, hold_stream=False)
+    del bins
+    out["bin_select"]["library_ms" + tag] = event_ms(
+        torch, lambda: torch.topk(a, k, dim=1), iters=plain_iters,
+        hold_stream=False)
+    del a
     out["bin_select"]["cnt_b" + tag] = int(cnt_b[0])
     out["bin_select"]["pass_ms" + tag] = kernel_times(
         torch, lambda: rk.candidate_select_batched(row, s_in, b, r), calls=3)
@@ -4092,10 +4157,14 @@ def run_mesh(torch, np, rk):
     and depth.  Returns ``(launches by path, keys by kernel for the
     kernels line, max errors, the trained parameters)``."""
     t0 = time.perf_counter()
-    state, launches, cfg, tc, batch = mesh_single(torch, np, rk)
+    cfg, tc, batch = mesh_setup(torch, np)
+    numel = cfg.param_count()
+    k = max(int(numel * tc.sparsity_up), 1)
+    require(numel == 134_515_008 and k == 2_690_300,
+            f"SmolLM-135M has {numel} parameters, k = {k}")
+    state, launches = mesh_single(torch, np, rk, cfg, tc, batch, MESH_STEPS)
     peak = torch.cuda.max_memory_allocated() / 2**30
     row, _ = mesh_lockstep(torch, np, rk, state, cfg, tc, batch)
-    k = max(int(cfg.param_count() * tc.sparsity_up), 1)
     extra, errs = mesh_kernel_rows(torch, rk, row.contiguous(), k)
     del row
     time_mesh_step(torch, np, state, cfg, tc, batch)
@@ -4159,11 +4228,13 @@ def serve_checkpoint(torch, params):
     return back
 
 
-def serve_fp32_checks(torch, np, cfg, params):
-    """12.2 and 12.3: a 64-token prompt teacher-forced through
+def serve_fp32_checks(torch, np, cfg, params, cpu_steps=SERVE_PROMPT,
+                      greedy=SERVE_GREEDY, what="serve"):
+    """12.2 and 12.3 (13c): a 64-token prompt teacher-forced through
     ``make_decode_step`` at fp32 on the card, each step's logits against
-    ``forward``'s; the same steps on the CPU; then 32 greedy steps on the
-    card, and the CPU decoding the card's tokens."""
+    ``forward``'s; the first ``cpu_steps`` of them on the CPU; then
+    ``greedy`` greedy steps on the card, and the CPU decoding the card's
+    tokens."""
     from repro_torch.core.compression import tree_map
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.serve import make_decode_step
@@ -4183,25 +4254,31 @@ def serve_fp32_checks(torch, np, cfg, params):
     for t in range(SERVE_PROMPT):
         tok = toks[:, t:t + 1]
         lg, c_card = dec_card(params, tok.cuda(), c_card)
-        lc, c_cpu = dec_cpu(cpu_params, tok, c_cpu)
-        lg, lc = lg[:, 0].cpu(), lc[:, 0]
+        lg = lg[:, 0].cpu()
         want = full[:, t].cpu()
         fwd_gap = max(fwd_gap, float((lg - want).abs().max()))
         require(torch.allclose(lg, want, **DECODE_FORWARD_TOL),
                 f"decode step {t} differs from forward on the card by "
                 f"{float((lg - want).abs().max())}")
+        if t >= cpu_steps:
+            continue
+        lc, c_cpu = dec_cpu(cpu_params, tok, c_cpu)
+        lc = lc[:, 0]
         card_cpu_gap = max(card_cpu_gap, float((lg - lc).abs().max()))
         require(torch.allclose(lg, lc, **CARD_CPU_TOL),
                 f"decode step {t}: card and CPU differ by "
                 f"{float((lg - lc).abs().max())}")
-    print(f"serve fp32, batch {SERVE_BATCH}, {SERVE_PROMPT}-token prompt: "
+    print(f"{what} fp32, batch {SERVE_BATCH}, {SERVE_PROMPT}-token prompt: "
           f"decode against forward on the card max |gap| {fwd_gap:.3e} "
-          f"(tolerance {DECODE_FORWARD_TOL}); card against CPU max |gap| "
+          f"(tolerance {DECODE_FORWARD_TOL}); card against CPU over "
+          f"{min(cpu_steps, SERVE_PROMPT)} steps max |gap| "
           f"{card_cpu_gap:.3e} (tolerance {CARD_CPU_TOL})")
+    if not greedy:
+        return {"decode_vs_forward": fwd_gap, "card_vs_cpu": card_cpu_gap}
     same = checked = 0
     greedy_gap = 0.0
     tok = lg.argmax(dim=-1, keepdim=True)
-    for _ in range(SERVE_GREEDY):
+    for _ in range(greedy):
         lg, c_card = dec_card(params, tok.cuda(), c_card)
         lc, c_cpu = dec_cpu(cpu_params, tok, c_cpu)
         lg, lc = lg[:, 0].cpu(), lc[:, 0]
@@ -4221,9 +4298,9 @@ def serve_fp32_checks(torch, np, cfg, params):
                 "top-2 gap exceeds the tolerance")
         checked += int(clear.sum())
         same += int(agree.sum())
-    print(f"serve greedy, {SERVE_GREEDY} steps: card and CPU logits max "
+    print(f"{what} greedy, {greedy} steps: card and CPU logits max "
           f"|gap| {greedy_gap:.3e}; tokens equal {same} of "
-          f"{SERVE_GREEDY * SERVE_BATCH} ({checked} with a top-2 gap above "
+          f"{greedy * SERVE_BATCH} ({checked} with a top-2 gap above "
           f"twice the tolerance, all of them equal)")
     return {"decode_vs_forward": fwd_gap, "card_vs_cpu": max(
         card_cpu_gap, greedy_gap)}
@@ -4260,9 +4337,9 @@ def serve_ring_check(torch, np, cfg, params):
     return gap
 
 
-def serve_bf16_check(torch, np, cfg, params):
-    """12.5: ``make_prefill_step`` at (4, 512) in bf16 against the last
-    logits of a bf16 teacher-forced decode over the same prompt."""
+def serve_bf16_check(torch, np, cfg, params, what="serve"):
+    """12.5 (13c): ``make_prefill_step`` at (4, 512) in bf16 against the
+    last logits of a bf16 teacher-forced decode over the same prompt."""
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.serve import make_decode_step, make_prefill_step
     from repro_torch.models import init_cache
@@ -4279,7 +4356,7 @@ def serve_bf16_check(torch, np, cfg, params):
     gap = float((lg - pre).abs().max())
     top = float(pre.abs().max())
     same = int((lg.argmax(-1) == pre.argmax(-1)).sum())
-    print(f"serve bf16: prefill ({b}, {s}) against {s} teacher-forced "
+    print(f"{what} bf16: prefill ({b}, {s}) against {s} teacher-forced "
           f"decode steps: last logits max |gap| {gap:.4f} of max |logit| "
           f"{top:.4f} (tolerance {BF16_TOL} of it); argmax equal in {same} "
           f"of {b} rows")
@@ -4288,8 +4365,9 @@ def serve_bf16_check(torch, np, cfg, params):
     return gap
 
 
-def time_prefill(torch, np, cfg, params):
-    """12.6a: one 32,768-token prompt through ``make_prefill_step``."""
+def time_prefill(torch, np, cfg, params, what="serve"):
+    """12.6a (13c): one 32,768-token prompt through
+    ``make_prefill_step``."""
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.serve import make_prefill_step
     b, s = PREFILL
@@ -4302,35 +4380,48 @@ def time_prefill(torch, np, cfg, params):
     ms = 1e3 * median_s(torch, lambda: prefill(params, {"tokens": toks}),
                         reps=3)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"serve prefill ({b}, {s}) bf16: {ms:.1f} ms (median of 3), "
+    print(f"{what} prefill ({b}, {s}) bf16: {ms:.1f} ms (median of 3), "
           f"{b * s / ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} GiB; "
           f"card: {card_line()}")
     return ms
 
 
-def time_decode(torch, np, cfg, params):
-    """12.6b: batch 64 against a 32,768-slot bf16 cache filled with seeded
-    random values, ``idx`` at 32,768 - 24: 8 warm-up steps (one under
-    ``set_sync_debug_mode("error")``, one under ``torch.profiler``), then 16
-    timed steps, each feeding back its argmax."""
+def time_decode(torch, np, cfg, params, shape=DECODE, syncs=0,
+                what="serve"):
+    """12.6b (13c): batch ``shape[0]`` against a ``shape[1]``-slot bf16
+    cache filled with seeded random values, ``idx`` at the last slot - 24:
+    8 warm-up steps (one under ``set_sync_debug_mode``: none with
+    ``syncs`` 0, else exactly ``syncs`` host syncs, one a MoE layer; one
+    under ``torch.profiler``), then 16 timed steps, each feeding back its
+    argmax.  The bound reads the cache and the weights once: all of them
+    but an untied embedding table, of which the step reads its batch's
+    rows (with 64 experts and top-6, batch 128 routes to every expert of a
+    layer but with probability ~1e-5)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.compression import tree_leaves
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.serve import make_decode_step
     from repro_torch.models import init_cache
-    b, s = DECODE
+    b, s = shape
+    torch.cuda.reset_peak_memory_stats()
     caches = init_cache(cfg, b, s)
     gen = torch.Generator(device="cuda").manual_seed(5)
     start = torch.tensor(s - DECODE_WARM - DECODE_TIMED, dtype=torch.int32,
                          device="cuda")
+    buffers = []
     for i, c in enumerate(caches):
-        c.k.normal_(generator=gen)
-        c.v.normal_(generator=gen)
+        for field, buf in zip(c._fields, c):
+            if field not in ("idx", "ring"):
+                buf.normal_(generator=gen)
+                buffers.append(buf)
         caches[i] = c._replace(idx=start.clone())
-    cache_bytes = sum(c.k.numel() * c.k.element_size() * 2 for c in caches)
+    cache_bytes = sum(x.numel() * x.element_size() for x in buffers)
     weight_bytes = sum(x.numel() * x.element_size()
                        for x in tree_leaves(params))
+    if "lm_head" in params:
+        emb = params["embed"]
+        weight_bytes -= (emb.shape[0] - b) * emb.shape[1] * emb.element_size()
     dec = make_decode_step(cfg, make_debug_mesh(data=1, model=1))
     tok = serve_tokens(torch, np, cfg, (b, 1), seed=6).cuda()
     state = {"tok": tok, "caches": caches}
@@ -4342,11 +4433,18 @@ def time_decode(torch, np, cfg, params):
     for _ in range(DECODE_WARM - 2):
         step()
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        step()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    if syncs:
+        got = count_syncs(torch, step)
+        require(got == syncs, f"{what} decode step made {got} host syncs, "
+                f"not {syncs} (one a MoE layer)")
+        sync_note = f"{got} host syncs in a step (one a MoE layer)"
+    else:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync_note = "no host sync in a step (set_sync_debug_mode('error'))"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4369,20 +4467,19 @@ def time_decode(torch, np, cfg, params):
     ms = 1e3 * statistics.median(step_s)
     require(all(int(c.idx) == s for c in state["caches"]),
             "the caches' idx did not reach the last slot")
-    require(bool(torch.isfinite(state["caches"][0].k[:, -1]).all()),
-            "decode wrote non-finite K")
+    require(bool(torch.isfinite(state["caches"][0][0][:, -1]).all()),
+            "decode wrote non-finite cache values")
     bound_cache = cache_bytes / HBM_BYTES_PER_S * 1e3
     bound = (cache_bytes + weight_bytes) / HBM_BYTES_PER_S * 1e3
     top = [(name[:90], round(t, 3)) for name, t in
            sorted(times.items(), key=lambda kv: -kv[1])[:6]]
-    print(f"serve decode, batch {b}, {s}-slot bf16 cache "
+    print(f"{what} decode, batch {b}, {s}-slot bf16 cache "
           f"({cache_bytes / 1e9:.2f} GB): {ms:.2f} ms a step (median of "
           f"{DECODE_TIMED}; steps {json.dumps([round(x * 1e3, 2) for x in step_s])}), "
           f"{b / ms * 1e3:.0f} tokens/s; bound {bound:.2f} ms (the cache "
           f"alone {bound_cache:.2f} ms, + fp32 weights {weight_bytes / 1e9:.3f}"
-          f" GB), {ms / bound:.1f}x it; no host sync in a step "
-          f"(set_sync_debug_mode('error')); card: {card_line()}")
-    print(f"serve decode step by torch.profiler: device {dev_ms:.2f} ms of "
+          f" GB), {ms / bound:.1f}x it; {sync_note}; card: {card_line()}")
+    print(f"{what} decode step by torch.profiler: device {dev_ms:.2f} ms of "
           f"{ms:.2f} ms (idle share {max(0.0, 1 - dev_ms / ms):.3f}); "
           f"{len(times)} device operation names; longest "
           f"{json.dumps(top)}; peak "
@@ -4424,6 +4521,243 @@ def run_serve(torch, np, rk, params=None):
     return {"serve": launches}
 
 
+# --------------------------------------------------------------- phase 13
+
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_LAYERS = 3          # cut from 27: the dense first layer and two MoE ones
+MOE_NUMEL = 1_670_133_760
+MOE_K = 33_402_675      # int(MOE_NUMEL / 50)
+MOE_STEPS = 5
+MOE_BLOCK_X = (2, 128)
+MOE_BLOCK_TOL = 1e-4    # card against CPU, of the largest magnitude
+MOE_TIE_GAP = 1e-6      # 6th against 7th router probability
+MOE_DISPATCH_TOL = 3e-5  # ragged against capacity: tests/test_moe_dispatch.py
+MOE_CPU_STEPS = 16      # decode steps card against CPU
+MOE_DECODE = (128, 32_768)   # decode_32k's batch and cache length
+MOE_SMOKE = ("granite-moe-3b-a800m", "moonshot-v1-16b-a3b")
+MOE_SMOKE_SHAPE = (2, 32)
+MOE_SMOKE_DECODE = 8
+
+
+def moe_setup(torch, np):
+    """DeepSeek-V2-Lite at full width (d 2,048, 16 heads, MLA kv_lora 512,
+    qk 128 + 64, v 128; 64 experts, top-6, d_expert 1,408, 2 shared; the
+    first layer dense at d_ff 10,944; vocab 102,400, untied), depth cut
+    to 3 layers, phase 11's STC setting and a 4 x 128 batch of
+    ``make_lm_tokens(seed=0)``: ``(cfg, tc, batch)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.launch.train import TrainConfig
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    toks = make_lm_tokens(seed=0, n_tokens=4 * 128 + 1, vocab=cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(toks[:-1].reshape(4, 128)),
+             "labels": torch.from_numpy(toks[1:].reshape(4, 128))}
+    return cfg, TrainConfig(**MESH_TC), batch
+
+
+def moe_block_check(torch, np, cfg):
+    """13a: one MoE FFN at full width on a (2, 128) fp32 input, card
+    against CPU: the experts chosen equal wherever the 6th and 7th router
+    probabilities are more than 1e-6 apart, outputs (of those tokens) and
+    the aux loss within 1e-4 of the largest magnitude; on the card the
+    ragged dispatch against the capacity dispatch at capacity factor 8
+    (no drop) within 3e-5."""
+    from repro_torch.core.compression import tree_map
+    from repro_torch.models import moe
+    mcfg, d, k = cfg.moe, cfg.d_model, cfg.moe.top_k
+    p_cpu = moe.moe_init(torch.Generator().manual_seed(0), d, mcfg,
+                         cfg.mlp_act)
+    p_card = tree_map(lambda t: t.cuda(), p_cpu)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        MOE_BLOCK_X + (d,)).astype(np.float32))
+    big = dataclasses.replace(mcfg, dispatch="capacity", capacity_factor=8.0)
+    with torch.no_grad():
+        out_c, aux_c = moe.moe_apply(p_cpu, x, mcfg, cfg.mlp_act)
+        out_g, aux_g = moe.moe_apply(p_card, x.cuda(), mcfg, cfg.mlp_act)
+        out_cap, aux_cap = moe.moe_apply(p_card, x.cuda(), big, cfg.mlp_act)
+        probs, _, idx_c = moe.route(p_cpu, x.reshape(-1, d), mcfg)
+        _, _, idx_g = moe.route(p_card, x.cuda().reshape(-1, d), mcfg)
+    top = probs.sort(dim=-1, descending=True).values
+    clear = (top[:, k - 1] - top[:, k]) > MOE_TIE_GAP
+    require(torch.equal(idx_g.cpu()[clear], idx_c[clear]),
+            "the card's router chose other experts than the CPU's")
+    out_g, out_c = out_g.cpu().reshape(-1, d), out_c.reshape(-1, d)
+    err = float((out_g - out_c)[clear].abs().max())
+    scale = float(out_c.abs().max())
+    aux_err = abs(float(aux_g) - float(aux_c))
+    disp = float((out_cap.cpu().reshape(-1, d) - out_g).abs().max())
+    print(f"moe block at full width ({mcfg.n_experts} experts, top-{k}, "
+          f"d_expert {mcfg.d_expert}, {mcfg.n_shared} shared) on "
+          f"{MOE_BLOCK_X} fp32: {int(clear.sum())} of {clear.numel()} tokens "
+          f"clear of a 1e-6 router tie, experts equal there; card against "
+          f"CPU max |out gap| {err:.3e} of max |out| {scale:.3e}, aux "
+          f"{float(aux_g)!r} against {float(aux_c)!r}; ragged against "
+          f"capacity (factor 8) max |gap| {disp:.3e}, aux "
+          f"{float(aux_cap)!r}")
+    require(err <= MOE_BLOCK_TOL * scale, f"MoE block card against CPU "
+            f"{err} > {MOE_BLOCK_TOL} x {scale}")
+    require(aux_err <= MOE_BLOCK_TOL * abs(float(aux_c)),
+            f"MoE aux loss card {float(aux_g)} against CPU {float(aux_c)}")
+    require(disp <= MOE_DISPATCH_TOL, f"ragged and capacity dispatch differ "
+            f"by {disp} on the card")
+    require(abs(float(aux_cap) - float(aux_g)) <= 1e-5 * abs(float(aux_g)),
+            "the capacity dispatch's aux loss differs from the ragged one's")
+    return {"card_vs_cpu": err, "dispatch": disp}
+
+
+def moe_rerun_check(torch, cfg, tc, state, batch):
+    """13b: two local SGD runs from the same state under the trainer's
+    deterministic algorithms give bitwise equal gradients, and the mode
+    warns of no operation."""
+    import warnings
+    from repro_torch.core.compression import tree_leaves
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        one = mesh_delta(torch, cfg, tc, state["params"], batch, slice(0, 4))
+        two = mesh_delta(torch, cfg, tc, state["params"], batch, slice(0, 4))
+        torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(one),
+                                                 tree_leaves(two)))
+    alerts = sorted({str(w.message)[:160] for w in caught
+                     if "determinis" in str(w.message).lower()})
+    print(f"moe reruns: two local SGD runs from one state bitwise equal: "
+          f"{same}; deterministic-mode warnings {alerts}; "
+          f"{len(caught)} warnings in all")
+    require(same, "two local SGD runs from the same state differ")
+    require(not alerts, f"the deterministic mode warned: {alerts}")
+
+
+def moe_smoke_archs(torch, np):
+    """13d: ``granite-moe-3b-a800m`` and ``moonshot-v1-16b-a3b`` at their
+    smoke configs, card against CPU at fp32: one forward (logits within
+    1e-4 of the largest, aux loss within rtol 1e-4), one train step with
+    the dense ``baseline`` codec (the loss within rtol 1e-4, the update
+    within 1e-4 of its largest magnitude; STC at this size keeps or drops
+    near-ties that ulps decide) and 8 decode steps (logits within rtol
+    1e-4 / atol 1e-4)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compression import (flatten_pytree, tree_map)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.launch.train import (TrainConfig, init_train_state,
+                                          make_train_step)
+    from repro_torch.models import forward, init_cache, init_model
+    mesh = make_debug_mesh(data=1, model=1)
+    out = {}
+    for arch in MOE_SMOKE:
+        cfg = get_smoke_config(arch)
+        p_cpu = init_model(cfg, 0)
+        p_card = tree_map(lambda t: t.cuda(), p_cpu)
+        toks = serve_tokens(torch, np, cfg, MOE_SMOKE_SHAPE, seed=7)
+        with torch.no_grad():
+            lg_c, aux_c = forward(p_cpu, cfg, toks,
+                                  compute_dtype=torch.float32)
+            lg_g, aux_g = forward(p_card, cfg, toks.cuda(),
+                                  compute_dtype=torch.float32)
+        fwd = float((lg_g.cpu() - lg_c).abs().max())
+        require(fwd <= 1e-4 * float(lg_c.abs().max()) and
+                abs(float(aux_g) - float(aux_c)) <= 1e-4 * float(aux_c),
+                f"{arch}: forward card against CPU {fwd}, aux "
+                f"{float(aux_g)} against {float(aux_c)}")
+        tc = TrainConfig(protocol="baseline", lr=0.05,
+                         compute_dtype=torch.float32)
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+        devices = {"card": "cuda", "host": "cpu"}
+        runs = {}
+        for where, dev in devices.items():
+            state = init_train_state(cfg, tc, 1, device=dev,
+                                     params=tree_map(lambda t: t.clone(),
+                                                     p_cpu))
+            new, m = make_train_step(cfg, mesh, tc, device=dev)(state, batch)
+            runs[where] = (float(m["loss"]), flatten_pytree(
+                new["params"])[0].cpu() - flatten_pytree(p_cpu)[0])
+        (loss_g, upd_g), (loss_c, upd_c) = runs["card"], runs["host"]
+        upd = float((upd_g - upd_c).abs().max())
+        require(abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) and
+                upd <= 1e-4 * float(upd_c.abs().max()),
+                f"{arch}: train step card against CPU: loss {loss_g} "
+                f"against {loss_c}, update gap {upd}")
+        dec = {where: make_decode_step(cfg, mesh, torch.float32, device=dev)
+               for where, dev in devices.items()}
+        caches = {where: init_cache(cfg, 2, MOE_SMOKE_DECODE, torch.float32,
+                                    device=dev)
+                  for where, dev in devices.items()}
+        gap = 0.0
+        for t in range(MOE_SMOKE_DECODE):
+            tok = toks[:, t:t + 1]
+            lg, caches["card"] = dec["card"](p_card, tok.cuda(),
+                                             caches["card"])
+            lc, caches["host"] = dec["host"](p_cpu, tok, caches["host"])
+            gap = max(gap, float((lg.cpu() - lc).abs().max()))
+            require(torch.allclose(lg.cpu(), lc, **CARD_CPU_TOL),
+                    f"{arch}: decode step {t} card against CPU "
+                    f"{float((lg.cpu() - lc).abs().max())}")
+        out[arch] = {"forward": fwd, "train_loss": loss_g,
+                     "update_gap": upd, "decode": gap}
+    print(f"moe smoke archs card against CPU at fp32 (max |gap|): "
+          f"{json.dumps(out)}")
+    return out
+
+
+def run_moe(torch, np, rk):
+    """Phase 13: the MoE family on the card, DeepSeek-V2-Lite at full
+    width and 3 layers through the mesh trainer and the serve path, then
+    the other two MoE archs at their smoke configs.  Returns ``(launches
+    by path, keys by kernel for the kernels line, max errors)``."""
+    from repro_torch.core.compression import flatten_pytree, tree_map
+    from repro_torch.core.distributed import tree_add
+    t0 = time.perf_counter()
+    cfg, tc, batch = moe_setup(torch, np)
+    numel = cfg.param_count()
+    k = max(int(numel * tc.sparsity_up), 1)
+    require(numel == MOE_NUMEL and k == MOE_K,
+            f"{cfg.name} at {MOE_LAYERS} layers has {numel} parameters, "
+            f"k = {k}")
+    moe_layers = sum(i >= cfg.moe.first_dense for i in range(cfg.n_layers))
+    moe_block_check(torch, np, cfg)
+    state, launches = mesh_single(torch, np, rk, cfg, tc, batch, MOE_STEPS,
+                                  what="moe")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moe_rerun_check(torch, cfg, tc, state, batch)
+    time_mesh_step(torch, np, state, cfg, tc, batch, what="moe", reps=3,
+                   ledger_steps=0)
+    # the kernels at the trainer's row, on the carried row of the next
+    # encode; the parameters wait on the host meanwhile, so that the plain
+    # versions' temporaries fit
+    delta = mesh_delta(torch, cfg, tc, state["params"], batch, slice(0, 4))
+    row = flatten_pytree(tree_add(delta, tree_map(
+        lambda x: x[0], state["client_res"])))[0][None]
+    params = tree_map(lambda t: t.cpu(), state["params"])
+    del delta, state
+    torch.cuda.empty_cache()
+    extra, errs = mesh_kernel_rows(torch, rk, row, k, plain_iters=1)
+    del row
+    torch.cuda.empty_cache()
+    params = tree_map(lambda t: t.cuda(), params)
+    t_serve = time.perf_counter()
+    rk.LAUNCHES.reset()
+    serve_fp32_checks(torch, np, cfg, params, cpu_steps=MOE_CPU_STEPS,
+                      greedy=0, what="moe serve")
+    serve_bf16_check(torch, np, cfg, params, what="moe serve")
+    torch.cuda.empty_cache()
+    time_prefill(torch, np, cfg, params, what="moe serve")
+    torch.cuda.empty_cache()
+    time_decode(torch, np, cfg, params, shape=MOE_DECODE, syncs=moe_layers,
+                what="moe serve")
+    ran = {n: c for n, c in rk.LAUNCHES.counts.items() if c}
+    require(not ran, f"the serve path launched the port's kernels: {ran}")
+    del params
+    torch.cuda.empty_cache()
+    t_smoke = time.perf_counter()
+    moe_smoke_archs(torch, np)
+    torch.cuda.empty_cache()
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s (serve "
+          f"{t_smoke - t_serve:.1f} s, smoke archs "
+          f"{time.perf_counter() - t_smoke:.1f} s; peak memory of the "
+          f"{MOE_STEPS} trainer steps {peak:.3f} GiB); card: {card_line()}")
+    return {"moe": launches}, extra, errs
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -4452,6 +4786,7 @@ def main() -> int:
              "--events": lambda: run_events(torch, np, rk),
              "--mesh": lambda: run_mesh(torch, np, rk),
              "--serve": lambda: run_serve(torch, np, rk),
+             "--moe": lambda: run_moe(torch, np, rk),
              "--drift-witness": lambda: drift_witness(torch, np, rk)}
     if len(sys.argv) == 2 and sys.argv[1] in alone:
         try:
@@ -4530,9 +4865,11 @@ def main() -> int:
         mesh, mesh_ms, mesh_errs, trained = run_mesh(torch, np, rk)
         serve = run_serve(torch, np, rk, trained)
         del trained
-        # launches on the paths of phases 7 to 12, beside each kernel's
+        torch.cuda.empty_cache()
+        moe, moe_ms, moe_errs = run_moe(torch, np, rk)
+        # launches on the paths of phases 7 to 13, beside each kernel's
         # main-path count; the kernels' times at the chunked shapes and at
-        # the mesh path's row
+        # the mesh paths' rows
         for row in rows:
             name = {"magnitude_histogram": "histogram"}.get(row["name"],
                                                             row["name"])
@@ -4542,11 +4879,12 @@ def main() -> int:
                 if runs[path][0].get(name)}
             row["launches_other_paths"].update({
                 path: counts[name]
-                for runs in (chunked, events, mesh, serve)
+                for runs in (chunked, events, mesh, serve, moe)
                 for path, counts in runs.items() if counts.get(name)})
             row.update(chunked_ms.get(name, {}))
             row.update(mesh_ms.get(name, {}))
-            for errs_of in (chunked_errs, mesh_errs):
+            row.update(moe_ms.get(name, {}))
+            for errs_of in (chunked_errs, mesh_errs, moe_errs):
                 if name in errs_of:
                     row["max_abs_err"] = max(row["max_abs_err"],
                                              errs_of[name])

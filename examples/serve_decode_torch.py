@@ -10,9 +10,11 @@ prefilled by teacher-forcing it through decode steps, then each step feeds
 back its argmax.  The default is the arch's smoke config (``--full``: its
 full config, SmolLM-135M's 30 layers at d 576) with random weights from
 seed 0.  Runs on the CUDA card unless ``--device cpu`` is given.  The
-port serves the dense archs (smollm, qwen2, phi3); the others raise
-``NotImplementedError`` (ROADMAP Queue 1: the rest of the model zoo),
-among them the reference example's default, mamba2-370m.
+port serves the dense archs (smollm, qwen2, phi3) and the MoE family
+(deepseek-v2-lite-16b with its MLA latent cache, moonshot-v1-16b-a3b,
+granite-moe-3b-a800m); the others raise ``NotImplementedError`` (ROADMAP
+Queue 1: the rest of the model zoo), among them the reference example's
+default, mamba2-370m.
 """
 
 import argparse

@@ -5,7 +5,9 @@ Counterpart of ``repro/launch/serve.py``.  Both steps run under
 ``torch.inference_mode()`` on the device the step was made for (the card
 unless ``device="cpu"``); the parameters and caches must live there, and
 token inputs are moved there.  The decode step writes the caches in place
-and makes no host sync, so a loop of steps runs ahead of the host.
+and, on the dense blocks, makes no host sync, so a loop of steps runs
+ahead of the host; a MoE layer reads its experts' group sizes to the host,
+one sync a layer a step (:mod:`repro_torch.models.moe`).
 
 The batch axis is the caller's to shard: on a mesh with client axes
 (``pod``, ``data``) each rank passes its own rows, and no collective is
@@ -23,7 +25,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import _require_dense, decode_step, forward
+from ..models.transformer import _require_ported, decode_step, forward
 from .train import _TENSOR_PARALLEL
 
 __all__ = ["CACHE_MODES", "make_prefill_step", "make_decode_step"]
@@ -34,7 +36,7 @@ CACHE_MODES = ("heads", "batch", "local", "seq")
 def _check(cfg: ModelConfig, mesh) -> None:
     if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(_TENSOR_PARALLEL)
-    _require_dense(cfg)
+    _require_ported(cfg)
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,

@@ -23,7 +23,10 @@ The ``model`` axis (tensor parallelism inside a client) is not ported:
 :func:`make_train_step` raises for ``model > 1`` (ROADMAP Queue 1).  The
 step runs on the card unless ``device="cpu"`` is passed; on the card the
 local SGD runs under PyTorch's deterministic algorithms, so that reruns
-and ranks are bitwise.  Momentum defaults OFF per the paper's lesson (6).
+and ranks are bitwise (the MoE blocks' dispatch moves rows by gathers
+both ways, with no atomic adds).  A MoE layer reads its experts' group
+sizes to the host, one sync a layer in the forward and one in remat's
+recompute.  Momentum defaults OFF per the paper's lesson (6).
 
 Run as a script; it spawns its ranks itself (gloo, every rank on the same
 device):
@@ -47,7 +50,7 @@ from ..core.distributed import all_gather, psum
 from ..core.protocols import Codec, get_protocol_class
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import _require_dense, init_model, lm_loss
+from ..models.transformer import _require_ported, init_model, lm_loss
 from ..sharding.rules import batch_rows
 
 __all__ = ["TrainConfig", "WireLedger", "codec_for", "init_train_state",
@@ -222,7 +225,7 @@ def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
     device = resolve_device(device)
     if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(_TENSOR_PARALLEL)
-    _require_dense(cfg)
+    _require_ported(cfg)
     group = mesh.client_group()
     rank = mesh.client_rank()
     n_clients = mesh.n_clients
@@ -324,6 +327,7 @@ def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
                 if "client_res" in state else None)
         msg, new_cres, m_up = codec.tree_encode(delta, cres, numel=numel,
                                                 iters=tc.stc_iters)
+        del delta                   # one model-sized copy less at the decode
         if "client_res" in state:
             if arrived is not None:
                 new_cres = where(arrived, new_cres,

@@ -1,9 +1,10 @@
 """The model zoo, functional over dicts of tensors: the paper's small
-federated benchmarks and the dense TransformerLM of the LM configs, with
-its KV-cache decode (``init_cache``, ``decode_step``).
+federated benchmarks and the TransformerLM of the LM configs (attention,
+MLA and MoE blocks), with its KV-cache decode (``init_cache``,
+``decode_step``).
 
 Counterpart of ``repro/models``.  The encoder (``encode_frames``) and the
-non-dense blocks are still to port (ROADMAP Queue 1).
+SSD and RG-LRU blocks are still to port (ROADMAP Queue 1).
 """
 
 from .config import (EncoderConfig, MLAConfig, ModelConfig, MoEConfig,

@@ -173,16 +173,25 @@ def attn_decode(
     k = apply_rope(k, cos, sin)
 
     s_cache = cache.k.shape[1]
-    slot = (cache.idx % s_cache if cache.ring
-            else torch.clamp(cache.idx, max=s_cache - 1))
-    slot = slot.reshape(1).long()
-    cache.k.index_copy_(1, slot, k.to(cache.k.dtype))
-    cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
+    write_slot(cache.idx, cache.ring, (cache.k, k), (cache.v, v))
     n_valid = torch.clamp(cache.idx + 1, max=s_cache)
     valid = torch.arange(s_cache, device=x.device) < n_valid
     out = _dense_decode_attn(q, cache.k, cache.v, valid)
     out = out.reshape(b, 1, n_heads * head_dim) @ params["wo"].to(x.dtype)
     return out, cache._replace(idx=cache.idx + 1)
+
+
+def write_slot(idx: torch.Tensor, ring: bool, *pairs) -> None:
+    """Write each ``(buffer, value)`` pair's one-position ``value`` into its
+    ``(B, S_cache, ...)`` buffer IN PLACE, at position ``idx`` (the
+    caches' device counter: no host sync) along dim 1: ``idx % S_cache``
+    for a ring, else ``idx`` clamped to the last slot, as the reference's
+    ``dynamic_update_slice`` clamps."""
+    s_cache = pairs[0][0].shape[1]
+    slot = idx % s_cache if ring else torch.clamp(idx, max=s_cache - 1)
+    slot = slot.reshape(1).long()
+    for buf, value in pairs:
+        buf.index_copy_(1, slot, value.to(buf.dtype))
 
 
 def _dense_decode_attn(q, k, v, valid):

@@ -33,8 +33,12 @@ def params_from_jax(tree, device=None):
     """A parameter tree of numpy arrays (e.g. a JAX model's initial values
     through ``np.asarray``) as the port's dict of fp32 tensors: the paper
     models' dicts and the TransformerLM's nested tree alike (its ``blocks``
-    list of ``norm1`` / ``mix`` / ``norm2`` / ``mlp`` dicts with the ``g``,
-    ``wq``, ``wk``, ... leaves), keys and list order kept."""
+    list of ``norm1`` / ``mix`` / ``norm2`` / ``mlp`` or ``moe`` dicts: the
+    attention's ``wq``, ``wk``, ... leaves, MLA's ``w_dkv``, ``w_kr``,
+    ``w_uk``, ``w_uv``, ``wo``, ``wq``, the MoE's ``router``, stacked
+    ``w_down`` / ``w_gate`` / ``w_up`` and ``shared_i`` MLPs), keys and
+    list order kept, so ``tree_leaves`` gives ``jax.tree.flatten``'s
+    order."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

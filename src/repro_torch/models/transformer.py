@@ -1,9 +1,12 @@
-"""TransformerLM: the dense ``"attn"`` / ``"local"`` blocks of a
-:class:`~repro_torch.models.config.ModelConfig` composed into a trainable
-causal LM.  Functional: parameters are nested dicts (and the ``blocks``
-list) of fp32 tensors in the reference's layout, so
+"""TransformerLM: the ``"attn"`` / ``"local"`` / ``"mla"`` blocks of a
+:class:`~repro_torch.models.config.ModelConfig`, each with a dense MLP or
+a MoE FFN, composed into a trainable causal LM.  Functional: parameters
+are nested dicts (and the ``blocks`` list) of fp32 tensors in the
+reference's layout, so
 :func:`~repro_torch.models.paper_models.params_from_jax` hands a JAX
-model's values over and ``jax.tree.flatten`` order lines up.
+model's values over and ``jax.tree.flatten`` order lines up (a MoE block
+is ``mix, moe, norm1, norm2``, its ``moe`` dict ``router, shared_0, ...,
+w_down, w_gate, w_up``).
 
 Counterpart of ``repro/models/transformer.py``:
 
@@ -13,13 +16,16 @@ Counterpart of ``repro/models/transformer.py``:
     init_cache(cfg, batch, s_cache)       -> per-layer cache list
     decode_step(params, cfg, token, caches, ...) -> (logits, caches)
 
-``cfg.remat`` checkpoints each block (``torch.utils.checkpoint``, not
-reentrant) while autograd records; with grad off (prefill, under
+``forward``'s aux loss is the MoE load-balance loss summed over the
+blocks (0 without MoE), and ``lm_loss`` adds it.  ``cfg.remat``
+checkpoints each block (``torch.utils.checkpoint``, not reentrant) while
+autograd records; with grad off (prefill, under
 ``torch.inference_mode``) there is nothing to recompute, and the blocks
-run plainly.  ``decode_step`` writes each layer's KV cache in place
-(:func:`repro_torch.models.attention.attn_decode`).  MLA, MoE, SSD and
-RG-LRU blocks, the encoder and the prefix embeddings raise
-``NotImplementedError`` (ROADMAP Queue 1, the rest of the model zoo).
+run plainly.  ``decode_step`` writes each layer's cache in place
+(:func:`repro_torch.models.attention.attn_decode`,
+:func:`repro_torch.models.mla.mla_decode`).  SSD and RG-LRU blocks, the
+encoder and the prefix embeddings raise ``NotImplementedError`` (ROADMAP
+Queue 1, the rest of the model zoo).
 """
 
 from __future__ import annotations
@@ -31,25 +37,24 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from . import attention
+from . import attention, mla, moe
 from ..device import resolve_device
 from .config import ModelConfig
 from .layers import embed_init, mlp_apply, mlp_init, rms_norm, rms_norm_init
 
 __all__ = ["init_model", "forward", "lm_loss", "init_cache", "decode_step"]
 
-DENSE_KINDS = ("attn", "local")
+PORTED_KINDS = ("attn", "local", "mla")
 _LATER = ("is not ported yet (ROADMAP.md Queue 1: the rest of the model "
           "zoo)")
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require_ported(cfg: ModelConfig) -> None:
     for i in range(cfg.n_layers):
         kind = cfg.layer_kind(i)
-        if kind not in DENSE_KINDS:
+        if kind not in PORTED_KINDS:
             raise NotImplementedError(f"block kind {kind!r} {_LATER}")
-    for what, present in (("moe", cfg.moe is not None),
-                          ("encoder", cfg.encoder is not None),
+    for what, present in (("encoder", cfg.encoder is not None),
                           ("n_prefix_tokens", bool(cfg.n_prefix_tokens))):
         if present:
             raise NotImplementedError(f"{cfg.name}: {what} {_LATER}")
@@ -66,25 +71,33 @@ def _generator(key) -> torch.Generator:
 # ---------------------------------------------------------------------------
 
 
-def _init_block(cfg: ModelConfig, gen: torch.Generator) -> dict:
+def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
+                layer_idx: int) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    return {
-        "norm1": rms_norm_init(d),
-        "mix": attention.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, hd,
-                                   bias=cfg.attn_bias),
-        "norm2": rms_norm_init(d),
-        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_act),
-    }
+    block: dict[str, Any] = {"norm1": rms_norm_init(d)}
+    if kind == "mla":
+        block["mix"] = mla.mla_init(gen, d, cfg.n_heads, cfg.mla)
+    else:
+        block["mix"] = attention.attn_init(gen, d, cfg.n_heads,
+                                           cfg.n_kv_heads, hd,
+                                           bias=cfg.attn_bias)
+    block["norm2"] = rms_norm_init(d)
+    if cfg.moe is not None and layer_idx >= cfg.moe.first_dense:
+        block["moe"] = moe.moe_init(gen, d, cfg.moe, cfg.mlp_act)
+    else:
+        block["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_act)
+    return block
 
 
 def init_model(cfg: ModelConfig, key=0, device=None) -> dict:
     """Random fp32 parameters from ``key`` (a seed or a CPU
     ``torch.Generator``), drawn on the CPU and moved to ``device``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     gen = _generator(key)
     params: dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model),
-        "blocks": [_init_block(cfg, gen) for _ in range(cfg.n_layers)],
+        "blocks": [_init_block(cfg, cfg.layer_kind(i), gen, i)
+                   for i in range(cfg.n_layers)],
         "final_norm": rms_norm_init(cfg.d_model),
     }
     if not cfg.tie_embeddings:
@@ -107,16 +120,30 @@ def _uses_window(cfg: ModelConfig, kind: str) -> bool:
                                    len(cfg.block_pattern) == 1)
 
 
+def _ffn(block, h, cfg: ModelConfig):
+    """The block's FFN on ``h``: ``(out, aux)``, aux the MoE's load-balance
+    loss (a zero for a dense MLP)."""
+    if "moe" in block:
+        return moe.moe_apply(block["moe"], h, cfg.moe, cfg.mlp_act)
+    mlp = {name: w.to(h.dtype) for name, w in block["mlp"].items()}
+    return (mlp_apply(mlp, h, cfg.mlp_act),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
 def _block_apply(block, x, *, cfg: ModelConfig, kind: str, chunk: int):
     h = rms_norm(block["norm1"], x, cfg.norm_eps)
-    window = cfg.sliding_window if _uses_window(cfg, kind) else 0
-    x = x + attention.attn_apply(
-        block["mix"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        causal=True, window=window, chunk=chunk)
-    h2 = rms_norm(block["norm2"], x, cfg.norm_eps)
-    mlp = {name: w.to(x.dtype) for name, w in block["mlp"].items()}
-    return x + mlp_apply(mlp, h2, cfg.mlp_act)
+    if kind == "mla":
+        x = x + mla.mla_apply(block["mix"], h, n_heads=cfg.n_heads,
+                              cfg=cfg.mla, rope_theta=cfg.rope_theta,
+                              chunk=chunk, window=cfg.sliding_window)
+    else:
+        window = cfg.sliding_window if _uses_window(cfg, kind) else 0
+        x = x + attention.attn_apply(
+            block["mix"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            causal=True, window=window, chunk=chunk)
+    out, aux = _ffn(block, rms_norm(block["norm2"], x, cfg.norm_eps), cfg)
+    return x + out, aux
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -125,19 +152,21 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             compute_dtype=torch.bfloat16, chunk: int = 1024,
             return_hidden: bool = False):
     """tokens: (B, S) integers.  Returns (logits (B, S, V), aux_loss); the
-    aux loss (MoE load balance) is 0 for the dense blocks."""
-    _require_dense(cfg)
+    aux loss is the MoE blocks' load-balance loss summed over the blocks
+    (0 without MoE)."""
+    _require_ported(cfg)
     if prefix is not None or frames is not None:
         raise NotImplementedError(f"prefix / frames inputs {_LATER}")
     x = F.embedding(tokens.long(), params["embed"]).to(compute_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block in enumerate(params["blocks"]):
         fn = functools.partial(_block_apply, cfg=cfg, kind=cfg.layer_kind(i),
                                chunk=chunk)
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(fn, block, x, use_reentrant=False)
+            x, aux_i = checkpoint(fn, block, x, use_reentrant=False)
         else:
-            x = fn(block, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux_i = fn(block, x)
+        aux = aux + aux_i
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         return x, aux
@@ -184,14 +213,21 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, s_cache: int,
                dtype=torch.bfloat16, device=None) -> list:
-    """Per-layer KV caches on ``device`` (the card unless ``"cpu"``).
-    Windowed layers (``_uses_window``) get a ring buffer of the window when
-    it is shorter than ``s_cache``; the rest ``s_cache`` slots."""
-    _require_dense(cfg)
+    """Per-layer caches on ``device`` (the card unless ``"cpu"``).
+    Windowed attention layers (``_uses_window``) get a ring buffer of the
+    window when it is shorter than ``s_cache``; the other attention layers
+    ``s_cache`` slots; MLA layers a latent cache of ``s_cache`` slots
+    whatever the window (the reference's rule)."""
+    _require_ported(cfg)
     device = resolve_device(device)
     caches = []
     for i in range(cfg.n_layers):
-        use_window = _uses_window(cfg, cfg.layer_kind(i))
+        kind = cfg.layer_kind(i)
+        if kind == "mla":
+            caches.append(mla.init_mla_cache(batch, s_cache, cfg.mla, dtype,
+                                             device=device))
+            continue
+        use_window = _uses_window(cfg, kind)
         window = cfg.sliding_window
         size = min(window, s_cache) if use_window and window else s_cache
         caches.append(attention.init_kv_cache(
@@ -206,22 +242,26 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: list,
                 compute_dtype=torch.bfloat16):
     """One decode step. token: (B, 1) integers -> (logits (B,1,V), caches).
     The caches passed in are consumed (written in place).  ``memory`` is
-    the reference's encoder output for cross-attention blocks; dense blocks
-    have none, so it goes unused, as in the reference."""
-    _require_dense(cfg)
+    the reference's encoder output for cross-attention blocks; the ported
+    blocks have none, so it goes unused, as in the reference."""
+    _require_ported(cfg)
     x = F.embedding(token.long(), params["embed"]).to(compute_dtype)
     new_caches = []
-    for block, cache in zip(params["blocks"], caches):
+    for i, (block, cache) in enumerate(zip(params["blocks"], caches)):
         h = rms_norm(block["norm1"], x, cfg.norm_eps)
-        mix, cache = attention.attn_decode(
-            block["mix"], h, cache, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
-            rope_theta=cfg.rope_theta)
+        if cfg.layer_kind(i) == "mla":
+            mix, cache = mla.mla_decode(block["mix"], h, cache,
+                                        n_heads=cfg.n_heads, cfg=cfg.mla,
+                                        rope_theta=cfg.rope_theta)
+        else:
+            mix, cache = attention.attn_decode(
+                block["mix"], h, cache, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                rope_theta=cfg.rope_theta)
         x = x + mix
         new_caches.append(cache)
-        h2 = rms_norm(block["norm2"], x, cfg.norm_eps)
-        mlp = {name: w.to(x.dtype) for name, w in block["mlp"].items()}
-        x = x + mlp_apply(mlp, h2, cfg.mlp_act)
+        out, _ = _ffn(block, rms_norm(block["norm2"], x, cfg.norm_eps), cfg)
+        x = x + out
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params.get("lm_head", params["embed"])
     return x @ head.T.to(compute_dtype), new_caches

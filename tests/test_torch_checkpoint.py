@@ -11,7 +11,8 @@
   ``zstandard`` imports.
 * The pytree ``save_checkpoint`` / ``restore_checkpoint``: the treedef
   string is ``str(jax.tree.flatten(tree)[1])`` on the smoke LMs' params
-  (smollm; qwen2 with QKV bias), a paper model's, the mesh trainer's
+  (smollm; qwen2 with QKV bias; deepseek's MLA and MoE blocks), a paper
+  model's, the mesh trainer's
   ``init_train_state`` and odd shapes of tree; files restore bitwise
   across the port and the reference both ways (the reference's in zstd
   and in zlib frames); a mismatched template raises ``ValueError``.
@@ -222,7 +223,7 @@ def test_unknown_namedtuple_is_loud(tmp_path):
 
 # -- the pytree checkpoint ----------------------------------------------------
 
-TREE_ARCHS = ("smollm-135m", "qwen2-0.5b")
+TREE_ARCHS = ("smollm-135m", "qwen2-0.5b", "deepseek-v2-lite-16b")
 
 
 def _port_tree(which):

@@ -49,7 +49,9 @@ def test_every_module_is_listed():
                  "repro_torch.models.attention",
                  "repro_torch.models.transformer",
                  "repro_torch.launch.mesh", "repro_torch.launch.train",
-                 "repro_torch.launch.serve",
+                 "repro_torch.launch.serve", "repro_torch.models.moe",
+                 "repro_torch.models.mla", "repro_torch.optim",
+                 "repro_torch.optim.sgd", "repro_torch.optim.schedules",
                  "repro_torch.sharding.rules"):
         assert name in mods
 
@@ -68,6 +70,9 @@ NOT_YET = {
     "launch.mesh": set(),
     "configs": set(),
     "core.distributed": set(),
+    "optim": set(),
+    "models.moe": set(),
+    "models.mla": set(),
 }
 
 
@@ -148,6 +153,28 @@ runpy.run_path({str(ROOT / "examples" / "serve_decode_torch.py")!r},
     assert "arch=smollm-135m-smoke  batch=2  generated 4 tokens/seq" in \
         out.stdout
     assert "tok/s" in out.stdout and "on CPU" in out.stdout
+
+
+def test_moe_arch_runs_through_both_clis_on_the_cpu_without_jax():
+    """``--arch deepseek-v2-lite-16b`` (MLA and MoE blocks) in the serve
+    twin and in the mesh trainer's CLI."""
+    code = _BLOCKER + f"""
+import runpy
+sys.argv = ["serve_decode_torch.py", "--device", "cpu", "--tokens", "3",
+            "--prompt-len", "4", "--arch", "deepseek-v2-lite-16b"]
+runpy.run_path({str(ROOT / "examples" / "serve_decode_torch.py")!r},
+               run_name="__main__")
+from repro_torch.launch.train import main
+main(["--device", "cpu", "--steps", "2", "--arch", "deepseek-v2-lite-16b"])
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "arch=deepseek-v2-lite-16b-smoke  batch=2  generated 3" in \
+        out.stdout
+    assert out.stdout.count("step ") == 2 and "nnz_up" in out.stdout
 
 
 def test_imports_without_jax_or_reference():

@@ -17,9 +17,17 @@ Held against the JAX package on numpy inputs made from a seed:
   1e-3, the logits within 0.05 and the gradients within 0.1 of their
   largest magnitude (bf16 carries 8 bits, and torch's and XLA's bf16
   matmuls round at different places).
-* remat on and off give bitwise equal gradients; ``logit_chunk`` gives the
-  reference's chunked loss; the leaf order of the parameter tree is the
-  reference's; the non-dense kinds raise ``NotImplementedError``.
+* The same for the MoE family's smoke configs (deepseek: MLA and MoE;
+  moonshot, granite: attention and MoE; the MoE aux loss in the loss) at
+  fp32 and bf16 with the tolerances above; their parameter trees' leaf
+  order and key paths are ``jax.tree.flatten``'s (a MoE block ``mix,
+  moe, norm1, norm2``; its ``moe`` dict ``router, shared_i, w_down,
+  w_gate, w_up``).
+* remat on and off give bitwise equal gradients (also through MLA and the
+  MoE dispatch); ``logit_chunk`` gives the reference's chunked loss; the
+  leaf order of the parameter tree is the reference's; the kinds still to
+  port (SSD, RG-LRU, the encoder and prefix archs) raise
+  ``NotImplementedError``.
 """
 
 import dataclasses
@@ -44,6 +52,7 @@ from repro_torch.models import attention, flash
 from repro_torch.models.transformer import forward, init_model, lm_loss
 
 DENSE = ("smollm-135m", "qwen2-0.5b", "phi3-medium-14b")
+MOE = ("deepseek-v2-lite-16b", "moonshot-v1-16b-a3b", "granite-moe-3b-a800m")
 
 
 # -- configs ------------------------------------------------------------------
@@ -175,7 +184,7 @@ def _ref_loss_grads(arch, dtype):
         loss = ref_lm_loss(p, cfg, toks, labels, compute_dtype=jdt)
         return loss, ref_forward(p, cfg, toks, compute_dtype=jdt)[0]
 
-    (loss, logits), grads = jax.value_and_grad(f, has_aux=True)(
+    (loss, logits), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(
         _ref_params(arch))
     return float(loss), np.asarray(logits, np.float32), [
         np.asarray(g) for g in jax.tree.leaves(grads)]
@@ -216,7 +225,8 @@ def test_params_from_jax_keeps_the_reference_leaf_order():
 
 @pytest.mark.parametrize("arch,dtype", [
     ("smollm-135m", "fp32"), ("smollm-135m", "bf16"), ("qwen2-0.5b", "fp32"),
-    ("qwen2-0.5b", "bf16"), ("phi3-medium-14b", "fp32")])
+    ("qwen2-0.5b", "bf16"), ("phi3-medium-14b", "fp32")] + [
+    (arch, dtype) for arch in MOE for dtype in ("fp32", "bf16")])
 def test_forward_and_lm_loss_with_grads_match_reference(arch, dtype):
     loss_tol, logit_tol, grad_tol = TOL[dtype]
     want_loss, want_logits, want_grads = _ref_loss_grads(arch, dtype)
@@ -226,6 +236,52 @@ def test_forward_and_lm_loss_with_grads_match_reference(arch, dtype):
     assert len(grads) == len(want_grads)
     for g, w in zip(grads, want_grads):
         _close_to_max(g, w, grad_tol)
+
+
+def _key_paths(tree, prefix=""):
+    """``jax.tree_util.keystr`` of each leaf of a port tree, in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _key_paths(tree[k], f"{prefix}['{k}']")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _key_paths(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_params_from_jax_keep_the_reference_leaf_order(arch):
+    cfg = configs.get_smoke_config(arch)
+    ref = jax.tree_util.tree_flatten_with_path(_ref_params(arch))[0]
+    port = _port_params(arch)
+    mine = init_model(cfg, 0)
+    want = [jax.tree_util.keystr(path) for path, _ in ref]
+    assert _key_paths(port) == _key_paths(mine) == want
+    leaves = tree_leaves(port)
+    assert all(np.array_equal(p.numpy(), np.asarray(r))
+               for p, (_, r) in zip(leaves, ref))
+    assert [tuple(x.shape) for x in tree_leaves(mine)] == \
+        [x.shape for _, x in ref]
+    assert sum(x.numel() for x in leaves) == cfg.param_count()
+    # a MoE block: mix, moe, norm1, norm2; its moe dict router, shared_i,
+    # w_down, w_gate, w_up
+    blk = cfg.moe.first_dense
+    assert list(sorted(port["blocks"][blk])) == ["mix", "moe", "norm1",
+                                                 "norm2"]
+    assert list(sorted(port["blocks"][blk]["moe"])) == (
+        ["router"] + [f"shared_{i}" for i in range(cfg.moe.n_shared)]
+        + ["w_down", "w_gate", "w_up"])
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v2-lite-16b"])
+def test_remat_gives_the_same_gradients_for(arch):
+    cfg = configs.get_smoke_config(arch)
+    on = _port_loss_grads(arch, "fp32", dataclasses.replace(cfg, remat=True))
+    off = _port_loss_grads(arch, "fp32",
+                           dataclasses.replace(cfg, remat=False))
+    assert on[0] == off[0]
+    assert all(np.array_equal(a, b) for a, b in zip(on[2], off[2]))
 
 
 def test_remat_gives_the_same_gradients():
@@ -257,7 +313,7 @@ def test_logit_chunk_matches_reference():
 
 
 @pytest.mark.parametrize("arch", [a for a in ref_configs.ARCH_IDS
-                                  if a not in DENSE])
+                                  if a not in DENSE + MOE])
 def test_non_dense_archs_raise(arch):
     cfg = configs.get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -6,7 +6,8 @@ initial parameters through ``params_from_jax``, at fp32:
 
 * 3 lock-step steps of one client (no client axes) against the
   reference's ``make_train_step`` on ``make_debug_mesh(data=1, model=1)``:
-  STC at p = 1/50, and FedAvg's 2 local iterations with momentum 0.9;
+  STC at p = 1/50, and FedAvg's 2 local iterations with momentum 0.9; STC
+  on the deepseek (MLA and MoE) and granite (MoE, tied) smoke configs;
   every state entry (parameters, residuals, momentum) within 1e-6
   absolute, the loss within rtol 1e-5, ``nnz_up`` / ``nnz_down`` exact.
 * A 2-rank STC step against the reference's host composition (per-client
@@ -96,7 +97,34 @@ LOCKSTEP = {
 
 @pytest.mark.parametrize("case", list(LOCKSTEP))
 def test_single_client_lockstep_with_reference(case):
-    arch, kw = "smollm-135m", LOCKSTEP[case]
+    pstate, pm = _lockstep("smollm-135m", LOCKSTEP[case])
+    assert int(pstate["step"]) == 3
+    lead = "client_res" if case == "stc" else "momentum"
+    assert tuple(pstate[lead]["embed"].shape) == (1, 512, 96)
+    if case == "stc":
+        assert int(pm["nnz_up"]) == 4924
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "granite-moe-3b-a800m"])
+def test_moe_single_client_lockstep_with_reference(arch):
+    """STC at p = 1/50 on a MoE smoke config (deepseek: MLA and MoE blocks
+    after a dense first layer; granite: attention and MoE, tied), the MoE
+    aux loss in the loss."""
+    pstate, pm = _lockstep(arch, LOCKSTEP["stc"])
+    assert int(pstate["step"]) == 3
+    cfg = get_smoke_config(arch)
+    moe = pstate["client_res"]["blocks"][cfg.moe.first_dense]["moe"]
+    assert tuple(moe["w_up"].shape) == (1, cfg.moe.n_experts, cfg.d_model,
+                                        cfg.moe.d_expert)
+    assert int(pm["nnz_up"]) >= int(cfg.param_count() / 50)
+
+
+def _lockstep(arch, kw):
+    """3 lock-step steps of one client against the reference's
+    ``make_train_step``: the metrics' keys and counts, the loss and every
+    state entry as the module docstring says.  Returns the port's last
+    state and metrics."""
     cfg = ref_smoke(arch)
     toks, labels = _lm_batch(cfg.vocab_size)
     rtc = RefTrainConfig(compute_dtype=jnp.float32, **kw)
@@ -129,11 +157,7 @@ def test_single_client_lockstep_with_reference(case):
                 np.testing.assert_allclose(_flat(pstate[key]),
                                            _flat(rstate[key]), rtol=0,
                                            atol=1e-6, err_msg=key)
-    assert int(pstate["step"]) == 3
-    lead = "client_res" if case == "stc" else "momentum"
-    assert tuple(pstate[lead]["embed"].shape) == (1, 512, 96)
-    if case == "stc":
-        assert int(pm["nnz_up"]) == 4924
+    return pstate, pm
 
 
 @pytest.mark.parametrize("protocol", ["stc", "topk", "signsgd", "fedavg",

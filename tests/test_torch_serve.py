@@ -24,6 +24,15 @@ reference's initial parameters handed over through ``params_from_jax``:
 * every ``cache_mode`` gives the same values; ``model > 1`` raises; the
   cache is written in place and ``idx`` advances on its device; prefill
   with remat on and off is bitwise the same.
+* The MoE family (deepseek: MLA and MoE blocks; moonshot and granite:
+  attention and MoE): ``init_cache``'s shapes, dtypes and cache kinds for
+  the full and long configs (an MLA layer's latent cache has ``s_cache``
+  slots whatever the window); ``decode_step`` over 10 steps at the F32
+  tolerances above, the latent caches included and with 8 slots clamped at
+  the last; the prefill and decode entries at fp32 and bf16 as above; the
+  port's decode against its ``forward`` (the twins of the reference's
+  ``TestDecodeConsistency.test_mla`` / ``test_moe``, and each smoke
+  config, at rtol 5e-3 / atol 2e-3).
 """
 
 import dataclasses
@@ -46,13 +55,15 @@ from repro_torch import configs
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.serve import (CACHE_MODES, make_decode_step,
                                       make_prefill_step)
-from repro_torch.models import (attention, decode_step, forward, init_cache,
-                                init_model, params_from_jax)
+from repro_torch.models import (MLAConfig, MoEConfig, attention, decode_step,
+                                forward, init_cache, init_model,
+                                params_from_jax)
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
 
 DENSE = ("smollm-135m", "qwen2-0.5b", "phi3-medium-14b")
+MOE = ("deepseek-v2-lite-16b", "moonshot-v1-16b-a3b", "granite-moe-3b-a800m")
 F32 = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -126,6 +137,46 @@ def test_init_cache_matches_reference(arch, which, s_cache):
     assert got == want
     assert any(ring for *_, ring in got) == (which == "long" and
                                              s_cache > 8192)
+
+
+def _cache_fields(cache):
+    """A cache's tensors by field name (``KVCache``: k, v, idx and the ring
+    flag; ``MLACache``: c_kv, k_rope, idx)."""
+    return {f: getattr(cache, f) for f in cache._fields}
+
+
+def _spec(x):
+    if isinstance(x, bool):
+        return x
+    return tuple(x.shape), str(x.dtype).replace("torch.", "")
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("which,s_cache", [
+    ("full", 64), ("long", 8192), ("long", 8193)])
+def test_init_cache_of_the_moe_archs_matches_reference(arch, which, s_cache):
+    """MLA layers get a latent cache of s_cache slots whatever the window
+    (no ring), attention layers the dense rule."""
+    get = (lambda m: m.get_config(arch)) if which == "full" else (
+        lambda m: m.get_config(arch, "long_500k"))
+    kinds = []
+
+    def build():
+        caches = ref_init_cache(get(ref_configs), 2, s_cache)
+        kinds.extend(type(c).__name__ for c in caches)
+        return [{f: getattr(c, f) for f in c._fields if f != "ring"}
+                for c in caches]
+
+    want = [{f: (tuple(x.shape), str(x.dtype)) for f, x in c.items()}
+            for c in jax.eval_shape(build)]
+    caches = init_cache(get(configs), 2, s_cache, device="meta")
+    got = [{f: _spec(x) for f, x in _cache_fields(c).items() if f != "ring"}
+           for c in caches]
+    assert got == want
+    assert [type(c).__name__ for c in caches] == kinds
+    rings = [c.ring for c in caches if hasattr(c, "ring")]
+    assert any(rings) == (which == "long" and s_cache > 8192 and
+                          arch != "deepseek-v2-lite-16b")
 
 
 @pytest.mark.parametrize("window,s_cache", [(4, 3), (4, 4), (4, 10), (0, 10)])
@@ -249,6 +300,10 @@ DECODE_CASES = {
     "qwen2_bias": ("qwen2-0.5b", {}, 12, 3),
     "ring_wraps": ("smollm-135m", {"sliding_window": 4}, 10, None),
     "phi3": ("phi3-medium-14b", {}, 11, None),
+    "deepseek_mla_moe": ("deepseek-v2-lite-16b", {}, 12, None),
+    "deepseek_clamped": ("deepseek-v2-lite-16b", {}, 8, None),
+    "moonshot_moe": ("moonshot-v1-16b-a3b", {}, 12, None),
+    "granite_moe_tied": ("granite-moe-3b-a800m", {}, 11, None),
 }
 
 
@@ -261,7 +316,8 @@ def test_decode_step_matches_reference(case):
     params = params_from_jax(params_np)
     toks = _tokens(cfg, (2, 10))
     caches, ref_caches = _both_caches(cfg, ref_cfg, 2, s_cache)
-    assert [c.ring for c in caches] == [c.ring for c in ref_caches]
+    assert [getattr(c, "ring", None) for c in caches] == \
+        [getattr(c, "ring", None) for c in ref_caches]
     if case == "ring_wraps":
         assert caches[0].ring and caches[0].k.shape[1] == 4
     for t in range(10):
@@ -272,8 +328,11 @@ def test_decode_step_matches_reference(case):
                                   caches, compute_dtype=torch.float32)
         _close(got, want, err_msg=f"{case} logits at step {t}", **F32)
         for c, w in zip(caches, ref_caches):
-            _close(c.k, w.k, err_msg=f"{case} K at step {t}", **F32)
-            _close(c.v, w.v, err_msg=f"{case} V at step {t}", **F32)
+            assert c._fields == w._fields
+            for name in c._fields:
+                if name not in ("idx", "ring"):
+                    _close(getattr(c, name), getattr(w, name),
+                           err_msg=f"{case} {name} at step {t}", **F32)
             assert int(c.idx) == int(w.idx) == t + 1
 
 
@@ -296,6 +355,35 @@ def test_dense_gqa():
                               n_heads=4, n_kv_heads=2, d_ff=64,
                               vocab_size=61, attn_bias=True, remat=False)
     _consistency(cfg)
+
+
+def test_mla():
+    """The twin of the reference's ``TestDecodeConsistency.test_mla``."""
+    cfg = dataclasses.replace(
+        configs.get_smoke_config("deepseek-v2-lite-16b"), name="m",
+        arch_type="dense", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+        d_ff=64, vocab_size=61, head_dim=0,
+        mla=MLAConfig(kv_lora_rank=16, qk_nope_head_dim=8,
+                      qk_rope_head_dim=4, v_head_dim=8), moe=None,
+        remat=False)
+    _consistency(cfg)
+
+
+def test_moe():
+    """The twin of the reference's ``TestDecodeConsistency.test_moe``."""
+    cfg = dataclasses.replace(
+        configs.get_smoke_config("smollm-135m"), name="e", arch_type="moe",
+        n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
+        vocab_size=61, head_dim=0, tie_embeddings=False,
+        moe=MoEConfig(n_experts=4, top_k=2, n_shared=1, d_expert=16),
+        remat=False)
+    _consistency(cfg)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_archs_decode_like_their_forward(arch):
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), remat=False)
+    _consistency(cfg, steps=8)
 
 
 def test_sliding_ring_buffer_matches_full():
@@ -342,7 +430,17 @@ def _ref_mesh():
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_prefill_step_matches_reference(dtype):
-    cfg, ref_cfg, params_np, params, (dt, ref_dt) = _serve_setup(dtype=dtype)
+    _check_prefill("qwen2-0.5b", dtype)
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_moe_prefill_step_matches_reference(arch, dtype):
+    _check_prefill(arch, dtype)
+
+
+def _check_prefill(arch, dtype):
+    cfg, ref_cfg, params_np, params, (dt, ref_dt) = _serve_setup(arch, dtype)
     toks = _tokens(cfg, (2, 16))
     want = ref_serve.make_prefill_step(ref_cfg, _ref_mesh(), ref_dt)(
         params_np, {"tokens": jnp.asarray(toks)})
@@ -358,7 +456,17 @@ def test_prefill_step_matches_reference(dtype):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_decode_step_entry_matches_reference(dtype):
-    cfg, ref_cfg, params_np, params, (dt, ref_dt) = _serve_setup(dtype=dtype)
+    _check_decode_entry("qwen2-0.5b", dtype)
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_moe_decode_step_entry_matches_reference(arch, dtype):
+    _check_decode_entry(arch, dtype)
+
+
+def _check_decode_entry(arch, dtype):
+    cfg, ref_cfg, params_np, params, (dt, ref_dt) = _serve_setup(arch, dtype)
     toks = _tokens(cfg, (2, 6))
     ref_step = ref_serve.make_decode_step(ref_cfg, _ref_mesh(), ref_dt)
     step = make_decode_step(cfg, make_debug_mesh(data=1, model=1), dt,
@@ -375,9 +483,10 @@ def test_decode_step_entry_matches_reference(dtype):
         _close(got.float(), want, err_msg=f"step {t}", **tol)
         if dtype == "f32":
             for c, w in zip(caches, ref_caches):
-                _close(c.k, w.k, **F32)
-                _close(c.v, w.v, **F32)
-    assert caches[0].k.dtype == dt
+                for name in c._fields:
+                    if name not in ("idx", "ring"):
+                        _close(getattr(c, name), getattr(w, name), **F32)
+    assert caches[0][0].dtype == dt
 
 
 def test_every_cache_mode_gives_the_same_values():
