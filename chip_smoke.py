@@ -11,6 +11,7 @@
     python3 chip_smoke.py --mesh            # only phase 11
     python3 chip_smoke.py --serve           # only phase 12
     python3 chip_smoke.py --moe             # only phase 13
+    python3 chip_smoke.py --zoo             # only phase 14
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
@@ -258,11 +259,41 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    configs card against CPU at fp32 (a forward, a train step, 8 decode
    steps).
 
+14. the rest of the model zoo (``models/ssm.py``, ``models/rglru.py``, the
+   encoder and the prefix): Mamba-2-370M at full width and depth (48
+   layers, d 1,024, 32 SSD heads of 64, d_state 128, chunk 256; vocab
+   50,280, tied; 368,227,840 parameters) and RecurrentGemma-2B at full
+   width (d 2,560, 10 heads of 256 with one kv head, window 2,048, d_ff
+   7,680 gelu; vocab 256,000, tied), depth cut from 26 to 12 layers, four
+   (rglru, rglru, local) periods (1,394,772,480 parameters).  For each:
+   its recurrent block at full width on a (2, 512) fp32 input (two SSD
+   chunks) card against CPU within 1e-4 of the largest magnitude; the mesh
+   trainer in phase 11's STC setting on a 4 x 1,024 batch (four SSD chunks
+   a sequence), one client, 5 steps (counters set to 0 just before): the
+   loss finite and falling, ``nnz`` k plus ties, the histogram,
+   ``bin_select`` and ``stc_apply`` each exactly twice a step at (1,
+   numel) and nothing else; two local SGD runs bitwise equal with no
+   deterministic-mode warning; the step split into phases with its host
+   syncs counted; the three kernels against their plain versions at that
+   row and timed beside their bounds; serving the trained weights from
+   memory: a 64-token fp32 prompt teacher-forced against ``forward`` (the
+   SSD at rtol 5e-3 / atol 5e-3, the reference's SSD tolerance) and for
+   16 steps against the CPU, bf16 prefill at (4, 512) against a bf16
+   decode, the prefill of one 32,768-token prompt, the decode step at
+   decode_32k's batch of 128 against the recurrent states (the hybrid's
+   local layers: rings of 2,048) under ``set_sync_debug_mode("error")``
+   and ``torch.profiler``, 16 timed steps beside the bytes bound (the
+   states read and written back); ``init_cache`` at long_500k's length
+   allocating on the card what it does at decode_32k's.  Then
+   ``whisper-medium`` (stub frames, decode against ``encode_frames``'
+   memory) and ``internvl2-2b`` (a patch prefix) at their smoke configs
+   card against CPU at fp32 as in 13.
+
 ``--signsgd-round`` runs the last of the timings of 6 alone on the package
 of the tree the file sits in: a copy inside a parent checkout unpacked
 beside the change times the parent.  ``--paper-codecs``, ``--buffered``,
-``--chunked``, ``--events``, ``--mesh``, ``--serve`` and ``--moe`` run
-phase 7, 8, 9, 10, 11, 12 or 13 alone.
+``--chunked``, ``--events``, ``--mesh``, ``--serve``, ``--moe`` and
+``--zoo`` run phase 7, 8, 9, 10, 11, 12, 13 or 14 alone.
 ``--drift-witness`` trains phase 9's dense and ``residual_mass`` runs 20
 rounds on the card twice, on the card and the CPU with one parameter and
 with every parameter moved by one ulp, on the CPU, and on the CPU with one
@@ -284,12 +315,14 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 peak
 FLT_MIN = 1.1754943508222875e-38  # the least normal fp32
 MAIN_ROWS, MAIN_N = 10, 307_434  # cohort x cnn parameters
 P_STC = 1 / 50
@@ -3666,20 +3699,23 @@ def mesh_setup(torch, np):
 
 def mesh_delta(torch, cfg, tc, params, batch, rows, deterministic=True):
     """One client's local SGD as the trainer computes it: ``-lr·grad`` of
-    the loss on ``rows`` of the batch, under the trainer's deterministic
-    algorithms (without them only to time what they cost)."""
+    the loss on ``rows`` of the batch (with its ``frames`` or ``prefix``),
+    under the trainer's deterministic algorithms (without them only to
+    time what they cost)."""
     import contextlib
     from repro_torch.core.compression import _rebuild, tree_leaves
     from repro_torch.launch.train import _deterministic
     from repro_torch.models.transformer import lm_loss
     dev = tree_leaves(params)[0].device
+    extra = {name: batch[name][rows].to(dev) for name in ("frames", "prefix")
+             if name in batch}
     with (_deterministic(dev) if deterministic
           else contextlib.nullcontext()):
         leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
         loss = lm_loss(_rebuild(params, iter(leaves)), cfg,
                        batch["tokens"][rows].to(dev),
                        batch["labels"][rows].to(dev),
-                       compute_dtype=tc.compute_dtype)
+                       compute_dtype=tc.compute_dtype, **extra)
         grads = torch.autograd.grad(loss, leaves)
     return _rebuild(params, iter(-tc.lr * g.to(torch.float32)
                                  for g in grads))
@@ -4229,40 +4265,53 @@ def serve_checkpoint(torch, params):
 
 
 def serve_fp32_checks(torch, np, cfg, params, cpu_steps=SERVE_PROMPT,
-                      greedy=SERVE_GREEDY, what="serve"):
-    """12.2 and 12.3 (13c): a 64-token prompt teacher-forced through
+                      greedy=SERVE_GREEDY, what="serve",
+                      fwd_tol=DECODE_FORWARD_TOL, cpu_params=None):
+    """12.2 and 12.3 (13c, 14): a 64-token prompt teacher-forced through
     ``make_decode_step`` at fp32 on the card, each step's logits against
-    ``forward``'s; the first ``cpu_steps`` of them on the CPU; then
-    ``greedy`` greedy steps on the card, and the CPU decoding the card's
-    tokens."""
+    ``forward``'s within ``fwd_tol``; the first ``cpu_steps`` of them on
+    the CPU; then ``greedy`` greedy steps on the card, and the CPU decoding
+    the card's tokens.  An encoder-decoder's forward takes stand-in
+    ``frames``, and its decode on each device the memory that
+    ``encode_frames`` makes of them there (a VLM's decode takes no prefix,
+    so neither does its forward here)."""
+    from repro_torch.configs import stand_in_inputs
     from repro_torch.core.compression import tree_map
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.serve import make_decode_step
-    from repro_torch.models import forward, init_cache
+    from repro_torch.models import encode_frames, forward, init_cache
     mesh = make_debug_mesh(data=1, model=1)
     toks = serve_tokens(torch, np, cfg, (SERVE_BATCH, SERVE_PROMPT), seed=1)
     steps = SERVE_PROMPT + SERVE_GREEDY
+    if cpu_params is None:
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+    frames = stand_in_inputs(cfg, SERVE_BATCH, scale=ZOO_EXTRA_SCALE,
+                             seed=1).get("frames")
+    mem_card = mem_cpu = None
     with torch.inference_mode():
-        full, _ = forward(params, cfg, toks.cuda(),
+        if frames is not None:
+            mem_card = encode_frames(params, cfg, frames.cuda())
+            mem_cpu = encode_frames(cpu_params, cfg, frames)
+            frames = frames.cuda()
+        full, _ = forward(params, cfg, toks.cuda(), frames=frames,
                           compute_dtype=torch.float32)
     dec_card = make_decode_step(cfg, mesh, torch.float32, device="cuda")
     dec_cpu = make_decode_step(cfg, mesh, torch.float32, device="cpu")
-    cpu_params = tree_map(lambda t: t.cpu(), params)
     c_card = init_cache(cfg, SERVE_BATCH, steps, torch.float32, device="cuda")
     c_cpu = init_cache(cfg, SERVE_BATCH, steps, torch.float32, device="cpu")
     fwd_gap = card_cpu_gap = 0.0
     for t in range(SERVE_PROMPT):
         tok = toks[:, t:t + 1]
-        lg, c_card = dec_card(params, tok.cuda(), c_card)
+        lg, c_card = dec_card(params, tok.cuda(), c_card, memory=mem_card)
         lg = lg[:, 0].cpu()
         want = full[:, t].cpu()
         fwd_gap = max(fwd_gap, float((lg - want).abs().max()))
-        require(torch.allclose(lg, want, **DECODE_FORWARD_TOL),
+        require(torch.allclose(lg, want, **fwd_tol),
                 f"decode step {t} differs from forward on the card by "
                 f"{float((lg - want).abs().max())}")
         if t >= cpu_steps:
             continue
-        lc, c_cpu = dec_cpu(cpu_params, tok, c_cpu)
+        lc, c_cpu = dec_cpu(cpu_params, tok, c_cpu, memory=mem_cpu)
         lc = lc[:, 0]
         card_cpu_gap = max(card_cpu_gap, float((lg - lc).abs().max()))
         require(torch.allclose(lg, lc, **CARD_CPU_TOL),
@@ -4270,7 +4319,7 @@ def serve_fp32_checks(torch, np, cfg, params, cpu_steps=SERVE_PROMPT,
                 f"{float((lg - lc).abs().max())}")
     print(f"{what} fp32, batch {SERVE_BATCH}, {SERVE_PROMPT}-token prompt: "
           f"decode against forward on the card max |gap| {fwd_gap:.3e} "
-          f"(tolerance {DECODE_FORWARD_TOL}); card against CPU over "
+          f"(tolerance {fwd_tol}); card against CPU over "
           f"{min(cpu_steps, SERVE_PROMPT)} steps max |gap| "
           f"{card_cpu_gap:.3e} (tolerance {CARD_CPU_TOL})")
     if not greedy:
@@ -4279,8 +4328,8 @@ def serve_fp32_checks(torch, np, cfg, params, cpu_steps=SERVE_PROMPT,
     greedy_gap = 0.0
     tok = lg.argmax(dim=-1, keepdim=True)
     for _ in range(greedy):
-        lg, c_card = dec_card(params, tok.cuda(), c_card)
-        lc, c_cpu = dec_cpu(cpu_params, tok, c_cpu)
+        lg, c_card = dec_card(params, tok.cuda(), c_card, memory=mem_card)
+        lc, c_cpu = dec_cpu(cpu_params, tok, c_cpu, memory=mem_cpu)
         lg, lc = lg[:, 0].cpu(), lc[:, 0]
         greedy_gap = max(greedy_gap, float((lg - lc).abs().max()))
         require(torch.allclose(lg, lc, **CARD_CPU_TOL),
@@ -4337,51 +4386,86 @@ def serve_ring_check(torch, np, cfg, params):
     return gap
 
 
-def serve_bf16_check(torch, np, cfg, params, what="serve"):
-    """12.5 (13c): ``make_prefill_step`` at (4, 512) in bf16 against the
-    last logits of a bf16 teacher-forced decode over the same prompt."""
+def serve_bf16_check(torch, np, cfg, params, what="serve", seeds=(3,),
+                     shape=BF16_PREFILL):
+    """12.5 (13c, 14): ``make_prefill_step`` at (4, 512) (or ``shape``)
+    in bf16 against
+    the last logits of a bf16 teacher-forced decode over the same prompt
+    (an encoder-decoder's with stand-in ``frames``, its decode against
+    their bf16 memory); with more prompt seeds, their 4-row prompts go as
+    one batch and are held each on its own.  Each of the two bf16 paths
+    is also held against the fp32 prefill of the same weights and prompt,
+    the witness of which path holds the gap."""
+    from repro_torch.configs import stand_in_inputs
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.serve import make_decode_step, make_prefill_step
-    from repro_torch.models import init_cache
-    b, s = BF16_PREFILL
+    from repro_torch.models import encode_frames, init_cache
+    b, s = shape
     mesh = make_debug_mesh(data=1, model=1)
-    toks = serve_tokens(torch, np, cfg, (b, s), seed=3).cuda()
-    pre = make_prefill_step(cfg, mesh)(params, {"tokens": toks})[:, 0]
+    toks = torch.cat([serve_tokens(torch, np, cfg, (b, s), seed=seed)
+                      for seed in seeds]).cuda()
+    batch = {"tokens": toks}
+    memory = None
+    if cfg.encoder is not None:
+        batch["frames"] = torch.cat([stand_in_inputs(
+            cfg, b, scale=ZOO_EXTRA_SCALE, seed=seed)["frames"]
+            for seed in seeds]).cuda()
+        with torch.inference_mode():
+            memory = encode_frames(params, cfg,
+                                   batch["frames"].to(torch.bfloat16))
+    pre = make_prefill_step(cfg, mesh)(params, batch)[:, 0].float()
+    ref = make_prefill_step(cfg, mesh, torch.float32)(params, batch)[:, 0]
     dec = make_decode_step(cfg, mesh)
-    caches = init_cache(cfg, b, s)
+    caches = init_cache(cfg, b * len(seeds), s)
     for t in range(s):
-        lg, caches = dec(params, toks[:, t:t + 1], caches)
+        lg, caches = dec(params, toks[:, t:t + 1], caches, memory=memory)
     lg = lg[:, 0].float()
-    pre = pre.float()
-    gap = float((lg - pre).abs().max())
-    top = float(pre.abs().max())
-    same = int((lg.argmax(-1) == pre.argmax(-1)).sum())
-    print(f"{what} bf16: prefill ({b}, {s}) against {s} teacher-forced "
-          f"decode steps: last logits max |gap| {gap:.4f} of max |logit| "
-          f"{top:.4f} (tolerance {BF16_TOL} of it); argmax equal in {same} "
-          f"of {b} rows")
-    require(gap <= BF16_TOL * top, f"bf16 prefill and decode differ by "
-            f"{gap} > {BF16_TOL} x {top}")
-    return gap
+    del caches
+    worst = 0.0
+    for i, seed in enumerate(seeds):
+        rows = slice(i * b, (i + 1) * b)
+        gap = float((lg[rows] - pre[rows]).abs().max())
+        top = float(pre[rows].abs().max())
+        top_ref = float(ref[rows].abs().max())
+        pre_ref = float((pre[rows] - ref[rows]).abs().max())
+        dec_ref = float((lg[rows] - ref[rows]).abs().max())
+        same = int((lg[rows].argmax(-1) == pre[rows].argmax(-1)).sum())
+        print(f"{what} bf16, prompt seed {seed}: prefill ({b}, {s}) "
+              f"against {s} teacher-forced decode steps (batch "
+              f"{b * len(seeds)}): last logits max |gap| {gap:.4f} of max "
+              f"|logit| {top:.4f}, {gap / top:.4f} of it (tolerance "
+              f"{BF16_TOL}); argmax equal in {same} of {b} rows; against "
+              f"the fp32 prefill (max |logit| {top_ref:.4f}): bf16 prefill "
+              f"{pre_ref:.4f} ({pre_ref / top_ref:.4f} of it), bf16 decode "
+              f"{dec_ref:.4f} ({dec_ref / top_ref:.4f})")
+        require(gap <= BF16_TOL * top, f"bf16 prefill and decode differ by "
+                f"{gap} > {BF16_TOL} x {top} (prompt seed {seed})")
+        worst = max(worst, gap)
+    return worst
 
 
-def time_prefill(torch, np, cfg, params, what="serve"):
-    """12.6a (13c): one 32,768-token prompt through
-    ``make_prefill_step``."""
+def time_prefill(torch, np, cfg, params, what="serve", shape=PREFILL):
+    """12.6a (13c, 14): one ``shape[1]``-token prompt (32,768 unless
+    given) through ``make_prefill_step``, with the arch's stand-in
+    ``frames`` or ``prefix``."""
+    from repro_torch.configs import stand_in_inputs
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.serve import make_prefill_step
-    b, s = PREFILL
+    b, s = shape
     toks = serve_tokens(torch, np, cfg, (b, s), seed=4).cuda()
+    extra = stand_in_inputs(cfg, b, kind="prefill", scale=ZOO_EXTRA_SCALE,
+                            seed=4)
+    batch = {"tokens": toks, **{k: v.cuda() for k, v in extra.items()}}
     prefill = make_prefill_step(cfg, make_debug_mesh(data=1, model=1))
     torch.cuda.reset_peak_memory_stats()
-    out = prefill(params, {"tokens": toks})
+    out = prefill(params, batch)
     require(tuple(out.shape) == (b, 1, cfg.vocab_size) and
             bool(torch.isfinite(out).all()), "prefill logits not finite")
-    ms = 1e3 * median_s(torch, lambda: prefill(params, {"tokens": toks}),
-                        reps=3)
+    ms = 1e3 * median_s(torch, lambda: prefill(params, batch), reps=3)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"{what} prefill ({b}, {s}) bf16: {ms:.1f} ms (median of 3), "
-          f"{b * s / ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} GiB; "
+    with_ = "".join(f" + {k} {tuple(v.shape)}" for k, v in extra.items())
+    print(f"{what} prefill ({b}, {s}){with_} bf16: {ms:.1f} ms (median of "
+          f"3), {b * s / ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} GiB; "
           f"card: {card_line()}")
     return ms
 
@@ -4396,27 +4480,59 @@ def time_decode(torch, np, cfg, params, shape=DECODE, syncs=0,
     argmax.  The bound reads the cache and the weights once: all of them
     but an untied embedding table, of which the step reads its batch's
     rows (with 64 experts and top-6, batch 128 routes to every expert of a
-    layer but with probability ~1e-5)."""
+    layer but with probability ~1e-5); an SSD or RG-LRU layer's state and
+    conv tail are also written back whole, so the bound counts them
+    twice.  An encoder-decoder decodes against the bf16 memory that
+    ``encode_frames`` makes of stand-in frames for the batch (timed once):
+    the bound reads it as well, and is at least the time its
+    cross-attention K and V projections take at the bf16 peak, since every
+    step repeats them in every layer."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import stand_in_inputs
     from repro_torch.core.compression import tree_leaves
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.serve import make_decode_step
-    from repro_torch.models import init_cache
+    from repro_torch.models import encode_frames, init_cache
+    from repro_torch.models.rglru import RGLRUCache
+    from repro_torch.models.ssm import SSMCache
     b, s = shape
+    memory, memory_bytes, cross_flops, enc_note = None, 0, 0, ""
+    if cfg.encoder is not None:
+        frames = stand_in_inputs(cfg, b, scale=ZOO_EXTRA_SCALE,
+                                 seed=6)["frames"].cuda().to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            memory = encode_frames(params, cfg, frames)
+        torch.cuda.synchronize()
+        enc_ms = 1e3 * (time.perf_counter() - t0)
+        del frames
+        memory_bytes = memory.numel() * memory.element_size()
+        kv = cfg.n_heads * cfg.resolved_head_dim
+        cross_flops = 2 * 2 * memory.shape[0] * memory.shape[1] * \
+            cfg.d_model * kv * cfg.n_layers
+        enc_note = (f"; encode_frames {tuple(memory.shape)} bf16 "
+                    f"{enc_ms:.1f} ms (one call); cross-attention K, V "
+                    f"projections {cross_flops / 1e12:.2f} TFLOP a step, "
+                    f"{cross_flops / BF16_FLOP_PER_S * 1e3:.2f} ms at the "
+                    f"bf16 peak")
     torch.cuda.reset_peak_memory_stats()
     caches = init_cache(cfg, b, s)
     gen = torch.Generator(device="cuda").manual_seed(5)
     start = torch.tensor(s - DECODE_WARM - DECODE_TIMED, dtype=torch.int32,
                          device="cuda")
-    buffers = []
+    buffers, rewritten = [], []
     for i, c in enumerate(caches):
         for field, buf in zip(c._fields, c):
             if field not in ("idx", "ring"):
                 buf.normal_(generator=gen)
                 buffers.append(buf)
+                if isinstance(c, (SSMCache, RGLRUCache)):
+                    rewritten.append(buf)
         caches[i] = c._replace(idx=start.clone())
     cache_bytes = sum(x.numel() * x.element_size() for x in buffers)
+    written_bytes = sum(x.numel() * x.element_size() for x in rewritten)
     weight_bytes = sum(x.numel() * x.element_size()
                        for x in tree_leaves(params))
     if "lm_head" in params:
@@ -4427,7 +4543,8 @@ def time_decode(torch, np, cfg, params, shape=DECODE, syncs=0,
     state = {"tok": tok, "caches": caches}
 
     def step():
-        lg, state["caches"] = dec(params, state["tok"], state["caches"])
+        lg, state["caches"] = dec(params, state["tok"], state["caches"],
+                                  memory=memory)
         state["tok"] = lg.argmax(dim=-1)
 
     for _ in range(DECODE_WARM - 2):
@@ -4469,16 +4586,21 @@ def time_decode(torch, np, cfg, params, shape=DECODE, syncs=0,
             "the caches' idx did not reach the last slot")
     require(bool(torch.isfinite(state["caches"][0][0][:, -1]).all()),
             "decode wrote non-finite cache values")
-    bound_cache = cache_bytes / HBM_BYTES_PER_S * 1e3
-    bound = (cache_bytes + weight_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_cache = (cache_bytes + written_bytes) / HBM_BYTES_PER_S * 1e3
+    bound = max((cache_bytes + written_bytes + weight_bytes + memory_bytes)
+                / HBM_BYTES_PER_S * 1e3,
+                cross_flops / BF16_FLOP_PER_S * 1e3)
     top = [(name[:90], round(t, 3)) for name, t in
            sorted(times.items(), key=lambda kv: -kv[1])[:6]]
     print(f"{what} decode, batch {b}, {s}-slot bf16 cache "
           f"({cache_bytes / 1e9:.2f} GB): {ms:.2f} ms a step (median of "
           f"{DECODE_TIMED}; steps {json.dumps([round(x * 1e3, 2) for x in step_s])}), "
           f"{b / ms * 1e3:.0f} tokens/s; bound {bound:.2f} ms (the cache "
-          f"alone {bound_cache:.2f} ms, + fp32 weights {weight_bytes / 1e9:.3f}"
-          f" GB), {ms / bound:.1f}x it; {sync_note}; card: {card_line()}")
+          f"alone {bound_cache:.2f} ms, {written_bytes / 1e9:.2f} GB of it "
+          f"written back; + fp32 weights {weight_bytes / 1e9:.3f} GB"
+          f"{f' + memory {memory_bytes / 1e9:.3f} GB' if memory_bytes else ''}"
+          f"), {ms / bound:.1f}x it; {sync_note}{enc_note}; card: "
+          f"{card_line()}")
     print(f"{what} decode step by torch.profiler: device {dev_ms:.2f} ms of "
           f"{ms:.2f} ms (idle share {max(0.0, 1 - dev_ms / ms):.3f}); "
           f"{len(times)} device operation names; longest "
@@ -4605,8 +4727,8 @@ def moe_block_check(torch, np, cfg):
     return {"card_vs_cpu": err, "dispatch": disp}
 
 
-def moe_rerun_check(torch, cfg, tc, state, batch):
-    """13b: two local SGD runs from the same state under the trainer's
+def moe_rerun_check(torch, cfg, tc, state, batch, what="moe"):
+    """13b (14): two local SGD runs from the same state under the trainer's
     deterministic algorithms give bitwise equal gradients, and the mode
     warns of no operation."""
     import warnings
@@ -4620,40 +4742,51 @@ def moe_rerun_check(torch, cfg, tc, state, batch):
                                                  tree_leaves(two)))
     alerts = sorted({str(w.message)[:160] for w in caught
                      if "determinis" in str(w.message).lower()})
-    print(f"moe reruns: two local SGD runs from one state bitwise equal: "
+    print(f"{what} reruns: two local SGD runs from one state bitwise equal: "
           f"{same}; deterministic-mode warnings {alerts}; "
           f"{len(caught)} warnings in all")
     require(same, "two local SGD runs from the same state differ")
     require(not alerts, f"the deterministic mode warned: {alerts}")
 
 
-def moe_smoke_archs(torch, np):
-    """13d: ``granite-moe-3b-a800m`` and ``moonshot-v1-16b-a3b`` at their
-    smoke configs, card against CPU at fp32: one forward (logits within
-    1e-4 of the largest, aux loss within rtol 1e-4), one train step with
-    the dense ``baseline`` codec (the loss within rtol 1e-4, the update
-    within 1e-4 of its largest magnitude; STC at this size keeps or drops
-    near-ties that ulps decide) and 8 decode steps (logits within rtol
-    1e-4 / atol 1e-4)."""
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.core.compression import (flatten_pytree, tree_map)
+def smoke_archs(torch, np, archs=MOE_SMOKE, what="moe"):
+    """13d (14c): archs at their smoke configs, card against CPU at fp32
+    (``granite-moe-3b-a800m`` and ``moonshot-v1-16b-a3b``; ``whisper-medium``
+    with stub audio ``frames``, ``internvl2-2b`` with a patch ``prefix``):
+    one forward (logits within 1e-4 of the largest, aux loss within rtol
+    1e-4), one train step with the dense ``baseline`` codec (the loss
+    within rtol 1e-4, the update within 1e-4 of its largest magnitude; STC
+    at this size keeps or drops near-ties that ulps decide) and 8 decode
+    steps (logits within rtol 1e-4 / atol 1e-4; whisper against the memory
+    of ``encode_frames`` on each device)."""
+    from repro_torch.configs import get_smoke_config, stand_in_inputs
+    from repro_torch.core.compression import flatten_pytree, tree_map
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.serve import make_decode_step
     from repro_torch.launch.train import (TrainConfig, init_train_state,
                                           make_train_step)
-    from repro_torch.models import forward, init_cache, init_model
+    from repro_torch.models import (encode_frames, forward, init_cache,
+                                    init_model)
     mesh = make_debug_mesh(data=1, model=1)
     out = {}
-    for arch in MOE_SMOKE:
+    for arch in archs:
         cfg = get_smoke_config(arch)
         p_cpu = init_model(cfg, 0)
         p_card = tree_map(lambda t: t.cuda(), p_cpu)
         toks = serve_tokens(torch, np, cfg, MOE_SMOKE_SHAPE, seed=7)
+        extra = stand_in_inputs(cfg, MOE_SMOKE_SHAPE[0],
+                                scale=ZOO_EXTRA_SCALE, seed=8)
+        extra_card = {k: v.cuda() for k, v in extra.items()}
         with torch.no_grad():
             lg_c, aux_c = forward(p_cpu, cfg, toks,
-                                  compute_dtype=torch.float32)
+                                  compute_dtype=torch.float32, **extra)
             lg_g, aux_g = forward(p_card, cfg, toks.cuda(),
-                                  compute_dtype=torch.float32)
+                                  compute_dtype=torch.float32, **extra_card)
+            memory = {"card": None, "host": None}
+            if cfg.encoder is not None:
+                memory = {"card": encode_frames(p_card, cfg,
+                                                extra_card["frames"]),
+                          "host": encode_frames(p_cpu, cfg, extra["frames"])}
         fwd = float((lg_g.cpu() - lg_c).abs().max())
         require(fwd <= 1e-4 * float(lg_c.abs().max()) and
                 abs(float(aux_g) - float(aux_c)) <= 1e-4 * float(aux_c),
@@ -4661,7 +4794,8 @@ def moe_smoke_archs(torch, np):
                 f"{float(aux_g)} against {float(aux_c)}")
         tc = TrainConfig(protocol="baseline", lr=0.05,
                          compute_dtype=torch.float32)
-        batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1),
+                 **extra}
         devices = {"card": "cuda", "host": "cpu"}
         runs = {}
         for where, dev in devices.items():
@@ -4686,15 +4820,17 @@ def moe_smoke_archs(torch, np):
         for t in range(MOE_SMOKE_DECODE):
             tok = toks[:, t:t + 1]
             lg, caches["card"] = dec["card"](p_card, tok.cuda(),
-                                             caches["card"])
-            lc, caches["host"] = dec["host"](p_cpu, tok, caches["host"])
+                                             caches["card"],
+                                             memory=memory["card"])
+            lc, caches["host"] = dec["host"](p_cpu, tok, caches["host"],
+                                             memory=memory["host"])
             gap = max(gap, float((lg.cpu() - lc).abs().max()))
             require(torch.allclose(lg.cpu(), lc, **CARD_CPU_TOL),
                     f"{arch}: decode step {t} card against CPU "
                     f"{float((lg.cpu() - lc).abs().max())}")
         out[arch] = {"forward": fwd, "train_loss": loss_g,
                      "update_gap": upd, "decode": gap}
-    print(f"moe smoke archs card against CPU at fp32 (max |gap|): "
+    print(f"{what} smoke archs card against CPU at fp32 (max |gap|): "
           f"{json.dumps(out)}")
     return out
 
@@ -4749,13 +4885,283 @@ def run_moe(torch, np, rk):
     del params
     torch.cuda.empty_cache()
     t_smoke = time.perf_counter()
-    moe_smoke_archs(torch, np)
+    smoke_archs(torch, np)
     torch.cuda.empty_cache()
     print(f"phase 13 took {time.perf_counter() - t0:.1f} s (serve "
           f"{t_smoke - t_serve:.1f} s, smoke archs "
           f"{time.perf_counter() - t_smoke:.1f} s; peak memory of the "
           f"{MOE_STEPS} trainer steps {peak:.3f} GiB); card: {card_line()}")
     return {"moe": launches}, extra, errs
+
+
+# --------------------------------------------------------------- phase 14
+
+ZOO_SSM = "mamba2-370m"
+ZOO_SSM_NUMEL = 368_227_840     # 48 layers: full width and depth
+ZOO_SSM_K = 7_364_556           # int(ZOO_SSM_NUMEL / 50)
+ZOO_HYBRID = "recurrentgemma-2b"
+# cut from 26 layers (2,265,290,240 parameters): four whole (rglru, rglru,
+# local) periods; phase 13's trainer peaked at 56.2 GiB for 1.67 G
+# parameters, which scales to ~76 GiB at 2.27 G, too close to the 80 GB
+ZOO_HYBRID_LAYERS = 12
+ZOO_HYBRID_NUMEL = 1_394_772_480
+ZOO_HYBRID_K = 27_895_449       # int(ZOO_HYBRID_NUMEL / 50)
+ZOO_ENC = "whisper-medium"
+ZOO_ENC_NUMEL = 810_987_520     # 24 encoder and 24 decoder layers: full
+ZOO_ENC_K = 16_219_750          # int(ZOO_ENC_NUMEL / 50)
+ZOO_VLM = "internvl2-2b"
+# cut from 24 layers (1,893,341,184 parameters): there the trainer fits
+# (peak 63.6 GiB) but the plain bin_select at its (1, 1,893,341,184) row
+# does not: its full sort asked for 21.21 GiB beside 58.34 GiB in use; at
+# 20 layers the row is phase 13's size
+ZOO_VLM_LAYERS = 20
+ZOO_VLM_NUMEL = 1_641_666_560
+ZOO_VLM_K = 32_833_331          # int(ZOO_VLM_NUMEL / 50)
+ZOO_BATCH = (4, 1024)           # four SSD chunks of 256 a sequence
+ZOO_STEPS = 5
+ZOO_BLOCK_X = (2, 512)          # two SSD chunks: the recurrence runs
+ZOO_BLOCK_TOL = 1e-4            # card against CPU, of the largest magnitude
+ZOO_EXTRA_SCALE = 0.1           # stand-in frames and prefix: 0.1 x N(0, 1)
+ZOO_FRONT_TOKENS = (1, 32)      # beside the frames / prefix, card vs CPU
+SSD_DECODE_TOL = {"rtol": 5e-3, "atol": 5e-3}   # tests/test_models.py, SSD
+ZOO_DECODE = (128, 32_768)      # decode_32k's batch and cache length
+ZOO_SSM_BF16_SEEDS = (3, 10)    # a second prompt for the bf16 witness
+# the attention archs: prefill_32k's prompt cut to 8,192 (the port's flash
+# scan ran SmolLM's 32,768-token prefill at ~11 TFLOP/s in phase 12, which
+# puts one such prefill at ~10 s for whisper and ~19 s for internvl, and
+# the timing makes four); decode_32k's batch 128 against 4,096 slots (24
+# layers of K and V 1,024 wide take 12.6 MB a slot: 412 GB at 32,768)
+ZOO_ATTN_PREFILL = (1, 8_192)
+ZOO_ATTN_DECODE = (128, 4_096)
+ZOO_ATTN_CPU_STEPS = 4          # whisper's CPU step re-projects its memory
+# the attention archs' bf16 prefill-vs-decode prompt: 256 tokens, where
+# the SSD needs two chunks of 256; whisper's 512 decode steps took 38 s
+ZOO_ATTN_BF16 = (4, 256)
+ZOO_STEP_REPS = 2               # step phases: median of 2 (the run's time)
+ZOO_SMOKE = ("whisper-medium", "internvl2-2b")
+
+
+def zoo_setup(torch, np, arch, layers=None):
+    """The arch at full width (depth cut to ``layers`` when given), phase
+    11's STC setting and a 4 x 1,024 batch of ``make_lm_tokens(seed=0)``,
+    with the arch's stand-in ``frames`` or ``prefix``: ``(cfg, tc,
+    batch)``."""
+    from repro_torch.configs import get_config, stand_in_inputs
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.launch.train import TrainConfig
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    b, s = ZOO_BATCH
+    toks = make_lm_tokens(seed=0, n_tokens=b * s + 1, vocab=cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(toks[:-1].reshape(b, s)),
+             "labels": torch.from_numpy(toks[1:].reshape(b, s)),
+             **stand_in_inputs(cfg, b, scale=ZOO_EXTRA_SCALE)}
+    return cfg, TrainConfig(**MESH_TC), batch
+
+
+def zoo_block_check(torch, np, cfg, what):
+    """14a: the arch's recurrent mixer at full width (an SSD block; an
+    RG-LRU block) on a (2, 512) fp32 input, card against CPU within 1e-4
+    of the largest magnitude."""
+    from repro_torch.core.compression import tree_map
+    from repro_torch.models import rglru, ssm
+    gen = torch.Generator().manual_seed(0)
+    if cfg.ssm is not None:
+        p_cpu = ssm.ssd_init(gen, cfg.d_model, cfg.ssm)
+        fn = lambda p, x: ssm.ssd_apply(p, x, cfg.ssm, cfg.d_model)
+    else:
+        p_cpu = rglru.rglru_init(gen, cfg.d_model, cfg.rglru)
+        fn = lambda p, x: rglru.rglru_apply(p, x, cfg.rglru, cfg.d_model)
+    p_card = tree_map(lambda t: t.cuda(), p_cpu)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        ZOO_BLOCK_X + (cfg.d_model,)).astype(np.float32))
+    with torch.no_grad():
+        want = fn(p_cpu, x)
+        got = fn(p_card, x.cuda()).cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"{what} block at full width on {ZOO_BLOCK_X} fp32: card against "
+          f"CPU max |gap| {err:.3e} of max |out| {scale:.3e}")
+    require(bool(torch.isfinite(got).all()) and err <= ZOO_BLOCK_TOL * scale,
+            f"{what} block card against CPU {err} > {ZOO_BLOCK_TOL} x "
+            f"{scale}")
+    return err
+
+
+def zoo_front_check(torch, np, cfg, params, cpu_params, what):
+    """14c: the trained weights' fp32 ``forward`` at full width on a (1, 32)
+    prompt with the arch's stand-in inputs (internvl: a 256-row prefix
+    through ``prefix_proj``; whisper: 1,500 frames through
+    ``encode_frames`` into the cross-attention), card against CPU within
+    1e-4 of the largest logit."""
+    from repro_torch.configs import stand_in_inputs
+    from repro_torch.models import forward
+    b, s = ZOO_FRONT_TOKENS
+    toks = serve_tokens(torch, np, cfg, (b, s), seed=8)
+    extra = stand_in_inputs(cfg, b, scale=ZOO_EXTRA_SCALE, seed=8)
+    with torch.inference_mode():
+        want, _ = forward(cpu_params, cfg, toks, compute_dtype=torch.float32,
+                          **extra)
+        got, _ = forward(params, cfg, toks.cuda(),
+                         compute_dtype=torch.float32,
+                         **{k: v.cuda() for k, v in extra.items()})
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    with_ = ", ".join(f"{k} {tuple(v.shape)}" for k, v in extra.items())
+    print(f"{what} forward at full width on ({b}, {s}) tokens with {with_} "
+          f"fp32: logits {tuple(got.shape)}, card against CPU max |gap| "
+          f"{err:.3e} of max |logit| {scale:.3e}")
+    require(bool(torch.isfinite(got).all()) and err <= ZOO_BLOCK_TOL * scale,
+            f"{what} forward card against CPU {err} > {ZOO_BLOCK_TOL} x "
+            f"{scale}")
+    return err
+
+
+def zoo_cache_bytes(torch, cfg, what):
+    """14: ``init_cache`` at decode_32k's batch allocates on the card the
+    same bytes at long_500k's length (524,288) as at decode_32k's
+    (32,768): recurrent states, and rings of the window on local layers."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.models import init_cache
+    batch = INPUT_SHAPES["decode_32k"].global_batch
+    got = {}
+    for shape in ("decode_32k", "long_500k"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        caches = init_cache(cfg, batch, INPUT_SHAPES[shape].seq_len)
+        torch.cuda.synchronize()
+        got[shape] = torch.cuda.memory_allocated() - before
+        del caches
+        torch.cuda.empty_cache()
+    print(f"{what} init_cache at batch {batch}: {json.dumps(got)} bytes "
+          f"allocated on the card")
+    require(got["long_500k"] == got["decode_32k"] > 0,
+            f"{what}: long_500k's caches take {got['long_500k']} bytes, "
+            f"decode_32k's {got['decode_32k']}")
+    return got
+
+
+def zoo_arch(torch, np, rk, arch, numel, k, layers=None):
+    """14a-c, one arch: a recurrent arch's block card against CPU, the mesh
+    trainer (5 steps with the three STC kernels exactly twice a step at
+    (1, numel), bitwise reruns, step phases and host syncs, the kernels
+    against their plain versions and timed at that row), then serving the
+    trained weights from memory: internvl's forward with its prefix card
+    against CPU, fp32 decode vs forward and vs the
+    CPU, bf16 prefill vs decode (and each against fp32), the prefill, the
+    decode at batch 128 with no host sync, and a recurrent arch's caches'
+    bytes at long_500k.  Returns ``(launches, keys by kernel, max
+    errors)``."""
+    from repro_torch.core.compression import flatten_pytree, tree_map
+    from repro_torch.core.distributed import tree_add
+    t0 = time.perf_counter()
+    clock = [t0]
+
+    def stage(name):
+        """Each stage's wall seconds and the card's allocated GiB after it,
+        printed as it ends."""
+        torch.cuda.synchronize()
+        clock.append(time.perf_counter())
+        print(f"{arch} stage {name}: {clock[-1] - clock[-2]:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    cfg, tc, batch = zoo_setup(torch, np, arch, layers)
+    got = (cfg.param_count(), max(int(cfg.param_count() * tc.sparsity_up), 1))
+    require(got == (numel, k), f"{arch}: {got[0]} parameters, k = {got[1]}")
+    recurrent = cfg.ssm is not None or cfg.rglru is not None
+    if recurrent:
+        zoo_block_check(torch, np, cfg, arch)
+    state, launches = mesh_single(torch, np, rk, cfg, tc, batch, ZOO_STEPS,
+                                  what=arch)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stage("trainer")
+    moe_rerun_check(torch, cfg, tc, state, batch, what=arch)
+    time_mesh_step(torch, np, state, cfg, tc, batch, what=arch,
+                   reps=ZOO_STEP_REPS, ledger_steps=0)
+    stage("reruns and step phases")
+    # the kernels at the trainer's row, on the carried row of the next
+    # encode; the parameters wait on the host meanwhile
+    delta = mesh_delta(torch, cfg, tc, state["params"], batch, slice(0, 4))
+    row = flatten_pytree(tree_add(delta, tree_map(
+        lambda x: x[0], state["client_res"])))[0][None]
+    cpu_params = tree_map(lambda t: t.cpu(), state["params"])
+    del delta, state
+    torch.cuda.empty_cache()
+    stage("the carried row")
+    extra, errs = mesh_kernel_rows(torch, rk, row, k, plain_iters=1)
+    del row
+    torch.cuda.empty_cache()
+    params = tree_map(lambda t: t.cuda(), cpu_params)
+    stage("kernels at the row")
+    t_serve = time.perf_counter()
+    rk.LAUNCHES.reset()
+    if cfg.n_prefix_tokens:
+        # the prefix has no decode; the encoder is held card vs CPU through
+        # the memory that whisper's decode reads in serve_fp32_checks
+        zoo_front_check(torch, np, cfg, params, cpu_params, arch)
+    fwd_tol = SSD_DECODE_TOL if cfg.ssm is not None else DECODE_FORWARD_TOL
+    serve_fp32_checks(torch, np, cfg, params,
+                      cpu_steps=MOE_CPU_STEPS if recurrent else
+                      ZOO_ATTN_CPU_STEPS, greedy=0, what=f"{arch} serve",
+                      fwd_tol=fwd_tol, cpu_params=cpu_params)
+    del cpu_params
+    stage("fp32 serve checks")
+    serve_bf16_check(torch, np, cfg, params, what=f"{arch} serve",
+                     seeds=ZOO_SSM_BF16_SEEDS if cfg.ssm is not None
+                     else (3,),
+                     shape=BF16_PREFILL if recurrent else ZOO_ATTN_BF16)
+    torch.cuda.empty_cache()
+    stage("bf16 serve check")
+    time_prefill(torch, np, cfg, params, what=f"{arch} serve",
+                 shape=PREFILL if recurrent else ZOO_ATTN_PREFILL)
+    torch.cuda.empty_cache()
+    stage("prefill")
+    time_decode(torch, np, cfg, params,
+                shape=ZOO_DECODE if recurrent else ZOO_ATTN_DECODE,
+                syncs=0, what=f"{arch} serve")
+    ran = {n: c for n, c in rk.LAUNCHES.counts.items() if c}
+    require(not ran, f"the {arch} serve path launched the port's kernels: "
+            f"{ran}")
+    del params
+    torch.cuda.empty_cache()
+    stage("decode")
+    if recurrent:
+        zoo_cache_bytes(torch, cfg, arch)
+    print(f"phase 14 {arch}: {time.perf_counter() - t0:.1f} s (serve "
+          f"{time.perf_counter() - t_serve:.1f} s; peak memory of the "
+          f"{ZOO_STEPS} trainer steps {peak:.3f} GiB)")
+    return launches, extra, errs
+
+
+def run_zoo(torch, np, rk):
+    """Phase 14: the rest of the model zoo on the card, through the mesh
+    trainer and the serve path: Mamba-2-370M and whisper-medium (frames
+    through its encoder into the cross-attention) at full width and depth,
+    RecurrentGemma-2B at full width and 12 layers, internvl2-2b (a patch
+    prefix) at full width and 20 layers; then whisper and internvl at
+    their smoke configs, the train step card against CPU.  Returns
+    ``(launches by path, keys by kernel for the kernels line, max
+    errors)``."""
+    t0 = time.perf_counter()
+    launches, extra, errs = {}, {}, {}
+    for arch, numel, k, layers in (
+            (ZOO_SSM, ZOO_SSM_NUMEL, ZOO_SSM_K, None),
+            (ZOO_HYBRID, ZOO_HYBRID_NUMEL, ZOO_HYBRID_K, ZOO_HYBRID_LAYERS),
+            (ZOO_ENC, ZOO_ENC_NUMEL, ZOO_ENC_K, None),
+            (ZOO_VLM, ZOO_VLM_NUMEL, ZOO_VLM_K, ZOO_VLM_LAYERS)):
+        launches[arch], ex, er = zoo_arch(torch, np, rk, arch, numel, k,
+                                          layers)
+        for name, keys in ex.items():
+            extra.setdefault(name, {}).update(keys)
+        for name, e in er.items():
+            errs[name] = max(errs.get(name, 0.0), e)
+    smoke_archs(torch, np, ZOO_SMOKE, what="zoo")
+    torch.cuda.empty_cache()
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s; card: "
+          f"{card_line()}")
+    return launches, extra, errs
 
 
 # ------------------------------------------------------------------- main
@@ -4787,12 +5193,14 @@ def main() -> int:
              "--mesh": lambda: run_mesh(torch, np, rk),
              "--serve": lambda: run_serve(torch, np, rk),
              "--moe": lambda: run_moe(torch, np, rk),
+             "--zoo": lambda: run_zoo(torch, np, rk),
              "--drift-witness": lambda: drift_witness(torch, np, rk)}
     if len(sys.argv) == 2 and sys.argv[1] in alone:
         try:
             alone[sys.argv[1]]()
             return 0
         except (Failure, RuntimeError, subprocess.SubprocessError) as exc:
+            traceback.print_exc()
             print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
             return 1
     if sys.argv[1:]:
@@ -4867,7 +5275,8 @@ def main() -> int:
         del trained
         torch.cuda.empty_cache()
         moe, moe_ms, moe_errs = run_moe(torch, np, rk)
-        # launches on the paths of phases 7 to 13, beside each kernel's
+        zoo, zoo_ms, zoo_errs = run_zoo(torch, np, rk)
+        # launches on the paths of phases 7 to 14, beside each kernel's
         # main-path count; the kernels' times at the chunked shapes and at
         # the mesh paths' rows
         for row in rows:
@@ -4879,12 +5288,11 @@ def main() -> int:
                 if runs[path][0].get(name)}
             row["launches_other_paths"].update({
                 path: counts[name]
-                for runs in (chunked, events, mesh, serve, moe)
+                for runs in (chunked, events, mesh, serve, moe, zoo)
                 for path, counts in runs.items() if counts.get(name)})
-            row.update(chunked_ms.get(name, {}))
-            row.update(mesh_ms.get(name, {}))
-            row.update(moe_ms.get(name, {}))
-            for errs_of in (chunked_errs, mesh_errs, moe_errs):
+            for keys in (chunked_ms, mesh_ms, moe_ms, zoo_ms):
+                row.update(keys.get(name, {}))
+            for errs_of in (chunked_errs, mesh_errs, moe_errs, zoo_errs):
                 if name in errs_of:
                     row["max_abs_err"] = max(row["max_abs_err"],
                                              errs_of[name])
@@ -4894,6 +5302,7 @@ def main() -> int:
                 f"missing timing for {row['name']}")
         card = card_line()
     except (Failure, RuntimeError, subprocess.SubprocessError) as exc:
+        traceback.print_exc()
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(f"tf32: cuda.matmul.allow_tf32="

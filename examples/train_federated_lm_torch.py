@@ -9,6 +9,9 @@ The twin of ``examples/train_federated_lm.py`` on ``repro_torch``.  The
 default trains a reduced variant of the chosen architecture (its smoke
 config with a few more layers) for a few hundred steps on synthetic token
 data; ``--full`` uses the full config (SmolLM-135M: 30 layers, d 576).
+Every arch of ``repro_torch.configs.ARCH_IDS`` trains: whisper-medium
+with zero stub audio frames, internvl2-2b with a zero patch prefix, as
+the reference's train CLI feeds them.
 Runs on the CUDA card unless ``--device cpu`` is given; the ranks (gloo,
 all on that device) are spawned here.  The check that training learns
 (the last 20 steps' mean loss below the first 5 steps') runs from 25
@@ -23,7 +26,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import (ARCH_IDS, get_config, get_smoke_config,
+                                 stand_in_inputs)
 from repro_torch.core.protocols import get_protocol_class, registered_protocols
 from repro_torch.data import make_lm_tokens
 from repro_torch.device import resolve_device
@@ -67,8 +71,9 @@ def run(rank, args, port):
         starts = rng.integers(0, len(tokens) - s - 1, size=b)
         toks = np.stack([tokens[i: i + s] for i in starts])
         labs = np.stack([tokens[i + 1: i + s + 1] for i in starts])
-        return {"tokens": torch.from_numpy(toks),
-                "labels": torch.from_numpy(labs)}
+        batch = {"tokens": torch.from_numpy(toks),
+                 "labels": torch.from_numpy(labs)}
+        return {**batch, **stand_in_inputs(cfg, b)}
 
     t0 = time.time()
     losses = []
@@ -94,7 +99,7 @@ def run(rank, args, port):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m", choices=ARCH_IDS)
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--protocol", default="stc",
                     choices=registered_protocols())

@@ -6,6 +6,8 @@ copied from the reference.  ``input_specs`` gives each model input as a
 :class:`TensorSpec` (shape and torch dtype) where the reference gives a
 ``jax.ShapeDtypeStruct``.  ``long_500k`` resolves each arch's
 ``LONG_CONFIG`` (the sliding-window variant of a full-attention arch).
+``stand_in_inputs`` builds the stub front ends' frames and prefix that the
+specs name, for the train CLI, the examples and the card's smoke run.
 """
 
 from __future__ import annotations
@@ -13,13 +15,14 @@ from __future__ import annotations
 import importlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..models.config import ModelConfig
 from .shapes import INPUT_SHAPES, InputShape
 
 __all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "input_specs",
-           "INPUT_SHAPES", "TensorSpec"]
+           "stand_in_inputs", "INPUT_SHAPES", "TensorSpec"]
 
 _MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
@@ -92,3 +95,24 @@ def input_specs(cfg: ModelConfig, shape: InputShape | str) -> dict:
         specs["prefix"] = TensorSpec((b, cfg.n_prefix_tokens, cfg.d_model),
                                      emb)
     return specs
+
+
+def stand_in_inputs(cfg: ModelConfig, batch: int, kind: str = "train",
+                    scale: float = 0.0, seed: int = 0) -> dict:
+    """The stub front ends' inputs that :func:`input_specs` names, built
+    for ``batch`` rows as fp32 CPU tensors: an encoder-decoder's
+    ``frames`` (batch, F, d) and a VLM's ``prefix`` (batch, P, d) at a
+    ``train`` or ``prefill`` kind; nothing for other archs or at
+    ``decode`` (whose ``memory`` is :func:`repro_torch.models.encode_frames`'
+    output).  Zeros, or ``scale`` times standard normals drawn in that
+    order from ``numpy.random.default_rng(seed)``."""
+    specs = input_specs(cfg, InputShape("stand_in", 1, batch, kind))
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in ("frames", "prefix"):
+        if name in specs:
+            shape = specs[name].shape
+            out[name] = (torch.zeros(shape) if not scale else
+                         torch.from_numpy((scale * rng.standard_normal(
+                             shape)).astype(np.float32)))
+    return out

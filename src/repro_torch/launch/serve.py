@@ -1,11 +1,13 @@
 """Serving steps: prefill (a full forward over the prompt) and decode (one
-new token against the KV caches of :func:`repro_torch.models.init_cache`).
+new token against the KV, latent or recurrent-state caches of
+:func:`repro_torch.models.init_cache`).
 
 Counterpart of ``repro/launch/serve.py``.  Both steps run under
 ``torch.inference_mode()`` on the device the step was made for (the card
 unless ``device="cpu"``); the parameters and caches must live there, and
-token inputs are moved there.  The decode step writes the caches in place
-and, on the dense blocks, makes no host sync, so a loop of steps runs
+token, prefix and frame inputs are moved there.  The decode step writes
+the caches in place and, but for MoE layers, makes no host sync, so a
+loop of steps runs
 ahead of the host; a MoE layer reads its experts' group sizes to the host,
 one sync a layer a step (:mod:`repro_torch.models.moe`).
 
@@ -25,7 +27,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import _require_ported, decode_step, forward
+from ..models.transformer import decode_step, forward
 from .train import _TENSOR_PARALLEL
 
 __all__ = ["CACHE_MODES", "make_prefill_step", "make_decode_step"]
@@ -36,25 +38,27 @@ CACHE_MODES = ("heads", "batch", "local", "seq")
 def _check(cfg: ModelConfig, mesh) -> None:
     if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(_TENSOR_PARALLEL)
-    _require_ported(cfg)
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
                       device=None):
     """``prefill(params, batch) -> logits`` (batch: dict of inputs, with
-    ``tokens`` (B, S)).  The logits are the LAST position's only, (B, 1,
-    V): the realistic serving prefill, which never holds (B, S, V)."""
+    ``tokens`` (B, S), and ``prefix`` (B, P, d) or ``frames`` (B, F, d)
+    where the arch takes them).  The logits are the LAST position's only,
+    (B, 1, V): the realistic serving prefill, which never holds (B, S,
+    V)."""
     _check(cfg, mesh)
     device = resolve_device(device)
 
     def prefill(params, batch):
         with torch.inference_mode():
+            extra = {name: (None if batch.get(name) is None else
+                            torch.as_tensor(batch[name]).to(device))
+                     for name in ("prefix", "frames")}
             hidden, _ = forward(params, cfg,
                                 torch.as_tensor(batch["tokens"]).to(device),
-                                prefix=batch.get("prefix"),
-                                frames=batch.get("frames"),
                                 compute_dtype=compute_dtype,
-                                return_hidden=True)
+                                return_hidden=True, **extra)
             head = params.get("lm_head", params["embed"])
             return hidden[:, -1:, :] @ head.T.to(hidden.dtype)
 
@@ -66,7 +70,9 @@ def make_decode_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
     """``decode(params, token, caches, memory=None) -> (logits, caches)``.
 
     ``token`` is (B, 1); the caches passed in are consumed (written in
-    place) and come back with their ``idx`` advanced on the device."""
+    place) and come back with their ``idx`` advanced on the device.
+    ``memory`` is an encoder-decoder's encoder output
+    (:func:`repro_torch.models.encode_frames`), on the device."""
     if cache_mode not in CACHE_MODES:
         raise ValueError(f"unknown cache_mode {cache_mode!r}; options: "
                          f"{CACHE_MODES}")

@@ -50,7 +50,7 @@ from ..core.distributed import all_gather, psum
 from ..core.protocols import Codec, get_protocol_class
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import _require_ported, init_model, lm_loss
+from ..models.transformer import init_model, lm_loss
 from ..sharding.rules import batch_rows
 
 __all__ = ["TrainConfig", "WireLedger", "codec_for", "init_train_state",
@@ -218,14 +218,15 @@ def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
     (state, metrics)`` (``(state, metrics, (msgs, global_delta))`` with
     ``measure_wire``) for THIS rank's client.
 
-    ``batch`` is the global batch (``tokens``, ``labels``: (B, S)); the
-    rank takes its rows (:func:`repro_torch.sharding.rules.batch_rows`).
+    ``batch`` is the global batch (``tokens``, ``labels``: (B, S); an
+    encoder-decoder's ``frames`` (B, F, d), a VLM's ``prefix`` (B, P, d));
+    the rank takes its rows of every entry
+    (:func:`repro_torch.sharding.rules.batch_rows`).
     ``mask`` / ``staleness`` are the global per-client vectors (masked mode
     only); the rank takes its entry.  Metrics stay on the device."""
     device = resolve_device(device)
     if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(_TENSOR_PARALLEL)
-    _require_ported(cfg)
     group = mesh.client_group()
     rank = mesh.client_rank()
     n_clients = mesh.n_clients
@@ -236,7 +237,9 @@ def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
         leaves = [leaf.detach().requires_grad_(True)
                   for leaf in tree_leaves(params)]
         loss = lm_loss(_rebuild(params, iter(leaves)), cfg, batch["tokens"],
-                       batch["labels"], compute_dtype=tc.compute_dtype)
+                       batch["labels"], prefix=batch.get("prefix"),
+                       frames=batch.get("frames"),
+                       compute_dtype=tc.compute_dtype)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), _rebuild(params, iter(grads))
 
@@ -381,7 +384,7 @@ def _free_port() -> int:
 
 
 def _run(rank: int, args, port: int) -> None:
-    from ..configs import get_config, get_smoke_config
+    from ..configs import get_config, get_smoke_config, stand_in_inputs
     from ..data import make_lm_tokens
     from .mesh import make_debug_mesh
 
@@ -401,6 +404,7 @@ def _run(rank: int, args, port: int) -> None:
         toks = make_lm_tokens(n_tokens=4 * 128 + 1, vocab=cfg.vocab_size)
         batch = {"tokens": torch.as_tensor(toks[:-1].reshape(4, 128)),
                  "labels": torch.as_tensor(toks[1:].reshape(4, 128))}
+        batch.update(stand_in_inputs(cfg, 4))
         ledger = WireLedger(codec_for(tc), cfg.param_count())
         step = make_train_step(cfg, mesh, tc, device=device)
         for i in range(args.steps):

@@ -1,10 +1,8 @@
 """Unified model configuration for the 10 assigned architectures.
 
 Counterpart of ``repro/models/config.py``, copied as plain data: one
-``ModelConfig`` drives :mod:`repro_torch.models.transformer`.  The port
-builds the dense ``"attn"`` / ``"local"`` blocks; the other kinds and the
-sub-configs are here so that every arch's config and ``param_count``
-agree with the reference.
+``ModelConfig`` drives :mod:`repro_torch.models.transformer`, for every
+block kind, and ``param_count`` agrees with the reference's.
 """
 
 from __future__ import annotations

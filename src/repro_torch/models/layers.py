@@ -1,4 +1,4 @@
-"""Basic layers: norms, MLPs, embeddings, RoPE.  Functional: parameters are
+"""Basic layers: norms, MLPs, embeddings, RoPE, the causal depthwise conv.  Functional: parameters are
 dicts of tensors, initialized in fp32; the compute dtype is the caller's.
 
 Counterpart of ``repro/models/layers.py``, with the reference's casts:
@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "dense_init", "rms_norm", "rms_norm_init", "mlp_init", "mlp_apply",
-    "embed_init", "rope_freqs", "apply_rope",
+    "embed_init", "rope_freqs", "apply_rope", "causal_conv",
 ]
 
 
@@ -85,3 +85,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     c = cos[..., :, None, :]
     s = sin[..., :, None, :]
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
+                tail: torch.Tensor | None = None) -> tuple:
+    """Depthwise causal conv over (B, S, C) with a (k, C) kernel:
+    ``out[:, t] = sum_i w[i] · x[:, t + i - (k - 1)]``, the k - 1 steps
+    before the start taken from ``tail`` (B, k - 1, C), or zeros.  The taps
+    are added one by one in ``x``'s dtype, so a full sequence and a decode
+    step round alike.  Returns ``(out (B, S, C), new tail (B, k - 1, C))``:
+    the new tail is a view of the last k - 1 inputs."""
+    k, s = conv_w.shape[0], x.shape[1]
+    xp = (F.pad(x, (0, 0, k - 1, 0)) if tail is None else
+          torch.cat([tail.to(x.dtype), x], dim=1))      # (B, S + k - 1, C)
+    out = torch.zeros_like(xp[:, :s])
+    for i in range(k):
+        out = out + conv_w[i].to(x.dtype) * xp[:, i:i + s]
+    return out, xp[:, s:]

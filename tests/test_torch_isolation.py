@@ -50,7 +50,8 @@ def test_every_module_is_listed():
                  "repro_torch.models.transformer",
                  "repro_torch.launch.mesh", "repro_torch.launch.train",
                  "repro_torch.launch.serve", "repro_torch.models.moe",
-                 "repro_torch.models.mla", "repro_torch.optim",
+                 "repro_torch.models.mla", "repro_torch.models.ssm",
+                 "repro_torch.models.rglru", "repro_torch.optim",
                  "repro_torch.optim.sgd", "repro_torch.optim.schedules",
                  "repro_torch.sharding.rules"):
         assert name in mods
@@ -62,9 +63,11 @@ def test_every_module_is_listed():
 MESH_PATH_NAMES = frozenset()
 
 # What the port leaves of each newer surface for later slices (ROADMAP
-# Queue 1): the encoder, tensor parallelism's shardings and serve structs.
+# Queue 1): tensor parallelism's shardings and serve structs.
 NOT_YET = {
-    "models": {"encode_frames"},
+    "models": set(),
+    "models.ssm": set(),
+    "models.rglru": set(),
     "launch.train": {"state_shardings", "batch_shardings"},
     "launch.serve": {"serve_state_structs"},
     "launch.mesh": set(),
@@ -150,7 +153,7 @@ runpy.run_path({str(ROOT / "examples" / "serve_decode_torch.py")!r},
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert "arch=smollm-135m-smoke  batch=2  generated 4 tokens/seq" in \
+    assert "arch=mamba2-370m-smoke  batch=2  generated 4 tokens/seq" in \
         out.stdout
     assert "tok/s" in out.stdout and "on CPU" in out.stdout
 
@@ -175,6 +178,32 @@ main(["--device", "cpu", "--steps", "2", "--arch", "deepseek-v2-lite-16b"])
     assert "arch=deepseek-v2-lite-16b-smoke  batch=2  generated 3" in \
         out.stdout
     assert out.stdout.count("step ") == 2 and "nnz_up" in out.stdout
+
+
+def test_zoo_archs_run_through_both_twins_on_the_cpu_without_jax():
+    """whisper (frames encoded into the decode's memory) through the serve
+    twin, the hybrid through the train twin."""
+    code = _BLOCKER + f"""
+import runpy
+sys.argv = ["serve_decode_torch.py", "--device", "cpu", "--tokens", "3",
+            "--prompt-len", "4", "--arch", "whisper-medium"]
+runpy.run_path({str(ROOT / "examples" / "serve_decode_torch.py")!r},
+               run_name="__main__")
+sys.argv = ["train_federated_lm_torch.py", "--device", "cpu", "--ranks",
+            "1", "--steps", "2", "--seq", "32", "--batch", "4",
+            "--eval-every", "1", "--arch", "recurrentgemma-2b"]
+runpy.run_path({str(ROOT / "examples" / "train_federated_lm_torch.py")!r},
+               run_name="__main__")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "encoded 30 audio frames" in out.stdout
+    assert "arch=whisper-medium-smoke  batch=2  generated 3" in out.stdout
+    assert "arch=recurrentgemma-2b-smoke" in out.stdout
+    assert out.stdout.count("step ") == 2 and "final loss" in out.stdout
 
 
 def test_imports_without_jax_or_reference():

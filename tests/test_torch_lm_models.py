@@ -25,9 +25,8 @@ Held against the JAX package on numpy inputs made from a seed:
   w_gate, w_up``).
 * remat on and off give bitwise equal gradients (also through MLA and the
   MoE dispatch); ``logit_chunk`` gives the reference's chunked loss; the
-  leaf order of the parameter tree is the reference's; the kinds still to
-  port (SSD, RG-LRU, the encoder and prefix archs) raise
-  ``NotImplementedError``.
+  leaf order of the parameter tree is the reference's.  The SSD, RG-LRU,
+  encoder and prefix archs: ``tests/test_torch_zoo.py``.
 """
 
 import dataclasses
@@ -310,21 +309,3 @@ def test_logit_chunk_matches_reference():
                           compute_dtype=torch.float32))
     np.testing.assert_allclose(got, want, rtol=1e-6)
     np.testing.assert_allclose(got, whole, rtol=1e-6)
-
-
-@pytest.mark.parametrize("arch", [a for a in ref_configs.ARCH_IDS
-                                  if a not in DENSE + MOE])
-def test_non_dense_archs_raise(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(cfg, 0)
-
-
-def test_prefix_and_frames_raise():
-    cfg = configs.get_smoke_config("smollm-135m")
-    params = init_model(cfg, 0)
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(params, cfg, toks, prefix=torch.zeros((1, 2, cfg.d_model)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(params, cfg, toks, frames=torch.zeros((1, 2, cfg.d_model)))

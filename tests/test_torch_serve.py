@@ -404,14 +404,6 @@ def test_sliding_ring_buffer_matches_full():
                                    rtol=5e-3, atol=2e-3, err_msg=f"step {t}")
 
 
-def test_decode_refuses_what_is_not_ported():
-    cfg = configs.get_smoke_config("mamba2-370m")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        decode_step({}, cfg, torch.zeros((1, 1), dtype=torch.int64), [])
-
-
 # -- launch/serve.py ----------------------------------------------------------
 
 
