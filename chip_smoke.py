@@ -12,6 +12,7 @@
     python3 chip_smoke.py --serve           # only phase 12
     python3 chip_smoke.py --moe             # only phase 13
     python3 chip_smoke.py --zoo             # only phase 14
+    python3 chip_smoke.py --select-study    # bin_select's routes and steps
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
@@ -19,8 +20,9 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    ``build/kernels/`` (one ``nvcc`` per source, in parallel) and print the
    registers and shared memory (``-Xptxas -v``) of the histogram,
    ``bin_select``, ``pack_bits``, ``pack_chunks``, ``unpack_bits``,
-   ``golomb_decode``, ``threshold_stats`` and ``bisect_select``, and the
-   atomics, conversions and fp64 adds in the histogram's SASS;
+   ``golomb_decode``, ``threshold_stats`` and ``bisect_select``, the
+   atomics, conversions and fp64 adds in the histogram's SASS, and the
+   atomics, votes, cluster barriers and bulk copies in ``bin_select``'s;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and on adversarial inputs: ``stc_apply`` bitwise,
    histogram counts exact and sums within rtol 1e-6 (normal, skewed and
@@ -97,7 +99,13 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    that computes the same function where there is one (the histogram on
    the carried matrices of a lock-step round and on a normal matrix, and
    at 1, 2 and 4 CTAs an SM; ``bin_select`` on those carried matrices
-   beside ``torch.topk``, with its four passes by ``torch.profiler``;
+   beside ``torch.topk``, with its route (``select_plan``) and the
+   kernel's own count of the elements of x it read: one read a row on the
+   cluster route, and three on a constant (1, 4,000,037) row, the
+   two-read route's overflow path; then in a fresh process
+   (``--select-passes``) each route's launches by ``torch.profiler`` at
+   the paths' shapes: the cluster route's one kernel, the two-read route's
+   three passes, one launch each and nothing else;
    ``pack_chunks`` on a real round's upstream chunks; the sign-plane
    kernels on a signSGD round's messages and words, beside ten one-plane
    launches and, for the tally, the host loop it replaces;
@@ -187,20 +195,24 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    each route's aggregation split into phases.
 
 11. the mesh trainer (``repro_torch.launch.train``) at SmolLM-135M's full
-   width and depth (30 layers, d 576, 9 heads with 3 kv heads, d_ff 1536,
-   vocab 49,152, tied; 134,515,008 parameters), the reference CLI's STC
+   width (d 576, 9 heads with 3 kv heads, d_ff 1536, vocab 49,152, tied),
+   its depth cut from 30 layers to 10 (63,713,088 parameters; the whole
+   script's time), the reference CLI's STC
    setting (p = 1/50 both ways, lr 0.05, bf16 compute) on
    ``make_lm_tokens(seed=0)`` in a 4 x 128 batch: one client with no
    client axes, 10 steps (counters set to 0 just before): the loss finite
-   and falling, ``nnz_up`` / ``nnz_down`` k = 2,690,300 or k plus ties
+   and falling, ``nnz_up`` / ``nnz_down`` k = 1,274,261 or k plus ties
    (printed), and the histogram, ``bin_select`` and ``stc_apply`` each
-   launched exactly twice a step at (1, 134,515,008) and nothing else; from
+   launched exactly twice a step at (1, 63,713,088) and nothing else; from
    that state the card's tree STC (encode and decode, also through the
    codec) against the ``"torch"`` route on the CPU on the same trees
    (thresholds, counts, positions and signs exact, µ within rtol 1e-6, the
    excess over k ties at the threshold); the three kernels held against
-   their plain versions at (1, 134,515,008) and timed beside their bounds
-   and library calls; the step split into phases (median of 5) and the
+   their plain versions at (1, 63,713,088) and timed beside their bounds
+   and library calls (``bin_select`` on its two-read route, the kernel's
+   own count of reads exactly two reads of x, beside the floor of two
+   reads; so at every mesh row of phases 13 and 14); the
+   step split into phases (median of 5) and the
    ``WireLedger`` over 2 steps; then two client ranks (gloo, both on the
    card, half the batch each), 3 steps and a masked step (1, 0), bitwise
    the same composition in one process (two local steps, two
@@ -209,10 +221,11 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    through gloo checked.
 
 12. the LM's serve path (``repro_torch.launch.serve``) at SmolLM-135M's
-   full width and depth, serving phase 11's trained weights (alone:
-   ``init_model(CONFIG, 0)``), counters set to 0 just before and none of
-   the port's kernels launched (the serve path has no Pallas kernel in the
-   reference either): the weights through ``save_checkpoint`` ->
+   full width and phase 11's depth (10 layers), serving phase 11's
+   trained weights (alone: ``init_model`` of that config, seed 0),
+   counters set to 0 just before and none of the port's kernels launched
+   (the serve path has no Pallas kernel in the reference either): the
+   weights through ``save_checkpoint`` ->
    ``restore_checkpoint``, bitwise (file bytes and seconds printed); a
    64-token prompt (batch 2) teacher-forced through ``make_decode_step``
    at fp32, each step's logits against ``forward``'s within rtol 5e-3 /
@@ -226,8 +239,8 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    bf16 teacher-forced decode's last logits within 0.05 of the largest
    logit; then the prefill of one 32,768-token prompt (prefill_32k's
    length, batch cut from 32 to 1) and the decode step at batch 64 (cut
-   from decode_32k's 128, which would need 96.6 GB) against a 32,768-slot
-   bf16 cache of 48.3 GB, seeded random, ``idx`` at 32,768 - 24: 8
+   from decode_32k's 128) against a 32,768-slot bf16 cache of 16.1 GB,
+   seeded random, ``idx`` at 32,768 - 24: 8
    warm-up steps, one under ``set_sync_debug_mode("error")`` (no host sync
    in a step) and one under ``torch.profiler`` (device time, idle share,
    longest operations), then 16 timed steps beside the bytes bound.
@@ -294,6 +307,12 @@ of the tree the file sits in: a copy inside a parent checkout unpacked
 beside the change times the parent.  ``--paper-codecs``, ``--buffered``,
 ``--chunked``, ``--events``, ``--mesh``, ``--serve``, ``--moe`` and
 ``--zoo`` run phase 7, 8, 9, 10, 11, 12, 13 or 14 alone.
+``--select-study`` times ``bin_select`` at the paths' shapes (like
+``--signsgd-round``, on the package of the tree the file sits in) and, on
+a package of two routes, each cnn and chunked shape on the two-read route
+and in clusters of 16 beside its own route, the clusters' occupancy and
+the cluster kernel's steps from a stamped build.  ``--select-passes`` is
+the fresh process in which phase 6 profiles ``bin_select``'s launches.
 ``--drift-witness`` trains phase 9's dense and ``residual_mass`` runs 20
 rounds on the card twice, on the card and the CPU with one parameter and
 with every parameter moved by one ulp, on the CPU, and on the CPU with one
@@ -378,7 +397,8 @@ def sass_opcodes(cuobjdump: str, binary: Path, prefixes) -> dict:
 
 def print_build_notes() -> None:
     """``-Xptxas -v`` of the eight redesigned kernels, the atomics,
-    conversions, fp64 adds and votes in the histogram's SASS, and the SASS
+    conversions, fp64 adds and votes in the histogram's SASS, the atomics,
+    votes, cluster barriers and bulk copies in ``bin_select``'s, and the SASS
     of a plain fp64 ``atomicAdd`` to shared memory (whether it compiles to
     a compare-and-swap loop)."""
     from repro_torch.kernels import _build
@@ -398,6 +418,11 @@ def print_build_notes() -> None:
                            atomics + ("F2I", "F2F", "DADD", "VOTE"))
         print(f"histogram SASS atomics, conversions, fp64 adds and votes: "
               f"{json.dumps(ops)}")
+        lib = _build.build_all(("bin_select",))["bin_select"]
+        ops = sass_opcodes(cuobjdump, lib, atomics + ("VOTE", "MATCH",
+                                                      "UCGABAR", "UBLKCP"))
+        print(f"bin_select SASS atomics, votes, cluster barriers and bulk "
+              f"copies: {json.dumps(ops)}")
         src = _build.BUILD_DIR / "probe_fp64_shared_atomic.cu"
         src.write_text(FP64_SHARED_ATOMIC_PROBE)
         cubin = src.with_suffix(".cubin")
@@ -587,6 +612,244 @@ def check_bin_select(torch, rk, x, k) -> float:
     return float((got[2] - want[2]).abs().max())
 
 
+SELECT_PASSES = {"cluster": {"cluster_select_kernel"},
+                 "two_read": {"level0_pass_kernel", "level1_pass_kernel",
+                              "level2_pass_kernel"}}
+
+
+def select_structure(torch, rk, x, scale, b, r, full_reads):
+    """``bin_select``'s route at ``x``'s shape (``select_plan``) and the
+    kernel's own count of the elements of x that one call loaded
+    (``select_counters``), required to be ``full_reads`` times n in every
+    row: one read on the cluster route, two on the two-read route, three
+    where the level-0 digit held more than the buffer (``seen`` above
+    ``capacity``).  Returns the keys for the kernels line."""
+    from repro_torch.kernels import hist_select
+    rows, n = x.shape
+    plan = hist_select.select_plan(rows, n, hist_select._sms(x.device))
+    rk.candidate_select_batched(x, scale, b, r)
+    got = hist_select.select_counters(x.device, rows)
+    require(got["reads"] == [full_reads * n] * rows,
+            f"bin_select at {(rows, n)} loaded {sorted(set(got['reads']))} "
+            f"elements of x a row, not {full_reads} x {n}")
+    keys = {"select_route": (f"cluster({plan.cluster})"
+                             if plan.route == "cluster" else "two_read"),
+            "x_reads": max(got["reads"]) / n}
+    if plan.route == "two_read":
+        keys.update({"seen": max(got["seen"]), "capacity": plan.capacity})
+    return keys
+
+
+def select_witness(torch, rk, n=4_000_037):
+    """The two-read route's third read of x: a constant (1, n) row, whose
+    level-0 digit holds the whole row, above the candidate buffer.  The
+    kernel against its plain version, its count of reads, and its time."""
+    x = torch.full((1, n), 0.25, device="cuda")
+    err = check_bin_select(torch, rk, x, max(int(n * P_STC), 1))
+    scale, b, r, _ = select_inputs(torch, x, max(int(n * P_STC), 1))
+    keys = select_structure(torch, rk, x, scale, b, r, full_reads=3)
+    keys["ms"] = event_ms(torch, lambda: rk.candidate_select_batched(
+        x, scale, b, r), iters=20)
+    print(f"bin_select overflow witness, a constant (1, {n}) row: "
+          f"{json.dumps(keys)}")
+    return keys, err
+
+
+def carried_rows(torch, rows, n, seed=5):
+    """Rows like the trainers' carried residuals, made on the card from a
+    seed: normal x 1e-3 clipped to 3e-3, 1 % of the columns x 200, and one
+    1.0 a row."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.clamp(torch.randn((rows, n), generator=gen, device="cuda")
+                    * 1e-3, -3e-3, 3e-3)
+    x[:, torch.randint(0, n, (max(n // 100, 1),), generator=gen,
+                       device="cuda")] *= 200.0
+    x[:, 0] = 1.0
+    return x
+
+
+# bin_select's shapes on the paths, by route: the cnn's (clients, server),
+# the chunked groups', the mesh row (SmolLM at MESH_LAYERS), the largest
+# LM row (DeepSeek-V2-Lite at 3 layers), and the constant overflow witness
+SELECT_PASS_SHAPES = (("carried", 10, 307_434), ("carried", 1, 307_434),
+                      ("carried", 790, 4096), ("carried", 79, 4096),
+                      ("carried", 1, 63_713_088),
+                      ("carried", 1, 1_670_133_760),
+                      ("constant", 1, 4_000_037))
+
+
+def select_passes(torch, rk):
+    """``--select-passes``, which ``select_row`` runs in a fresh process
+    (after many profiler sessions in one process, this card's profiler has
+    shown none or only some of a call's kernels): ``bin_select`` at each of
+    ``SELECT_PASS_SHAPES``, one call a ``torch.profiler`` session.  Fails
+    unless the cluster route ran exactly one launch of its kernel and the
+    two-read route one launch of each of its three passes, and nothing
+    else, and unless the kernel's count of reads is one, two or (on the
+    constant row) three reads of x a row.  Prints the passes' device times
+    (ms) as one JSON line."""
+    from repro_torch.kernels import hist_select
+    out = {}
+    for kind, rows, n in SELECT_PASS_SHAPES:
+        x = (carried_rows(torch, rows, n) if kind == "carried"
+             else torch.full((rows, n), 0.25, device="cuda"))
+        scale, b, r, _ = select_inputs(torch, x, max(int(n * P_STC), 1))
+        plan = hist_select.select_plan(rows, n, hist_select._sms(x.device))
+        calls = kernel_times(torch, lambda: rk.candidate_select_batched(
+            x, scale, b, r), calls=1, launches=True)
+        want = SELECT_PASSES[plan.route]
+        require(calls is not None and set(calls) == want
+                and all(c["launches"] == 1 for c in calls.values()),
+                f"bin_select at {(rows, n)} ({kind}) ran {calls}, not one "
+                f"launch of each of {sorted(want)}")
+        reads = 1 if plan.route == "cluster" else (
+            3 if kind == "constant" else 2)
+        keys = select_structure(torch, rk, x, scale, b, r, reads)
+        out[f"{rows}x{n}" + ("_constant" if kind == "constant" else "")] = {
+            **{name: c["ms"] for name, c in calls.items()}, **keys}
+        del x, scale, b, r
+        torch.cuda.empty_cache()
+    print(f"select passes: {json.dumps(out)}")
+    return out
+
+
+def run_select_passes():
+    """``--select-passes`` in a fresh process; its JSON line."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--select-passes"], capture_output=True,
+                          text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("select passes: ")]
+    require(proc.returncode == 0 and bool(lines),
+            f"--select-passes failed (rc {proc.returncode}): "
+            f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    print(lines[-1])
+    return json.loads(lines[-1][len("select passes: "):])
+
+
+# --select-study: the paths' shapes, SmolLM-135M's full row among them
+STUDY_SHAPES = ((10, 307_434), (1, 307_434), (790, 4096), (79, 4096),
+                (1, 134_515_008), (1, 368_227_840), (1, 1_670_133_760))
+STAMP_STEPS = ("copied", "level0_counted", "d0", "level1_counted", "d1",
+               "level2_counted", "merged", "done")
+
+
+def stamped_select(torch):
+    """``csrc/bin_select.cu`` built with ``-DBIN_SELECT_STAMPS``: a function
+    that runs its cluster route on ``(x, scale, b, r)`` in clusters of C
+    and returns the steps of CTA (0, 0)'s last launch, µs from its start."""
+    import ctypes
+    import hashlib
+    from repro_torch.kernels import _build
+    src = _build.CSRC / "bin_select.cu"
+    lib_path = _build.BUILD_DIR / (
+        f"libbin_select_stamps-"
+        f"{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so")
+    if not lib_path.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                        "-DBIN_SELECT_STAMPS", "-o", str(lib_path), str(src)],
+                       check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    launch = lib.candidate_select_cluster_f32
+    launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.candidate_select_stamps.argtypes = [ctypes.c_void_p]
+
+    def steps(x, scale, b, r, cluster):
+        rows, n = x.shape
+        outs = (torch.empty(rows, device="cuda"),
+                torch.empty(rows, dtype=torch.int32, device="cuda"),
+                torch.empty(rows, device="cuda"),
+                torch.empty(rows, dtype=torch.int64, device="cuda"))
+        for _ in range(5):
+            require(launch(*(t.data_ptr() for t in (x, scale, b, r, *outs)),
+                           rows, n, cluster,
+                           torch.cuda.current_stream().cuda_stream) == 0,
+                    f"the stamped select failed at {(rows, n)}")
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 16)()
+        require(lib.candidate_select_stamps(buf) == 0, "stamps not read")
+        return {step: (buf[i + 1] - buf[0]) / 1e3
+                for i, step in enumerate(STAMP_STEPS)}
+    return steps
+
+
+def study_routes(torch, rk, hist_select, x, scale, b, r, k, steps):
+    """At a cluster-route shape: the kernel and the whole selection (device,
+    and host included) on its own plan, on the two-read route and (for
+    rows above 4 CTAs' slices) in clusters of 16, each held bitwise
+    against the plain version; the occupancy of each cluster size that
+    holds the row; the stamped kernel's steps at each cluster size."""
+    rows, n = x.shape
+    sms = hist_select._sms(x.device)
+    plan = hist_select.select_plan(rows, n, sms)
+    plans = {"own": plan,
+             "two_read": hist_select.two_read_plan(rows, n, sms)}
+    if n > 4 * hist_select._CLUSTER_KEYS:
+        plans["cluster16"] = hist_select.SelectPlan("cluster", 16, 16, 0)
+    want = rk.candidate_select_plain(x, scale, b, r)
+    out = {}
+    chosen = hist_select.select_plan
+    try:
+        for name, pl in plans.items():
+            hist_select.select_plan = lambda rows, n, sms, pl=pl: pl
+            got = rk.candidate_select_batched(x, scale, b, r)
+            require(torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])
+                    and torch.allclose(got[2], want[2], rtol=1e-6, atol=0.0),
+                    f"bin_select on {pl} differs from its plain version")
+
+            def select():
+                return rk.hist_topk_threshold_batched(x, k)
+            out[name] = {
+                "plan": list(pl),
+                "ms": event_ms(torch, lambda: rk.candidate_select_batched(
+                    x, scale, b, r), iters=50),
+                "selection_device_ms": event_ms(torch, select, iters=50),
+                "selection_host_ms": event_ms(torch, select, iters=50,
+                                              hold_stream=False)}
+    finally:
+        hist_select.select_plan = chosen
+    import ctypes
+    from repro_torch.kernels import _build
+    occupancy = _build.entry("bin_select", "candidate_select_max_clusters",
+                             [ctypes.c_longlong, ctypes.c_int])
+    sizes = [c for c in (1, 2, 4, 8, 16)
+             if -(-n // c) <= hist_select._CLUSTER_KEYS]
+    out["max_active_clusters"] = {c: occupancy(n, c) for c in sizes}
+    out["steps_us"] = {c: steps(x, scale, b, r, c)
+                       for c in sorted({plan.cluster, *(
+                           [16] if "cluster16" in plans else [])})}
+    return out
+
+
+def select_study(torch, rk):
+    """``--select-study``: ``bin_select`` of the package of the tree the
+    file sits in timed by CUDA events at ``STUDY_SHAPES`` on
+    ``carried_rows`` (a copy inside a parent checkout times the parent).
+    With a package of two routes, at the cluster-route shapes also
+    ``study_routes``.  Prints one JSON line a shape."""
+    from repro_torch.kernels import hist_select
+    print(f"card: {card_line()}; package "
+          f"{Path(rk.__file__).resolve().parents[1]}", flush=True)
+    routes = hasattr(hist_select, "two_read_plan")
+    steps = stamped_select(torch) if routes else None
+    for rows, n in STUDY_SHAPES:
+        x = carried_rows(torch, rows, n)
+        k = max(int(n * P_STC), 1)
+        scale, b, r, _ = select_inputs(torch, x, k)
+        rec = {"ms": event_ms(torch, lambda: rk.candidate_select_batched(
+            x, scale, b, r), iters=50 if n < 10**7 else 5)}
+        longest = hist_select._MAX_CLUSTER * hist_select._CLUSTER_KEYS
+        if routes and n <= longest:
+            rec.update(study_routes(torch, rk, hist_select, x, scale, b, r,
+                                    k, steps))
+        print(f"select study ({rows}, {n}): {json.dumps(rec)}", flush=True)
+        del x, scale, b, r
+        torch.cuda.empty_cache()
+
+
 def check_histogram(torch, rk, x, scale) -> float:
     """The histogram kernel against its plain version (counts exact, sums
     within rtol 1e-6), one launch a call, and a second call identical to
@@ -623,9 +886,10 @@ def device_ops(torch, fn):
     return names or None
 
 
-def kernel_times(torch, fn, calls=10):
+def kernel_times(torch, fn, calls=10, launches=False):
     """Device time (ms) of each kernel that a call of ``fn`` runs, mean over
-    ``calls`` calls, by ``torch.profiler``; None if it sees none."""
+    ``calls`` calls, by ``torch.profiler``; None if it sees none.  With
+    ``launches``, each kernel's ``{"launches": a call, "ms": a call}``."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -636,6 +900,7 @@ def kernel_times(torch, fn, calls=10):
             fn()
         torch.cuda.synchronize()
     times: dict = {}
+    counts: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             kernel = re.search(r"(\w+)(<\d+>)?\(", e.name)  # kernel's name
@@ -643,6 +908,10 @@ def kernel_times(torch, fn, calls=10):
                 else e.name
             times[name] = (times.get(name, 0.0)
                            + e.time_range.elapsed_us() / calls / 1e3)
+            counts[name] = counts.get(name, 0) + 1 / calls
+    if launches:
+        return {name: {"launches": counts[name], "ms": ms}
+                for name, ms in times.items()} or None
     return times or None
 
 
@@ -1653,10 +1922,12 @@ def golomb_row(torch, np, rk, launches, errs, batch, p, bound):
 def select_row(torch, rk, launches, errs, last, bound):
     """``bin_select`` on the last lock-step round's carried matrices, the
     clients' (10, n) and the server's (1, n), at the inputs the selection
-    gives it: device time and its four passes (``torch.profiler``), the
+    gives it: device time, its route and its count of reads (one), the
     plain version (host included: it synchronizes), the byte bound and
     ``torch.topk`` of the same matrix; and the whole k-selection, host
-    included and in device time, beside ``torch.topk`` in both."""
+    included and in device time, beside ``torch.topk`` in both.  Then the
+    two-read route's overflow witness, and each route's launches at the
+    paths' shapes by the profiler in a fresh process (``pass_ms``)."""
     k = max(int(MAIN_N * P_STC), 1)
     row = {"name": "bin_select", "route": "cuda",
            "source": "src/repro_torch/csrc/bin_select.cu",
@@ -1689,7 +1960,9 @@ def select_row(torch, rk, launches, errs, last, bound):
         # x read once; scale, b and r read and v, cnt_in, sum_in written
         row["bound_ms" + sfx] = bound(4 * rows * n + 20 * rows + 12 * rows)
         row["library_ms" + sfx] = event_ms(torch, topk)
-        row["pass_ms" + sfx] = kernel_times(torch, kernel)
+        for key, val in select_structure(torch, rk, x, scale, b, r,
+                                         full_reads=1).items():
+            row[key + sfx] = val
         row["cnt_b" + sfx] = cnt_b.tolist()
         sel = {"host": event_ms(torch, select, iters=20, hold_stream=False),
                "device": event_ms(torch, select, iters=20)}
@@ -1700,6 +1973,10 @@ def select_row(torch, rk, launches, errs, last, bound):
               f"histogram route host included {sel['host']:.4f} ms, device "
               f"{sel['device']:.4f} ms; torch.topk of |x| host included "
               f"{ref['host']:.4f} ms, device {ref['device']:.4f} ms")
+    witness, err = select_witness(torch, rk)
+    row["witness_1x4000037"] = witness
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["pass_ms"] = run_select_passes()
     return row
 
 
@@ -2842,7 +3119,8 @@ def drift_witness(torch, np, rk, rounds=WITNESS_ROUNDS):
 def profile_round(torch, tr, what):
     """One whole round under ``torch.profiler``: no ``topk``/``sort`` op,
     and (where the profiler sees the card) one histogram, one ``bin_select``
-    final pass and one ``stc_apply`` kernel a selection, two selections."""
+    (its cluster route's one kernel) and one ``stc_apply`` kernel a
+    selection, two selections."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2855,7 +3133,7 @@ def profile_round(torch, tr, what):
     kernels = [e.name for e in prof.events()
                if e.device_type == DeviceType.CUDA]
     seen = {k: sum(k in n for n in kernels)
-            for k in ("magnitude_histogram_kernel", "final_pass_kernel",
+            for k in ("magnitude_histogram_kernel", "cluster_select_kernel",
                       "stc_apply_kernel")}
     if kernels:
         require(all(v == 2 for v in seen.values()),
@@ -3240,6 +3518,9 @@ def time_chunked_kernels(torch, np, rk, last):
                "device": event_ms(torch, lambda: rk.hist_topk_threshold_batched(
                    x, ks), iters=20)}
         out["bin_select"]["selection_ms" + tag] = sel
+        for key, val in select_structure(torch, rk, x, scale, b, r,
+                                         full_reads=1).items():
+            out["bin_select"][key + tag] = val
     batch = last["batch"]
     big = max(batch.batches, key=lambda wb: wb.words.size)
     row = golomb_row(torch, np, rk, {"golomb_decode": 0},
@@ -3674,6 +3955,12 @@ def run_events(torch, np, rk):
 # --------------------------------------------------------------- phase 11
 
 MESH_ARCH = "smollm-135m"
+# depth cut from 30 layers to 10 for the whole script's time (phases 11
+# and 12 took 227 s of a 997 s run at 30); width, vocab and heads as
+# published
+MESH_LAYERS = 10
+MESH_NUMEL = 63_713_088         # SmolLM-135M's width at MESH_LAYERS
+MESH_K = 1_274_261              # int(MESH_NUMEL / 50)
 MESH_STEPS = 10
 MESH_RANK_STEPS = 3
 MESH_TC = {"protocol": "stc", "lr": 0.05, "sparsity_up": 1 / 50,
@@ -3683,14 +3970,19 @@ MESH_DIR = ROOT / "build" / "mesh_ranks"
 MESH_RANK_TIMEOUT = 420
 
 
+def mesh_config():
+    """SmolLM-135M at full width, its depth cut to ``MESH_LAYERS``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS)
+
+
 def mesh_setup(torch, np):
-    """SmolLM-135M at full width and depth, the reference CLI's STC
+    """SmolLM-135M at full width (``mesh_config``), the reference CLI's STC
     setting (bf16 compute) and ``make_lm_tokens(seed=0)`` in a 4 x 128
     batch: ``(cfg, tc, batch)``."""
-    from repro_torch.configs import get_config
     from repro_torch.data import make_lm_tokens
     from repro_torch.launch.train import TrainConfig
-    cfg = get_config(MESH_ARCH)
+    cfg = mesh_config()
     toks = make_lm_tokens(seed=0, n_tokens=4 * 128 + 1, vocab=cfg.vocab_size)
     batch = {"tokens": torch.from_numpy(toks[:-1].reshape(4, 128)),
              "labels": torch.from_numpy(toks[1:].reshape(4, 128))}
@@ -4181,8 +4473,11 @@ def mesh_kernel_rows(torch, rk, row, k, plain_iters=3):
         hold_stream=False)
     del a
     out["bin_select"]["cnt_b" + tag] = int(cnt_b[0])
-    out["bin_select"]["pass_ms" + tag] = kernel_times(
-        torch, lambda: rk.candidate_select_batched(row, s_in, b, r), calls=3)
+    # the two-read route's floor: two reads of x
+    out["bin_select"]["floor_ms" + tag] = 2 * bound(4 * n + 20 + 12)
+    for key, val in select_structure(torch, rk, row, s_in, b, r,
+                                     full_reads=2).items():
+        out["bin_select"][key + tag] = val
     print(f"mesh kernels at (1, {n}), k = {k} (candidate bin holds "
           f"{int(cnt_b[0])}): {json.dumps(out)}")
     return out, errs
@@ -4190,14 +4485,15 @@ def mesh_kernel_rows(torch, rk, row, k, plain_iters=3):
 
 def run_mesh(torch, np, rk):
     """Phase 11: the mesh trainer on the card at SmolLM-135M's full width
-    and depth.  Returns ``(launches by path, keys by kernel for the
+    (``MESH_LAYERS`` layers).  Returns ``(launches by path, keys by kernel for the
     kernels line, max errors, the trained parameters)``."""
     t0 = time.perf_counter()
     cfg, tc, batch = mesh_setup(torch, np)
     numel = cfg.param_count()
     k = max(int(numel * tc.sparsity_up), 1)
-    require(numel == 134_515_008 and k == 2_690_300,
-            f"SmolLM-135M has {numel} parameters, k = {k}")
+    require(numel == MESH_NUMEL and k == MESH_K,
+            f"SmolLM-135M at {MESH_LAYERS} layers has {numel} parameters, "
+            f"k = {k}")
     state, launches = mesh_single(torch, np, rk, cfg, tc, batch, MESH_STEPS)
     peak = torch.cuda.max_memory_allocated() / 2**30
     row, _ = mesh_lockstep(torch, np, rk, state, cfg, tc, batch)
@@ -4611,15 +4907,16 @@ def time_decode(torch, np, cfg, params, shape=DECODE, syncs=0,
 
 def run_serve(torch, np, rk, params=None):
     """Phase 12: the LM's serve path on the card at SmolLM-135M's full
-    width and depth, serving ``params`` (phase 11's trained weights in the
+    width (``MESH_LAYERS`` layers), serving ``params`` (phase 11's trained weights in the
     whole run; alone, ``init_model(CONFIG, 0)``).  Returns the serve
     path's launch counts (none of the port's kernels)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     t0 = time.perf_counter()
-    cfg = get_config(MESH_ARCH)
-    require(cfg.param_count() == 134_515_008,
-            f"SmolLM-135M has {cfg.param_count()} parameters")
+    cfg = mesh_config()
+    require(cfg.param_count() == MESH_NUMEL,
+            f"SmolLM-135M at {MESH_LAYERS} layers has {cfg.param_count()} "
+            f"parameters")
     source = "phase 11's trained weights"
     if params is None:
         params = init_model(cfg, 0, "cuda")
@@ -5194,7 +5491,9 @@ def main() -> int:
              "--serve": lambda: run_serve(torch, np, rk),
              "--moe": lambda: run_moe(torch, np, rk),
              "--zoo": lambda: run_zoo(torch, np, rk),
-             "--drift-witness": lambda: drift_witness(torch, np, rk)}
+             "--drift-witness": lambda: drift_witness(torch, np, rk),
+             "--select-passes": lambda: select_passes(torch, rk),
+             "--select-study": lambda: select_study(torch, rk)}
     if len(sys.argv) == 2 and sys.argv[1] in alone:
         try:
             alone[sys.argv[1]]()

@@ -19,10 +19,16 @@ both devices:
    elements at or above it.                               (pass 3, kernel)
 
 The select kernel is a radix select on the fp32 bit pattern with no
-capacity limit.  Its plain version is the reference's refinement: the top
-``cap`` values of the masked row, or an exact sort of the row when the
-candidate bin holds more than ``cap`` elements (heavy ties, extreme dynamic
-range, and bin 0 of the trainers' carried residual rows).
+capacity limit and exact integer sums, on one of two routes that
+:func:`select_plan` picks from the batch's shape alone: rows that fit a
+thread block cluster's shared memory are held there and selected in one
+launch (``"cluster"``); longer rows read x twice, the second time
+compacting the candidates of the level-0 digit that holds the rank into a
+buffer that the last level reads (``"two_read"``).  Its plain version is
+the reference's refinement: the top ``cap`` values of the masked row, or an
+exact sort of the row when the candidate bin holds more than ``cap``
+elements (heavy ties, extreme dynamic range, and bin 0 of the trainers'
+carried residual rows).
 
 Unlike the reference, this selection never skips the histogram: the
 reference's small-k shortcut (``interpret and k_max <= cap``) would bypass
@@ -41,6 +47,8 @@ mask-then-reduce sum at the ulp level.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,7 +59,8 @@ from . import _build
 
 __all__ = ["NBINS", "DEFAULT_CAP", "magnitude_histogram_batched",
            "magnitude_histogram_plain", "candidate_select_batched",
-           "candidate_select_plain", "hist_topk_threshold_batched"]
+           "candidate_select_plain", "hist_topk_threshold_batched",
+           "SelectPlan", "select_plan", "two_read_plan"]
 
 # 512-thread CTAs a launch aims for on each SM (chip_smoke.py times 1, 2
 # and 4); every CTA of a row adds one partial that the row's last CTA
@@ -63,9 +72,15 @@ _MAX_CTA_ELEMS = 65000
 _MAX_ROWS = 65535               # the grid's y extent: rows a launch
 _SCRATCH: dict = {}             # (device index, stream) -> partials, tickets
 _SMS: dict = {}                 # device index -> SM count
-# the select: one 512-thread CTA an SM over the batch, none with fewer than
-# _MIN_ELEMS_PER_CTA elements; per-row digit histograms of _DIGITS words
-_DIGITS = 2048
+# the select (csrc/bin_select.cu): a row of at most _MAX_CLUSTER *
+# _CLUSTER_KEYS elements is held in a cluster's shared memory, _CLUSTER_KEYS
+# a CTA (the kernel's CLUSTER_KEYS); a longer row takes the two-read route,
+# whose per-row scratch is _ROW_SCRATCH_BYTES (its RowScratch) and whose
+# candidate buffer holds n / _BUFFER_SHARE elements a row
+_CLUSTER_KEYS = 53_248
+_MAX_CLUSTER = 16
+_ROW_SCRATCH_BYTES = 18_480
+_BUFFER_SHARE = 32
 _SELECT_SCRATCH: dict = {}      # (device index, stream) -> select scratch
 
 
@@ -237,37 +252,108 @@ def candidate_select_plain(x: torch.Tensor, scale: torch.Tensor,
     return v, count, total
 
 
+class SelectPlan(NamedTuple):
+    """How ``bin_select`` runs a batch: ``route`` ``"cluster"`` (one
+    launch, each row held in the shared memory of a cluster of ``cluster``
+    CTAs) or ``"two_read"`` (three launches of ``ctas_per_row`` CTAs a
+    row, two of them reading x, with a candidate buffer of ``capacity``
+    elements a row)."""
+    route: str
+    cluster: int
+    ctas_per_row: int
+    capacity: int
+
+
+def select_plan(rows: int, n: int, sms: int) -> SelectPlan:
+    """The select's route for a ``(rows, n)`` batch on a card of ``sms``
+    SMs, from the shape alone (no value of the batch is read, so nothing
+    synchronizes).  A row of at most ``_MAX_CLUSTER * _CLUSTER_KEYS``
+    elements takes the cluster route with the smallest power of two of CTAs
+    that holds it (16 CTAs at the cnn rows are faster for one row and
+    slower for ten: ``PERF.md`` §6); a longer one the two-read route over one CTA an SM
+    across the batch (none with fewer than ``_MIN_ELEMS_PER_CTA``
+    elements), with room for ``n / _BUFFER_SHARE`` candidates a row,
+    rounded up to a multiple of 4."""
+    if n <= _MAX_CLUSTER * _CLUSTER_KEYS:
+        cluster = 1
+        while -(-n // cluster) > _CLUSTER_KEYS:
+            cluster *= 2
+        return SelectPlan("cluster", cluster, cluster, 0)
+    return two_read_plan(rows, n, sms)
+
+
+def two_read_plan(rows: int, n: int, sms: int) -> SelectPlan:
+    """The two-read route's plan for a ``(rows, n)`` batch, which
+    :func:`select_plan` takes for rows too long for a cluster (and
+    ``chip_smoke.py --select-study`` times at shorter rows too)."""
+    per_row = max(1, min(-(-n // _MIN_ELEMS_PER_CTA), sms // rows))
+    capacity = -(-n // _BUFFER_SHARE)
+    return SelectPlan("two_read", 0, per_row, capacity + (-capacity) % 4)
+
+
 def _select_scratch(device: torch.device, stream: int, rows: int,
-                    slots: int):
-    """The select's row state, its zeroed per-row digit histograms and
-    tickets, and the per-CTA partials, allocated once per device and stream
-    and grown on demand; the kernels leave histograms and tickets at 0."""
-    key = (device.index, stream)
-    have = _SELECT_SCRATCH.get(key)
-    if have is None or have["tickets"].numel() < rows \
-            or have["part_cnt"].numel() < slots:
-        rows = max(rows, have["tickets"].numel() if have else 0)
-        slots = max(slots, have["part_cnt"].numel() if have else 0)
-        have = {"state": torch.empty(2 * rows, dtype=torch.int32,
-                                     device=device),
-                "ghist": torch.zeros(rows * _DIGITS, dtype=torch.int32,
-                                     device=device),
-                "tickets": torch.zeros(rows, dtype=torch.int32,
-                                       device=device),
-                "part_cnt": torch.empty(slots, dtype=torch.int32,
-                                        device=device),
-                "part_sum": torch.empty(slots, dtype=torch.float64,
-                                        device=device)}
-        _SELECT_SCRATCH[key] = have
+                    capacity: int):
+    """The select's scratch on ``device`` and ``stream``, allocated once
+    and grown on demand: ``reads``, where each call writes the elements of
+    x it loaded for each row; and for the two-read route (``capacity`` >
+    0) its zeroed per-row records (``rows``; the kernels leave them zeroed
+    again) and its candidate buffer (``buf``)."""
+    have = _SELECT_SCRATCH.setdefault((device.index, stream), {})
+    if have.get("reads") is None or have["reads"].numel() < rows:
+        have["reads"] = torch.zeros(rows, dtype=torch.int64, device=device)
+    if capacity == 0:
+        return have
+    words = _ROW_SCRATCH_BYTES // 8
+    if have.get("rows") is None or have["rows"].numel() < rows * words:
+        have["rows"] = torch.zeros(rows * words, dtype=torch.int64,
+                                   device=device)
+    if have.get("buf") is None or have["buf"].numel() < rows * capacity:
+        have["buf"] = torch.empty(rows * capacity, dtype=torch.int32,
+                                  device=device)
     return have
 
 
+def select_counters(device, rows: int) -> dict:
+    """The last select on ``device``'s current stream, per row: ``reads``,
+    the elements of x that the kernel loaded (n on the cluster route, 2n on
+    the two-read route, 3n when the level-0 digit held more than the
+    plan's ``capacity``), and for a two-read select ``seen``, the
+    candidates that digit held.  Reads the scratch back, so it
+    synchronizes: for checks, not for the selection."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    have = _SELECT_SCRATCH[(device.index, _build.stream_ptr(device))]
+    out = {"reads": have["reads"][:rows].tolist()}
+    if have.get("rows") is not None:
+        words = have["rows"].view(torch.int32).reshape(
+            -1, _ROW_SCRATCH_BYTES // 4)
+        out["seen"] = words[:rows, 0].tolist()
+    return out
+
+
+@functools.cache
+def _select_entries():
+    """The select's two C entries, with the library's scratch size checked
+    against ``_ROW_SCRATCH_BYTES`` once."""
+    ptrs = [ctypes.c_void_p] * 8
+    cluster = _build.entry("bin_select", "candidate_select_cluster_f32",
+                           ptrs + [ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.c_int, ctypes.c_void_p])
+    two_read = _build.entry("bin_select", "candidate_select_two_read_f32",
+                            ptrs + [ctypes.c_void_p] * 2
+                            + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_longlong, ctypes.c_void_p])
+    size = _build.entry("bin_select", "candidate_select_scratch_bytes", [],
+                        restype=ctypes.c_longlong)
+    if size() != _ROW_SCRATCH_BYTES:
+        raise RuntimeError(f"bin_select.cu's row scratch is {size()} bytes, "
+                           f"hist_select expects {_ROW_SCRATCH_BYTES}")
+    return cluster, two_read
+
+
 def _launch_select(x, scale, b, r):
-    fn = _build.entry("bin_select", "candidate_select_f32",
-                      [ctypes.c_void_p] * 12 + [ctypes.c_int,
-                                                ctypes.c_longlong,
-                                                ctypes.c_int,
-                                                ctypes.c_void_p])
+    cluster_fn, two_read_fn = _select_entries()
     rows, n = x.shape
     v = torch.empty(rows, dtype=torch.float32, device=x.device)
     cnt = torch.empty(rows, dtype=torch.int32, device=x.device)
@@ -277,16 +363,18 @@ def _launch_select(x, scale, b, r):
     stream = _build.stream_ptr(x.device)
     for r0, r1 in _row_batches(rows):
         m = r1 - r0
-        per_row = max(1, min(-(-n // _MIN_ELEMS_PER_CTA),
-                             _sms(x.device) // m))
-        s = _select_scratch(x.device, stream, m, m * per_row)
-        err = fn(x.data_ptr() + 4 * r0 * n, scale.data_ptr() + 4 * r0,
-                 b.data_ptr() + 8 * r0, r.data_ptr() + 8 * r0,
-                 v.data_ptr() + 4 * r0, cnt.data_ptr() + 4 * r0,
-                 total.data_ptr() + 4 * r0,
-                 s["state"].data_ptr(), s["ghist"].data_ptr(),
-                 s["part_cnt"].data_ptr(), s["part_sum"].data_ptr(),
-                 s["tickets"].data_ptr(), m, n, per_row, stream)
+        plan = select_plan(m, n, _sms(x.device))
+        s = _select_scratch(x.device, stream, rows, plan.capacity)
+        args = (x.data_ptr() + 4 * r0 * n, scale.data_ptr() + 4 * r0,
+                b.data_ptr() + 8 * r0, r.data_ptr() + 8 * r0,
+                v.data_ptr() + 4 * r0, cnt.data_ptr() + 4 * r0,
+                total.data_ptr() + 4 * r0, s["reads"].data_ptr() + 8 * r0)
+        if plan.route == "cluster":
+            err = cluster_fn(*args, m, n, plan.cluster, stream)
+        else:
+            err = two_read_fn(*args, s["rows"].data_ptr(),
+                              s["buf"].data_ptr(), m, n, plan.ctas_per_row,
+                              plan.capacity, stream)
         _build.check("bin_select", err)
         _build.LAUNCHES.record("bin_select", (m, n))
     return v, cnt, total
@@ -301,8 +389,9 @@ def candidate_select_batched(x: torch.Tensor, scale: torch.Tensor,
     ``scale``.  ``v`` is the ``r``-th largest ``|x|`` of the bin, ``cnt_in``
     and ``sum_in`` count and sum the bin's elements ``>= v`` and ``> 0``.
 
-    On a CUDA tensor it launches ``csrc/bin_select.cu``, which has no
-    capacity limit and does not synchronize; on a CPU tensor it runs
+    On a CUDA tensor it launches ``csrc/bin_select.cu`` on the route
+    :func:`select_plan` picks, which has no capacity limit and does not
+    synchronize; on a CPU tensor it runs
     :func:`candidate_select_plain`, the only place ``cap`` is read.  A
     launch takes at most 65,535 rows; more rows take successive launches."""
     if x.ndim != 2 or x.dtype != torch.float32:

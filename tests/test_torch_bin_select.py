@@ -205,3 +205,122 @@ def test_row_ks_forms(k, want):
 def test_row_ks_out_of_range_raise(k):
     with pytest.raises(ValueError):
         hist_select._row_ks(k, 3, 64, "cpu")
+
+
+# -- the select kernel's route, chosen on the host from the shape alone ------
+
+def _cu_constant(name):
+    """A ``constexpr int`` or a ``static_assert`` size of bin_select.cu."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "bin_select.cu").read_text()
+    if name == "sizeof(RowScratch)":
+        return int(re.search(r"sizeof\(RowScratch\) == (\d+)", src).group(1))
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_select_plan_constants_match_the_kernel():
+    """The host's cluster slice and row scratch are the kernel's."""
+    assert hist_select._CLUSTER_KEYS == _cu_constant("CLUSTER_KEYS")
+    assert hist_select._MAX_CLUSTER == _cu_constant("MAX_CLUSTER")
+    assert hist_select._ROW_SCRATCH_BYTES == _cu_constant("sizeof(RowScratch)")
+
+
+LONGEST = hist_select._MAX_CLUSTER * hist_select._CLUSTER_KEYS
+
+
+@pytest.mark.parametrize("rows,n,route,cluster", [
+    (10, 307_434, "cluster", 8),            # the cnn's clients, main path
+    (1, 307_434, "cluster", 8),             # the cnn's server
+    (790, 4096, "cluster", 1),              # chunked clients
+    (79, 4096, "cluster", 1),               # chunked server
+    (1, 4_000_037, "two_read", 0),          # the overflow witness
+    (1, 134_515_008, "two_read", 0),        # mesh (SmolLM-135M)
+    (1, 63_713_088, "two_read", 0),         # mesh (SmolLM-135M, 10 layers)
+    (1, 368_227_840, "two_read", 0),        # ssm (Mamba-2-370M)
+    (1, 810_987_520, "two_read", 0),        # enc (whisper-medium)
+    (1, 1_394_772_480, "two_read", 0),      # hybrid (RecurrentGemma, 12 l.)
+    (1, 1_641_666_560, "two_read", 0),      # vlm (internvl2-2b, 20 layers)
+    (1, 1_670_133_760, "two_read", 0),      # moe (DeepSeek-V2-Lite, 3 l.)
+])
+def test_select_plan_of_each_chip_smoke_shape(rows, n, route, cluster):
+    plan = hist_select.select_plan(rows, n, 132)
+    assert plan.route == route and plan.cluster == cluster
+    if route == "cluster":
+        assert plan.ctas_per_row == cluster and plan.capacity == 0
+        assert -(-n // cluster) <= hist_select._CLUSTER_KEYS
+        assert cluster == 1 or -(-n // (cluster // 2)) \
+            > hist_select._CLUSTER_KEYS    # the smallest that holds the row
+    else:
+        assert plan.ctas_per_row == max(1, min(-(-n // 8192), 132 // rows))
+        share = hist_select._BUFFER_SHARE
+        assert plan.capacity % 4 == 0
+        assert n / share <= plan.capacity < n / share + 4
+        assert plan == hist_select.two_read_plan(rows, n, 132)
+
+
+@pytest.mark.parametrize("n,cluster", [
+    (1, 1), (hist_select._CLUSTER_KEYS, 1),
+    (hist_select._CLUSTER_KEYS + 1, 2), (2 * hist_select._CLUSTER_KEYS, 2),
+    (2 * hist_select._CLUSTER_KEYS + 1, 4),
+    (4 * hist_select._CLUSTER_KEYS + 1, 8),
+    (8 * hist_select._CLUSTER_KEYS + 1, 16), (LONGEST, 16)])
+def test_select_plan_cluster_sizes(n, cluster):
+    """Each cluster size, up to the longest row the cluster route takes."""
+    for rows in (1, 10, 65_535):
+        plan = hist_select.select_plan(rows, n, 132)
+        assert (plan.route, plan.cluster) == ("cluster", cluster)
+
+
+def test_select_plan_first_two_read_row():
+    plan = hist_select.select_plan(1, LONGEST + 1, 132)
+    assert plan.route == "two_read"
+    assert plan.capacity >= (LONGEST + 1) / hist_select._BUFFER_SHARE
+
+
+def test_select_plan_reads_only_the_shape():
+    """The plan is a function of three integers (no tensor is read, so the
+    card's selection needs no host sync for it), the same on every call."""
+    a = hist_select.select_plan(3, 5_000_000, 132)
+    assert a == hist_select.select_plan(3, 5_000_000, 132)
+    assert all(isinstance(v, int) for v in a[1:])
+    assert a.ctas_per_row == 44 and a.capacity == 156_252   # n / 32, 4 | it
+
+
+def test_select_scratch_grows_on_demand_and_is_zeroed():
+    """The select's scratch: a per-row count of x's elements read (both
+    routes); for the two-read route zeroed row records of the kernel's size
+    and a candidate buffer; kept per device and stream and grown only when
+    a call needs more."""
+    key = (None, 12345)
+    dev = torch.device("cpu")
+    hist_select._SELECT_SCRATCH.pop(key, None)
+    try:
+        s = hist_select._select_scratch(dev, 12345, 2, 100)
+        words = hist_select._ROW_SCRATCH_BYTES // 8
+        assert s["rows"].numel() == 2 * words and not bool(s["rows"].any())
+        assert s["buf"].numel() == 200
+        assert s["reads"].numel() == 2 and s["reads"].dtype == torch.int64
+        again = hist_select._select_scratch(dev, 12345, 1, 50)
+        assert again["rows"] is s["rows"] and again["buf"] is s["buf"]
+        assert again["reads"] is s["reads"]
+        grown = hist_select._select_scratch(dev, 12345, 3, 100)
+        assert grown["rows"].numel() == 3 * words
+        assert grown["buf"].numel() == 300 and grown["reads"].numel() == 3
+    finally:
+        hist_select._SELECT_SCRATCH.pop(key, None)
+
+
+def test_select_scratch_of_the_cluster_route_is_the_read_count_alone():
+    """The cluster route (``capacity`` 0) needs no row records and no
+    buffer: only the count of x's elements read, grown on demand."""
+    key = (None, 54321)
+    dev = torch.device("cpu")
+    hist_select._SELECT_SCRATCH.pop(key, None)
+    try:
+        s = hist_select._select_scratch(dev, 54321, 790, 0)
+        assert set(s) == {"reads"} and s["reads"].numel() == 790
+        assert hist_select._select_scratch(dev, 54321, 10, 0)["reads"] \
+            is s["reads"]
+    finally:
+        hist_select._SELECT_SCRATCH.pop(key, None)

@@ -202,18 +202,48 @@ def _select_inputs(x, k):
     return scale, b, kj - cnt_gt.to(torch.int64)
 
 
+# a row on each of the select's routes: clusters of 1, 2, 4, 8 and 16 CTAs
+# (the last the longest row the cluster route takes), then the shortest
+# two-read row
+SELECT_NS = [4096, 100_003, 200_003, 307_434, 851_968, 851_969]
+
+
+def _ks(spec, n):
+    """k as a share of n (at least 1), or per-row ks from shares."""
+    if isinstance(spec, tuple):
+        return np.array([max(1, int(f * n)) for f in spec])
+    return max(1, int(spec * n))
+
+
 @pytest.mark.parametrize("kind", ["carried", "ties", "sparse", "constant",
                                   "normal"])
-@pytest.mark.parametrize("rows,k", [(1, 6148), (10, 6148), (10, 1),
-                                    (4, np.array([1, 400, 6148, 300_000]))])
-def test_bin_select_matches_plain_and_is_deterministic(dev, kind, rows, k):
+@pytest.mark.parametrize("n", SELECT_NS)
+@pytest.mark.parametrize("rows,k", [(1, 0.02), (10, 0.02), (10, 0.0),
+                                    (4, (0.0, 0.0013, 0.02, 0.976))])
+def test_bin_select_matches_plain_and_is_deterministic(dev, kind, n, rows,
+                                                       k):
     """The select kernel against its plain version (``v`` and ``cnt_in``
     bitwise, ``sum_in`` within rtol 1e-6), one launch a call, and two calls
-    with identical bits."""
-    x = torch.from_numpy(_select_rows(kind, rows, 307_434, rows)).to(dev)
-    scale, b, r = _select_inputs(x, k)
+    with identical bits, on both routes and every cluster size; the kernel's
+    own count of x's elements read is one read a row on the cluster route,
+    two on the two-read route, and three where the level-0 digit overflowed
+    the buffer, as constant and tied rows do."""
+    from repro_torch.kernels import hist_select
+    x = torch.from_numpy(_select_rows(kind, rows, n, rows)).to(dev)
+    scale, b, r = _select_inputs(x, _ks(k, n))
+    plan = hist_select.select_plan(rows, n, hist_select._sms(x.device))
+    assert plan.route == ("cluster" if n <= 851_968 else "two_read")
     before = rk.LAUNCHES.counts["bin_select"]
     got = rk.candidate_select_batched(x, scale, b, r)
+    counters = hist_select.select_counters(dev, rows)
+    if plan.route == "cluster":
+        assert counters["reads"] == [n] * rows, counters
+    else:
+        seen = counters["seen"]
+        assert counters["reads"] == [
+            n * (3 if c > plan.capacity else 2) for c in seen], counters
+        if kind in ("constant", "ties") and not isinstance(k, tuple):
+            assert min(seen) > plan.capacity, (seen, plan)
     again = rk.candidate_select_batched(x, scale, b, r)
     torch.cuda.synchronize()
     assert rk.LAUNCHES.counts["bin_select"] == before + 2
@@ -223,13 +253,16 @@ def test_bin_select_matches_plain_and_is_deterministic(dev, kind, rows, k):
     assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
+@pytest.mark.parametrize("n", [307_434, 851_969])
 @pytest.mark.parametrize("rows", [1, 10])
-def test_stc_compress_batch_does_not_synchronize(dev, rows):
+def test_stc_compress_batch_does_not_synchronize(dev, rows, n):
     """The card's STC step, selection included, runs under
     ``set_sync_debug_mode("error")`` (after a first call has built the
-    kernels and the scratch), and its selection calls no sort or top-k."""
+    kernels and the scratch) on both of the select's routes, and its
+    selection calls no sort or top-k."""
     from torch.profiler import ProfilerActivity, profile
-    x = torch.from_numpy(_select_rows("carried", rows, 307_434, 7)).to(dev)
+    x = torch.from_numpy(_select_rows("carried", rows, n, 7)).to(dev)
+    k = int(n / 50)
     res = torch.zeros_like(x)
     rk.stc_compress_batch(x, res, 1 / 50)
     torch.cuda.synchronize()
@@ -238,9 +271,9 @@ def test_stc_compress_batch_does_not_synchronize(dev, rows):
         out = rk.stc_compress_batch(x, res, 1 / 50)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert int(out[4].min()) >= 6148
+    assert int(out[4].min()) >= k
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        rk.hist_topk_threshold_batched(x, 6148)
+        rk.hist_topk_threshold_batched(x, k)
         torch.cuda.synchronize()
     ops = {e.name for e in prof.events()}
     assert not ops & {"aten::topk", "aten::sort", "aten::kthvalue"}, ops
@@ -928,8 +961,27 @@ MESH_K = 2_690_300                       # p = 1/50
 def _mesh_row(dev, kind):
     """A (1, 134,515,008) row on the card: ``normal`` (x 1e-3) or
     ``bf16`` (the same rounded to bf16: the tie-heavy grads of a bf16
-    step)."""
+    step), or one of ``_select_rows``'s kinds made on the card."""
     gen = torch.Generator(device=dev).manual_seed(11)
+    if kind == "carried":
+        x = torch.clamp(torch.randn((1, MESH_N), generator=gen, device=dev)
+                        * 1e-3, -3e-3, 3e-3)
+        x[0, torch.randint(0, MESH_N, (MESH_N // 100,), generator=gen,
+                           device=dev)] *= 200.0
+        x[0, 12_345] = 1.0
+        return x
+    if kind == "ties":
+        u = torch.rand((1, MESH_N), generator=gen, device=dev)
+        x = torch.where(u < 0.5, 1.0, u - 0.5)
+        return torch.where(torch.rand((1, MESH_N), generator=gen,
+                                      device=dev) < 0.5, -x, x)
+    if kind == "sparse":
+        x = torch.zeros((1, MESH_N), device=dev)
+        x[0, torch.randint(0, MESH_N, (1_000,), generator=gen,
+                           device=dev)] = 0.37
+        return x
+    if kind == "constant":
+        return torch.full((1, MESH_N), 0.25, device=dev)
     x = torch.randn((1, MESH_N), generator=gen, device=dev) * 1e-3
     return x.to(torch.bfloat16).to(torch.float32) if kind == "bf16" else x
 
@@ -944,18 +996,38 @@ def test_mesh_row_histogram(dev, kind):
     assert torch.allclose(sums, sums_p, rtol=1e-6, atol=0.0)
 
 
-@pytest.mark.parametrize("kind", ["normal", "bf16"])
+@pytest.mark.parametrize("kind", ["normal", "bf16", "carried", "ties",
+                                  "sparse", "constant"])
 def test_mesh_row_bin_select_and_selection(dev, kind):
+    """The two-read route at the mesh row, every kind of
+    ``_select_rows``: the kernel against its plain version, two calls
+    identical, the overflow read on the constant and tied rows (their
+    level-0 digit holds the candidate bin), and the whole k-selection
+    exact."""
+    from repro_torch.kernels import hist_select
     x = _mesh_row(dev, kind)
     scale, b, r = _select_inputs(x, MESH_K)
+    plan = hist_select.select_plan(1, MESH_N, hist_select._sms(x.device))
+    assert plan.route == "two_read"
     got = rk.candidate_select_batched(x, scale, b, r)
+    counters = hist_select.select_counters(dev, 1)
+    over = kind in ("constant", "ties")
+    assert (counters["seen"][0] > plan.capacity) == over, counters
+    assert counters["reads"] == [MESH_N * (3 if over else 2)], counters
+    again = rk.candidate_select_batched(x, scale, b, r)
     want = rk.candidate_select_plain(x, scale, b, r)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.allclose(got[2], want[2], rtol=1e-6, atol=0.0)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    del want
     t, c, _ = rk.hist_topk_threshold_batched(x, MESH_K)
     a = x.abs()
-    assert int((a > t[0]).sum()) < MESH_K <= int((a >= t[0]).sum()) \
-        == int(c[0])
+    nz = int((a > 0).sum())
+    if nz < MESH_K:                      # fewer non-zeros than k (R1)
+        assert float(t[0]) == 0.0 and int(c[0]) == nz
+    else:
+        assert int((a > t[0]).sum()) < MESH_K <= int((a >= t[0]).sum()) \
+            == int(c[0])
 
 
 @pytest.mark.parametrize("kind", ["normal", "bf16"])
