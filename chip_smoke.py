@@ -13,6 +13,7 @@
     python3 chip_smoke.py --moe             # only phase 13
     python3 chip_smoke.py --zoo             # only phase 14
     python3 chip_smoke.py --select-study    # bin_select's routes and steps
+    python3 chip_smoke.py --wire-study      # golomb_decode and pack_chunks
 
 Needs one CUDA card and ``nvcc``; fails without them.  Phases:
 
@@ -106,7 +107,12 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    (``--select-passes``) each route's launches by ``torch.profiler`` at
    the paths' shapes: the cluster route's one kernel, the two-read route's
    three passes, one launch each and nothing else;
-   ``pack_chunks`` on a real round's upstream chunks; the sign-plane
+   ``pack_chunks`` on a real round's upstream chunks and ``golomb_decode``
+   on an ingest round's batch, with the plan, the wrapper and the wire
+   backend's decode host included, and in a fresh process
+   (``--wire-passes``) the decode's launches at the paths' shapes (one
+   launch of one kernel) and ``pack_chunks``'s device operations (exactly
+   one, no memset); the sign-plane
    kernels on a signSGD round's messages and words, beside ten one-plane
    launches and, for the tally, the host loop it replaces;
    ``bisect_select`` per step and host included, beside ``torch.topk``,
@@ -116,7 +122,8 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    dense and an
    ingest round split into phases (with the ``"kernel"`` and the host
    wire backends, in turns), and the ingest decode of one round's batch
-   split into words up, the decode, fields down and ``np.add.at``, beside
+   split into words up, the decode with its fields down (one copy) and
+   ``np.add.at``, beside
    the numpy field scan on the same batch, and a signSGD ingest round split
    into phases (both wire backends, in turns).
 
@@ -313,6 +320,13 @@ a package of two routes, each cnn and chunked shape on the two-read route
 and in clusters of 16 beside its own route, the clusters' occupancy and
 the cluster kernel's steps from a stamped build.  ``--select-passes`` is
 the fresh process in which phase 6 profiles ``bin_select``'s launches.
+``--wire-study`` times ``golomb_decode``'s launch and the wire backend's
+decode (host included) at the paths' shapes and on a segment longer than
+a cluster's tile, and ``pack_chunks`` on a cnn round's upstream chunks, on
+the package of the tree the file sits in (like ``--signsgd-round``), and
+on a package with ``decode_plan`` also the decode in every cluster size.
+``--wire-passes`` profiles the two wire kernels' device operations; phase
+6 runs it and ``--select-passes`` in one fresh process.
 ``--drift-witness`` trains phase 9's dense and ``residual_mass`` runs 20
 rounds on the card twice, on the card and the CPU with one parameter and
 with every parameter moved by one ulp, on the CPU, and on the CPU with one
@@ -520,10 +534,17 @@ def check_kernels(torch, np, rk):
         check_pack_sign_planes(torch, np, rk, sign_rows(np, rng, rows, n))
         for rows, n in ((1, 1), (3, 31), (3, 33), (10, 1000),
                         (1, MAIN_N), (MAIN_ROWS, MAIN_N), (2, 1_000_003)))
-    errs["pack_chunks"] = max(check_pack_chunks(torch, np, rk, *chunk_set(
-        np, rng, count, gaps)) for count, gaps in ((1, False), (33, True),
-                                                   (61_480, True),
-                                                   (1_000_003, False)))
+    errs["pack_chunks"] = max(
+        check_pack_chunks(torch, np, rk, *chunk_set(np, rng, count, gaps))
+        for count, gaps in ((1, False), (33, True), (61_480, True),
+                            (1_000_003, False)))
+    t0 = time.perf_counter()
+    errs["pack_chunks"] = max(
+        [errs["pack_chunks"]] + [check_pack_chunks(torch, np, rk, *edge)
+                                 for edge in pack_edge_sets(np, rng)])
+    print(f"pack_chunks: 4 random sets and 5 edge sets bitwise its plain "
+          f"version and the host scatter, one launch a call, two calls "
+          f"identical (edge sets {time.perf_counter() - t0:.2f} s)")
     errs["unpack_bits"] = max(
         [check_unpack_bits(torch, np, rk, rng, w)
          for w in (1, 2, 9608, 1_000_003)]
@@ -713,18 +734,38 @@ def select_passes(torch, rk):
     return out
 
 
+_PASSES: dict = {}
+
+
+def run_passes() -> dict:
+    """``--wire-passes --select-passes`` in one fresh process (once a run;
+    the wire kernels first, while the profiler has seen few sessions):
+    ``{"select": ..., "wire": ...}``, their JSON lines."""
+    if not _PASSES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--wire-passes", "--select-passes"],
+                              capture_output=True, text=True, timeout=400)
+        wall = time.perf_counter() - t0
+        for key, prefix in (("select", "select passes: "),
+                            ("wire", "wire passes: ")):
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith(prefix)]
+            require(proc.returncode == 0 and bool(lines),
+                    f"--wire-passes --select-passes failed (rc "
+                    f"{proc.returncode}): {proc.stdout[-3000:]}"
+                    f"{proc.stderr[-3000:]}")
+            print(lines[-1])
+            _PASSES[key] = json.loads(lines[-1][len(prefix):])
+        print(f"--wire-passes --select-passes: {wall:.1f} s with the "
+              f"process's start, the wire passes "
+              f"{_PASSES['wire']['seconds']:.1f} s of it")
+    return _PASSES
+
+
 def run_select_passes():
-    """``--select-passes`` in a fresh process; its JSON line."""
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           "--select-passes"], capture_output=True,
-                          text=True, timeout=300)
-    lines = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith("select passes: ")]
-    require(proc.returncode == 0 and bool(lines),
-            f"--select-passes failed (rc {proc.returncode}): "
-            f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
-    print(lines[-1])
-    return json.loads(lines[-1][len("select passes: "):])
+    """``--select-passes``' JSON line, from ``run_passes``."""
+    return run_passes()["select"]
 
 
 # --select-study: the paths' shapes, SmolLM-135M's full row among them
@@ -932,6 +973,32 @@ def chunk_set(np, rng, count, gaps=False):
     return vals, lens, offs, int(offs[-1] + lens[-1]) + 17
 
 
+def pack_edge_sets(np, rng):
+    """``pack_chunks``'s edges (a CTA takes 224 chunks and owns the words
+    from its first chunk's on): one-bit chunks (31 before a CTA's first
+    chunk share its first word), 63-bit chunks over three words, gaps of
+    whole words and longer than a pass (1,024 words) among 63-bit and zero
+    chunks, no chunk at all, one chunk at the end; totals not multiples of
+    32."""
+    one_bit = (rng.integers(0, 2, 5000).astype(np.uint64),
+               np.ones(5000, np.int64), np.arange(5000))
+    straddle = (rng.integers(0, 1 << 63, 2000, dtype=np.uint64),
+                np.full(2000, 63), 96 * np.arange(2000) + 31)
+    lens = rng.integers(1, 64, 3000)
+    lens[::3] = 63
+    offs = np.cumsum(lens) - lens + 32 * (np.arange(3000) // 500) * 1500
+    vals = rng.integers(0, 1 << 63, 3000, dtype=np.uint64)
+    vals &= (np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1)
+    vals[::7] = 0
+    none = (np.zeros(0, np.uint64), np.zeros(0, np.int64),
+            np.zeros(0, np.int64))
+    last = (np.array([5], np.uint64), np.array([3]), np.array([99_990]))
+    return [(*one_bit, 5000 + 7),
+            (*straddle, int(straddle[2][-1]) + 63 + 5),
+            (vals, lens, offs, int(offs[-1] + lens[-1]) + 3),
+            (*none, 100_001), (*last, 99_993)]
+
+
 def chunk_tensors(torch, np, vals, lens, offs):
     """The chunk fields as the card tensors ``pack_chunks`` takes."""
     return (torch.from_numpy(np.ascontiguousarray(vals).view(np.int64))
@@ -942,10 +1009,18 @@ def chunk_tensors(torch, np, vals, lens, offs):
 
 def check_pack_chunks(torch, np, rk, vals, lens, offs, total_bits) -> float:
     """``pack_chunks`` on the card against its plain version and the host
-    scatter; returns the words' max abs difference (0.0)."""
+    scatter, one launch a call, two calls identical; returns the words' max
+    abs difference (0.0)."""
     from repro_torch.core.wire import _scatter_chunks_numpy
     t = chunk_tensors(torch, np, vals, lens, offs)
-    w_k = rk.pack_chunks(*t, total_bits).cpu().numpy().view(np.uint32)
+    before = rk.LAUNCHES.counts["pack_chunks"]
+    got = rk.pack_chunks(*t, total_bits)
+    again = rk.pack_chunks(*t, total_bits)
+    require(rk.LAUNCHES.counts["pack_chunks"] == before + 2,
+            f"one pack_chunks call is not one launch at {len(vals)} chunks")
+    require(torch.equal(got, again),
+            f"two pack_chunks calls differ at {len(vals)} chunks")
+    w_k = got.cpu().numpy().view(np.uint32)
     w_p = rk.pack_chunks_plain(*t, total_bits).cpu().numpy().view(np.uint32)
     w_np = _scatter_chunks_numpy(vals, lens, offs, total_bits)
     err = max(words_err(np, w_k, w_p), words_err(np, w_k, w_np))
@@ -1117,6 +1192,7 @@ def golomb_vs_plain(torch, np, rk, words, word_start, bit_len, nnz, numel,
             f"its plain version did not (W={w.numel()}, b={b})")
     if got is None:
         return True, 0.0
+    want = [h.cpu() for h in want]      # the wrapper's fields are the host's
     require(all(g.dtype == h.dtype and torch.equal(g, h)
                 for g, h in zip(got, want)),
             f"golomb_decode fields differ from its plain version "
@@ -1136,7 +1212,14 @@ def check_golomb_cases(torch, np, rk) -> float:
     sys.path.insert(0, str(ROOT / "tests"))
     import _golomb_cases as gc
     from repro_torch.core import wire
+    t0 = time.perf_counter()
     err, raised, n = 0.0, 0, 0
+    for _, bt, p in gc.synthetic_cases():
+        r, e = golomb_vs_plain(torch, np, rk, bt.words, bt.word_start,
+                               bt.bit_len, bt.nnz, bt.numel,
+                               wire._b_star_checked(p))
+        raised, err, n = raised + r, max(err, e), n + 1
+    t_synthetic = time.perf_counter() - t0
     batches = (gc.valid_cases() + gc.trap_cases() + [("cnn", *gc.cnn_round())]
                + gc.corrupt_cases(300))
     tables = [(bt.words, bt.word_start, bt.bit_len, bt.nnz, bt.numel,
@@ -1150,8 +1233,22 @@ def check_golomb_cases(torch, np, rk) -> float:
         r, e = golomb_vs_plain(torch, np, rk, *table)
         raised, err, n = raised + r, max(err, e), n + 1
     require(raised >= 150, f"only {raised} corrupt golomb cases raised")
+    cnn, p = gc.cnn_round()
+    w = torch.from_numpy(cnn.words.view(np.int32)).to("cuda")
+    table = [torch.from_numpy(np.asarray(a, np.int64))
+             for a in (cnn.word_start, cnn.bit_len, cnn.nnz)]
+    b = wire._b_star_checked(p)
+    before = rk.LAUNCHES.counts["golomb_decode"]
+    first = rk.decode_golomb_fields(w, *table, cnn.numel, b)
+    again = rk.decode_golomb_fields(w, *table, cnn.numel, b)
+    require(rk.LAUNCHES.counts["golomb_decode"] == before + 2,
+            "one golomb_decode call is not one launch")
+    require(all(torch.equal(f, g) for f, g in zip(first, again)),
+            "two golomb_decode calls differ on a cnn round")
     print(f"golomb_decode: {n} cases against its plain version on the card, "
-          f"{raised} raised on both, the rest identical fields")
+          f"{raised} raised on both, the rest identical fields; one launch "
+          f"a call, two calls identical ({time.perf_counter() - t0:.1f} s, "
+          f"{t_synthetic:.1f} s of it the synthetic cases)")
     return err
 
 
@@ -1874,49 +1971,267 @@ def time_histogram(torch, rk, mats):
     return sweep[shipped]
 
 
-def golomb_row(torch, np, rk, launches, errs, batch, p, bound):
-    """``golomb_decode`` on an ingest round's batch: device time of its
-    three passes (the segment table uploaded once), the wrapper with its
-    status read, the plain version on the card and the numpy field scan
-    (host included), and the byte bound of this batch."""
+def golomb_row(torch, np, rk, launches, errs, batch, p, bound, passes):
+    """``golomb_decode`` on an ingest round's batch: device time of its one
+    launch (the segment table uploaded once) and its plan, the wrapper
+    on card words (fields to the host in one copy), the wire backend's
+    decode (words up too), the plain version on the card and the numpy
+    field scan
+    (host included), and the byte bound of this batch; ``passes`` is what
+    the profiler saw in ``--wire-passes``."""
     from repro_torch.core import wire
-    from repro_torch.kernels import wiredecode
     b = wire._b_star_checked(p)
     ws, bl, nnz = (np.asarray(a, np.int64)
                    for a in (batch.word_start, batch.bit_len, batch.nnz))
     table = [torch.from_numpy(a) for a in (ws, bl, nnz)]
     w = torch.from_numpy(np.ascontiguousarray(batch.words, np.uint32)
                          .view(np.int32)).to("cuda")
-    meta_np = wiredecode._segment_meta(ws, bl, nnz)
-    meta = torch.from_numpy(meta_np).to("cuda")
-    n_chunks, n_out = int(meta_np[-1, 2]), int(meta_np[-1, 3])
-    n_words, n_seg = w.numel(), ws.size
-
-    def passes():
-        return wiredecode._launch_decode(w, meta, n_chunks, n_out, b)
-
+    launch, plan = decode_launch(torch, np, batch, b)
+    n_words, n_seg, n_out = w.numel(), ws.size, int(nnz.sum())
+    backend = wire.get_wire_backend("kernel", "cuda")
     return {
         "name": "golomb_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/golomb_decode.cu",
         "replaces": "src/repro/kernels/wiredecode.py:57",
         "launches": launches["golomb_decode"],
         "max_abs_err": errs["golomb_decode"],
-        "ms": event_ms(torch, passes),
+        "ms": event_ms(torch, launch),
         "plain_ms": event_ms(torch, lambda: rk.decode_golomb_fields_plain(
             w, *table, batch.numel, b), iters=10, hold_stream=False),
         # words, the (start, length, nnz) table and the status read once;
-        # seg, position and sign written once a codeword
+        # position and sign written once a codeword
         "bound_ms": bound(4 * n_words + 24 * n_seg + 24 * n_seg
-                          + 20 * n_out), "bound_by": "bytes",
-        "library_ms": None,
+                          + 12 * n_out), "bound_by": "bytes",
+        "library_ms": None, "plan": list(plan),
         "wrapper_ms": event_ms(torch, lambda: rk.decode_golomb_fields(
             w, *table, batch.numel, b), iters=20, hold_stream=False),
+        "backend_ms": event_ms(torch, lambda: backend.decode_fields(
+            batch.words, ws, bl, nnz, batch.numel, b), iters=20,
+            hold_stream=False),
         "numpy_ms": event_ms(torch, lambda: wire._decode_fields_numpy(
             batch.words, ws, bl, nnz, batch.numel, b), iters=5,
             hold_stream=False),
-        "pass_ms": kernel_times(torch, passes),
-        "words": n_words, "codewords": n_out, "segments": n_seg,
-        "chunks": n_chunks}
+        "pass_ms": passes,
+        "words": n_words, "codewords": n_out, "segments": n_seg}
+
+
+# ---------------------------------------------- the wire kernels' launches
+
+def decode_launch(torch, np, batch, b):
+    """``golomb_decode``'s launch alone on ``batch`` at Golomb parameter
+    ``b`` (words and segment table uploaded once), on the package of the
+    tree the file sits in (a copy inside a parent checkout times the
+    parent's three passes): ``(launch, plan)``, the plan None for the
+    parent."""
+    from repro_torch.kernels import wiredecode
+    ws, bl, nnz = (np.asarray(a, np.int64)
+                   for a in (batch.word_start, batch.bit_len, batch.nnz))
+    w = torch.from_numpy(np.ascontiguousarray(batch.words, np.uint32)
+                         .view(np.int32)).to("cuda")
+    meta_np = wiredecode._segment_meta(ws, bl, nnz)
+    meta = torch.from_numpy(meta_np).to("cuda")
+    if not hasattr(wiredecode, "decode_plan"):        # the parent's passes
+        n_chunks, n_out = int(meta_np[-1, 2]), int(meta_np[-1, 3])
+        return (lambda: wiredecode._launch_decode(w, meta, n_chunks, n_out,
+                                                  b)), None
+    plan = wiredecode.decode_plan(
+        int(-(-bl.max(initial=0) // wiredecode._CHUNK_BITS)))
+    n_out = int(meta_np[-1, 2])
+    return (lambda pl=plan: wiredecode._launch_decode(w, meta, pl, n_out,
+                                                      b)), plan
+
+
+def wire_shapes(np, long_segment=False):
+    """The wire kernels' shapes: ``golomb_decode`` on a cnn ingest round's
+    batch (10 segments), on one cnn message (the event server's and the
+    buffered ingest's launch), on the chunked codec's widest width group
+    (740 segments of 4,096 coordinates) and, with ``long_segment``, on one
+    segment of 2,000,000 coordinates (longer than a cluster's tile, on no
+    path); ``pack_chunks`` on a cnn round's upstream chunks.  Returns
+    ``({name: batch}, chunks)``, all at p = 1/50."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _golomb_cases as gc
+    from repro_torch.core import wire
+    rng = np.random.default_rng(27)
+    x = np.stack([gc.ternary(rng, MAIN_N, P_STC) for _ in range(MAIN_ROWS)])
+    group = np.stack([gc.ternary(rng, CHUNK, P_STC) for _ in range(740)])
+    batches = {
+        "cnn_batch": wire.encode_ternary_words_batch(x, P_STC),
+        "one_message": wire.encode_ternary_words_batch(x[:1], P_STC),
+        "chunked_group": wire.encode_ternary_words_batch(group, P_STC)}
+    if long_segment:
+        batches["long_segment"] = wire.encode_ternary_words_batch(
+            gc.ternary(rng, 2_000_000, P_STC)[None], P_STC)
+    vals, lens, offs, up = wire._client_chunks_batch(
+        x, [np.flatnonzero(r) for r in x], wire._b_star_checked(P_STC))
+    return batches, (vals, lens, offs, 32 * int(up.word_count.sum()))
+
+
+def wire_passes(torch, np, rk):
+    """``--wire-passes``, which phase 6 runs in a fresh process (as
+    ``--select-passes``): one call a ``torch.profiler`` session of
+    ``golomb_decode``'s launch at each of ``wire_shapes`` and of
+    ``pack_chunks`` on the upstream chunks.  Fails unless the decode ran
+    exactly one launch of one kernel and ``pack_chunks`` exactly one device
+    operation (no memset).  Prints the device times (ms), and the seconds
+    the whole check took, as one JSON line."""
+    from repro_torch.core import wire
+    t0 = time.perf_counter()
+    batches, chunks = wire_shapes(np)
+    b = wire._b_star_checked(P_STC)
+    out = {"golomb_decode": {}}
+    for name, batch in batches.items():
+        launch, plan = decode_launch(torch, np, batch, b)
+        calls = kernel_times(torch, launch, calls=1, launches=True)
+        require(calls is not None and len(calls) == 1
+                and all(c["launches"] == 1 for c in calls.values()),
+                f"golomb_decode at {name} ran {calls}, not one launch of "
+                f"one kernel")
+        out["golomb_decode"][name] = {"plan": list(plan), **{
+            kname: c["ms"] for kname, c in calls.items()}}
+    t = chunk_tensors(torch, np, *chunks[:3])
+    ops = device_ops(torch, lambda: rk.pack_chunks(*t, chunks[3]))
+    require(ops is not None and len(ops) == 1,
+            f"pack_chunks ran {len(ops or ())} device operations, not 1: "
+            f"{ops}")
+    out["pack_chunks"] = ops
+    out["seconds"] = time.perf_counter() - t0
+    print(f"wire passes: {json.dumps(out)}")
+    return out
+
+
+def run_wire_passes():
+    """``--wire-passes``' JSON line, from ``run_passes``."""
+    return run_passes()["wire"]
+
+
+WIRE_STUDY_CLUSTERS = (1, 2, 4, 8, 16)
+DECODE_STEPS = ("table_read", "words_staged", "decoded", "composed",
+                "maps_sent", "cluster_barrier", "entries", "written", "done")
+
+
+def stamped_decode(torch):
+    """``csrc/golomb_decode.cu`` built with ``-DGOLOMB_DECODE_STAMPS``: a
+    function that runs a launch of the package's wrapper (``decode_launch``)
+    five times on the stamped library and returns CTA 0's steps of its
+    first tile in the last launch, µs from its start, and its SM clock over
+    the launch."""
+    import ctypes
+    import hashlib
+    from repro_torch.kernels import _build
+    src = _build.CSRC / "golomb_decode.cu"
+    lib_path = _build.BUILD_DIR / (
+        f"libgolomb_decode_stamps-"
+        f"{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so")
+    if not lib_path.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                        "-DGOLOMB_DECODE_STAMPS", "-o", str(lib_path),
+                        str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    stamped = lib.golomb_decode
+    stamped.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p] * 4)
+    stamped.restype = ctypes.c_int
+    lib.golomb_decode_stamps.argtypes = [ctypes.c_void_p]
+    key = ("golomb_decode", "golomb_decode")
+
+    def steps(launch):
+        shipped = _build._ENTRIES.get(key)
+        _build._ENTRIES[key] = stamped
+        try:
+            for _ in range(5):
+                launch()
+            torch.cuda.synchronize()
+        finally:
+            if shipped is None:
+                del _build._ENTRIES[key]
+            else:
+                _build._ENTRIES[key] = shipped
+        buf = (ctypes.c_ulonglong * 12)()
+        require(lib.golomb_decode_stamps(buf) == 0, "stamps not read")
+        out = {step: (buf[i + 1] - buf[0]) / 1e3
+               for i, step in enumerate(DECODE_STEPS)}
+        out["sm_clock_ghz"] = (buf[11] - buf[10]) / max(buf[9] - buf[0], 1)
+        return out
+    return steps
+
+
+def wire_study(torch, np, rk):
+    """``--wire-study``: the wire kernels of the package of the tree the
+    file sits in (a copy inside a parent checkout times the parent) at
+    ``wire_shapes``, by CUDA events: ``golomb_decode``'s launch alone (ms)
+    and the ``"kernel"`` wire backend's decode, fields to the host (host
+    included, ``wrapper_ms``); ``pack_chunks`` (ms).  On a package with
+    ``decode_plan``, also the launch in every cluster size (each checked
+    against the plain version first) and the steps of its first CTA from a
+    stamped build.  One JSON line a shape."""
+    from repro_torch.core import wire
+    from repro_torch.kernels import wiredecode
+    print(f"card: {card_line()}; package "
+          f"{Path(rk.__file__).resolve().parents[1]}", flush=True)
+    batches, chunks = wire_shapes(np, long_segment=True)
+    b = wire._b_star_checked(P_STC)
+    backend = wire.get_wire_backend("kernel", "cuda")
+    steps = (stamped_decode(torch) if hasattr(wiredecode, "decode_plan")
+             else None)
+    if steps is not None:
+        from repro_torch.kernels import _build
+        cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
+        lib = _build.build_all(("golomb_decode",))["golomb_decode"]
+        print(f"golomb_decode SASS loads, stores, shuffles and barriers: "
+              f"""{json.dumps(sass_opcodes(cuobjdump, lib, (
+                  "LD.", "LDS", "ST.", "STS", "LDG", "STG", "SHFL", "BAR",
+                  "UCGABAR")))}""", flush=True)
+    for name, batch in batches.items():
+        launch, plan = decode_launch(torch, np, batch, b)
+        ws, bl, nnz = (np.asarray(a, np.int64) for a in (
+            batch.word_start, batch.bit_len, batch.nnz))
+        rec = {"words": int(batch.words.size), "segments": int(ws.size),
+               "codewords": int(nnz.sum()),
+               "plan": list(plan) if plan else "three passes",
+               "ms": event_ms(torch, launch),
+               "wrapper_ms": event_ms(torch, lambda: backend.decode_fields(
+                   batch.words, ws, bl, nnz, batch.numel, b), iters=20,
+                   hold_stream=False)}
+        if plan is not None:
+            rec["steps_us"] = steps(launch)
+            rec["clusters_ms"] = study_clusters(torch, np, rk, wiredecode,
+                                                batch, b)
+        print(f"wire study golomb_decode {name}: {json.dumps(rec)}",
+              flush=True)
+    t = chunk_tensors(torch, np, *chunks[:3])
+    rec = {"chunks": int(chunks[0].size), "words": chunks[3] // 32,
+           "ms": event_ms(torch, lambda: rk.pack_chunks(*t, chunks[3]))}
+    print(f"wire study pack_chunks: {json.dumps(rec)}", flush=True)
+
+
+def study_clusters(torch, np, rk, wiredecode, batch, b):
+    """``golomb_decode``'s launch on ``batch`` in each of
+    ``WIRE_STUDY_CLUSTERS`` (threads by the plan's rule for the CTA's
+    chunks), each first held bitwise against the plain version."""
+    ws, bl, nnz = (np.asarray(a, np.int64)
+                   for a in (batch.word_start, batch.bit_len, batch.nnz))
+    table = [torch.from_numpy(a) for a in (ws, bl, nnz)]
+    w = torch.from_numpy(np.ascontiguousarray(batch.words, np.uint32)
+                         .view(np.int32)).to("cuda")
+    want = rk.decode_golomb_fields_plain(w, *table, batch.numel, b)
+    want = [h.cpu() for h in want]
+    n_max = int(-(-bl.max(initial=0) // wiredecode._CHUNK_BITS))
+    chosen, out = wiredecode.decode_plan, {}
+    try:
+        for cluster in WIRE_STUDY_CLUSTERS:
+            plan = wiredecode._cluster_plan(n_max, cluster)
+            wiredecode.decode_plan = lambda *args, pl=plan: pl
+            got = rk.decode_golomb_fields(w, *table, batch.numel, b)
+            require(all(torch.equal(g, h) for g, h in zip(got, want)),
+                    f"golomb_decode on {plan} differs from its plain "
+                    f"version")
+            launch, _ = decode_launch(torch, np, batch, b)
+            out[cluster] = event_ms(torch, launch)
+    finally:
+        wiredecode.decode_plan = chosen
+    return out
 
 
 def select_row(torch, rk, launches, errs, last, bound):
@@ -2244,8 +2559,11 @@ def time_kernels(torch, np, rk, shapes, launches, errs, last, batch_in,
         "library_ms": None, "chunks": len(vals), "words": up_words})
     out.extend(sign_plane_kernel_rows(torch, np, rk, shapes, launches, errs,
                                       signsgd, bound))
+    passes = run_wire_passes()
+    next(row for row in out if row["name"] == "pack_chunks")[
+        "device_ops"] = passes["pack_chunks"]
     out.append(golomb_row(torch, np, rk, launches, errs, batch_in, P_STC,
-                          bound))
+                          bound, passes["golomb_decode"]))
     out.append({
         "name": "threshold_stats", "route": "cuda",
         "source": "src/repro_torch/csrc/threshold_stats.cu",
@@ -2346,8 +2664,9 @@ def time_round(torch, np, tr):
 def time_decode_split(torch, np, rk, proto, batch, reps=21):
     """The ingest decode of one round's batch split into its steps, host
     clock after ``synchronize``, median of ``reps``, the two backends in
-    turns: ``"kernel"`` = words up, decode (the wrapper: table up, three
-    passes, status read), fields down, ``np.add.at``; ``"numpy"`` = the
+    turns: ``"kernel"`` = words up, decode and fields down (the wrapper:
+    table up, one launch, its one buffer down, the status checked on the
+    host), ``np.add.at``; ``"numpy"`` = the
     host field scan (unpack + ``_decode_stream_fields``), ``np.add.at``.
     The two accumulators must be identical."""
     from repro_torch.core import wire
@@ -2357,7 +2676,7 @@ def time_decode_split(torch, np, rk, proto, batch, reps=21):
     table = [torch.from_numpy(a) for a in (ws, bl, nnz)]
     words = np.ascontiguousarray(batch.words, np.uint32).view(np.int32)
     weights = np.full(batch.n_msgs, 0.1)
-    names = ("words_up", "decode", "fields_down", "add_at", "numpy_scan",
+    names = ("words_up", "decode_down", "add_at", "numpy_scan",
              "numpy_add_at")
     phases = {name: [] for name in names}
 
@@ -2369,9 +2688,8 @@ def time_decode_split(torch, np, rk, proto, batch, reps=21):
         ts = [sync_now()]
         w = torch.from_numpy(words).to("cuda")
         ts.append(sync_now())
-        fields = rk.decode_golomb_fields(w, *table, batch.numel, b)
-        ts.append(sync_now())
-        seg, pos, sign = (f.cpu().numpy() for f in fields)
+        seg, pos, sign = (f.numpy() for f in rk.decode_golomb_fields(
+            w, *table, batch.numel, b))
         ts.append(sync_now())
         acc = proto.make_ingest(batch.numel)
         acc.scatter_ternary_batch(seg, pos, sign, batch.mu, weights)
@@ -3525,9 +3843,9 @@ def time_chunked_kernels(torch, np, rk, last):
     big = max(batch.batches, key=lambda wb: wb.words.size)
     row = golomb_row(torch, np, rk, {"golomb_decode": 0},
                      {"golomb_decode": 0.0}, big, P_STC,
-                     lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3)
+                     lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3, None)
     out["golomb_decode"] = {
-        "ms_chunked_group": row["ms"],
+        "ms_chunked_group": row["ms"], "plan_chunked_group": row["plan"],
         "bound_ms_chunked_group": row["bound_ms"],
         "plain_ms_chunked_group": row["plain_ms"],
         "words_chunked_group": row["words"],
@@ -5493,10 +5811,15 @@ def main() -> int:
              "--zoo": lambda: run_zoo(torch, np, rk),
              "--drift-witness": lambda: drift_witness(torch, np, rk),
              "--select-passes": lambda: select_passes(torch, rk),
-             "--select-study": lambda: select_study(torch, rk)}
-    if len(sys.argv) == 2 and sys.argv[1] in alone:
+             "--select-study": lambda: select_study(torch, rk),
+             "--wire-passes": lambda: wire_passes(torch, np, rk),
+             "--wire-study": lambda: wire_study(torch, np, rk)}
+    flags = sys.argv[1:]
+    if flags in (["--wire-passes", "--select-passes"],) or (
+            len(flags) == 1 and flags[0] in alone):
         try:
-            alone[sys.argv[1]]()
+            for flag in flags:
+                alone[flag]()
             return 0
         except (Failure, RuntimeError, subprocess.SubprocessError) as exc:
             traceback.print_exc()

@@ -378,9 +378,10 @@ def _make_kernel_backend(device=None) -> WireBackend:
     :func:`repro_torch.kernels.bitpack.pack_bits`.  Ternary decode: the
     words and the segment table go to ``device``,
     :func:`repro_torch.kernels.wiredecode.decode_golomb_fields` parses the
-    codewords there, and the fields come back.  Sign planes: the words go
-    to ``device``, :func:`repro_torch.kernels.wiredecode.unpack_bits_words`
-    explodes them into bits there, and the bits come back."""
+    codewords there, and the fields come back in one copy.  Sign planes:
+    the words go to ``device``,
+    :func:`repro_torch.kernels.wiredecode.unpack_bits_words` explodes them
+    into bits there, and the bits come back."""
     # lazy: keeps core import-light (layering: kernels -> core, never back)
 
     def pack_bits(bits: np.ndarray) -> np.ndarray:
@@ -425,7 +426,7 @@ def _make_kernel_backend(device=None) -> WireBackend:
         fields = decode_golomb_fields(
             torch.from_numpy(w).to(resolve_device(device)), *table,
             int(numel), b)
-        return tuple(f.cpu().numpy() for f in fields)
+        return tuple(f.numpy() for f in fields)
 
     return WireBackend("kernel", pack_chunks, pack_bits, unpack_bits,
                        decode_fields)

@@ -15,7 +15,7 @@
 // codeword starting b + 2 bits past the previous terminator.  Codeword k of
 // segment i lands at output out_base_i + k with
 //
-//     seg = i,  position = sum_{k' <= k} (q 2^b + r + 1) - 1,  sign = +-1.0
+//     position = sum_{k' <= k} (q 2^b + r + 1) - 1,  sign = +-1.0
 //
 // and a per-segment status (codewords decoded; the last state, whose FINAL
 // bit says the chain ended exactly on the segment end and whose OVERRUN bit
@@ -23,77 +23,112 @@
 // raises on truncated codewords, dangling unary runs, a count other than the
 // advertised nnz, and a position past numel.
 //
-// Bound: memory.  4 bytes read a word, 20 written a codeword (seg 8,
-// position 8, sign 4); a cnn round (W = 15,564, 61,480 codewords) is 1.29 MB,
-// 0.39 us at 3.35 TB/s.  The decode is a chain of dependent steps, so what
-// limits it is latency, and the design is a speculative chunk decode:
+// (The owning segment of each codeword is the advertised counts spelled out,
+// which the status confirms, so the wrapper writes it on the host.)
 //
-// 1. transitions: every segment is cut into word-aligned chunks of 128 bits;
-//    a chunk owns the codewords whose terminator lies in it.  The state
-//    entering a chunk is the offset e in [0, b+1] at which its first
-//    codeword starts, or "inside an open unary run" (which decodes like e = 0
-//    with the run's ones added to the first quotient).  One thread per
-//    (chunk, e) decodes to the chunk end and records its exit state, the
-//    count and gap sum of the codewords it owns, the ones of an open run at
-//    the end, and whether it met the segment's final terminator or overran.
-//    The chunk's words and the next two sit in registers (a forward-only
-//    queue), and one 64-bit window usually holds a whole codeword, so a
-//    codeword costs a few ALU steps and no memory load.
-// 2. compose: the records are maps from entry state to exit state with sums,
-//    and maps compose associatively.  One CTA per segment takes them in
-//    tiles held in shared memory (96 KB: a cnn round's segment of ~390
-//    chunks in one tile): each (group of 8 chunks, state) thread composes
-//    its group's map, the group maps are scanned (Hillis-Steele), which
-//    gives each group its true entry from the segment's cursor (state 0 at
-//    its first bit), and each group's thread walks its chunks from there,
-//    writing every chunk's entry (state, carried run, codewords and gap sum
-//    before it); the last cursor is the segment's status.
-// 3. write: one thread per chunk decodes again from its true entry and
-//    writes its codewords.  Outputs are sized by the advertised nnz, so no
-//    host round trip sits between the passes; a segment that decodes more
-//    codewords than it advertised writes no more than its share (the wrapper
-//    then raises on its count).
+// Bound: memory.  4 bytes read a word, 12 written a codeword (position 8,
+// sign 4); a cnn round (W = 15,564, 61,480 codewords) is 0.80 MB, 0.24 us at
+// 3.35 TB/s.  The decode is a chain of dependent steps, so what
+// limits it is latency.  The design is a speculative chunk decode in ONE
+// launch: each segment is owned by one thread block cluster of C CTAs
+// (kernels/wiredecode.py::decode_plan picks C from the batch's shape), and
+// nothing but the fields and the status goes to device memory.
 //
-// A chunk's chain from its true entry is the chain the serial decoder
-// follows, so the fields are bitwise the host scan's on every valid batch.
+// A segment is cut into word-aligned chunks of 128 bits; a chunk owns the
+// codewords whose terminator lies in it.  The state entering a chunk is the
+// offset e in [0, b+1] at which its first codeword starts, or "inside an
+// open unary run" (which decodes like e = 0 with the run's ones added to the
+// first quotient).  A decode from one state to the chunk end is a record
+// (exit state, codewords, gap sum), and the records of consecutive chunks
+// compose associatively, as maps from entry state to exit state.
 //
-// Sizes: 128-bit chunks, 8-chunk groups and 64-thread write CTAs were the
-// fastest of the settings tried on an H100 (passes 1 and 3 shorten with the
-// chunk, compose lengthens with the chunk count).  What is left is latency:
-// ~16 dependent codeword steps a thread in passes 1 and 3, ~25 dependent
-// steps in one CTA a segment in pass 2.
+// The cluster walks its segment in tiles of C x `per` chunks (`per` at most
+// the plan's tile, at most TILE; one tile for every segment on the paths),
+// CTA j taking chunks [j per, (j+1) per) of the tile.  Each CTA, in shared
+// memory:
+//
+// 1. stages its chunks' words (and the two after) with coalesced loads;
+// 2. decodes every (chunk, entry state) pair -- one thread a pair, a 64-bit
+//    window of three shared words a codeword -- to its record, keeping each
+//    owned codeword's gap sum so far and its sign (the speculative decode:
+//    one of a chunk's S decodes is the true one);
+// 3. composes the maps of each group of GROUP chunks from every state (a
+//    thread a (group, state), keeping the prefix before each chunk of the
+//    group);
+// 4. composes the group maps with one warp whose lane e holds the map's
+//    record from state e: the next group's records come in one load a lane
+//    and the lookup of each lane's exit state is a __shfl_sync, so no
+//    barrier separates the steps; the warp keeps the prefix map before each
+//    group and ends with the CTA's map, which it stores into the shared
+//    memory of every CTA of the cluster (distributed shared memory; the
+//    first time only once a cluster barrier, whose arrival each CTA made at
+//    its start, says that every CTA of the cluster runs);
+// 5. after one cluster barrier, thread 0 carries the segment's cursor
+//    (state 0 at the tile's first bit, or the last tile's exit) through
+//    the CTA maps before it (at most C - 1 lookups), which gives the CTA's
+//    true entry, and on through the rest, which gives the tile's exit; a
+//    thread a chunk then carries the CTA's entry through the prefix before
+//    its group and the one before it inside the group (two lookups), which
+//    picks the true one of the chunk's decodes;
+// 6. one warp a chunk writes the codewords of that decode, a lane a
+//    codeword: no second decode.
+//
+// The composition is a chain of dependent lookups (~0.1 us each on an
+// H100).  Scans of the whole CTA (Hillis-Steele over the chunk maps, the
+// group maps or the CTA maps, a barrier a step) cost ~0.35 us a step there
+// and took longer at the paths' shapes, as did 64-bit chunks (a shorter
+// decode, but twice the chunks to compose), warp walks in place of step 3's
+// and step 5's lookups, and a decode from a 64-bit register window
+// (PERF.md section 6).
+//
+// CTA 0's thread 0 writes the status from the last tile's exit; an empty
+// segment (no chunks) gets the status of an empty chain.  Outputs are sized
+// by the advertised nnz, so a segment that decodes more codewords than it
+// advertised writes no more than its share (the wrapper then raises on its
+// count).  A chunk's chain from its true entry is the chain the serial
+// decoder follows, so the fields are bitwise the host scan's on every valid
+// batch.
+//
+// Sizes: 128-bit chunks (~15 codewords at p = 1/50), groups of 8, at most
+// 64 chunks a CTA (a cnn message of ~390 chunks in one tile of a cluster of
+// 8); a CTA's shared memory grows with its chunks and b: 71 KB for 49
+// chunks at b = 5, 179 KB at most (64 chunks, b = 29).
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int CHUNK_BITS = 128;    // 4 words a chunk
-constexpr int QWORDS = CHUNK_BITS / 32 + 2;  // + the word after, + slack
-constexpr int THREADS = 128;       // transitions pass
-constexpr int WRITE_THREADS = 64;  // write pass: spread over more SMs
-constexpr int COMPOSE_THREADS = 512;
-constexpr int GROUP = 8;           // compose: chunks a thread walks
-constexpr int COMPOSE_SMEM = 96 * 1024;  // opted into at each launch
+constexpr int CHUNK_BITS = 128;               // 4 words a chunk
+constexpr int CHUNK_WORDS = CHUNK_BITS / 32;
+constexpr int TILE = 64;                      // chunks a CTA holds at most
+constexpr int GROUP = 8;                      // chunks a thread composes
+constexpr int MAX_CLUSTER = 16;
+constexpr int MAX_STATES = 32;                // b + 2 at b = 30
+constexpr int MAX_THREADS = 512;
 constexpr int EXIT_U = 63;         // exit state: inside an open unary run
 constexpr int FINAL = 64;          // the chain met its segment's final codeword
 constexpr int OVERRUN = 128;       // a codeword ran past its segment's end
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // The segment table, int64 rows of META_COLS: first bit, bit length, first
-// chunk, first output; row n_segments holds the totals in its last two.
-// Passes 1 and 3 stage it in shared memory up to SMEM_SEGMENTS segments.
-constexpr int META_COLS = 4;
-constexpr int SMEM_SEGMENTS = 255;
+// output; row n_segments holds the output total in its last column.
+constexpr int META_COLS = 3;
 
-// A chunk, or a span of chunks inside one compose tile, entered from one
-// state.  `code` is the exit state (an offset into the next chunk, or
-// EXIT_U) | FINAL | OVERRUN, and for EXIT_U the open run's ones << 8.
+// A chunk, or a span of chunks inside one tile, entered from one state.
+// `code` is the exit state (an offset into the next chunk, or EXIT_U) |
+// FINAL | OVERRUN, and for EXIT_U the open run's ones << 8.
 struct Rec {
   long long gaps;  // gap sum of the owned codewords (first quotient local)
   int n;           // owned codewords
   int code;
 };
+// an open run inside a CTA's span fits the 23 bits `code` keeps for it
+static_assert(TILE * CHUNK_BITS < (1 << 23), "tile too long");
 
 // A segment's cursor: its state, the ones of its open run, and the
 // codewords and gap sum so far.
@@ -104,363 +139,415 @@ struct Acc {
   long long code;  // exit state | FINAL | OVERRUN
 };
 
-__device__ __forceinline__ long long lmin(long long a, long long b) {
-  return a < b ? a : b;
+// With -DGOLOMB_DECODE_STAMPS (chip_smoke.py --wire-study builds a copy
+// so), thread 0 of CTA 0 records the global timer at each step of its first
+// tile of its last launch: STAMP(k) writes stamp k, and a barrier after the
+// writes lets stamp 8 see every chunk written.
+#ifdef GOLOMB_DECODE_STAMPS
+__device__ unsigned long long g_stamps[12];  // 10 steps, 2 SM clocks
+#define STAMP(k)                                                       \
+  do {                                                                 \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                         \
+      unsigned long long t_;                                           \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));           \
+      g_stamps[k] = t_;                                                \
+      if ((k) == 0 || (k) == 9) g_stamps[10 + (k) / 9] = clock64();    \
+    }                                                                  \
+  } while (0)
+#define STAMP_TILE(k) \
+  do {                \
+    if (tile == 0) STAMP(k); \
+  } while (0)
+#define STAMP_WRITTEN() \
+  do {                  \
+    __syncthreads();    \
+    STAMP_TILE(8);      \
+  } while (0)
+#else
+#define STAMP(k) \
+  do {           \
+  } while (0)
+#define STAMP_TILE(k) STAMP(k)
+#define STAMP_WRITTEN() STAMP(0)
+#endif
+
+// The most codewords a chunk owns from one entry state: its terminators
+// lie in its CHUNK_BITS bits, b + 2 bits apart at least.
+__host__ __device__ constexpr int max_owned(int b) {
+  return (CHUNK_BITS + b + 1) / (b + 2);
+}
+static_assert(max_owned(0) <= 64, "a chunk's signs fill 64 bits");
+
+// A CTA's shared memory for `tile` chunks at parameter b, in the order of
+// the offsets below: the chunk maps and the prefix maps inside each group,
+// the group maps (their prefixes once the warp has passed), two buffers of
+// the cluster's CTA maps (16 B a state each); each chunk's true entry
+// (32 B); each (chunk, state) decode's codewords -- the gap sums so far
+// (8 B) and the signs (a bit each, 8 B a pair) -- and the staged words.
+__host__ __device__ constexpr long long smem_bytes(int tile, int b) {
+  return static_cast<long long>(b + 2) *
+             ((2 * tile + (tile + GROUP - 1) / GROUP + 2 * MAX_CLUSTER) * 16 +
+              tile * (8 * max_owned(b) + 8)) +
+         32 * tile + 4 * (CHUNK_WORDS * tile + 4);
 }
 
-// The segment that owns chunk c: the last row whose first chunk is <= c
-// (empty segments share their first chunk with the next one).
-__device__ __forceinline__ int find_segment(const long long* meta,
-                                            int n_segments, long long c) {
-  int lo = 0, hi = n_segments - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (meta[META_COLS * mid + 2] <= c) lo = mid; else hi = mid - 1;
-  }
-  return lo;
+// 64 stream bits from chunk bit r (r <= CHUNK_BITS), MSB first, as two
+// words: the chunk's words are w[0 ..], and w holds two words past it.
+__device__ __forceinline__ void window(const uint32_t* w, int r, uint32_t* hi,
+                                       uint32_t* lo) {
+  const int i = r >> 5, sh = r & 31;
+  const uint32_t w0 = w[i], w1 = w[i + 1], w2 = w[i + 2];
+  *hi = __funnelshift_l(w1, w0, sh);
+  *lo = __funnelshift_l(w2, w1, sh);
 }
 
-// A chunk's stream bits in registers: the chunk's words and the next one
-// (a codeword's remainder and sign may run past the chunk end) as a queue
-// that only moves forward, so every index is a constant and nothing
-// spills.  Stream bit t is bit 31 - (t & 31) of word t >> 5; chunk bit r is
-// stream bit chunk_start + r.  Words past the segment's data read as 0
-// (their bits are never parsed).
-struct Reader {
-  uint32_t q[QWORDS];
-  int base;        // chunk word held in q[0]
-
-  __device__ __forceinline__ void load(const uint32_t* w, long long cs,
-                                       long long end) {
-#pragma unroll
-    for (int k = 0; k < QWORDS; ++k) {
-      const long long wi = (cs >> 5) + k;
-      q[k] = 32 * wi < end ? __ldg(w + wi) : 0u;
+// The first 0 bit at a chunk bit in [r, lim), or lim: a run of ones longer
+// than a window.
+__device__ __noinline__ int first_zero(const uint32_t* w, int r, int lim) {
+  while (r < lim) {
+    uint32_t hi, lo;
+    window(w, r, &hi, &lo);
+    if (~hi) {
+      const int t = r + __clz(~hi);
+      return t < lim ? t : lim;
     }
-    base = 0;
+    r += 32;
   }
-
-  // 64 bits from chunk bit r (r never moves back), MSB first; at least
-  // 33 of them are stream bits.
-  __device__ __forceinline__ uint64_t window(int r) {
-    while (base < (r >> 5)) {
-#pragma unroll
-      for (int k = 0; k + 1 < QWORDS; ++k) q[k] = q[k + 1];
-      q[QWORDS - 1] = 0u;
-      ++base;
-    }
-    return ((static_cast<uint64_t>(q[0]) << 32) | q[1]) << (r & 31);
-  }
-
-  // First 0 bit at a chunk bit in [r, lim), or lim.
-  __device__ __forceinline__ int first_zero(int r, int lim) {
-    while (r < lim) {
-      const uint32_t x = ~static_cast<uint32_t>(window(r) >> 32);
-      if (x) {
-        const int t = r + __clz(x);
-        return t < lim ? t : lim;
-      }
-      r += 32;
-    }
-    return lim;
-  }
-
-  // Chunk bits t+1 .. t+b+1 (the remainder MSB first, then the sign) as
-  // the low b + 1 bits.
-  __device__ __forceinline__ uint32_t tail_bits(int t, int b) {
-    return static_cast<uint32_t>(window(t + 1) >> (63 - b)) &
-           ((2u << b) - 1u);
-  }
-
-  // The codeword starting at chunk bit r: its terminator t (lim if none
-  // before lim) and its tail bits (valid when t < lim).  One window serves
-  // a codeword whose terminator and tail lie in its first 33 bits.
-  __device__ __forceinline__ int codeword(int r, int lim, int b,
-                                          uint32_t* tail) {
-    const uint64_t win = window(r);
-    const uint32_t x = ~static_cast<uint32_t>(win >> 32);
-    const int z = __clz(x);                     // 32 when x == 0
-    if (z + b + 2 <= 33) {
-      *tail = static_cast<uint32_t>((win << (z + 1)) >> (63 - b)) &
-              ((2u << b) - 1u);
-      return r + z < lim ? r + z : lim;
-    }
-    const int t = first_zero(r, lim);
-    if (t < lim) *tail = tail_bits(t, b);
-    return t;
-  }
-};
-
-// Chunk c of segment s: its first stream bit, its length in bits, and the
-// segment end relative to its first bit (clamped: only "equal" and "past"
-// matter, and no codeword of the chunk ends beyond CHUNK_BITS + 33).
-__device__ __forceinline__ void chunk_bounds(const long long* meta, int s,
-                                             long long c, long long* cs,
-                                             int* len, int* end_rel) {
-  const long long* row = meta + META_COLS * s;
-  const long long end = row[0] + row[1];
-  *cs = row[0] + (c - row[2]) * CHUNK_BITS;
-  *len = static_cast<int>(lmin(CHUNK_BITS, end - *cs));
-  *end_rel = static_cast<int>(lmin(2 * CHUNK_BITS, end - *cs));
+  return lim;
 }
 
-// The segment table in shared memory when it is small (every thread of the
-// CTA must call this), else in device memory.
-__device__ __forceinline__ const long long* stage_meta(
-    const long long* meta, int n_segments, long long* smem) {
-  if (n_segments > SMEM_SEGMENTS) return meta;
-  for (int i = threadIdx.x; i < (n_segments + 1) * META_COLS; i += blockDim.x)
-    smem[i] = meta[i];
-  __syncthreads();
-  return smem;
-}
-
-__global__ void transitions_kernel(const uint32_t* __restrict__ w,
-                                   const long long* __restrict__ meta_g,
-                                   int n_segments, int b, int n_threads,
-                                   Rec* __restrict__ rec) {
-  __shared__ long long meta_s[(SMEM_SEGMENTS + 1) * META_COLS];
-  const long long* meta = stage_meta(meta_g, n_segments, meta_s);
-  const int g = blockIdx.x * THREADS + threadIdx.x;
-  if (g >= n_threads) return;
-  const int c = g / (b + 2), e = g - c * (b + 2);
-  const int s = find_segment(meta, n_segments, c);
-  long long cs;
-  int len, end;
-  chunk_bounds(meta, s, c, &cs, &len, &end);
-  Reader rd;
-  rd.load(w, cs, cs + end);
+// Decode a chunk of `len` bits (the segment ends `lim` bits past its first
+// bit, clamped to 2 x CHUNK_BITS) from offset e: its record, and each owned
+// codeword's gap sum so far (cum[j]) and sign (bit j of *signs).  One
+// window of 64 bits serves a codeword whose unary run is shorter than 32.
+__device__ __forceinline__ Rec transition(const uint32_t* w, int len, int lim,
+                                          int e, int b, long long* cum,
+                                          unsigned long long* signs) {
   long long gaps = 0;
+  unsigned long long sg = 0;
   int r = e, n = 0, code;
   for (;;) {
     if (r >= len) {                        // next codeword starts past len
       code = r - len;
       break;
     }
-    uint32_t f = 0;
-    const int t = rd.codeword(r, len, b, &f);
-    if (t == len) {                        // open run to the chunk end
+    uint32_t hi, lo, f;
+    window(w, r, &hi, &lo);
+    const int z = __clz(~hi);              // 32 when hi is all ones
+    int t;
+    if (z < 32) {                          // the tail: window bits z+1 ..
+      t = r + z;
+      f = __funnelshift_lc(lo, hi, z + 1) >> (31 - b);
+    } else {
+      t = first_zero(w, r + 32, len);
+      uint32_t thi, tlo;
+      window(w, t + 1, &thi, &tlo);
+      f = thi >> (31 - b);
+    }
+    if (t >= len) {                        // open run to the chunk end
       code = EXIT_U | (len - r) << 8;
       break;
     }
     const int next = t + b + 2;
-    if (next > end) {
+    if (next > lim) {
       code = OVERRUN;
       break;
     }
     gaps += (static_cast<long long>(t - r) << b) + (f >> 1) + 1;
+    cum[n] = gaps;
+    sg |= static_cast<unsigned long long>(f & 1u) << n;
     ++n;
-    if (next == end) {
+    if (next == lim) {
       code = FINAL;
       break;
     }
     r = next;
   }
-  rec[g] = Rec{gaps, n, code};
+  *signs = sg;
+  return Rec{gaps, n, code};
 }
 
 __device__ __forceinline__ int open_run(int code) {
   return (code & EXIT_U) == EXIT_U ? code >> 8 : 0;
 }
 
-// Span `a`, then the chunk or span whose records (one per entry state) are
-// next[0 .. b+1].  Inside an open run the next one decodes as from offset
-// 0, its first quotient grown by the run's ones.
+// The state of `next` (a map, one record a state) that `code` enters.
+__device__ __forceinline__ int entered(int code) {
+  const int exit = code & EXIT_U;
+  return (code & (FINAL | OVERRUN)) || exit == EXIT_U ? 0 : exit;
+}
+
+// Span `a`, then the span whose record from a's exit is z (from state 0
+// when a ends inside an open unary run, which then grows z's first
+// quotient); selects, no branches.
+__device__ __forceinline__ Rec join(const Rec& a, const Rec& z, int b) {
+  const bool done = a.code & (FINAL | OVERRUN);
+  const bool u = (a.code & EXIT_U) == EXIT_U;
+  const int run = u ? a.code >> 8 : 0;
+  const bool grow = u && z.n == 0 && (z.code & EXIT_U) == EXIT_U;
+  const Rec j{a.gaps + z.gaps + (z.n > 0 ? static_cast<long long>(run) << b
+                                         : 0),
+              a.n + z.n, grow ? z.code + (run << 8) : z.code};
+  return done ? a : j;
+}
+
 __device__ __forceinline__ Rec then(const Rec& a, const Rec* next, int b) {
-  if (a.code & (FINAL | OVERRUN)) return a;
-  const int exit = a.code & EXIT_U;
-  if (exit != EXIT_U) {
-    const Rec z = next[exit];
-    return Rec{a.gaps + z.gaps, a.n + z.n, z.code};
-  }
-  const Rec z = next[0];
-  const int run = a.code >> 8;
-  return Rec{a.gaps + z.gaps + (z.n > 0 ? static_cast<long long>(run) << b : 0),
-             a.n + z.n,
-             z.n > 0 || (z.code & EXIT_U) != EXIT_U ? z.code
-                                                    : z.code + (run << 8)};
+  return join(a, next[entered(a.code)], b);
 }
 
 // The same for a segment's cursor.
 __device__ __forceinline__ Acc then(const Acc& a, const Rec* next, int b) {
-  if (a.code & (FINAL | OVERRUN)) return a;
-  const int exit = static_cast<int>(a.code & EXIT_U);
-  const Rec z = next[exit != EXIT_U ? exit : 0];
-  if (exit != EXIT_U)
-    return Acc{a.gaps + z.gaps, open_run(z.code), a.n + z.n, z.code & 0xFF};
-  return Acc{a.gaps + z.gaps + (z.n > 0 ? a.run << b : 0),
-             open_run(z.code) + (z.n > 0 ? 0 : a.run), a.n + z.n,
-             z.code & 0xFF};
+  const bool done = a.code & (FINAL | OVERRUN);
+  const bool u = (a.code & EXIT_U) == EXIT_U;
+  const Rec z = next[done || u ? 0 : static_cast<int>(a.code & EXIT_U)];
+  const long long zrun = open_run(z.code);
+  const Acc j{a.gaps + z.gaps + (u && z.n > 0 ? a.run << b : 0),
+              zrun + (u && z.n == 0 ? a.run : 0), a.n + z.n, z.code & 0xFF};
+  return done ? a : j;
 }
 
-// Chunks a compose tile holds: its records and the group maps twice (a
-// scan reads one copy and writes the other), 16 B a state each, and the
-// group entries (32 B), in COMPOSE_SMEM, a whole number of groups.
-__host__ __device__ constexpr int tile_chunks(int states) {
-  return (COMPOSE_SMEM / (GROUP * 16 * states + 32 * states + 32)) * GROUP;
-}
-// an open run inside a tile fits the 23 bits `code` keeps for it
-static_assert(tile_chunks(2) * CHUNK_BITS < (1 << 23), "tile too long");
-
-// One CTA a segment, tile by tile: (1) each (group, state) thread composes
-// the group's GROUP chunk records from that state; (2) the group maps are
-// scanned (Hillis-Steele, one thread a (group, state)), which gives every
-// group its true entry from the segment's cursor; (3) each group's thread
-// walks its chunks from that entry, writing every chunk's entry.
-__global__ void compose_kernel(const long long* __restrict__ meta, int b,
-                               const Rec* __restrict__ rec,
-                               Acc* __restrict__ entry,
-                               long long* __restrict__ status) {
-  extern __shared__ unsigned char smem_raw[];
-  const int states = b + 2, tile = tile_chunks(states);
-  const int max_maps = (tile / GROUP) * states;
-  Rec* recs = reinterpret_cast<Rec*>(smem_raw);               // [tile][states]
-  Rec* maps = recs + tile * states;                           // 2 x [groups][states]
-  Acc* gentry = reinterpret_cast<Acc*>(maps + 2 * max_maps);  // [groups]
-  __shared__ Acc cursor;
-  const int seg = blockIdx.x, tid = threadIdx.x;
-  const long long c0 = meta[META_COLS * seg + 2];
-  const long long n_chunks = meta[META_COLS * (seg + 1) + 2] - c0;
-  if (tid == 0) cursor = Acc{0, 0, 0, 0};         // offset 0, nothing yet
-  for (long long base = 0; base < n_chunks; base += tile) {
-    const int len = static_cast<int>(lmin(tile, n_chunks - base));
-    const int groups = (len + GROUP - 1) / GROUP, n_maps = groups * states;
-    const Rec* src = rec + (c0 + base) * states;
-    for (int i = tid; i < len * states; i += COMPOSE_THREADS) recs[i] = src[i];
-    __syncthreads();
-    Rec* cur = maps;
-    for (int i = tid; i < n_maps; i += COMPOSE_THREADS) {
-      const int g = i / states, first = g * GROUP;
-      const int last = min(first + GROUP, len);
-      Rec a = recs[first * states + i - g * states];
-      for (int k = first + 1; k < last; ++k) a = then(a, recs + k * states, b);
-      cur[i] = a;
-    }
-    __syncthreads();
-    // inclusive scan: cur[g] becomes groups 0 .. g composed
-    for (int d = 1; d < groups; d <<= 1) {
-      Rec* nxt = cur == maps ? maps + max_maps : maps;
-      for (int i = tid; i < n_maps; i += COMPOSE_THREADS) {
-        const int g = i / states;
-        nxt[i] = g >= d ? then(cur[i - d * states], cur + g * states, b)
-                        : cur[i];
-      }
-      __syncthreads();
-      cur = nxt;
-    }
-    for (int g = tid; g < groups; g += COMPOSE_THREADS)
-      gentry[g] = g == 0 ? cursor : then(cursor, cur + (g - 1) * states, b);
-    __syncthreads();
-    if (tid == 0) cursor = then(cursor, cur + (groups - 1) * states, b);
-    for (int g = tid; g < groups; g += COMPOSE_THREADS) {
-      Acc a = gentry[g];
-      const int last = min((g + 1) * GROUP, len);
-      for (int k = g * GROUP; k < last; ++k) {
-        entry[c0 + base + k] = a;
-        a = then(a, recs + k * states, b);
-      }
-    }
+// A barrier of the whole cluster (of the CTA alone when the cluster is one
+// CTA), ordering shared and distributed shared memory.
+__device__ __forceinline__ void cluster_barrier(const cg::cluster_group& cl,
+                                                int csize) {
+  if (csize > 1) {
+    cl.sync();
+  } else {
     __syncthreads();
   }
-  if (tid == 0) {
+}
+
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+    decode_kernel(const uint32_t* __restrict__ w,
+                  const long long* __restrict__ meta, int b, int csize,
+                  int cap, long long* __restrict__ out_pos,
+                  float* __restrict__ out_sign,
+                  long long* __restrict__ status) {
+  STAMP(0);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ Acc cursor;                 // the segment's, thread 0's
+  __shared__ Acc entry;                  // this CTA's true entry
+  const int S = b + 2, K = max_owned(b), tid = threadIdx.x, T = blockDim.x;
+  const int groups = (cap + GROUP - 1) / GROUP;
+  Rec* m = reinterpret_cast<Rec*>(smem_raw);  // the maps, by offset:
+  const int chunk_maps = 0;                   // [cap][S]
+  const int chunk_pre = cap * S;              // [cap][S]
+  const int group_maps = 2 * cap * S;         // [groups][S]
+  const int cta_maps = group_maps + groups * S;  // 2 x [MAX_CLUSTER][S]
+  Acc* ents = reinterpret_cast<Acc*>(m + cta_maps + 2 * MAX_CLUSTER * S);
+  long long* cums = reinterpret_cast<long long*>(ents + cap);
+  unsigned long long* signs =                         // [cap][S]
+      reinterpret_cast<unsigned long long*>(cums + cap * S * K);
+  uint32_t* words = reinterpret_cast<uint32_t*>(signs + cap * S);
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(blockIdx.x % csize);
+  const long long seg = blockIdx.x / csize;
+  const long long* row = meta + META_COLS * seg;
+  const long long start = row[0], end = start + row[1];
+  const long long out0 = row[2], nnz = row[META_COLS + 2] - out0;
+  const long long nc = (row[1] + CHUNK_BITS - 1) / CHUNK_BITS;
+  const long long per =
+      nc < static_cast<long long>(cap) * csize ? (nc + csize - 1) / csize
+                                               : cap;
+  const long long span = per * csize;
+  const long long tiles = nc > 0 ? (nc + span - 1) / span : 0;
+  const long long wend = (end + 31) >> 5;  // words holding segment bits
+  if (tid == 0) cursor = Acc{0, 0, 0, 0};  // offset 0, nothing yet
+  // a CTA writes into the others' shared memory only once all of them run:
+  // the cluster barrier's arrival now, its wait before the first write
+  const bool clustered = csize > 1 && tiles > 0;
+  if (clustered)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  STAMP(1);
+  for (long long tile = 0; tile < tiles; ++tile) {
+    const long long t0 = tile * span, c0 = t0 + rank * per;
+    const int L = static_cast<int>(
+        c0 < nc ? (nc - c0 < per ? nc - c0 : per) : 0);
+    const int NG = (L + GROUP - 1) / GROUP;
+    const int my_maps = cta_maps + (tile & 1) * MAX_CLUSTER * S;
+    __syncthreads();              // the last tile's words and entries are read
+    // 1. this CTA's chunks' words and the two after
+    const long long wbase = (start >> 5) + CHUNK_WORDS * c0;
+    for (int i = tid; i < (L > 0 ? CHUNK_WORDS * L + 2 : 0); i += T) {
+      const long long wi = wbase + i;
+      words[i] = wi < wend ? __ldg(w + wi) : 0u;
+    }
+    __syncthreads();
+    STAMP_TILE(2);
+    // 2. every (chunk, entry state) decoded to its map record and its
+    //    codewords
+    for (int i = tid; i < L * S; i += T) {
+      const int c = i / S, e = i - c * S;
+      const long long left = end - (start + (c0 + c) * CHUNK_BITS);
+      m[chunk_maps + i] = transition(
+          words + CHUNK_WORDS * c,
+          static_cast<int>(left < CHUNK_BITS ? left : CHUNK_BITS),
+          static_cast<int>(left < 2 * CHUNK_BITS ? left : 2 * CHUNK_BITS), e,
+          b, cums + static_cast<long long>(i) * K, signs + i);
+    }
+    __syncthreads();
+    STAMP_TILE(3);
+    // 3. each group's map from every state, and the prefix before each of
+    //    its chunks
+    for (int i = tid; i < NG * S; i += T) {
+      const int g = i / S, e = i - g * S;
+      const int first = g * GROUP, last = min(first + GROUP, L);
+      Rec a = m[chunk_maps + first * S + e];
+      for (int k = first + 1; k < last; ++k) {
+        m[chunk_pre + k * S + e] = a;
+        a = then(a, m + chunk_maps + k * S, b);
+      }
+      m[group_maps + i] = a;
+    }
+    __syncthreads();
+    // 4. one warp, lane e the record from state e: the group maps composed
+    //    by shuffles, each group's prefix kept in place of its map, the
+    //    CTA's map handed to every CTA of the cluster (by a CTA with chunks:
+    //    step 5 passes over the others)
+    if (tid < 32) {
+      const bool on = tid < S && L > 0;
+      Rec acc = on ? m[group_maps + tid] : Rec{0, 0, 0};
+      for (int g = 1; g < NG; ++g) {
+        const Rec nx = on ? m[group_maps + g * S + tid] : Rec{0, 0, 0};
+        if (on) m[group_maps + g * S + tid] = acc;
+        const int src = entered(acc.code);
+        const Rec z{__shfl_sync(FULL, nx.gaps, src),
+                    __shfl_sync(FULL, nx.n, src),
+                    __shfl_sync(FULL, nx.code, src)};
+        acc = join(acc, z, b);
+      }
+      STAMP_TILE(4);
+      if (clustered && tile == 0)
+        asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+      if (on) {
+        for (int k = 0; k < csize; ++k) {
+          Rec* dst = m + my_maps + rank * S + tid;
+          *(csize > 1 ? cl.map_shared_rank(dst, k) : dst) = acc;
+        }
+      }
+    } else if (clustered && tile == 0) {
+      asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    }
+    STAMP_TILE(5);
+    cluster_barrier(cl, csize);
+    STAMP_TILE(6);
+    // 5. the cursor through the CTA maps: this CTA's entry, the tile's exit;
+    //    then each chunk's true entry, the CTA's through the prefix before
+    //    its group and the prefix before it inside the group
+    if (tid == 0) {
+      Acc cur = cursor;
+      for (int k = 0; k < csize; ++k) {
+        if (k == rank) entry = cur;
+        if (t0 + k * per < nc) cur = then(cur, m + my_maps + k * S, b);
+      }
+      cursor = cur;
+    }
+    __syncthreads();
+    for (int c = tid; c < L; c += T) {
+      const int g = c / GROUP;
+      Acc en = g > 0 ? then(entry, m + group_maps + g * S, b) : entry;
+      if (c > g * GROUP) en = then(en, m + chunk_pre + c * S, b);
+      ents[c] = en;
+    }
+    __syncthreads();
+    STAMP_TILE(7);
+    // 6. one warp a chunk: the codewords of its true entry's decode, a lane
+    //    a codeword
+    for (int c = tid >> 5; c < L; c += T >> 5) {
+      const Acc en = ents[c];
+      if (en.code & (FINAL | OVERRUN)) continue;  // the chain ended before
+      const int exit = static_cast<int>(en.code & EXIT_U);
+      const int i = c * S + (exit == EXIT_U ? 0 : exit);
+      const long long base =
+          en.gaps + (exit == EXIT_U ? en.run << b : 0) - 1;
+      const long long* cum = cums + static_cast<long long>(i) * K;
+      const unsigned long long sg = signs[i];
+      for (int j = tid & 31; j < m[chunk_maps + i].n; j += 32) {
+        const long long k = en.n + j;
+        if (k < nnz) {
+          out_pos[out0 + k] = base + cum[j];
+          out_sign[out0 + k] = (sg >> j) & 1u ? 1.0f : -1.0f;
+        }
+      }
+    }
+    STAMP_WRITTEN();
+  }
+  if (rank == 0 && tid == 0) {
     status[3 * seg] = cursor.n;
     status[3 * seg + 1] = cursor.code;
     status[3 * seg + 2] = cursor.gaps - 1;          // the last position
   }
+  STAMP(9);
 }
 
-__global__ void write_kernel(const uint32_t* __restrict__ w,
-                             const long long* __restrict__ meta_g,
-                             int n_segments, int b, int n_chunks,
-                             const Acc* __restrict__ entry,
-                             long long* __restrict__ out_seg,
-                             long long* __restrict__ out_pos,
-                             float* __restrict__ out_sign) {
-  __shared__ long long meta_s[(SMEM_SEGMENTS + 1) * META_COLS];
-  const long long* meta = stage_meta(meta_g, n_segments, meta_s);
-  const int c = blockIdx.x * WRITE_THREADS + threadIdx.x;
-  if (c >= n_chunks) return;
-  const Acc en = entry[c];
-  if (en.code & (FINAL | OVERRUN)) return;        // the chain ended before
-  const int s = find_segment(meta, n_segments, c);
-  long long cs;
-  int len, end;
-  chunk_bounds(meta, s, c, &cs, &len, &end);
-  const long long out0 = meta[META_COLS * s + 3];
-  const long long nnz = meta[META_COLS * (s + 1) + 3] - out0;
-  Reader rd;
-  rd.load(w, cs, cs + end);
-  const int exit = static_cast<int>(en.code & EXIT_U);
-  int r = exit == EXIT_U ? 0 : exit;
-  long long carry = exit == EXIT_U ? en.run : 0;
-  long long k = en.n, acc = en.gaps;
-  while (r < len) {
-    uint32_t f = 0;
-    const int t = rd.codeword(r, len, b, &f);
-    if (t == len) break;
-    const int next = t + b + 2;
-    if (next > end) break;
-    acc += ((t - r + carry) << b) + (f >> 1) + 1;
-    carry = 0;
-    if (k < nnz) {
-      out_seg[out0 + k] = s;
-      out_pos[out0 + k] = acc - 1;
-      out_sign[out0 + k] = (f & 1u) ? 1.0f : -1.0f;
-    }
-    ++k;
-    if (next == end) break;
-    r = next;
+// The kernel's shared-memory and cluster-size limits, once per device.
+cudaError_t configure_kernel() {
+  static bool configured[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (configured[dev]) return cudaSuccess;
+  long long most = 0;
+  for (int b = 0; b <= MAX_STATES - 2; ++b)
+    most = smem_bytes(TILE, b) > most ? smem_bytes(TILE, b) : most;
+  err = cudaFuncSetAttribute(decode_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(most));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        decode_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
+  if (err == cudaSuccess) configured[dev] = true;
+  return err;
 }
 
 }  // namespace
 
-// The chunk length the segment table's chunk column is counted in.
-extern "C" int golomb_decode_chunk_bits() { return CHUNK_BITS; }
-
-// Scratch bytes for n_chunks chunks at parameter b: the chunk records, then
-// the chunk entries.
-extern "C" long long golomb_decode_scratch_bytes(long long n_chunks, int b) {
-  return n_chunks * ((b + 2) * sizeof(Rec) + sizeof(Acc));
+#ifdef GOLOMB_DECODE_STAMPS
+// The 10 stamps of the last stamped launch (globaltimer, ns), then the SM
+// clock (cycles) at the first and the last.
+extern "C" int golomb_decode_stamps(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps)));
 }
+#endif
 
-// Three launches on `stream`: transitions, compose (one CTA a segment, also
-// for empty ones, so every status is written), write.  `scratch` holds
-// golomb_decode_scratch_bytes(n_chunks, b) bytes, `status` 3 int64 a
-// segment; the outputs hold the advertised nnz total.
+// One launch on `stream`: a cluster of `cluster` CTAs (a power of two up to
+// 16) of `threads` threads (a multiple of 32 up to 512) a segment, also for
+// empty ones, so every status is written, each CTA holding at most `tile`
+// chunks (up to TILE) at once.  `meta` is the segment table (see
+// META_COLS), `status` 3 int64 a segment; the outputs hold the advertised
+// nnz total.
 extern "C" int golomb_decode(const void* words, const void* meta,
-                             int n_segments, int b, long long n_chunks,
-                             void* scratch, void* out_seg, void* out_pos,
-                             void* out_sign, void* status, void* stream) {
+                             int n_segments, int b, int cluster, int threads,
+                             int tile, void* out_pos, void* out_sign,
+                             void* status, void* stream) {
   if (n_segments <= 0) return 0;
-  if (b < 0 || b > 30 || n_chunks * (b + 2) > INT_MAX)
+  if (b < 0 || b > MAX_STATES - 2 || cluster < 1 || cluster > MAX_CLUSTER ||
+      (cluster & (cluster - 1)) || threads < 32 || threads > MAX_THREADS ||
+      threads % 32 || tile < 1 || tile > TILE ||
+      static_cast<long long>(n_segments) * cluster > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int states = b + 2;
-  const uint32_t* w = static_cast<const uint32_t*>(words);
-  const long long* m = static_cast<const long long*>(meta);
-  Rec* rec = static_cast<Rec*>(scratch);
-  Acc* entry = reinterpret_cast<Acc*>(rec + n_chunks * states);
-  if (n_chunks > 0) {
-    const int n1 = static_cast<int>(n_chunks * states);
-    transitions_kernel<<<(n1 + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-        w, m, n_segments, b, n1, rec);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const cudaError_t attr = cudaFuncSetAttribute(
-      compose_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      COMPOSE_SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  compose_kernel<<<n_segments, COMPOSE_THREADS, COMPOSE_SMEM, st>>>(
-      m, b, rec, entry, static_cast<long long*>(status));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_chunks == 0) return static_cast<int>(err);
-  write_kernel<<<static_cast<unsigned>((n_chunks + WRITE_THREADS - 1) /
-                                       WRITE_THREADS),
-                 WRITE_THREADS, 0, st>>>(
-      w, m, n_segments, b, static_cast<int>(n_chunks), entry,
-      static_cast<long long*>(out_seg), static_cast<long long*>(out_pos),
-      static_cast<float*>(out_sign));
+  cudaError_t err = configure_kernel();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_segments * cluster), 1, 1);
+  cfg.blockDim = dim3(static_cast<unsigned>(threads), 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes(tile, b));
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, decode_kernel, static_cast<const uint32_t*>(words),
+      static_cast<const long long*>(meta), b, cluster, tile,
+      static_cast<long long*>(out_pos), static_cast<float*>(out_sign),
+      static_cast<long long*>(status));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,7 @@ launch their kernels; on a CPU tensor they run their plain versions
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,7 +47,7 @@ from . import _build
 __all__ = ["unpack_words_batched", "unpack_words_with_counts",
            "unpack_bits_words", "unpack_words_plain", "sign_plane_tally",
            "sign_plane_tally_plain", "decode_golomb_fields",
-           "decode_golomb_fields_plain"]
+           "decode_golomb_fields_plain", "DecodePlan", "decode_plan"]
 
 _SHIFTS = list(range(31, -1, -1))
 
@@ -193,6 +194,9 @@ def sign_plane_tally(words: torch.Tensor, step: float,
 # ---------------------------------------------------------------------------
 
 _FINAL, _OVERRUN = 64, 128       # csrc/golomb_decode.cu: status flags
+_CHUNK_BITS = 128                # its CHUNK_BITS: a chunk's stream bits
+_TILE_CHUNKS = 64                # its TILE: chunks a CTA holds at once
+_MAX_DECODE_CLUSTER = 16         # its MAX_CLUSTER
 
 
 def decode_golomb_fields_plain(words: torch.Tensor,
@@ -314,46 +318,84 @@ def _segment_table(words, seg_word_start, seg_bit_len, nnz, b):
     return ws, bl, cnt
 
 
-def _chunk_bits() -> int:
-    """The kernel's chunk length in bits (``CHUNK_BITS`` of the source)."""
-    return _build.entry("golomb_decode", "golomb_decode_chunk_bits", [])()
+class DecodePlan(NamedTuple):
+    """How ``golomb_decode`` runs a batch: one launch of a thread block
+    cluster of ``cluster`` CTAs of ``threads`` threads a segment, a CTA
+    holding at most ``tile`` chunks at once.  On the ``"cluster"`` route
+    every segment fits one tile of the cluster; on the ``"tiled"`` route the
+    longest segment does not, and the cluster walks it tile by tile,
+    carrying its cursor."""
+    route: str
+    cluster: int
+    threads: int
+    tile: int
+
+
+def _cluster_plan(n_chunks_max: int, cluster: int) -> DecodePlan:
+    """The launch in clusters of ``cluster`` CTAs for segments of at most
+    ``n_chunks_max`` chunks: ``tile`` the chunks a CTA then takes of the
+    longest segment (at most ``_TILE_CHUNKS``: its shared memory grows with
+    them), ``threads`` one a (chunk, state) pair at up to 8 states
+    (b <= 6), 64 to 512."""
+    route = ("cluster" if n_chunks_max <= cluster * _TILE_CHUNKS
+             else "tiled")
+    tile = max(1, min(_TILE_CHUNKS, -(-n_chunks_max // cluster)))
+    threads = min(512, max(64, 1 << (8 * tile - 1).bit_length()))
+    return DecodePlan(route, cluster, threads, tile)
+
+
+def decode_plan(n_chunks_max: int) -> DecodePlan:
+    """The decode's launch for segments of at most ``n_chunks_max`` chunks
+    (``_CHUNK_BITS`` bits each): clusters of the fewest CTAs, a power of
+    two, that hold the longest segment in one tile, at most
+    ``_MAX_DECODE_CLUSTER``.  Neither the segment count nor the card's SMs
+    change it: on an H100 a lone cnn message ran as fast in 16 CTAs as in
+    8, and a cnn round's ten segments slower (``PERF.md`` section 6)."""
+    cluster = 1
+    while (cluster < _MAX_DECODE_CLUSTER
+           and -(-n_chunks_max // cluster) > _TILE_CHUNKS):
+        cluster *= 2
+    return _cluster_plan(n_chunks_max, cluster)
 
 
 def _segment_meta(ws, bl, cnt) -> np.ndarray:
     """The kernel's segment table: int64 rows of (first bit, bit length,
-    first chunk, first output), and a last row holding the chunk and
-    output totals in its last two columns."""
-    meta = np.zeros((ws.size + 1, 4), np.int64)
+    first output), and a last row holding the output total in its last
+    column."""
+    meta = np.zeros((ws.size + 1, 3), np.int64)
     meta[:-1, 0], meta[:-1, 1] = 32 * ws, bl
-    meta[1:, 2] = np.cumsum(-(-bl // _chunk_bits()))
-    meta[1:, 3] = np.cumsum(cnt)
+    meta[1:, 2] = np.cumsum(cnt)
     return meta
 
 
-def _launch_decode(words, meta, n_chunks: int, n_out: int, b: int):
-    """Enqueue the three passes on ``meta`` (the segment table, already on
-    ``words``' device); returns the fields and the per-segment status,
-    unread."""
+def _field_views(buf, n_out: int, n_seg: int):
+    """``(positions, signs), status`` as views of the one int64 buffer the
+    kernel writes (a tensor or its numpy copy): positions, the status rows,
+    then the signs' float32 pairs."""
+    pos, status = buf[:n_out], buf[n_out:n_out + 3 * n_seg]
+    tail = buf[n_out + 3 * n_seg:]
+    sign = (tail.view(torch.float32) if isinstance(tail, torch.Tensor)
+            else tail.view(np.float32))[:n_out]
+    return (pos, sign), status
+
+
+def _launch_decode(words, meta, plan: DecodePlan, n_out: int, b: int):
+    """Enqueue the one launch on ``meta`` (the segment table, already on
+    ``words``' device); returns the buffer it writes, unread (see
+    :func:`_field_views`)."""
     fn = _build.entry("golomb_decode", "golomb_decode",
-                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_longlong]
-                      + [ctypes.c_void_p] * 6)
-    scratch_bytes = _build.entry(
-        "golomb_decode", "golomb_decode_scratch_bytes",
-        [ctypes.c_longlong, ctypes.c_int], restype=ctypes.c_longlong)
+                      [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p] * 4)
     dev, n_seg = words.device, meta.shape[0] - 1
-    scratch = torch.empty(scratch_bytes(n_chunks, b), dtype=torch.uint8,
-                          device=dev)
-    seg = torch.empty(n_out, dtype=torch.int64, device=dev)
-    pos = torch.empty(n_out, dtype=torch.int64, device=dev)
-    sign = torch.empty(n_out, dtype=torch.float32, device=dev)
-    status = torch.empty(3 * n_seg, dtype=torch.int64, device=dev)
-    err = fn(words.data_ptr(), meta.data_ptr(), n_seg, b, n_chunks,
-             scratch.data_ptr(), seg.data_ptr(), pos.data_ptr(),
-             sign.data_ptr(), status.data_ptr(), _build.stream_ptr(dev))
+    buf = torch.empty(n_out + 3 * n_seg + (n_out + 1) // 2,
+                      dtype=torch.int64, device=dev)
+    (pos, sign), status = _field_views(buf, n_out, n_seg)
+    err = fn(words.data_ptr(), meta.data_ptr(), n_seg, b, plan.cluster,
+             plan.threads, plan.tile, pos.data_ptr(), sign.data_ptr(),
+             status.data_ptr(), _build.stream_ptr(dev))
     _build.check("golomb_decode", err)
     _build.LAUNCHES.record("golomb_decode", words.shape)
-    return (seg, pos, sign), status
+    return buf
 
 
 def _check_status(status: np.ndarray, bl, cnt, numel: int) -> None:
@@ -380,13 +422,16 @@ def decode_golomb_fields(words: torch.Tensor, seg_word_start: torch.Tensor,
     CPU tensors of one length) gives segment ``i`` the stream bits
     ``[32 * seg_word_start[i], 32 * seg_word_start[i] + seg_bit_len[i])``
     and its advertised codeword count ``nnz[i]``; ``b`` is the Golomb
-    parameter (0-30).  Returns ``(seg, positions, signs)`` on ``words``'
-    device -- int64 owning segment, int64 decoded position and float32
-    ±1.0 of every codeword, segment-major in stream order -- bitwise the
+    parameter (0-30).  Returns ``(seg, positions, signs)`` as CPU tensors
+    -- int64 owning segment, int64 decoded position and float32 ±1.0 of
+    every codeword, segment-major in stream order -- bitwise the
     reference's field scan.  Raises :class:`WireDecodeError` exactly where
     that scan (plus its count check) does: a truncated codeword, a unary
     run with no terminator, a count other than ``nnz``, a position at or
-    past ``numel``."""
+    past ``numel``.  On the card the kernel's one buffer (positions, the
+    per-segment status, signs) comes down in one copy and the status is
+    checked there; ``seg`` is the advertised counts spelled out, which the
+    check has just confirmed."""
     if words.ndim != 1 or words.dtype != torch.int32:
         raise ValueError(f"words must be a flat int32 tensor, got "
                          f"{tuple(words.shape)} {words.dtype}")
@@ -402,8 +447,11 @@ def decode_golomb_fields(words: torch.Tensor, seg_word_start: torch.Tensor,
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
     meta = _segment_meta(ws, bl, cnt)
-    fields, status = _launch_decode(
+    n_out = int(meta[-1, 2])
+    buf = _launch_decode(
         words.contiguous(), torch.from_numpy(meta).to(words.device),
-        int(meta[-1, 2]), int(meta[-1, 3]), b)
-    _check_status(status.cpu().numpy(), bl, cnt, int(numel))
-    return fields
+        decode_plan(int(-(-bl.max(initial=0) // _CHUNK_BITS))), n_out, b)
+    (pos, sign), status = _field_views(buf.cpu().numpy(), n_out, ws.size)
+    _check_status(status, bl, cnt, int(numel))
+    seg = np.repeat(np.arange(ws.size, dtype=np.int64), cnt)
+    return tuple(torch.from_numpy(f) for f in (seg, pos, sign))

@@ -167,3 +167,85 @@ def fuzz_messages():
             bad = msg._replace(nnz=int(msg.nnz) + int(rng.integers(1, 5)))
         out.append((trial, bad, p))
     return out
+
+
+def encode_gaps(gap_lists, b, numel, seed=0):
+    """A valid batch from each segment's gaps (``position[k] -
+    position[k-1]``, the first from -1) at Golomb parameter ``b``, random
+    signs, every segment starting on a word; an empty list is an empty
+    segment.  Builds the bits directly, so any ``b`` and any run length is
+    cheap."""
+    rng = np.random.default_rng(seed)
+    words, start, count, bit_len, nnz = [], [], [], [], []
+    at = 0
+    for gaps in gap_lists:
+        gaps = np.asarray(gaps, np.int64)
+        q, r = (gaps - 1) >> b, (gaps - 1) & ((1 << b) - 1)
+        lengths = q + b + 2
+        first = np.cumsum(lengths) - lengths
+        total = int(lengths.sum())
+        bits = np.zeros(total + (-total) % 32, np.int8)
+        ones = np.zeros(bits.size + 1, np.int64)      # runs as a difference
+        np.add.at(ones, first, 1)
+        np.add.at(ones, first + q, -1)
+        bits[np.cumsum(ones)[:-1] > 0] = 1
+        for j in range(b):                            # remainder, MSB first
+            bits[first + q + 1 + j] = (r >> (b - 1 - j)) & 1
+        bits[first + q + b + 1] = rng.random(gaps.size) < 0.5
+        seg_words = (np.packbits(bits.astype(np.uint8)).view(">u4")
+                     .astype(np.uint32))
+        words.append(seg_words)
+        start.append(at)
+        count.append(seg_words.size)
+        bit_len.append(total)
+        nnz.append(gaps.size)
+        at += seg_words.size
+    z = np.asarray
+    return wire.WireBatch(np.concatenate(words) if words else
+                          np.zeros(0, np.uint32), z(start, np.int64),
+                          z(count, np.int64), z(bit_len, np.int64),
+                          np.ones(len(gap_lists), np.float64),
+                          z(nnz, np.int64), int(numel))
+
+
+def _geometric_gaps(rng, n, p):
+    return rng.geometric(p, n).astype(np.int64)
+
+
+def synthetic_cases():
+    """Batches of the shapes the card decode's launch plans turn on: the
+    chunked codec's widest group (740 segments of ~5 chunks), empty
+    segments first, between and last, segments of exactly a tile of a
+    cluster and one chunk more, segments longer than a cluster's tile with
+    unary runs over chunk, CTA and tile edges, and b = 0 and b = 30."""
+    rng = np.random.default_rng(27)
+    cases = []
+    p = 1 / 50
+    b = golomb.golomb_b_star(p)
+    group = [_geometric_gaps(rng, int(rng.integers(60, 100)), p)
+             for _ in range(740)]
+    cases.append(("740 tiny segments", encode_gaps(group, b, 4096 * 80),
+                  p))
+    mid = _geometric_gaps(rng, 6000, p)
+    cases.append(("empty first, between and last", encode_gaps(
+        [[], mid, [], mid[:77], []], b, 10**6), p))
+    # 8 CTAs of 64 chunks hold 512, 16 hold 1,024
+    for n_chunks in (512, 513, 1024, 1025):
+        gaps = _geometric_gaps(rng, 20 * n_chunks, p)
+        used = np.cumsum(((gaps - 1) >> b) + b + 2)
+        gaps = gaps[:np.searchsorted(used, CHUNK_BITS * n_chunks, "right")]
+        cases.append((f"one segment of {n_chunks} chunks",
+                      encode_gaps([gaps], b, int(gaps.sum()) + 5), p))
+    for b_long in (0, 5):
+        gaps = _geometric_gaps(rng, 30_000, 0.5 if b_long == 0 else p)
+        gaps[[10, 4_000, 9_000, 9_001, 20_000]] = [70_000, 9_000, 200_000,
+                                                   128, 131_072]
+        cases.append((f"long runs over tiles b={b_long}",
+                      encode_gaps([gaps[:20], gaps, gaps[:3_000]], b_long,
+                                  int(gaps.sum()) + 1), p_for_b(b_long)))
+    big = rng.integers(1, 1 << 30, 25_000) + (rng.integers(0, 3, 25_000)
+                                               << 30)
+    cases.append(("b=30 over tiles", encode_gaps([big[:40], big, []], 30,
+                                                 int(big.sum()) + 1),
+                  p_for_b(30)))
+    return cases

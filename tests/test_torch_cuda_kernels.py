@@ -15,6 +15,7 @@ import _bisect_cases as bisect_cases
 import _golomb_cases as golomb_cases
 from repro_torch import kernels as rk
 from repro_torch.core import wire
+from repro_torch.kernels import wiredecode
 
 pytestmark = pytest.mark.cuda
 
@@ -106,7 +107,34 @@ def _pack_on_card(dev, vals, lens, offs, total_bits):
     torch.cuda.synchronize()
     assert rk.LAUNCHES.counts["pack_chunks"] == before + 1
     assert torch.equal(words, rk.pack_chunks_plain(*t, total_bits))
+    assert torch.equal(words, rk.pack_chunks(*t, total_bits))  # two calls
     return words.cpu().numpy().view(np.uint32)
+
+
+def _edge_chunks(case):
+    """Chunk sets at the kernel's edges (a CTA takes 224 chunks and owns the
+    words from its first chunk's on): ``(vals, lens, offs, total_bits)``,
+    totals not multiples of 32."""
+    rng = np.random.default_rng(len(case))
+    if case == "one_bit":                    # 31 chunks before a CTA's
+        lens = np.ones(5000, np.int64)       # share its first word
+        offs = np.arange(5000)
+    elif case == "straddle":                 # 63 bits over three words
+        lens = np.full(2000, 63)
+        offs = 96 * np.arange(2000) + 31
+    elif case == "gaps":                     # empty words, and runs longer
+        lens = np.where(rng.random(3000) < 0.3, 63,   # than a pass (1,024)
+                        rng.integers(1, 64, 3000))
+        offs = np.cumsum(lens) - lens + 32 * (np.arange(3000) // 500) * 1500
+    elif case == "none":
+        lens = offs = np.zeros(0, np.int64)
+    else:                                    # one chunk, at the end
+        lens, offs = np.array([3]), np.array([99_990])
+    vals = rng.integers(0, 1 << 63, lens.size, dtype=np.uint64)
+    vals &= (np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1)
+    vals[::7] = 0                            # chunks of zeros
+    end = int(offs[-1] + lens[-1]) if lens.size else 100_000
+    return vals, lens, offs.astype(np.int64), end + 3
 
 
 @pytest.mark.parametrize("count,gaps", [(1, False), (5000, False),
@@ -114,6 +142,15 @@ def _pack_on_card(dev, vals, lens, offs, total_bits):
 def test_pack_chunks(dev, count, gaps):
     vals, lens, offs, total_bits = _chunks(np.random.default_rng(count),
                                            count, gaps)
+    got = _pack_on_card(dev, vals, lens, offs, total_bits)
+    np.testing.assert_array_equal(
+        got, wire._scatter_chunks_numpy(vals, lens, offs, total_bits))
+
+
+@pytest.mark.parametrize("case", ["one_bit", "straddle", "gaps", "none",
+                                  "last_only"])
+def test_pack_chunks_edges(dev, case):
+    vals, lens, offs, total_bits = _edge_chunks(case)
     got = _pack_on_card(dev, vals, lens, offs, total_bits)
     np.testing.assert_array_equal(
         got, wire._scatter_chunks_numpy(vals, lens, offs, total_bits))
@@ -592,6 +629,14 @@ def _decode_verdict(fn):
         return "raised"
 
 
+def _decode_message(fn):
+    """``fn()``'s fields, or the message it raised with."""
+    try:
+        return fn()
+    except wire.WireDecodeError as exc:
+        return f"raised: {exc}"
+
+
 def _golomb_kernel_vs_plain(dev, words, word_start, bit_len, nnz, numel, b):
     """The kernel and its plain version on the same card words: the same
     verdict, and fields identical; returns the kernel's outcome."""
@@ -603,8 +648,9 @@ def _golomb_kernel_vs_plain(dev, words, word_start, bit_len, nnz, numel, b):
     want = _decode_verdict(
         lambda: rk.decode_golomb_fields_plain(w, *table, numel, b))
     assert isinstance(got, str) == isinstance(want, str), (got, want)
-    if not isinstance(got, str):
-        assert all(torch.equal(g, h) for g, h in zip(got, want))
+    if not isinstance(got, str):                 # the fields come to the host
+        assert all(g.device.type == "cpu" and torch.equal(g, h.cpu())
+                   for g, h in zip(got, want))
     return got
 
 
@@ -659,6 +705,93 @@ def test_golomb_decode_corrupt_same_verdict(dev):
         if not isinstance(got, str):
             assert all(np.array_equal(g, h) for g, h in zip(got, want))
     assert raised >= 150
+
+
+# the decode's plans: None keeps decode_plan's own, an int forces the
+# cluster size (its tiles and threads then follow from the shape)
+_DECODE_CLUSTERS = (None, 1, 2, 4, 8, 16)
+
+
+def _force_cluster(monkeypatch, cluster):
+    if cluster is not None:
+        monkeypatch.setattr(
+            wiredecode, "decode_plan",
+            lambda n_max: wiredecode._cluster_plan(n_max, cluster))
+
+
+@pytest.mark.parametrize("cluster", _DECODE_CLUSTERS)
+@pytest.mark.parametrize(
+    "case", golomb_cases.synthetic_cases() + golomb_cases.valid_cases()
+    + golomb_cases.trap_cases()[:3], ids=lambda c: c[0])
+def test_golomb_decode_every_plan(dev, monkeypatch, case, cluster):
+    """Every plan (one cluster a segment, or tiles of it) bitwise the plain
+    version: 740 tiny segments, empty segments first and last, segments
+    longer than a cluster's tile, b = 0 and b = 30; one launch a call, two
+    calls identical."""
+    _force_cluster(monkeypatch, cluster)
+    name, batch, p = case
+    b = wire._b_star_checked(p)
+    before = rk.LAUNCHES.counts["golomb_decode"]
+    got = _golomb_kernel_vs_plain(
+        dev, batch.words, batch.word_start, batch.bit_len, batch.nnz,
+        batch.numel, b)
+    assert rk.LAUNCHES.counts["golomb_decode"] == before + 1
+    assert not isinstance(got, str) and got[1].numel() == batch.nnz.sum()
+    w, table = _decode_table(batch.words, batch.word_start, batch.bit_len,
+                             batch.nnz)
+    again = rk.decode_golomb_fields(w.to(dev), *table, batch.numel, b)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.parametrize("cluster", _DECODE_CLUSTERS)
+def test_golomb_decode_repeated_launches_every_plan(dev, monkeypatch,
+                                                    cluster):
+    """300 launches on 740 tiny segments (clusters of mostly empty CTAs at
+    16): every one completes and gives the first one's bits (a CTA writes
+    into another's shared memory only once the whole cluster runs)."""
+    _force_cluster(monkeypatch, cluster)
+    name, batch, p = golomb_cases.synthetic_cases()[0]
+    w, table = _decode_table(batch.words, batch.word_start, batch.bit_len,
+                             batch.nnz)
+    w, b = w.to(dev), wire._b_star_checked(p)
+    first = rk.decode_golomb_fields(w, *table, batch.numel, b)
+    for _ in range(300):
+        got = rk.decode_golomb_fields(w, *table, batch.numel, b)
+        assert all(torch.equal(g, h) for g, h in zip(got, first))
+
+
+@pytest.mark.parametrize("cluster", _DECODE_CLUSTERS[1:])
+def test_golomb_decode_corrupt_same_message_every_plan(dev, monkeypatch,
+                                                       cluster):
+    """The corrupt batches and the 60 fuzz mutations raise on every plan
+    exactly where the plain version raises, with the message of the
+    decode's own plan."""
+    messages = {}
+    for name, batch, p in golomb_cases.corrupt_cases(300):
+        messages[name] = _decode_message(
+            lambda: wire.decode_ternary_fields_batch(
+                batch, p, backend="kernel", device=dev))
+    for trial, msg, p in golomb_cases.fuzz_messages():
+        messages[trial] = _decode_message(lambda: wire.decode_ternary_fields(
+            msg, p, backend="kernel", device=dev))
+    _force_cluster(monkeypatch, cluster)
+    for name, batch, p in golomb_cases.corrupt_cases(300):
+        got = _decode_message(lambda: wire.decode_ternary_fields_batch(
+            batch, p, backend="kernel", device=dev))
+        want = _decode_message(lambda: wire.decode_ternary_fields_batch(
+            batch, p, backend="kernel", device="cpu"))
+        assert isinstance(got, str) == isinstance(want, str), name
+        if isinstance(got, str):
+            assert got == messages[name], name
+        else:
+            assert all(np.array_equal(g, h) for g, h in zip(got, want))
+    for trial, msg, p in golomb_cases.fuzz_messages():
+        got = _decode_message(lambda: wire.decode_ternary_fields(
+            msg, p, backend="kernel", device=dev))
+        want = _decode_message(lambda: wire.decode_ternary_fields(
+            msg, p, backend="kernel", device="cpu"))
+        assert isinstance(got, str) == isinstance(want, str), trial
+        assert not isinstance(got, str) or got == messages[trial], trial
 
 
 @pytest.mark.parametrize("b", [0, 5, 30])

@@ -16,6 +16,7 @@ card kernel is held to this plain version in
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from repro_torch import kernels as rk
 from repro_torch.core import wire
 from repro_torch.core.selection import PASSES
 from repro_torch.core.wire import WireDecodeError
+from repro_torch.kernels import _build, wiredecode
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -211,3 +213,121 @@ def test_segment_table_corruption_raises():
     many[0] = int(bl[0]) // (b + 2) + 1          # more than the bits hold
     with pytest.raises(WireDecodeError, match="nnz mismatch"):
         rk.decode_golomb_fields(w, ws, bl, many, numel, b)
+
+
+@pytest.mark.parametrize("case", cases.synthetic_cases(), ids=lambda c: c[0])
+def test_synthetic_batches_bitwise_reference(case):
+    """The shapes the card decode's plans turn on (740 tiny segments, empty
+    segments first and last, a tile of a cluster and one chunk more,
+    segments longer than a cluster's tile, b = 0 and b = 30)."""
+    name, batch, p = case
+    got = _check_batch(batch, p, name)
+    assert not isinstance(got, str)
+    assert got[1].size == int(batch.nnz.sum()) > 0
+
+
+def test_synthetic_cases_cover_what_they_name():
+    by_name = {name: (batch, p) for name, batch, p in cases.synthetic_cases()}
+    tiny = by_name["740 tiny segments"][0]
+    assert tiny.bit_len.size == 740
+    assert tiny.bit_len.max() <= 8 * wiredecode._CHUNK_BITS
+    empties = by_name["empty first, between and last"][0].bit_len
+    assert empties[0] == empties[2] == empties[-1] == 0 < empties[1]
+    for n_chunks in (512, 513, 1024, 1025):
+        bl = by_name[f"one segment of {n_chunks} chunks"][0].bit_len
+        assert -(-int(bl[0]) // wiredecode._CHUNK_BITS) == n_chunks
+    longest = (wiredecode._MAX_DECODE_CLUSTER * wiredecode._TILE_CHUNKS
+               * wiredecode._CHUNK_BITS)
+    for name, b in (("long runs over tiles b=0", 0),
+                    ("long runs over tiles b=5", 5), ("b=30 over tiles", 30)):
+        batch, p = by_name[name]
+        assert batch.bit_len.max() > longest
+        assert wire._b_star_checked(p) == b
+    b0 = by_name["long runs over tiles b=0"][0]
+    assert b0.bit_len.size == 3 and b0.bit_len.max() > 3 * longest
+
+
+def _cu_constant(name):
+    src = (_build.CSRC / "golomb_decode.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_decode_plan_constants_are_the_kernels():
+    assert wiredecode._CHUNK_BITS == _cu_constant("CHUNK_BITS")
+    assert wiredecode._TILE_CHUNKS == _cu_constant("TILE")
+    assert wiredecode._MAX_DECODE_CLUSTER == _cu_constant("MAX_CLUSTER")
+    assert _cu_constant("MAX_STATES") == 32 == wire._MAX_B_STAR + 2
+    assert cases.CHUNK_BITS == wiredecode._CHUNK_BITS
+
+
+# (n_chunks_max, plan): the paths' shapes and the tiled route
+@pytest.mark.parametrize("shape,want", [
+    # a cnn ingest round: 10 segments of ~395 chunks; 8 CTAs of ~50
+    ((395,), ("cluster", 8, 512, 50)),
+    # one cnn message (event server, buffered ingest)
+    ((391,), ("cluster", 8, 512, 49)),
+    # the chunked codec's widest width group: 740 segments of <= 7 chunks
+    ((7,), ("cluster", 1, 64, 7)),
+    # one segment longer than 16 CTAs of 64 chunks: walked in tiles
+    ((2530,), ("tiled", 16, 512, 64)),
+    ((1024,), ("cluster", 16, 512, 64)),
+    ((1025,), ("tiled", 16, 512, 64)),
+    ((0,), ("cluster", 1, 64, 1)),              # empty segments only
+    ((64,), ("cluster", 1, 512, 64)),
+    ((65,), ("cluster", 2, 512, 33)),
+    ((129,), ("cluster", 4, 512, 33)),
+])
+def test_decode_plan_at_the_paths_shapes(shape, want):
+    assert tuple(wiredecode.decode_plan(*shape)) == want
+
+
+def test_decode_plan_forced_cluster_and_its_limits():
+    assert tuple(wiredecode._cluster_plan(391, 4)) == ("tiled", 4, 512, 64)
+    assert tuple(wiredecode._cluster_plan(395, 16)) == ("cluster", 16, 256,
+                                                        25)
+    for n_max in (0, 1, 7, 64, 65, 389, 1024, 1025, 10**6):
+        plan = wiredecode.decode_plan(n_max)
+        assert plan == wiredecode._cluster_plan(n_max, plan.cluster)
+        assert plan.cluster in (1, 2, 4, 8, 16)
+        assert plan.threads in (64, 128, 256, 512)
+        assert 1 <= plan.tile <= wiredecode._TILE_CHUNKS
+        assert plan.threads >= min(512, 8 * plan.tile)
+        fits = n_max <= plan.cluster * plan.tile
+        assert plan.route == ("cluster" if fits else "tiled")
+        # the smallest cluster that holds the longest segment
+        if plan.cluster > 1:
+            assert n_max > plan.cluster // 2 * wiredecode._TILE_CHUNKS
+
+
+def test_host_decode_on_cpu_returns_the_plain_fields_as_numpy():
+    """The kernel wire backend's decode on CPU words: the plain version's
+    fields as numpy arrays, and its errors."""
+    batch, p = cases.valid_cases()[1][1:]
+    b = wire._b_star_checked(p)
+    backend = wire.get_wire_backend("kernel", "cpu")
+    args = (batch.words, batch.word_start, batch.bit_len, batch.nnz)
+    got = backend.decode_fields(*args, batch.numel, b)
+    want = rk.decode_golomb_fields_plain(*_table(batch), batch.numel, b)
+    assert all(isinstance(g, np.ndarray) for g in got)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    with pytest.raises(WireDecodeError, match="overflows"):
+        backend.decode_fields(*args, 3, b)
+
+
+def test_field_views_share_one_buffer():
+    """The card's one buffer: positions, the status rows, then the signs'
+    float32 pairs; a view of a tensor and of its numpy copy alike."""
+    n_out, n_seg = 5, 3
+    buf = torch.arange(n_out + 3 * n_seg + 3, dtype=torch.int64)
+    (pos, sign), status = wiredecode._field_views(buf, n_out, n_seg)
+    assert pos.tolist() == list(range(5))
+    assert status.tolist() == list(range(5, 14))
+    assert sign.dtype == torch.float32 and sign.numel() == n_out
+    assert sign.untyped_storage().data_ptr() == buf.untyped_storage() \
+        .data_ptr()
+    (pos_h, sign_h), status_h = wiredecode._field_views(
+        buf.numpy(), n_out, n_seg)
+    np.testing.assert_array_equal(pos_h, pos.numpy())
+    np.testing.assert_array_equal(sign_h, sign.numpy())
+    np.testing.assert_array_equal(status_h, status.numpy())

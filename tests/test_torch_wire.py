@@ -122,6 +122,12 @@ def _chunk_case(case, seed):
     elif case == "ones32":                   # 32-one chunks, odd offsets
         lens = np.where(rng.random(400) < 0.5, 32, rng.integers(1, 64, 400))
         offs = np.cumsum(lens) - lens + 7
+    elif case == "one_bit":                  # 32 chunks to a word
+        lens = np.ones(1100, np.int64)
+        offs = np.arange(1100)
+    elif case == "long_gaps":                # runs of empty words
+        lens = np.where(rng.random(600) < 0.3, 63, rng.integers(1, 64, 600))
+        offs = np.cumsum(lens) - lens + 32 * (np.arange(600) // 200) * 1100
     else:                                    # word-aligned client starts
         lens = rng.integers(1, 64, 900)
         offs = np.cumsum(lens) - lens
@@ -133,12 +139,15 @@ def _chunk_case(case, seed):
     vals &= (np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1)
     if case == "ones32":
         vals[lens == 32] = np.uint64(0xFFFFFFFF)
+    if case == "long_gaps":
+        vals[::7] = 0                        # chunks of zeros
     total_bits = int(offs[-1] + lens[-1]) + int(rng.integers(1, 31))
     return vals, lens, offs.astype(np.int64), total_bits
 
 
 @pytest.mark.parametrize("case", ["random", "straddle_one", "straddle_two",
-                                  "ones32", "client_gaps"])
+                                  "ones32", "client_gaps", "one_bit",
+                                  "long_gaps"])
 def test_plain_pack_chunks_matches_scatter_and_reference_kernel(case):
     vals, lens, offs, total_bits = _chunk_case(case, len(case))
     assert total_bits % 32
