@@ -12,6 +12,7 @@
     python3 chip_smoke.py --serve           # only phase 12
     python3 chip_smoke.py --moe             # only phase 13
     python3 chip_smoke.py --zoo             # only phase 14
+    python3 chip_smoke.py --dryrun          # only phase 15
     python3 chip_smoke.py --select-study    # bin_select's routes and steps
     python3 chip_smoke.py --wire-study      # golomb_decode and pack_chunks
 
@@ -309,11 +310,28 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    memory) and ``internvl2-2b`` (a patch prefix) at their smoke configs
    card against CPU at fp32 as in 13.
 
+15. the dry run (``repro_torch.launch.dryrun``): ``lower_combo`` for every
+   arch x input shape on the production mesh (16x16), the multi-pod mesh
+   (2x16x16) and one card (``make_debug_mesh(1, 1)``), on the meta
+   device, a line a record (argument GiB, FLOPs a device, the H100
+   roofline terms, whether the arguments fit in 80 GB); then
+   ``measured_ingest_bytes`` through the ``"kernel"`` wire backend on the
+   card (counters set to 0 just before: ``pack_chunks`` launched) equal
+   to the numpy route's bytes.  Phases 11, 13 and 14 hold the dry run to
+   the card: the bytes ``init_train_state`` asks the caching allocator
+   for (its ``requested_bytes`` stat) equal the record's state bytes for
+   the same cut config on one card (within 512 B a leaf), and so do the
+   recurrent archs' decode_32k caches; phase 11 counts one step of the
+   SmolLM trainer under ``torch.utils.flop_counter.FlopCounterMode``,
+   requires the record's ``flops`` exactly, and prints the count over the
+   step's median time as TFLOP/s and as a share of the 989 TFLOP/s bf16
+   peak.
+
 ``--signsgd-round`` runs the last of the timings of 6 alone on the package
 of the tree the file sits in: a copy inside a parent checkout unpacked
 beside the change times the parent.  ``--paper-codecs``, ``--buffered``,
-``--chunked``, ``--events``, ``--mesh``, ``--serve``, ``--moe`` and
-``--zoo`` run phase 7, 8, 9, 10, 11, 12, 13 or 14 alone.
+``--chunked``, ``--events``, ``--mesh``, ``--serve``, ``--moe``, ``--zoo``
+and ``--dryrun`` run phase 7, 8, 9, 10, 11, 12, 13, 14 or 15 alone.
 ``--select-study`` times ``bin_select`` at the paths' shapes (like
 ``--signsgd-round``, on the package of the tree the file sits in) and, on
 a package of two routes, each cnn and chunked shape on the two-read route
@@ -716,8 +734,8 @@ def select_passes(torch, rk):
              else torch.full((rows, n), 0.25, device="cuda"))
         scale, b, r, _ = select_inputs(torch, x, max(int(n * P_STC), 1))
         plan = hist_select.select_plan(rows, n, hist_select._sms(x.device))
-        calls = kernel_times(torch, lambda: rk.candidate_select_batched(
-            x, scale, b, r), calls=1, launches=True)
+        calls = launch_profile(torch, lambda: rk.candidate_select_batched(
+            x, scale, b, r))
         want = SELECT_PASSES[plan.route]
         require(calls is not None and set(calls) == want
                 and all(c["launches"] == 1 for c in calls.values()),
@@ -954,6 +972,21 @@ def kernel_times(torch, fn, calls=10, launches=False):
         return {name: {"launches": counts[name], "ms": ms}
                 for name, ms in times.items()} or None
     return times or None
+
+
+def launch_profile(torch, fn, sessions=3):
+    """``kernel_times(fn, calls=1, launches=True)``, in a new profiler
+    session while a session records no device activity at all (this card's
+    profiler has come back empty in a process that had run other
+    sessions), at most ``sessions`` of them; each empty session is
+    printed.  A call that launches nothing still returns None."""
+    for session in range(sessions):
+        calls = kernel_times(torch, fn, calls=1, launches=True)
+        if calls is not None:
+            return calls
+        print(f"torch.profiler session {session + 1} of {sessions} "
+              f"recorded no device activity")
+    return None
 
 
 def chunk_set(np, rng, count, gaps=False):
@@ -2082,7 +2115,7 @@ def wire_passes(torch, np, rk):
     out = {"golomb_decode": {}}
     for name, batch in batches.items():
         launch, plan = decode_launch(torch, np, batch, b)
-        calls = kernel_times(torch, launch, calls=1, launches=True)
+        calls = launch_profile(torch, launch)
         require(calls is not None and len(calls) == 1
                 and all(c["launches"] == 1 for c in calls.values()),
                 f"golomb_decode at {name} ran {calls}, not one launch of "
@@ -4353,7 +4386,14 @@ def mesh_single(torch, np, rk, cfg, tc, batch, steps, what="mesh"):
     numel = cfg.param_count()
     k = max(int(numel * tc.sparsity_up), 1)
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    before_asked = requested_bytes(torch)
     state = init_train_state(cfg, tc, 1, key=0)
+    torch.cuda.synchronize()
+    dryrun_state_check(torch, cfg, tc, batch, state,
+                       torch.cuda.memory_allocated() - before,
+                       requested_bytes(torch) - before_asked, what)
     step = make_train_step(cfg, make_debug_mesh(data=1, model=1), tc)
     torch.cuda.synchronize()
     rk.LAUNCHES.reset()
@@ -4391,6 +4431,73 @@ def mesh_single(torch, np, rk, cfg, tc, batch, steps, what="mesh"):
               if c and n not in MESH_KERNELS}
     require(not others, f"the {what} step launched other kernels: {others}")
     return state, launches
+
+
+def dryrun_record(cfg, tc, shape, **kw):
+    """The dry run's record of ``cfg`` (a cut config) at ``shape`` (an
+    input shape's name or an ``InputShape``) on one card, sized on the meta
+    device."""
+    from repro_torch.launch.dryrun import lower_combo
+    from repro_torch.launch.mesh import make_debug_mesh
+    return lower_combo(cfg.name, shape, mesh=make_debug_mesh(1, 1), cfg=cfg,
+                       tc=tc, verbose=False, ingest=False, **kw)
+
+
+def allocator_slack(leaves: int) -> int:
+    """What the card's caching allocator may add to ``leaves`` tensors: it
+    rounds each allocation up to a multiple of 512 B."""
+    return 512 * leaves
+
+
+def requested_bytes(torch):
+    """The bytes the live tensors asked the caching allocator for (its
+    ``requested_bytes`` stat, before rounding)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def dryrun_state_check(torch, cfg, tc, batch, state, grown, asked, what):
+    """11a (13b, 14a): what ``init_train_state`` asked the card's allocator
+    for (``requested_bytes``) against the dry run's state bytes for the
+    same config on one card, within 512 B a leaf."""
+    from repro_torch.configs import InputShape
+    from repro_torch.core.compression import tree_leaves
+    t0 = time.perf_counter()
+    b, s = batch["tokens"].shape
+    rec = dryrun_record(cfg, tc, InputShape("row", s, b, "train"))
+    want = rec["memory"]["arguments"]["state"]
+    leaves = len(tree_leaves(state))
+    print(f"{what} init_train_state: {asked} bytes requested on the card "
+          f"({grown} allocated), dry run {want} bytes ({leaves} leaves); "
+          f"the dry-run check took {time.perf_counter() - t0:.2f} s")
+    require(0 <= asked - want <= allocator_slack(leaves),
+            f"{what}: init_train_state took {asked} bytes (requested), the "
+            f"dry run sized {want}")
+
+
+def dryrun_flops_check(torch, cfg, tc, batch, state, step_ms, what="mesh"):
+    """11e: one step under ``FlopCounterMode`` counts exactly the dry run's
+    ``flops`` for the same config and batch on one card; the count over the
+    step's median time as TFLOP/s and as a share of the bf16 peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import make_train_step
+    t0 = time.perf_counter()
+    step = make_train_step(cfg, make_debug_mesh(data=1, model=1), tc)
+    with FlopCounterMode(display=False) as counter:
+        step(state, batch)
+        torch.cuda.synchronize()
+    counted = counter.get_total_flops()
+    b, s = batch["tokens"].shape
+    want = dryrun_record(cfg, tc, InputShape("row", s, b, "train"))["flops"]
+    rate = counted / (step_ms / 1e3)
+    print(f"{what} step FLOPs: FlopCounterMode {counted}, dry run "
+          f"{want:.0f}; {rate / 1e12:.3f} TFLOP/s over the step's median "
+          f"{step_ms:.3f} ms, {rate / BF16_FLOP_PER_S:.5f} of the "
+          f"989 TFLOP/s bf16 peak; card: {card_line()}; the dry-run check "
+          f"took {time.perf_counter() - t0:.2f} s")
+    require(counted == want, f"{what}: the step counted {counted} FLOPs, "
+            f"the dry run {want}")
 
 
 def mesh_lockstep(torch, np, rk, state, cfg, tc, batch):
@@ -4817,7 +4924,8 @@ def run_mesh(torch, np, rk):
     row, _ = mesh_lockstep(torch, np, rk, state, cfg, tc, batch)
     extra, errs = mesh_kernel_rows(torch, rk, row.contiguous(), k)
     del row
-    time_mesh_step(torch, np, state, cfg, tc, batch)
+    ms = time_mesh_step(torch, np, state, cfg, tc, batch)
+    dryrun_flops_check(torch, cfg, tc, batch, state, ms["step"])
     params = state["params"]
     del state
     torch.cuda.empty_cache()
@@ -5637,24 +5745,38 @@ def zoo_front_check(torch, np, cfg, params, cpu_params, what):
 def zoo_cache_bytes(torch, cfg, what):
     """14: ``init_cache`` at decode_32k's batch allocates on the card the
     same bytes at long_500k's length (524,288) as at decode_32k's
-    (32,768): recurrent states, and rings of the window on local layers."""
+    (32,768): recurrent states, and rings of the window on local layers;
+    and the dry run's decode_32k cache bytes for the same config on one
+    card, within 512 B a tensor."""
     from repro_torch.configs import INPUT_SHAPES
     from repro_torch.models import init_cache
     batch = INPUT_SHAPES["decode_32k"].global_batch
-    got = {}
+    got, asked = {}, {}
     for shape in ("decode_32k", "long_500k"):
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
+        before_asked = requested_bytes(torch)
         caches = init_cache(cfg, batch, INPUT_SHAPES[shape].seq_len)
         torch.cuda.synchronize()
         got[shape] = torch.cuda.memory_allocated() - before
+        asked[shape] = requested_bytes(torch) - before_asked
         del caches
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = dryrun_record(cfg, None, "decode_32k")
+    want = rec["memory"]["arguments"]["caches"]
+    leaves = sum(isinstance(t, torch.Tensor) for c in
+                 init_cache(cfg, batch, 2, device="meta") for t in c)
     print(f"{what} init_cache at batch {batch}: {json.dumps(got)} bytes "
-          f"allocated on the card")
+          f"allocated on the card (requested: {json.dumps(asked)}); the dry "
+          f"run's decode_32k caches {want} bytes ({leaves} tensors; the "
+          f"dry-run check took {time.perf_counter() - t0:.2f} s)")
     require(got["long_500k"] == got["decode_32k"] > 0,
             f"{what}: long_500k's caches take {got['long_500k']} bytes, "
             f"decode_32k's {got['decode_32k']}")
+    require(0 <= asked["decode_32k"] - want <= allocator_slack(leaves),
+            f"{what}: decode_32k's caches took {asked['decode_32k']} bytes "
+            f"(requested), the dry run sized {want}")
     return got
 
 
@@ -5779,6 +5901,65 @@ def run_zoo(torch, np, rk):
     return launches, extra, errs
 
 
+# --------------------------------------------------------------- phase 15
+
+def run_dryrun(torch, np, rk):
+    """Phase 15: the dry run of every arch x input shape on the two
+    production meshes and on one card, on the meta device (nothing
+    allocated on the card), a line a record; then a train record's ingest
+    measurement through ``pack_chunks`` on the card against the numpy
+    route, and its fleet statistics.  Returns the launches of its path."""
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+    from repro_torch.launch.train import TrainConfig
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    meshes = {"16x16": make_production_mesh(),
+              "2x16x16": make_production_mesh(multi_pod=True),
+              "1x1": make_debug_mesh(1, 1)}
+    for tag, mesh in meshes.items():
+        for arch in ARCH_IDS:
+            for shape in INPUT_SHAPES:
+                rec = dryrun.lower_combo(arch, shape, mesh=mesh,
+                                         verbose=False, ingest=False)
+                r = rec["roofline"]
+                print(f"dryrun {arch} x {shape} x {tag}: args "
+                      f"{rec['memory']['argument_size_in_bytes'] / 2**30:.3f}"
+                      f" GiB, flops {rec['flops']:.4e} a device, compute "
+                      f"{r['t_compute_s']:.3e} s, memory "
+                      f"{r['t_memory_s']:.3e} s, collective "
+                      f"{r['t_collective_s']:.3e} s ({r['dominant']}), "
+                      f"fits {rec['fits']}")
+                require(rec["flops"] > 0 and rec["bytes_accessed"] > 0,
+                        f"dry run {arch} x {shape} x {tag}: {rec}")
+    require(torch.cuda.memory_allocated() == before,
+            "the dry run allocated on the card")
+    t_sized = time.perf_counter() - t0
+    # the ingest measurement of a train record, on the card, counters at 0
+    tc = TrainConfig(protocol="stc")
+    numel = get_config(MESH_ARCH).param_count()
+    rk.LAUNCHES.reset()
+    card = dryrun.measured_ingest_bytes(tc, numel, 16)
+    torch.cuda.synchronize()
+    launches = dict(rk.LAUNCHES.counts)
+    host = dryrun.measured_ingest_bytes(tc, numel, 16, wire_backend="numpy")
+    fleet = {name: st["drop_rate"] for name, st in
+             dryrun.fleet_event_stats(16).items()}
+    print(f"dryrun server_ingest ({MESH_ARCH}, 16 clients): card "
+          f"{json.dumps(card)}; numpy route {json.dumps(host)}; launches "
+          f"{ {n: c for n, c in launches.items() if c} }; fleet scenarios' "
+          f"drop rates (16 clients): {json.dumps(fleet)}")
+    require(launches.get("pack_chunks", 0) >= 1,
+            f"the dry run's ingest did not launch pack_chunks: {launches}")
+    require(card == host, "the card's ingest bytes differ from the numpy "
+            "route's")
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s (sizing "
+          f"{len(meshes) * len(ARCH_IDS) * len(INPUT_SHAPES)} records "
+          f"{t_sized:.1f} s); card: {card_line()}")
+    return {"dryrun": launches}
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -5809,6 +5990,7 @@ def main() -> int:
              "--serve": lambda: run_serve(torch, np, rk),
              "--moe": lambda: run_moe(torch, np, rk),
              "--zoo": lambda: run_zoo(torch, np, rk),
+             "--dryrun": lambda: run_dryrun(torch, np, rk),
              "--drift-witness": lambda: drift_witness(torch, np, rk),
              "--select-passes": lambda: select_passes(torch, rk),
              "--select-study": lambda: select_study(torch, rk),
@@ -5898,7 +6080,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         moe, moe_ms, moe_errs = run_moe(torch, np, rk)
         zoo, zoo_ms, zoo_errs = run_zoo(torch, np, rk)
-        # launches on the paths of phases 7 to 14, beside each kernel's
+        dry = run_dryrun(torch, np, rk)
+        # launches on the paths of phases 7 to 15, beside each kernel's
         # main-path count; the kernels' times at the chunked shapes and at
         # the mesh paths' rows
         for row in rows:
@@ -5910,7 +6093,7 @@ def main() -> int:
                 if runs[path][0].get(name)}
             row["launches_other_paths"].update({
                 path: counts[name]
-                for runs in (chunked, events, mesh, serve, moe, zoo)
+                for runs in (chunked, events, mesh, serve, moe, zoo, dry)
                 for path, counts in runs.items() if counts.get(name)})
             for keys in (chunked_ms, mesh_ms, moe_ms, zoo_ms):
                 row.update(keys.get(name, {}))

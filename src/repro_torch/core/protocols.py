@@ -399,19 +399,26 @@ class Codec:
         """Total size of ONE already-encoded message (stream + header)."""
         return msg.bit_len + self.wire_header_bits
 
-    def measured_upload_bits(self, msgs) -> float:
+    def measured_upload_bits(self, msgs, device=None) -> float:
         """EXACT upstream bits for a (P, numel) stack of compressed client
-        messages; the analytic model for wire-less codecs."""
+        messages; the analytic model for wire-less codecs.  ``device`` as
+        in :meth:`encode_wire_batch`."""
         if not self.wire_format:
             return msgs.shape[0] * self.upload_bits(msgs.shape[-1])
         return self.measured_batch_bits(
-            self.encode_wire_batch(msgs, direction="up"))
+            self.encode_wire_batch(msgs, direction="up", device=device))
 
-    def measured_download_bits(self, msg, n_participating: int = 1) -> float:
-        """EXACT bits of ONE downstream (global update) message."""
+    def measured_download_bits(self, msg, n_participating: int = 1,
+                               device=None) -> float:
+        """EXACT bits of ONE downstream (global update) message; a
+        ``device`` packs a host array there, as one row of
+        :meth:`encode_wire_batch`."""
         if not self.wire_format:
             return self.download_bits(int(np.prod(msg.shape)),
                                       n_participating=n_participating)
+        if device is not None:
+            return self.measured_batch_bits(self.encode_wire_batch(
+                msg.reshape(1, -1), direction="down", device=device))
         return self.measured_message_bits(self.encode_wire(msg,
                                                            direction="down"))
 

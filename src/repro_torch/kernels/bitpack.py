@@ -36,7 +36,8 @@ from ..core.selection import PASSES
 from . import _build
 
 __all__ = ["pack_bits", "pack_bits_batched", "pack_bits_plain",
-           "pack_bits_batched_plain", "pack_sign_planes",
+           "pack_bits_batched_plain", "pack_bits_words",
+           "pack_bits_words_batched", "pack_sign_planes",
            "pack_sign_planes_plain", "pack_chunks", "pack_chunks_plain"]
 
 _WEIGHTS = [1 << (31 - j) for j in range(32)]
@@ -110,6 +111,11 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bits must be a flat uint8 tensor, got "
                          f"{tuple(bits.shape)} {bits.dtype}")
     return pack_bits_batched(bits.reshape(1, -1))[0]
+
+
+# the reference's names of the two packers
+pack_bits_words = pack_bits
+pack_bits_words_batched = pack_bits_batched
 
 
 def pack_sign_planes(x: torch.Tensor) -> torch.Tensor:

@@ -57,9 +57,10 @@ from ..core.selection import (DEFAULT_CAP, FLT_MIN, NBINS, PASSES, bin_index,
                               flush_subnormal, locate_bin)
 from . import _build
 
-__all__ = ["NBINS", "DEFAULT_CAP", "magnitude_histogram_batched",
-           "magnitude_histogram_plain", "candidate_select_batched",
-           "candidate_select_plain", "hist_topk_threshold_batched",
+__all__ = ["NBINS", "DEFAULT_CAP", "magnitude_histogram",
+           "magnitude_histogram_batched", "magnitude_histogram_plain",
+           "candidate_select_batched", "candidate_select_plain",
+           "hist_topk_threshold", "hist_topk_threshold_batched",
            "SelectPlan", "select_plan", "two_read_plan"]
 
 # 512-thread CTAs a launch aims for on each SM (chip_smoke.py times 1, 2
@@ -186,6 +187,16 @@ def magnitude_histogram_batched(x: torch.Tensor, scale: torch.Tensor, *,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     return _launch(x.contiguous(), scale.contiguous(), bins)
+
+
+def magnitude_histogram(x_flat: torch.Tensor, scale: torch.Tensor, *,
+                        bins: int = NBINS):
+    """One row: ``(counts, sums)`` of shape ``(bins,)`` for a flat fp32
+    vector and a 0-d ``scale``.  The batched histogram with a row of
+    one."""
+    cnt, sums = magnitude_histogram_batched(
+        x_flat.reshape(1, -1), scale.reshape(1), bins=bins)
+    return cnt[0], sums[0]
 
 
 def _row_ks(k, rows: int, n: int, device) -> torch.Tensor:
@@ -445,3 +456,13 @@ def hist_topk_threshold_batched(x: torch.Tensor, k, *, bins: int = NBINS,
     v, cnt_in, sum_in = candidate_select_batched(x, scale, b, r,  # pass 3
                                                  cap=cap)
     return v, cnt_gt + cnt_in, sum_gt + sum_in
+
+
+def hist_topk_threshold(x_flat: torch.Tensor, k: int, *, bins: int = NBINS,
+                        cap: int = DEFAULT_CAP):
+    """One row: ``(thresh, count, sum_abs)`` as 0-d tensors, the exact
+    k-selection of a flat vector.  :func:`hist_topk_threshold_batched`
+    with a row of one."""
+    t, cnt, sums = hist_topk_threshold_batched(x_flat.reshape(1, -1), k,
+                                               bins=bins, cap=cap)
+    return t[0], cnt[0], sums[0]

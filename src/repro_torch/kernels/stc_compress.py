@@ -23,7 +23,7 @@ import torch
 from ..core.selection import FLT_MIN, PASSES, flush_subnormal
 from . import _build
 
-__all__ = ["stc_apply_batched", "stc_apply_plain"]
+__all__ = ["stc_apply", "stc_apply_batched", "stc_apply_plain"]
 
 
 def stc_apply_plain(carried: torch.Tensor, thresh: torch.Tensor,
@@ -82,3 +82,12 @@ def stc_apply_batched(carried: torch.Tensor, thresh: torch.Tensor,
         raise ValueError(f"unsupported device {carried.device}")
     return _launch(carried.contiguous(), thresh.contiguous(),
                    mu.contiguous())
+
+
+def stc_apply(carried: torch.Tensor, thresh: torch.Tensor, mu: torch.Tensor):
+    """One row: ``(tern, new_residual)`` of a flat fp32 carried vector with
+    0-d threshold and magnitude.  :func:`stc_apply_batched` with a row of
+    one."""
+    tern, res = stc_apply_batched(carried.reshape(1, -1), thresh.reshape(1),
+                                  mu.reshape(1))
+    return tern[0], res[0]

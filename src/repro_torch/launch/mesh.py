@@ -2,10 +2,13 @@
 
 Counterpart of ``repro/launch/mesh.py``.  ``data`` (x ``pod``) carries the
 federated clients, one ``torch.distributed`` rank each; ``model`` is tensor
-parallelism inside a client, which the port does not run yet
+parallelism inside a client: the sharding rules and the dry run size it
+(:mod:`repro_torch.sharding.rules`, :mod:`repro_torch.launch.dryrun`),
+and the steps do not run it yet
 (:func:`repro_torch.launch.train.make_train_step` raises for ``model >
-1``; ROADMAP Queue 1).  Constructing a mesh touches no device and no
-process group: the client ranks' group is looked up when a step is built.
+1``).  Constructing a mesh touches no device and no process group: the
+client ranks' group is looked up when a step is built, so the production
+meshes are descriptors the dry run reads with no devices.
 """
 
 from __future__ import annotations

@@ -16,9 +16,9 @@ The batch axis is the caller's to shard: on a mesh with client axes
 needed.  ``cache_mode`` takes the reference's values; they only pin
 layouts under GSPMD, so on a mesh whose ``model`` axis is 1 every mode
 gives the same values.  ``model > 1`` raises ``NotImplementedError``: the
-port has no tensor parallelism yet (ROADMAP Queue 1), and the reference's
-``serve_state_structs`` (sharded shape stand-ins for its dry-run) waits
-for it.
+port does not run tensor parallelism yet (ROADMAP Queue 1).
+:func:`serve_state_structs` gives the sharded shape stand-ins of a serve
+step's parameters and caches on any mesh, for the dry run.
 """
 
 from __future__ import annotations
@@ -27,10 +27,13 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import decode_step, forward
+from ..models.transformer import decode_step, forward, init_cache, init_model
+from ..sharding.rules import (Sharding, StandIn, cache_specs, fit_spec,
+                              map_tree, param_shardings)
 from .train import _TENSOR_PARALLEL
 
-__all__ = ["CACHE_MODES", "make_prefill_step", "make_decode_step"]
+__all__ = ["CACHE_MODES", "make_prefill_step", "make_decode_step",
+           "serve_state_structs"]
 
 CACHE_MODES = ("heads", "batch", "local", "seq")
 
@@ -86,3 +89,28 @@ def make_decode_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
                                compute_dtype=compute_dtype)
 
     return decode
+
+
+def serve_state_structs(cfg: ModelConfig, mesh, batch: int, s_cache: int,
+                        cache_dtype=torch.bfloat16, cache_mode=None):
+    """``(params, caches)`` as sharded shape stand-ins
+    (:class:`~repro_torch.sharding.rules.StandIn`: a ``meta`` tensor and
+    its sharding; a cache's ``ring`` flag stays a bool): the parameters of
+    :func:`~repro_torch.models.init_model` and the caches of
+    :func:`~repro_torch.models.init_cache` for ``batch`` sequences of
+    ``s_cache`` positions, with nothing allocated.  ``cache_mode``
+    (``"heads"`` / ``"hd"``) is the caches' split over ``model`` (default
+    :data:`repro_torch.sharding.rules.CACHE_SHARD_MODE`)."""
+    params = init_model(cfg, device="meta")
+    params_struct = map_tree(lambda _, p, sh: StandIn(p, sh), params,
+                             param_shardings(params, mesh))
+    caches = init_cache(cfg, batch, s_cache, cache_dtype, device="meta")
+    specs = cache_specs(caches, mesh, batch, cache_mode)
+
+    def attach(_, leaf, spec):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return StandIn(leaf, Sharding(mesh, fit_spec(spec, tuple(leaf.shape),
+                                                     mesh)))
+
+    return params_struct, map_tree(attach, caches, specs)

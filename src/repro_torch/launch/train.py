@@ -19,8 +19,10 @@ scale:
 * every codec registered in :mod:`repro_torch.core.protocols` runs; there
   is no protocol dispatch in this module.
 
-The ``model`` axis (tensor parallelism inside a client) is not ported:
-:func:`make_train_step` raises for ``model > 1`` (ROADMAP Queue 1).  The
+The ``model`` axis (tensor parallelism inside a client) does not run yet:
+:func:`make_train_step` raises for ``model > 1`` (ROADMAP Queue 1), while
+:func:`state_shardings` and :func:`batch_shardings` give the layout it
+would take, for the dry run (:mod:`repro_torch.launch.dryrun`).  The
 step runs on the card unless ``device="cpu"`` is passed; on the card the
 local SGD runs under PyTorch's deterministic algorithms, so that reruns
 and ranks are bitwise (the MoE blocks' dispatch moves rows by gathers
@@ -51,13 +53,15 @@ from ..core.protocols import Codec, get_protocol_class
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import init_model, lm_loss
-from ..sharding.rules import batch_rows
+from ..sharding.rules import (Sharding, batch_entry, batch_rows, fit_spec,
+                              map_tree, param_specs)
 
 __all__ = ["TrainConfig", "WireLedger", "codec_for", "init_train_state",
-           "make_train_step", "main"]
+           "make_train_step", "state_shardings", "batch_shardings", "main"]
 
-_TENSOR_PARALLEL = ("tensor parallelism (a mesh 'model' axis > 1) is not "
-                    "ported yet (ROADMAP.md Queue 1: tensor parallelism)")
+_TENSOR_PARALLEL = ("tensor parallelism (a mesh 'model' axis > 1) does not "
+                    "run yet (ROADMAP.md Queue 1: tensor parallelism); the "
+                    "dry run sizes it")
 
 
 class WireLedger:
@@ -68,11 +72,13 @@ class WireLedger:
     and the downstream update through the codec's wire format
     (:mod:`repro_torch.core.wire`) and accumulates EXACT bits, alongside
     the analytic Eq. 1 model as a cross-check.  Codecs without a wire
-    format fall back to analytic in both columns.
+    format fall back to analytic in both columns.  ``device`` is where a
+    device wire backend (``"kernel"``) packs the host messages; None packs
+    them on its default device (the card).
     """
 
-    def __init__(self, codec: Codec, numel: int):
-        self.codec, self.numel = codec, numel
+    def __init__(self, codec: Codec, numel: int, device=None):
+        self.codec, self.numel, self.device = codec, numel, device
         self.rounds = 0
         self.bits_up = self.bits_down = 0.0
         self.bits_up_analytic = self.bits_down_analytic = 0.0
@@ -92,12 +98,14 @@ class WireLedger:
             msgs = msgs[keep]
             n_clients = int(keep.sum())
         gd = np.concatenate(
-            [leaf.detach().cpu().numpy().reshape(-1).astype(np.float32)
+            [(leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+              else np.asarray(leaf)).reshape(-1).astype(np.float32)
              for leaf in tree_leaves(global_delta_tree)])
         if n_clients:
-            self.bits_up += self.codec.measured_upload_bits(msgs)
+            self.bits_up += self.codec.measured_upload_bits(
+                msgs, device=self.device)
         self.bits_down += self.codec.measured_download_bits(
-            gd, n_participating=max(n_clients, 1))
+            gd, n_participating=max(n_clients, 1), device=self.device)
         self.bits_up_analytic += n_clients * self.codec.upload_bits(self.numel)
         self.bits_down_analytic += self.codec.download_bits(
             self.numel, n_participating=max(n_clients, 1))
@@ -190,6 +198,48 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, n_clients: int = 1,
     if tc.momentum > 0:
         state["momentum"] = tree_map(stacked, params)
     return state
+
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+
+
+def state_shardings(state, mesh):
+    """:class:`~repro_torch.sharding.rules.Sharding` s of the train state
+    on ``mesh``, over its GLOBAL shapes: the parameters and the server
+    residual model-sharded; the client-major buffers (client residual,
+    momentum: ``(n_clients,) + shape``) split over the client axes too, so
+    a device holds one client's row -- what a rank's state holds, its
+    leading client axis of 1.  Only the parameters' shapes are read:
+    ``state`` may be a rank's state or its ``meta`` stand-ins."""
+    ca = mesh.client_axes
+    n = mesh.n_clients
+    params = state["params"]
+    pspecs = param_specs(params)
+
+    def shard(_, p, s):
+        return Sharding(mesh, fit_spec(s, tuple(p.shape), mesh))
+
+    def shard_stacked(_, p, s):
+        return Sharding(mesh, fit_spec((ca,) + s, (n,) + tuple(p.shape),
+                                       mesh))
+
+    sh = {"params": map_tree(shard, params, pspecs),
+          "step": Sharding(mesh, ())}
+    for name in ("client_res", "momentum"):
+        if name in state:
+            sh[name] = map_tree(shard_stacked, params, pspecs)
+    if "server_res" in state:
+        sh["server_res"] = map_tree(shard, params, pspecs)
+    return sh
+
+
+def batch_shardings(batch, mesh, global_batch: int):
+    """Every entry of the batch split on its first dimension over the
+    client axes (:func:`repro_torch.sharding.rules.batch_spec`)."""
+    spec = (batch_entry(mesh, global_batch),)
+    return {name: Sharding(mesh, spec) for name in batch}
 
 
 @contextlib.contextmanager

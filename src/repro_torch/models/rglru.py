@@ -58,7 +58,7 @@ def rglru_init(gen: torch.Generator, d_model: int, cfg: RGLRUConfig):
                               dtype=torch.float32) * 0.1,
         "w_a": dense_init(gen, w, w),
         "w_x": dense_init(gen, w, w),
-        "lam": torch.from_numpy(lam.astype(np.float32)),
+        "lam": torch.as_tensor(lam.astype(np.float32)),
         "w_out": dense_init(gen, w, d_model),
     }
 

@@ -59,7 +59,7 @@ def ssd_init(gen: torch.Generator, d_model: int, cfg: SSMConfig):
         "w_in": dense_init(gen, d_model, d_proj),
         "conv_w": torch.randn((cfg.d_conv, d_conv_ch), generator=gen,
                               dtype=torch.float32) * 0.1,
-        "A_log": torch.from_numpy(a_log),
+        "A_log": torch.as_tensor(a_log),
         "D": torch.ones((n_heads,), dtype=torch.float32),
         "dt_bias": torch.zeros((n_heads,), dtype=torch.float32),
         "norm_g": torch.ones((d_in,), dtype=torch.float32),

@@ -92,8 +92,35 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
 
 def init_model(cfg: ModelConfig, key=0, device=None) -> dict:
     """Random fp32 parameters from ``key`` (a seed or a CPU
-    ``torch.Generator``), drawn on the CPU and moved to ``device``."""
-    gen = _generator(key)
+    ``torch.Generator``), drawn on the CPU and moved to ``device``.
+
+    ``device="meta"`` builds the same tree -- paths, shapes, dtypes and
+    leaf order -- of shape stand-ins through the same init functions:
+    nothing is drawn (``key`` is not read) and nothing is allocated, so a
+    14 G-parameter config costs no host memory."""
+    if device is not None and torch.device(device).type == "meta":
+        from ..core.compression import tree_map
+        return tree_map(torch.Tensor.detach, _meta_params(cfg))
+    params = _init_params(cfg, _generator(key))
+    if device is not None:
+        from ..core.compression import tree_map
+        params = tree_map(lambda t: t.to(device), params)
+    return params
+
+
+@functools.lru_cache(maxsize=32)
+def _meta_params(cfg: ModelConfig) -> dict:
+    """The meta route's tree, built once a config (a meta tensor holds no
+    storage; each caller gets its own containers and tensor objects)."""
+    from ..core.compression import tree_map
+    with torch.device("meta"):
+        params = _init_params(cfg, torch.Generator())
+    return tree_map(lambda t: t.to("meta"), params)
+
+
+def _init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """The parameter tree, every factory call on the current default
+    device (the CPU, or ``meta`` inside ``torch.device("meta")``)."""
     d = cfg.d_model
     params: dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, d),
@@ -117,9 +144,6 @@ def init_model(cfg: ModelConfig, key=0, device=None) -> dict:
     if cfg.n_prefix_tokens:
         # the reference stores the transpose of an embedding draw
         params["prefix_proj"] = embed_init(gen, d, d).T.contiguous()
-    if device is not None:
-        from ..core.compression import tree_map
-        params = tree_map(lambda t: t.to(device), params)
     return params
 
 
