@@ -13,6 +13,7 @@
     python3 chip_smoke.py --moe             # only phase 13
     python3 chip_smoke.py --zoo             # only phase 14
     python3 chip_smoke.py --dryrun          # only phase 15
+    python3 chip_smoke.py --tensor-parallel # only phase 16
     python3 chip_smoke.py --select-study    # bin_select's routes and steps
     python3 chip_smoke.py --wire-study      # golomb_decode and pack_chunks
 
@@ -326,12 +327,34 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    requires the record's ``flops`` exactly, and prints the count over the
    step's median time as TFLOP/s and as a share of the 989 TFLOP/s bf16
    peak.
+16. tensor parallelism in the mesh trainer: Qwen2-0.5B at full width and
+   depth (494,032,768 parameters) on ``make_debug_mesh(data=1, model=2)``,
+   two gloo ranks on ``cuda:0``, STC p = 1/50 both ways (k = 9,880,655),
+   lr 0.05, bf16, remat, the 4 x 128 batch of ``make_lm_tokens(seed=0)``.
+   Each rank: ``init_train_state`` asks the allocator for exactly the dry
+   run's per-device state bytes on that mesh; the first step's carried
+   tree, selected split across the ranks, against the flat
+   ``stc_compress_rows`` of the joined row (threshold, count, positions,
+   signs exact; µ within rtol 1e-6); the three STC kernels at the path's
+   rows (the owned and local rows, the gathered candidate row) against
+   their plain versions and timed; 5 steps with the counters at 0: the
+   loss finite and falling, the histogram, ``bin_select`` and
+   ``stc_apply`` exactly twice a step on each rank, the replicated leaves
+   bitwise equal across the ranks after every step, what each rank hands
+   gloo by kind; one step's ``FlopCounterMode`` count equal to the dry
+   run's per-device ``flops``; 2 steps under ``measure_wire`` whose
+   ``WireLedger`` bits on the card (``pack_chunks``) equal the numpy
+   route's; an fp32 step against the ``model = 1`` step of the same
+   parameters and batch (loss within rtol 1e-5, ``nnz_up`` within the
+   magnitudes at the threshold); the step's and local SGD's times, the
+   device idle share, each rank's peak memory.
 
 ``--signsgd-round`` runs the last of the timings of 6 alone on the package
 of the tree the file sits in: a copy inside a parent checkout unpacked
 beside the change times the parent.  ``--paper-codecs``, ``--buffered``,
 ``--chunked``, ``--events``, ``--mesh``, ``--serve``, ``--moe``, ``--zoo``
-and ``--dryrun`` run phase 7, 8, 9, 10, 11, 12, 13, 14 or 15 alone.
+``--dryrun`` and ``--tensor-parallel`` run phase 7, 8, 9, 10, 11, 12, 13,
+14, 15 or 16 alone.
 ``--select-study`` times ``bin_select`` at the paths' shapes (like
 ``--signsgd-round``, on the package of the tree the file sits in) and, on
 a package of two routes, each cnn and chunked shape on the two-read route
@@ -1939,16 +1962,19 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 
-def event_ms(torch, fn, iters=50, hold_stream=True) -> float:
+def event_ms(torch, fn, iters=50, hold_stream=True, warm=True) -> float:
     """Mean device time of ``fn`` over back-to-back launches (CUDA events).
 
     With ``hold_stream`` a sleep kernel holds the stream while the host
     enqueues every launch, so the wrapper's host overhead does not show:
     the events then time the device work alone.  A ``fn`` that
-    synchronizes inside must pass ``hold_stream=False`` (host included).
+    synchronizes inside must pass ``hold_stream=False`` (host included);
+    without ``warm`` (then also without the hold) it is timed from its
+    first call, as the plain versions at the LM rows are (each takes
+    seconds there).
     """
     t0 = time.perf_counter()
-    for _ in range(iters):                       # warm-up, and the host's
+    for _ in range(iters if warm else 0):        # warm-up, and the host's
         fn()                                     # enqueue time for the hold
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
@@ -4340,11 +4366,12 @@ def mesh_setup(torch, np):
     return cfg, TrainConfig(**MESH_TC), batch
 
 
-def mesh_delta(torch, cfg, tc, params, batch, rows, deterministic=True):
+def mesh_delta(torch, cfg, tc, params, batch, rows, deterministic=True,
+               tp=None):
     """One client's local SGD as the trainer computes it: ``-lr·grad`` of
     the loss on ``rows`` of the batch (with its ``frames`` or ``prefix``),
     under the trainer's deterministic algorithms (without them only to
-    time what they cost)."""
+    time what they cost); with ``tp``, a model rank's on its blocks."""
     import contextlib
     from repro_torch.core.compression import _rebuild, tree_leaves
     from repro_torch.launch.train import _deterministic
@@ -4358,7 +4385,7 @@ def mesh_delta(torch, cfg, tc, params, batch, rows, deterministic=True):
         loss = lm_loss(_rebuild(params, iter(leaves)), cfg,
                        batch["tokens"][rows].to(dev),
                        batch["labels"][rows].to(dev),
-                       compute_dtype=tc.compute_dtype, **extra)
+                       compute_dtype=tc.compute_dtype, tp=tp, **extra)
         grads = torch.autograd.grad(loss, leaves)
     return _rebuild(params, iter(-tc.lr * g.to(torch.float32)
                                  for g in grads))
@@ -4757,12 +4784,14 @@ def count_syncs(torch, fn) -> int:
 
 
 def time_mesh_step(torch, np, state, cfg, tc, batch, what="mesh", reps=5,
-                   ledger_steps=2):
-    """11d (13b): the single-client step split into phases, median of
+                   ledger_steps=2, quick=False):
+    """11d (13b, 14a): the single-client step split into phases, median of
     ``reps``, state left untouched, and its host syncs counted; the
     WireLedger over ``ledger_steps`` measured steps.  Each phase's inputs
     are made just before it and dropped after (at phase 13's row the card
-    holds no more than one phase's)."""
+    holds no more than one phase's).  ``quick`` (phases 13 and 14, for the
+    whole script's time) profiles the step alone, in one call, and leaves
+    out local SGD's syncs and its run without deterministic algorithms."""
     from repro_torch.core.compression import flatten_pytree, tree_map
     from repro_torch.core.distributed import tree_add
     from repro_torch.launch.mesh import make_debug_mesh
@@ -4776,13 +4805,15 @@ def time_mesh_step(torch, np, state, cfg, tc, batch, what="mesh", reps=5,
     step = make_train_step(cfg, make_debug_mesh(data=1, model=1), tc)
     ms = {"step": median_s(torch, lambda: step(state, batch), reps)}
     syncs = count_syncs(torch, lambda: step(state, batch))
-    syncs_sgd = count_syncs(torch, lambda: mesh_delta(
+    syncs_sgd = None if quick else count_syncs(torch, lambda: mesh_delta(
         torch, cfg, tc, params, batch, slice(0, 4)))
     ms["local_sgd"] = median_s(torch, lambda: mesh_delta(
         torch, cfg, tc, params, batch, slice(0, 4)), reps)
-    ms["local_sgd_not_deterministic"] = median_s(
-        torch, lambda: mesh_delta(torch, cfg, tc, params, batch,
-                                  slice(0, 4), deterministic=False), reps)
+    if not quick:
+        ms["local_sgd_not_deterministic"] = median_s(
+            torch, lambda: mesh_delta(torch, cfg, tc, params, batch,
+                                      slice(0, 4), deterministic=False),
+            reps)
     delta = mesh_delta(torch, cfg, tc, params, batch, slice(0, 4))
     carried = tree_add(delta, cres)
     ms["flatten"] = median_s(torch, lambda: flatten_pytree(carried), reps)
@@ -4794,9 +4825,10 @@ def time_mesh_step(torch, np, state, cfg, tc, batch, what="mesh", reps=5,
                                                 batch, slice(0, 4)),
                 "tree_encode": lambda: codec.tree_encode(delta, cres,
                                                          numel=numel)}
-    for name in ("step", "local_sgd", "tree_encode"):
+    for name in ("step",) if quick else ("step", "local_sgd", "tree_encode"):
         # device time of one call by torch.profiler, beside the host clock
-        kt = kernel_times(torch, profiled[name], calls=3) or {}
+        kt = kernel_times(torch, profiled[name], calls=1 if quick else 3) \
+            or {}
         dev_ms = sum(kt.values())
         top = sorted(kt.items(), key=lambda kv: -kv[1])[:6]
         print(f"{what} {name}: device {dev_ms:.3f} ms of "
@@ -4833,8 +4865,8 @@ def time_mesh_step(torch, np, state, cfg, tc, batch, what="mesh", reps=5,
             ledger_s.append(time.perf_counter() - t0)
         ms[f"wire_ledger_{ledger_steps}_steps"] = 1e3 * sum(ledger_s)
     print(f"{what} step phases (ms, host clock after synchronize, median of "
-          f"{reps}): {json.dumps(ms)}; host syncs in a step: {syncs} "
-          f"({syncs_sgd} of them in local SGD)"
+          f"{reps}): {json.dumps(ms)}; host syncs in a step: {syncs}"
+          + (f" ({syncs_sgd} of them in local SGD)" if not quick else "")
           + (f"; WireLedger over {ledger_steps} steps "
              f"{json.dumps(ledger.summary())}" if ledger_steps else ""))
     ms["syncs_per_step"] = syncs
@@ -4882,7 +4914,8 @@ def mesh_kernel_rows(torch, rk, row, k, plain_iters=3):
         out[name] = {
             "ms" + tag: event_ms(torch, kernel, iters=20),
             "plain_ms" + tag: event_ms(torch, plain, iters=plain_iters,
-                                       hold_stream=False),
+                                       hold_stream=False,
+                                       warm=plain_iters > 1),
             "bound_ms" + tag: bound(nbytes),
             "library_ms" + tag: None}
     a = row.abs()
@@ -5377,7 +5410,8 @@ MOE_BLOCK_X = (2, 128)
 MOE_BLOCK_TOL = 1e-4    # card against CPU, of the largest magnitude
 MOE_TIE_GAP = 1e-6      # 6th against 7th router probability
 MOE_DISPATCH_TOL = 3e-5  # ragged against capacity: tests/test_moe_dispatch.py
-MOE_CPU_STEPS = 16      # decode steps card against CPU
+MOE_CPU_STEPS = 8       # decode steps card against CPU (16 until the
+                        # script needed room for phase 16)
 MOE_DECODE = (128, 32_768)   # decode_32k's batch and cache length
 MOE_SMOKE = ("granite-moe-3b-a800m", "moonshot-v1-16b-a3b")
 MOE_SMOKE_SHAPE = (2, 32)
@@ -5578,8 +5612,8 @@ def run_moe(torch, np, rk):
                                   what="moe")
     peak = torch.cuda.max_memory_allocated() / 2**30
     moe_rerun_check(torch, cfg, tc, state, batch)
-    time_mesh_step(torch, np, state, cfg, tc, batch, what="moe", reps=3,
-                   ledger_steps=0)
+    time_mesh_step(torch, np, state, cfg, tc, batch, what="moe", reps=1,
+                   ledger_steps=0, quick=True)
     # the kernels at the trainer's row, on the carried row of the next
     # encode; the parameters wait on the host meanwhile, so that the plain
     # versions' temporaries fit
@@ -5648,7 +5682,8 @@ ZOO_EXTRA_SCALE = 0.1           # stand-in frames and prefix: 0.1 x N(0, 1)
 ZOO_FRONT_TOKENS = (1, 32)      # beside the frames / prefix, card vs CPU
 SSD_DECODE_TOL = {"rtol": 5e-3, "atol": 5e-3}   # tests/test_models.py, SSD
 ZOO_DECODE = (128, 32_768)      # decode_32k's batch and cache length
-ZOO_SSM_BF16_SEEDS = (3, 10)    # a second prompt for the bf16 witness
+ZOO_SSM_BF16_SEEDS = (3,)       # one prompt (a second cost 23 s of the
+                                # script's limit)
 # the attention archs: prefill_32k's prompt cut to 8,192 (the port's flash
 # scan ran SmolLM's 32,768-token prefill at ~11 TFLOP/s in phase 12, which
 # puts one such prefill at ~10 s for whisper and ~19 s for internvl, and
@@ -5656,11 +5691,12 @@ ZOO_SSM_BF16_SEEDS = (3, 10)    # a second prompt for the bf16 witness
 # layers of K and V 1,024 wide take 12.6 MB a slot: 412 GB at 32,768)
 ZOO_ATTN_PREFILL = (1, 8_192)
 ZOO_ATTN_DECODE = (128, 4_096)
-ZOO_ATTN_CPU_STEPS = 4          # whisper's CPU step re-projects its memory
+ZOO_ATTN_CPU_STEPS = 2          # whisper's CPU step re-projects its memory
+                                # (4 steps took 38.6 s)
 # the attention archs' bf16 prefill-vs-decode prompt: 256 tokens, where
 # the SSD needs two chunks of 256; whisper's 512 decode steps took 38 s
 ZOO_ATTN_BF16 = (4, 256)
-ZOO_STEP_REPS = 2               # step phases: median of 2 (the run's time)
+ZOO_STEP_REPS = 1               # step phases: one call each (the run's time)
 ZOO_SMOKE = ("whisper-medium", "internvl2-2b")
 
 
@@ -5816,7 +5852,7 @@ def zoo_arch(torch, np, rk, arch, numel, k, layers=None):
     stage("trainer")
     moe_rerun_check(torch, cfg, tc, state, batch, what=arch)
     time_mesh_step(torch, np, state, cfg, tc, batch, what=arch,
-                   reps=ZOO_STEP_REPS, ledger_steps=0)
+                   reps=ZOO_STEP_REPS, ledger_steps=0, quick=True)
     stage("reruns and step phases")
     # the kernels at the trainer's row, on the carried row of the next
     # encode; the parameters wait on the host meanwhile
@@ -5960,6 +5996,490 @@ def run_dryrun(torch, np, rk):
     return {"dryrun": launches}
 
 
+# --------------------------------------------------------------- phase 16
+
+TP_ARCH = "qwen2-0.5b"
+TP_NUMEL = 494_032_768          # 24 layers: full width and depth
+TP_K = 9_880_655                # int(TP_NUMEL / 50)
+# each rank's row: half of every sharded leaf and the 43,904 entries of
+# the replicated norms; the selection's owned row keeps the norms on model
+# rank 0 only
+TP_LOCAL = 247_038_336
+TP_OWNED = (247_038_336, 246_994_432)
+TP_STEPS = 5
+TP_LEDGER_STEPS = 2
+TP_NEAR = 1e-5                  # |x| within this rtol of the threshold
+TP_DIR = ROOT / "build" / "tp_ranks"
+TP_RANK_TIMEOUT = 900
+
+
+class GlooCalls:
+    """Counts what this process hands gloo, by group name, operation and
+    dtype: ``[calls, bytes]`` (an all_gather's bytes: what it gathers)."""
+
+    def __init__(self, groups):
+        import torch.distributed as dist
+        self.dist, self.groups, self.log = dist, groups, {}
+        self.saved = dist.all_reduce, dist.all_gather
+
+    def __enter__(self):
+        reduce_, gather = self.saved
+
+        def all_reduce(t, op=self.dist.ReduceOp.SUM, group=None, **kw):
+            self._add(group, "all_reduce", t, t.numel() * t.element_size())
+            return reduce_(t, op=op, group=group, **kw)
+
+        def all_gather(parts, t, group=None, **kw):
+            self._add(group, "all_gather", t,
+                      len(parts) * t.numel() * t.element_size())
+            return gather(parts, t, group=group, **kw)
+
+        self.dist.all_reduce, self.dist.all_gather = all_reduce, all_gather
+        return self
+
+    def _add(self, group, op, t, nbytes):
+        key = (f"{self.groups.get(id(group), 'other')} {op} "
+               f"{str(t.dtype).replace('torch.', '')}")
+        rec = self.log.setdefault(key, [0, 0])
+        rec[0] += 1
+        rec[1] += nbytes
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce, self.dist.all_gather = self.saved
+
+
+def tp_setup(torch, np):
+    """Qwen2-0.5B at full width and depth, the reference CLI's STC setting
+    (bf16 compute, remat) and ``make_lm_tokens(seed=0)`` in a 4 x 128
+    batch: ``(cfg, tc, batch)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.launch.train import TrainConfig
+    cfg = get_config(TP_ARCH)
+    toks = make_lm_tokens(seed=0, n_tokens=4 * 128 + 1, vocab=cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(toks[:-1].reshape(4, 128)),
+             "labels": torch.from_numpy(toks[1:].reshape(4, 128))}
+    return cfg, TrainConfig(**MESH_TC), batch
+
+
+def tp_kernel_rows(torch, rk, full, local, k):
+    """16h (rank 0): the three STC kernels at the shapes this rank's path
+    gives them, from the first step's carried tree: the histogram at the
+    owned row with the joined row's scale, ``bin_select`` at the candidate
+    row (the joined row's elements of bin b) with its global rank, the
+    apply at the local row with the global threshold and µ; each held
+    against its plain version and timed beside it, its byte bound and the
+    library call.  Returns ``(keys by kernel, max errors)``."""
+    from repro_torch.core.selection import bin_index
+    scale, b, r, cnt_b = select_inputs(torch, full, k)
+    t, c, s = rk.hist_topk_threshold_batched(full, k)
+    mu = s / torch.clamp(c, min=1).to(torch.float32)
+    a = full.abs()
+    cand = full[0][bin_index(a, scale[:, None], 256)[0] == b[0]][None]
+    del a
+    n, m_b = local.shape[1], cand.shape[1]
+    errs = {"histogram": check_histogram(torch, rk, local, scale)}
+    got = rk.candidate_select_batched(cand, scale, b, r)
+    want = rk.candidate_select_plain(cand, scale, b, r)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.allclose(got[2], want[2], rtol=1e-6, atol=0.0),
+            f"bin_select differs from its plain version at (1, {m_b})")
+    errs["bin_select"] = float((got[2] - want[2]).abs().max())
+    got = rk.stc_apply_batched(local, t, mu)
+    want = rk.stc_apply_plain(local, t, mu)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"stc_apply differs from its plain version at (1, {n})")
+    errs["stc_apply"] = 0.0
+    del got, want
+
+    def bound(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    kernels = {
+        "histogram": (lambda: rk.magnitude_histogram_batched(local, scale),
+                      lambda: rk.magnitude_histogram_plain(local, scale),
+                      4 * n + 4 + 8 * 256, n),
+        "bin_select": (lambda: rk.candidate_select_batched(cand, scale, b, r),
+                       lambda: rk.candidate_select_plain(cand, scale, b, r),
+                       4 * m_b + 20 + 12, m_b),
+        "stc_apply": (lambda: rk.stc_apply_batched(local, t, mu),
+                      lambda: rk.stc_apply_plain(local, t, mu),
+                      3 * 4 * n + 8, n)}
+    out = {}
+    for name, (kernel, plain, nbytes, width) in kernels.items():
+        tag = f"_tp_1x{width}"
+        out[name] = {"ms" + tag: event_ms(torch, kernel, iters=20),
+                     "plain_ms" + tag: event_ms(torch, plain, iters=1,
+                                                hold_stream=False,
+                                                warm=False),
+                     "bound_ms" + tag: bound(nbytes),
+                     "library_ms" + tag: None}
+    a = local.abs()
+    bins = bin_index(a, scale[:, None], 256).to(torch.int64).reshape(-1)
+    out["histogram"][f"library_ms_tp_1x{n}"] = event_ms(
+        torch, lambda: (torch.bincount(bins, minlength=256),
+                        torch.bincount(bins, weights=a.reshape(-1),
+                                       minlength=256)),
+        iters=1, hold_stream=False)
+    del bins, a
+    rank = int(r[0])
+    ac = cand.abs()
+    out["bin_select"][f"library_ms_tp_1x{m_b}"] = event_ms(
+        torch, lambda: torch.topk(ac, rank, dim=1), iters=1,
+        hold_stream=False)
+    out["bin_select"][f"cnt_b_tp_1x{m_b}"] = int(cnt_b[0])
+    print(f"tp kernels (rank 0) at the owned and local row (1, {n}) and the "
+          f"candidate row (1, {m_b}) (bin {int(b[0])}, rank {rank} in it), "
+          f"k = {k}: {json.dumps(out)}", flush=True)
+    return out, errs
+
+
+def tp_lockstep(torch, np, rk, cfg, tc, state, batch, tp, mesh, flags):
+    """16b: the split selection of the first step's carried tree against
+    the flat ``stc_compress_rows`` of the joined row on the card (rank 0;
+    the other rank waits): threshold, count, positions and signs exact, µ
+    within rtol 1e-6; then rank 0's kernel rows (16h).  Returns rank 0's
+    ``(record, kernel keys, errors)``."""
+    import torch.distributed as dist
+    from repro_torch.core.compression import flatten_pytree, tree_map
+    from repro_torch.core.distributed import (
+        ModelShards, stc_compress_tree_with_residual, tree_add)
+    from repro_torch.kernels import hist_select
+    from repro_torch.kernels.ops import stc_compress_rows
+    from repro_torch.launch.train import unshard_tree
+    numel = cfg.param_count()
+    k = max(int(numel * tc.sparsity_up), 1)
+    delta = mesh_delta(torch, cfg, tc, state["params"], batch, slice(0, 4),
+                       tp=tp)
+    carried = tree_add(delta, tree_map(lambda x: x[0], state["client_res"]))
+    del delta
+    shards = ModelShards(tp.group, tp.rank, tuple(flags))
+    tern, _, st = stc_compress_tree_with_residual(
+        carried, tc.sparsity_up, numel=numel, model=shards)
+    m_b = hist_select.SPLIT_CANDIDATES[-1]
+    full = flatten_pytree(unshard_tree(carried, cfg, mesh, tp.group))[0]
+    tern_full = flatten_pytree(unshard_tree(tern, cfg, mesh, tp.group))[0]
+    local = flatten_pytree(carried)[0][None]
+    del tern, carried
+    rec, extra, errs = {}, {}, {}
+    if tp.rank == 0:
+        ft, _, fmu, fth, fcnt = stc_compress_rows(full[None], k)
+        rec = {"thresh": [float(st.thresh), float(fth[0])],
+               "nnz": [int(st.nnz), int(fcnt[0])],
+               "mu": [float(st.mu), float(fmu[0])], "m_b": m_b,
+               "same_positions_and_signs": bool(
+                   torch.equal(tern_full != 0, ft[0] != 0) and
+                   torch.equal(torch.sign(tern_full), torch.sign(ft[0])))}
+        del ft, tern_full
+        torch.cuda.empty_cache()
+        extra, errs = tp_kernel_rows(torch, rk, full[None], local, k)
+    del full, local
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rec, extra, errs
+
+
+def tp_fp32_check(torch, np, rk, cfg, tc, batch, mesh, rank):
+    """16f: one fp32 step of the two ranks from the seed-0 state against
+    the ``model = 1`` step of the same parameters and batch on the card
+    (rank 0 runs it after the ranks' step; the other waits): the loss
+    within rtol 1e-5 and ``nnz_up`` apart by no more than the model = 1
+    carried row's magnitudes within rtol ``TP_NEAR`` of its threshold."""
+    import torch.distributed as dist
+    from repro_torch.core.compression import flatten_pytree
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import init_train_state, make_train_step
+    tc32 = dataclasses.replace(tc, compute_dtype=torch.float32)
+    state = init_train_state(cfg, tc32, 1, key=0, mesh=mesh)
+    _, m_tp = make_train_step(cfg, mesh, tc32)(state, batch)
+    m_tp = {k: float(v) for k, v in m_tp.items()}
+    del state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    rec = {}
+    if rank == 0:
+        state = init_train_state(cfg, tc32, 1, key=0)
+        _, m_one = make_train_step(cfg, make_debug_mesh(1, 1), tc32)(state,
+                                                                     batch)
+        row = flatten_pytree(mesh_delta(torch, cfg, tc32, state["params"],
+                                        batch, slice(0, 4)))[0][None]
+        del state
+        k = max(int(cfg.param_count() * tc.sparsity_up), 1)
+        t = float(rk.hist_topk_threshold_batched(row, k)[0][0])
+        a = row.abs()
+        near = int(((a >= t * (1 - TP_NEAR)) & (a <= t * (1 + TP_NEAR)))
+                   .sum())
+        del row, a
+        torch.cuda.empty_cache()
+        rec = {"tp": m_tp, "one": {k: float(v) for k, v in m_one.items()},
+               "thresh": t, "near": near}
+    dist.barrier()
+    return rec
+
+
+def tp_rank(rank, port, out_dir):
+    """16, one of the two model ranks of ``make_debug_mesh(1, 2)`` (a
+    spawned process, gloo on ``cuda:0``): the state's requested bytes
+    against the dry run (16a), the lock-step selection and kernel rows
+    (16b, 16h), ``TP_STEPS`` steps with the counters at 0 and what it
+    hands gloo counted (16c), one step under ``FlopCounterMode`` (16d),
+    ``TP_LEDGER_STEPS`` measured steps through the ``WireLedger`` (16e:
+    rank 0 on the card's wire route, rank 1 on the numpy route, each on
+    the joined messages it holds), the fp32 check (16f), and the step's
+    times,
+    device share and peak memory (16g).  Writes its record to
+    ``out_dir/rank<rank>.json``."""
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    import repro_torch.kernels as rk
+    from repro_torch.configs import InputShape
+    from repro_torch.core.compression import tree_leaves
+    from repro_torch.kernels import hist_select
+    from repro_torch.launch.dryrun import lower_combo
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import (WireLedger, codec_for,
+                                          init_train_state, make_train_step)
+    from repro_torch.models.transformer import init_model
+    from repro_torch.sharding.rules import replicated_leaves
+    from repro_torch.sharding.tensor_parallel import TensorParallel
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    stages, clock = {}, [time.perf_counter()]
+
+    def stage(name):
+        """Each stage's wall seconds, into the record."""
+        torch.cuda.synchronize()
+        clock.append(time.perf_counter())
+        stages[name] = round(clock[-1] - clock[-2], 1)
+
+    try:
+        t_start = clock[0]
+        cfg, tc, batch = tp_setup(torch, np)
+        mesh = make_debug_mesh(1, 2)
+        tp = TensorParallel(mesh.model_group(), mesh.model_rank(), 2)
+        numel = cfg.param_count()
+        rec = lower_combo(cfg.name, InputShape("row", 128, 4, "train"),
+                          mesh=mesh, cfg=cfg, tc=tc, verbose=False,
+                          ingest=False)
+        out = {"rank": rank, "numel": numel, "dryrun_flops": rec["flops"],
+               "dryrun_state": rec["memory"]["arguments"]["state"],
+               "dryrun_collectives": rec["collectives"]}
+        torch.cuda.synchronize()
+        asked = requested_bytes(torch)
+        state = init_train_state(cfg, tc, 1, key=0, mesh=mesh)
+        torch.cuda.synchronize()
+        out["state_asked"] = requested_bytes(torch) - asked
+        out["state_leaves"] = len(tree_leaves(state))
+        flags = replicated_leaves(init_model(cfg, device="meta"), mesh)
+        step = make_train_step(cfg, mesh, tc)
+        stage("init")
+        out["lockstep"], out["kernel_rows"], out["kernel_errs"] = \
+            tp_lockstep(torch, np, rk, cfg, tc, state, batch, tp, mesh, flags)
+        stage("lock-step and kernel rows")
+        # 16c: the main path, the counters at 0 just before it
+        torch.cuda.synchronize()
+        rk.LAUNCHES.reset()
+        hist_select.SPLIT_CANDIDATES.clear()
+        metrics, digests, times = [], [], []
+        with GlooCalls({id(tp.group): "model"}) as calls:
+            for _ in range(TP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in m.items()})
+                h = hashlib.sha256()
+                for x, r in zip(tree_leaves(state["params"]), flags):
+                    if r:
+                        h.update(x.detach().cpu().numpy().tobytes())
+                digests.append(h.hexdigest())
+        out.update(metrics=metrics, digests=digests, step_s=times,
+                   launches=dict(rk.LAUNCHES.counts),
+                   shapes={k: list(v) for k, v in rk.LAUNCHES.shapes.items()},
+                   m_b=list(hist_select.SPLIT_CANDIDATES),
+                   gloo={k: [c / TP_STEPS, b / TP_STEPS]
+                         for k, (c, b) in calls.log.items()})
+        stage("steps")
+        # 16d: one step's FLOPs
+        with FlopCounterMode(display=False) as counter:
+            step(state, batch)
+            torch.cuda.synchronize()
+        out["flops"] = counter.get_total_flops()
+        stage("FLOP step")
+        # 16g: the step's phases, device share and peak
+        sgd = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh_delta(torch, cfg, tc, state["params"], batch, slice(0, 4),
+                       tp=tp)
+            torch.cuda.synchronize()
+            sgd.append(time.perf_counter() - t0)
+        kt = kernel_times(torch, lambda: step(state, batch), calls=1) or {}
+        out.update(local_sgd_s=sgd, device_ms=sum(kt.values()))
+        stage("timing")
+        # 16e: measured steps through the WireLedger on both wire routes
+        measured = make_train_step(cfg, mesh, dataclasses.replace(
+            tc, measure_wire=True))
+        codec = codec_for(tc)
+        if rank == 0:
+            codec = dataclasses.replace(codec, wire_backend="kernel")
+        ledger = WireLedger(codec, numel)
+        s, packs = state, 0
+        for _ in range(TP_LEDGER_STEPS):
+            s, _, (msgs, gd) = measured(s, batch)
+            before = rk.LAUNCHES.counts["pack_chunks"]
+            ledger.record_round(msgs, gd)
+            torch.cuda.synchronize()
+            packs += rk.LAUNCHES.counts["pack_chunks"] - before
+            del msgs, gd
+        del s
+        out.update(ledger=ledger.summary(), ledger_packs=packs)
+        stage("ledger")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del state, step, measured
+        torch.cuda.empty_cache()
+        # 16f: fp32 against the model = 1 step
+        out["fp32"] = tp_fp32_check(torch, np, rk, cfg, tc, batch, mesh,
+                                    rank)
+        stage("fp32 check")
+        out.update(peak_gib=peak, seconds=time.perf_counter() - t_start,
+                   stages=stages)
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_tensor_parallel(torch, np, rk):
+    """Phase 16: tensor parallelism in the mesh trainer on the card:
+    Qwen2-0.5B at full width and depth on ``make_debug_mesh(1, 2)``, two
+    gloo ranks on ``cuda:0``, STC p = 1/50 both ways.  Checks each rank's
+    records (``tp_rank``) and returns ``(launches by path, keys by kernel
+    for the kernels line, max errors)``."""
+    import shutil
+    import socket
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    t0 = time.perf_counter()
+    rk.build_all()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(tp_rank, args=(port, TP_DIR), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_RANK_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            require(time.monotonic() < deadline,
+                    f"the two tensor-parallel ranks did not finish in "
+                    f"{TP_RANK_TIMEOUT} s")
+    except ProcessException as exc:
+        raise Failure(f"a tensor-parallel rank failed: {exc}") from exc
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    ranks = [json.loads((TP_DIR / f"rank{r}.json").read_text())
+             for r in range(2)]
+    zero = ranks[0]
+    numel, k = zero["numel"], max(int(zero["numel"] * P_STC), 1)
+    require((numel, k) == (TP_NUMEL, TP_K),
+            f"{TP_ARCH}: {numel} parameters, k = {k}")
+    losses = [m["loss"] for m in zero["metrics"]]
+    nnz = [(int(m["nnz_up"]), int(m["nnz_down"])) for m in zero["metrics"]]
+    print(f"tp: {TP_STEPS} steps of {TP_ARCH} on two model ranks, losses "
+          f"{json.dumps(losses)}; nnz (up, down) beside k = {k}: {nnz}; "
+          f"candidate rows m_b a call (rank 0): {zero['m_b']}")
+    require(all(math.isfinite(x) for x in losses), f"tp loss not finite: "
+            f"{losses}")
+    require(losses[-1] < losses[0], f"tp loss did not fall: {losses}")
+    require(all(u >= k and d >= k for u, d in nnz),
+            f"a tp selection kept fewer than k = {k}: {nnz}")
+    require(ranks[1]["metrics"] == zero["metrics"],
+            "the two ranks' metrics differ")
+    require(ranks[1]["digests"] == zero["digests"],
+            "the replicated leaves differ between the ranks at steps "
+            f"{[i for i, (a, b) in enumerate(zip(ranks[1]['digests'], zero['digests'])) if a != b]}")
+    for r, out in enumerate(ranks):
+        for name in MESH_KERNELS:
+            require(out["launches"].get(name) == 2 * TP_STEPS,
+                    f"rank {r}: {name} launched "
+                    f"{out['launches'].get(name)} times in {TP_STEPS} "
+                    f"steps, not twice a step")
+        others = {n: c for n, c in out["launches"].items()
+                  if c and n not in MESH_KERNELS}
+        require(not others, f"rank {r}'s step launched other kernels: "
+                f"{others}")
+        want = {"histogram": [1, TP_OWNED[r]], "stc_apply": [1, TP_LOCAL],
+                "bin_select": [1, out["m_b"][-1]]}
+        got = {n: out["shapes"].get(n) for n in want}
+        require(got == want, f"rank {r}: last launch shapes {got}, not "
+                f"{want}")
+        require(0 <= out["state_asked"] - out["dryrun_state"]
+                <= allocator_slack(out["state_leaves"]),
+                f"rank {r}: init_train_state asked for "
+                f"{out['state_asked']} bytes, the dry run sized "
+                f"{out['dryrun_state']}")
+        require(out["flops"] == out["dryrun_flops"],
+                f"rank {r}: a step counted {out['flops']} FLOPs, the dry "
+                f"run {out['dryrun_flops']}")
+        print(f"tp rank {r}: init_train_state requested {out['state_asked']}"
+              f" bytes, dry run {out['dryrun_state']}; step FLOPs "
+              f"{out['flops']} = dry run {out['dryrun_flops']:.0f}; gloo a "
+              f"step {json.dumps(out['gloo'])} (dry run's counted: "
+              f"{json.dumps(out['dryrun_collectives'])}); step seconds "
+              f"{out['step_s']}; local SGD seconds {out['local_sgd_s']}; "
+              f"peak {out['peak_gib']:.3f} GiB; {out['seconds']:.1f} s "
+              f"(stages {json.dumps(out['stages'])})")
+    lock = zero["lockstep"]
+    print(f"tp lock-step (the first step's carried tree): split against "
+          f"the flat stc_compress_rows of the joined row: {json.dumps(lock)}")
+    require(lock["thresh"][0] == lock["thresh"][1]
+            and lock["nnz"][0] == lock["nnz"][1]
+            and lock["same_positions_and_signs"],
+            f"the split selection differs from the joined row's: {lock}")
+    require(abs(lock["mu"][0] - lock["mu"][1]) <= 1e-6 * abs(lock["mu"][1]),
+            f"the split selection's µ {lock['mu']}")
+    fp = zero["fp32"]
+    print(f"tp fp32 step against model = 1: {json.dumps(fp)}")
+    require(abs(fp["tp"]["loss"] - fp["one"]["loss"])
+            <= 1e-5 * abs(fp["one"]["loss"]),
+            f"fp32 loss {fp['tp']['loss']!r} against {fp['one']['loss']!r}")
+    require(abs(fp["tp"]["nnz_up"] - fp["one"]["nnz_up"]) <= fp["near"],
+            f"fp32 nnz_up {fp['tp']['nnz_up']} against "
+            f"{fp['one']['nnz_up']}, {fp['near']} magnitudes near the "
+            f"threshold")
+    print(f"tp WireLedger over {TP_LEDGER_STEPS} steps: card (rank 0) "
+          f"{json.dumps(zero['ledger'])}, numpy route (rank 1) "
+          f"{json.dumps(ranks[1]['ledger'])}; pack_chunks launches "
+          f"{zero['ledger_packs']} on the card route, "
+          f"{ranks[1]['ledger_packs']} on the numpy route")
+    require(zero["ledger"] == ranks[1]["ledger"],
+            "the card's ledger differs from the numpy route's")
+    require(zero["ledger_packs"] >= 2 * TP_LEDGER_STEPS
+            and ranks[1]["ledger_packs"] == 0,
+            f"the ledgers launched pack_chunks {zero['ledger_packs']} and "
+            f"{ranks[1]['ledger_packs']} times")
+    step_ms = [1e3 * statistics.median(out["step_s"][1:]) for out in ranks]
+    sgd_ms = [1e3 * statistics.median(out["local_sgd_s"]) for out in ranks]
+    print(f"tp step ms a rank (median of steps 2-{TP_STEPS}) {step_ms}, "
+          f"local_sgd ms {sgd_ms}; device ms of one step "
+          f"{[round(o['device_ms'], 3) for o in ranks]}, idle share "
+          f"{[round(1 - o['device_ms'] / ms, 3) for o, ms in zip(ranks, step_ms)]}"
+          f"; peak GiB {[round(o['peak_gib'], 3) for o in ranks]}; card: "
+          f"{card_line()}")
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return ({"tp": {n: zero["launches"][n] for n in MESH_KERNELS}},
+            zero["kernel_rows"], zero["kernel_errs"])
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -5991,6 +6511,7 @@ def main() -> int:
              "--moe": lambda: run_moe(torch, np, rk),
              "--zoo": lambda: run_zoo(torch, np, rk),
              "--dryrun": lambda: run_dryrun(torch, np, rk),
+             "--tensor-parallel": lambda: run_tensor_parallel(torch, np, rk),
              "--drift-witness": lambda: drift_witness(torch, np, rk),
              "--select-passes": lambda: select_passes(torch, rk),
              "--select-study": lambda: select_study(torch, rk),
@@ -6081,7 +6602,8 @@ def main() -> int:
         moe, moe_ms, moe_errs = run_moe(torch, np, rk)
         zoo, zoo_ms, zoo_errs = run_zoo(torch, np, rk)
         dry = run_dryrun(torch, np, rk)
-        # launches on the paths of phases 7 to 15, beside each kernel's
+        tp, tp_ms, tp_errs = run_tensor_parallel(torch, np, rk)
+        # launches on the paths of phases 7 to 16, beside each kernel's
         # main-path count; the kernels' times at the chunked shapes and at
         # the mesh paths' rows
         for row in rows:
@@ -6093,11 +6615,13 @@ def main() -> int:
                 if runs[path][0].get(name)}
             row["launches_other_paths"].update({
                 path: counts[name]
-                for runs in (chunked, events, mesh, serve, moe, zoo, dry)
+                for runs in (chunked, events, mesh, serve, moe, zoo, dry,
+                             tp)
                 for path, counts in runs.items() if counts.get(name)})
-            for keys in (chunked_ms, mesh_ms, moe_ms, zoo_ms):
+            for keys in (chunked_ms, mesh_ms, moe_ms, zoo_ms, tp_ms):
                 row.update(keys.get(name, {}))
-            for errs_of in (chunked_errs, mesh_errs, moe_errs, zoo_errs):
+            for errs_of in (chunked_errs, mesh_errs, moe_errs, zoo_errs,
+                            tp_errs):
                 if name in errs_of:
                     row["max_abs_err"] = max(row["max_abs_err"],
                                              errs_of[name])

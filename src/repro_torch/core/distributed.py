@@ -22,13 +22,23 @@ leaves are sharded (``None``: each caller holds the whole tree), with
 ``psum`` as ``all_reduce(SUM)`` and ``all_gather``.  The sharded STC
 gathers the shards' rows and selects over their concatenation, so it needs
 no ``pmax``.  The gloo backend takes CUDA tensors for ``all_reduce`` and
-``all_gather``, so two ranks on one card need no host copies.  The mesh
-trainer never passes a group here.
+``all_gather``, so two ranks on one card need no host copies.
+
+``model`` (a :class:`ModelShards`) is the mesh trainer's tensor
+parallelism: each rank of a client's model group holds its block of the
+sharded leaves and the whole of the replicated ones (the norms, and any
+leaf ``fit_spec`` leaves whole).  The selection is exact over the whole
+tree and never gathers it: the rank's row puts its sharded leaves first,
+model rank 0 counts the replicated ones once, and
+:func:`~repro_torch.kernels.hist_select.hist_topk_threshold_split` selects
+over the model group's parts; every rank then ternarizes its own row with
+the global threshold and µ, the replicated leaves alike on every rank.
+TernQuant sums its statistics the same way.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -39,7 +49,7 @@ from .compression import (_rebuild, _torch_apply_batch, _torch_select_batch,
                           tree_map, unflatten_pytree)
 from .selection import DEFAULT_CAP, NBINS, flush_subnormal
 
-__all__ = ["TreeStats", "tree_numel", "stc_compress_tree",
+__all__ = ["TreeStats", "ModelShards", "tree_numel", "stc_compress_tree",
            "stc_compress_tree_chunked", "ternary_quantize_tree",
            "sign_compress_tree", "tree_add", "tree_scale", "psum",
            "all_gather"]
@@ -50,6 +60,16 @@ class TreeStats(NamedTuple):
     numel: int
     mu: torch.Tensor
     thresh: torch.Tensor
+
+
+class ModelShards(NamedTuple):
+    """A client's model group under tensor parallelism: the group, this
+    rank's index in it, and per leaf (``tree_leaves`` order) whether every
+    rank holds the whole leaf."""
+
+    group: Any
+    rank: int
+    replicated: tuple
 
 
 def tree_numel(tree) -> int:
@@ -124,14 +144,70 @@ def _gathered_row(vec: torch.Tensor, group):
             start + vec.numel())
 
 
+def _model_row(tree, model: ModelShards):
+    """This rank's fp32 row with its sharded leaves first and its
+    replicated leaves after them, the number of its elements that it
+    counts (all on model rank 0, the sharded ones elsewhere), and the
+    leaves' order in the row."""
+    leaves = tree_leaves(tree)
+    order = ([i for i, r in enumerate(model.replicated) if not r] +
+             [i for i, r in enumerate(model.replicated) if r])
+    row = torch.cat([leaves[i].reshape(-1).to(torch.float32)
+                     for i in order])
+    owned = row.numel() if model.rank == 0 else sum(
+        leaves[i].numel() for i, r in enumerate(model.replicated) if not r)
+    return row, owned, order
+
+
+def _from_model_row(tree, vec, order):
+    """The leaves of ``tree`` back from a :func:`_model_row` layout: views
+    of ``vec``, in ``tree``'s dtypes."""
+    leaves = tree_leaves(tree)
+    out = [None] * len(leaves)
+    start = 0
+    for i in order:
+        n = leaves[i].numel()
+        out[i] = vec[start:start + n].reshape(leaves[i].shape).to(
+            leaves[i].dtype)
+        start += n
+    return _rebuild(tree, iter(out))
+
+
+def _split_compress_tree(tree, p: float, numel: int, model: ModelShards,
+                         backend: str, cap: int):
+    """STC of a tree split over the model group: the global selection of
+    the owned rows, then each rank's own row ternarized."""
+    from ..kernels.hist_select import hist_topk_threshold_split
+    if backend not in ("kernel", "torch"):
+        raise ValueError(f"unknown STC backend {backend!r}; options: "
+                         "['kernel', 'torch']")
+    row, owned, order = _model_row(tree, model)
+    thresh, cnt, sums = hist_topk_threshold_split(
+        row[None, :owned], max(int(numel * p), 1), model.group, cap=cap)
+    mu = sums / torch.clamp(cnt, min=1).to(torch.float32)
+    if backend == "kernel":
+        from ..kernels.stc_compress import stc_apply_batched
+        tern, res = stc_apply_batched(row[None], thresh, mu)
+    else:
+        tern, res = _torch_apply_batch(row[None], thresh, mu)
+    stats = TreeStats(nnz=cnt[0], numel=numel, mu=mu[0], thresh=thresh[0])
+    return (_from_model_row(tree, tern[0], order),
+            _from_model_row(tree, res[0], order), stats)
+
+
 def stc_compress_tree_with_residual(tree, p: float, *, manual_axes=None,
                                     numel: int | None = None,
                                     cap: int = DEFAULT_CAP,
-                                    backend: str = "kernel"):
+                                    backend: str = "kernel", model=None):
     """:func:`stc_compress_tree` that also returns the new residual tree
     ``tree - ternary`` (the apply's second output): ``(ternary, residual,
-    stats)``."""
+    stats)``.  ``model`` (a :class:`ModelShards`) selects over the tree
+    split across a model group; ``numel`` is then the global size."""
     numel = numel if numel is not None else tree_numel(tree)
+    if model is not None:
+        if manual_axes is not None:
+            raise ValueError("manual_axes and model are exclusive")
+        return _split_compress_tree(tree, p, numel, model, backend, cap)
     k = max(int(numel * p), 1)
     vec, spec = flatten_pytree(tree)
     if manual_axes is None:
@@ -148,7 +224,8 @@ def stc_compress_tree_with_residual(tree, p: float, *, manual_axes=None,
 
 def stc_compress_tree(tree, p: float, *, manual_axes=None, iters: int = 32,
                       numel: int | None = None, bins: int = NBINS,
-                      cap: int = DEFAULT_CAP, backend: str = "kernel"):
+                      cap: int = DEFAULT_CAP, backend: str = "kernel",
+                      model=None):
     """STC over a tree: returns ``(ternary_tree, stats)``.
 
     ``k = max(int(numel·p), 1)`` with ``numel`` the tree's size unless
@@ -161,7 +238,7 @@ def stc_compress_tree(tree, p: float, *, manual_axes=None, iters: int = 32,
         raise ValueError(f"the selection has {NBINS} bins, got {bins}")
     tern, _, stats = stc_compress_tree_with_residual(
         tree, p, manual_axes=manual_axes, numel=numel, cap=cap,
-        backend=backend)
+        backend=backend, model=model)
     return tern, stats
 
 
@@ -232,19 +309,28 @@ def stc_compress_tree_chunked(tree, p: float, chunk_size: int, *,
 
 
 def ternary_quantize_tree(tree, theta: float, *, manual_axes=None,
-                          numel: int | None = None):
+                          numel: int | None = None, model=None):
     """Dense ternary quantization over a tree (the tree twin of
     :func:`~repro_torch.core.compression.ternary_quantize`): Δ = θ·mean|x|
     over every leaf, µ = the mean kept magnitude.  Both sums are taken in
     fp64 and rounded once, as the flat operator does (ROADMAP Queue 3, R7);
-    subnormals count as zeros."""
+    subnormals count as zeros.  ``model`` (a :class:`ModelShards`) sums
+    over a model group, its replicated leaves counted on model rank 0
+    only."""
+    if model is not None:
+        if manual_axes is not None:
+            raise ValueError("manual_axes and model are exclusive")
+        manual_axes = model.group
     numel = numel if numel is not None else tree_numel(tree)
     leaves = tree_leaves(tree)
     device = leaves[0].device
     abs_leaves = [flush_subnormal(leaf.to(torch.float32)).abs()
                   for leaf in leaves]
+    counted = [a for i, a in enumerate(abs_leaves)
+               if model is None or model.rank == 0
+               or not model.replicated[i]]
     total = torch.zeros((), dtype=torch.float64, device=device)
-    for a in abs_leaves:                                        # sweep 1
+    for a in counted:                                           # sweep 1
         total = total + a.sum(dtype=torch.float64)
     total = psum(total, manual_axes)
     mean = (total / torch.full_like(total, numel)).to(torch.float32)
@@ -252,7 +338,7 @@ def ternary_quantize_tree(tree, theta: float, *, manual_axes=None,
 
     cnt = torch.zeros((), dtype=torch.int64, device=device)     # sweep 2
     kept = torch.zeros((), dtype=torch.float64, device=device)
-    for a in abs_leaves:
+    for a in counted:
         m = a > delta
         cnt = cnt + m.sum()
         kept = kept + torch.where(m, a, torch.zeros_like(a)).sum(

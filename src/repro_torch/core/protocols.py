@@ -536,13 +536,18 @@ class Codec:
     # -- tree path (the mesh trainer, repro_torch.launch.train) -------------
     # ``axes`` is the process group of the client ranks (None: no client
     # axes, one client); the leaves are dicts and lists of tensors.
+    # ``model`` (a core.distributed.ModelShards, tensor parallelism) is the
+    # client's model group: the leaves are this rank's blocks, and the
+    # codecs with global statistics (STC, top-k, TernQuant) take them over
+    # the whole tree; ``numel`` stays the global size.
     def has_client_state(self) -> bool:
         return self.init_client_state(0, "cpu") is not None
 
     def has_server_state(self) -> bool:
         return self.init_server_state(0, "cpu") is not None
 
-    def tree_encode(self, delta, residual, *, numel: int, iters: int = 32):
+    def tree_encode(self, delta, residual, *, numel: int, iters: int = 32,
+                    model=None):
         """Client-side compression over a parameter tree.  ``residual`` is
         a bare fp32 tree (or None).  Returns (msg_tree, new_residual,
         metrics)."""
@@ -594,7 +599,8 @@ class Codec:
         denom = torch.where(total > 0, total, torch.ones_like(total))
         return _tree_collective(msgs, lambda v: psum(w * v, axes) / denom)
 
-    def tree_decode(self, combined, residual, *, numel: int, iters: int = 32):
+    def tree_decode(self, combined, residual, *, numel: int, iters: int = 32,
+                    model=None):
         """Server-side downstream compression of the combined tree.
         Returns (global_delta_tree, new_server_residual, metrics)."""
         return combined, residual, {}
@@ -802,7 +808,7 @@ class SignSGDCodec(Codec):
         return golomb.signsgd_message_bits(numel)
 
     # ---- tree path ----
-    def tree_encode(self, delta, residual, *, numel, iters=32):
+    def tree_encode(self, delta, residual, *, numel, iters=32, model=None):
         return sign_compress_tree(delta, self.sign_step), residual, {}
 
     def tree_reduce(self, msgs, axes, n_clients, mask=None, staleness=None):
@@ -825,7 +831,8 @@ class SignSGDCodec(Codec):
         return _tree_collective(msgs,
                                 lambda v: psum(w * torch.sign(v), axes))
 
-    def tree_decode(self, combined, residual, *, numel, iters=32):
+    def tree_decode(self, combined, residual, *, numel, iters=32,
+                    model=None):
         out = tree_map(lambda v: self.sign_step * torch.sign(v), combined)
         return out, residual, {}
 
@@ -876,10 +883,10 @@ class TopKCodec(_ErrorFeedbackMixin, Codec):
         return self._message_bits(numel, min(k * n_participating, numel))
 
     # ---- tree path ----
-    def tree_encode(self, delta, residual, *, numel, iters=32):
+    def tree_encode(self, delta, residual, *, numel, iters=32, model=None):
         carried = _tree_carry(delta, residual)
         _, st = stc_compress_tree(carried, self.sparsity_up, numel=numel,
-                                  iters=iters)
+                                  iters=iters, model=model)
         # pure top-k keeps magnitudes: mask = |x| >= thresh
         msg = tree_map(lambda x: torch.where(x.abs() >= st.thresh, x,
                                              torch.zeros_like(x)), carried)
@@ -1099,30 +1106,39 @@ class StcCodec(_ErrorFeedbackMixin, Codec):
         return golomb.stc_message_bits(numel, self.sparsity_down)
 
     # ---- tree path ----
-    def _tree_stc(self, carried, p, numel):
+    def _tree_stc(self, carried, p, numel, model=None):
         """``(ternary, new_residual, stats)`` of the carried tree: one
         global selection (on the ``"kernel"`` route one histogram, one
         ``bin_select`` and one ``stc_apply`` launch over the flattened
-        tree), or per ``(leaf, chunk)`` block with ``chunk_size``."""
+        tree, or over the rank's row split across ``model``), or per
+        ``(leaf, chunk)`` block with ``chunk_size``."""
         if self.chunk_size:
+            if model is not None:
+                raise NotImplementedError(
+                    "the chunked STC under tensor parallelism: its blocks "
+                    "cut across the shards (ROADMAP.md Queue 1, item 4d)")
             tern, st = stc_compress_tree_chunked(
                 carried, p, self.chunk_size, p_fn=self.p_fn,
                 backend=self.backend, controller=self.controller)
             return tern, _tree_sub(carried, tern), st
         return stc_compress_tree_with_residual(carried, p, numel=numel,
-                                               backend=self.backend)
+                                               backend=self.backend,
+                                               model=model)
 
     def _tree_carried(self, delta, residual):
         return tree_map(get_stc_backend(self.backend).carry, delta, residual)
 
-    def tree_encode(self, delta, residual, *, numel, iters=32):
+    def tree_encode(self, delta, residual, *, numel, iters=32, model=None):
         tern, new_res, st = self._tree_stc(
-            self._tree_carried(delta, residual), self.sparsity_up, numel)
+            self._tree_carried(delta, residual), self.sparsity_up, numel,
+            model)
         return tern, new_res, {"nnz_up": st.nnz}
 
-    def tree_decode(self, combined, residual, *, numel, iters=32):
+    def tree_decode(self, combined, residual, *, numel, iters=32,
+                    model=None):
         down, new_res, st = self._tree_stc(
-            self._tree_carried(combined, residual), self.sparsity_down, numel)
+            self._tree_carried(combined, residual), self.sparsity_down, numel,
+            model)
         return down, new_res, {"nnz_down": st.nnz}
 
 
@@ -1174,14 +1190,17 @@ class TernQuantCodec(_ErrorFeedbackMixin, Codec):
         return golomb.ternary_dense_bits(numel)
 
     # ---- tree path ----
-    def tree_encode(self, delta, residual, *, numel, iters=32):
+    def tree_encode(self, delta, residual, *, numel, iters=32, model=None):
         carried = _tree_carry(delta, residual)
-        tern, st = ternary_quantize_tree(carried, self.theta, numel=numel)
+        tern, st = ternary_quantize_tree(carried, self.theta, numel=numel,
+                                         model=model)
         return tern, _tree_sub(carried, tern), {"nnz_up": st.nnz}
 
-    def tree_decode(self, combined, residual, *, numel, iters=32):
+    def tree_decode(self, combined, residual, *, numel, iters=32,
+                    model=None):
         carried = _tree_carry(combined, residual)
-        down, st = ternary_quantize_tree(carried, self.theta, numel=numel)
+        down, st = ternary_quantize_tree(carried, self.theta, numel=numel,
+                                         model=model)
         return down, _tree_sub(carried, down), {"nnz_down": st.nnz}
 
 

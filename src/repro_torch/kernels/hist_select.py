@@ -42,6 +42,13 @@ with fewer than k non-zeros gets ``v = 0``, ``count = #non-zeros`` and
 The threshold is an element of the row and the count is exact; ``Σ`` is
 assembled from bin sums plus the candidates', so it differs from a
 mask-then-reduce sum at the ulp level.
+
+:func:`hist_topk_threshold_split` is the same selection over one row split
+across the ranks of a process group (tensor parallelism's model group):
+the global maximum, each rank's histogram of its part, the summed
+histograms, ``locate_bin`` on every rank alike, and ``bin_select`` on the
+candidate bin's elements gathered from every rank.  Thresholds and counts
+are those of the joined row; the sums differ only in fp32 order.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ __all__ = ["NBINS", "DEFAULT_CAP", "magnitude_histogram",
            "magnitude_histogram_batched", "magnitude_histogram_plain",
            "candidate_select_batched", "candidate_select_plain",
            "hist_topk_threshold", "hist_topk_threshold_batched",
+           "hist_topk_threshold_split", "SPLIT_CANDIDATES",
            "SelectPlan", "select_plan", "two_read_plan"]
 
 # 512-thread CTAs a launch aims for on each SM (chip_smoke.py times 1, 2
@@ -466,3 +474,80 @@ def hist_topk_threshold(x_flat: torch.Tensor, k: int, *, bins: int = NBINS,
     t, cnt, sums = hist_topk_threshold_batched(x_flat.reshape(1, -1), k,
                                                bins=bins, cap=cap)
     return t[0], cnt[0], sums[0]
+
+
+# m_b, the candidate-bin population that each call of
+# hist_topk_threshold_split gathered, in call order (cleared by the caller)
+SPLIT_CANDIDATES: list = []
+
+
+def hist_topk_threshold_split(x: torch.Tensor, k: int, group, *,
+                              bins: int = NBINS, cap: int = DEFAULT_CAP):
+    """The exact k-selection of one row split across the ranks of
+    ``group``: ``x`` is this rank's ``(1, n_r)`` part, and the result is
+    :func:`hist_topk_threshold_batched` of the parts joined, ``(thresh,
+    count, sum_abs)`` of shape ``(1,)``, the same on every rank:
+
+    1. ``all_reduce`` MAX of the parts' maxima: the joined row's scale;
+    2. the histogram kernel on this rank's part with that scale;
+    3. ``all_gather`` of the parts' 256 counts (summed: the joined row's,
+       and each part's population of every bin) and ``all_reduce`` SUM of
+       the 256 sums;
+    4. ``locate_bin``, identical on every rank;
+    5. each rank's elements of the candidate bin ``b``, ``all_gather``ed
+       (padded to the largest part's count, which the counts give) into one
+       ``(1, m_b)`` row in rank order;
+    6. the ``bin_select`` kernel on that row with the global rank ``r``.
+
+    ``v`` and the counts are exact; ``Σ`` differs from the joined row's
+    only by fp32 order.  ``m_b`` may be most of the row (bin 0 of a
+    carried residual); it is gathered whole, and appended to
+    :data:`SPLIT_CANDIDATES`.  The candidate sizes come to the host (one
+    synchronization).  With ``group`` None it is the batched selection."""
+    if group is None:
+        return hist_topk_threshold_batched(x, k, bins=bins, cap=cap)
+    import torch.distributed as dist
+    if x.ndim != 2 or x.shape[0] != 1:
+        raise ValueError(f"x must be one row (1, n), got {tuple(x.shape)}")
+    x = x.to(torch.float32)
+    size = dist.get_world_size(group)
+
+    PASSES.record("max")                                        # pass 1
+    a_max = torch.linalg.vector_norm(x, float("inf"), dim=1)
+    dist.all_reduce(a_max, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.where(a_max >= FLT_MIN,
+                        torch.full_like(a_max, float(bins)) / a_max,
+                        torch.zeros_like(a_max))
+    cnt, sums = magnitude_histogram_batched(x, scale, bins=bins)  # pass 2
+    parts = [torch.empty_like(cnt) for _ in range(size)]
+    dist.all_gather(parts, cnt.contiguous(), group=group)
+    part_cnt = torch.cat(parts)                                 # (size, bins)
+    dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+    kj = torch.full((1,), int(k), dtype=torch.int64, device=x.device)
+    b, cnt_gt, sum_gt, _ = locate_bin(part_cnt.sum(0, dtype=torch.int32)[None],
+                                      sums, kj, bins)
+    r = kj - cnt_gt.to(torch.int64)                     # rank inside bin b
+    sizes = part_cnt.gather(1, torch.clamp(b, min=0).expand(size)[:, None])[
+        :, 0]
+    host = torch.cat([b, sizes.to(torch.int64)]).tolist()
+    if host[0] < 0:
+        raise ValueError(f"k = {k} exceeds the row's "
+                         f"{int(part_cnt.sum())} elements")
+    sizes = host[1:]
+    PASSES.record("compact")                                    # pass 3
+    a = flush_subnormal(x[0])
+    mine = a[bin_index(a.abs(), scale, bins) == b]
+    if mine.numel() != sizes[dist.get_rank(group)]:
+        raise RuntimeError(f"bin {int(host[0])} holds {mine.numel()} of this "
+                           f"rank's elements, its histogram counted "
+                           f"{sizes[dist.get_rank(group)]}")
+    width = max(max(sizes), 1)
+    padded = torch.zeros(width, dtype=torch.float32, device=x.device)
+    padded[:mine.numel()] = mine
+    gathered = [torch.empty_like(padded) for _ in range(size)]
+    dist.all_gather(gathered, padded, group=group)
+    cand = torch.cat([g[:n] for g, n in zip(gathered, sizes)])[None]
+    SPLIT_CANDIDATES.append(cand.shape[1])
+    v, cnt_in, sum_in = candidate_select_batched(cand, scale, b, r,  # pass 4
+                                                 cap=cap)
+    return v, cnt_gt + cnt_in, sum_gt + sum_in

@@ -25,7 +25,14 @@ PyTorch has no such analysis, so the port counts from the config:
 * ``model_flops``: 6·N_active·tokens for train, 2·N_active·tokens for
   prefill and decode (global, as ``benchmarks/roofline.py`` counts it);
 * ``collectives``: the tree codec's one ``all_reduce`` of the flat fp32
-  message over the client ranks (:mod:`repro_torch.core.distributed`);
+  message over the client ranks (:mod:`repro_torch.core.distributed`),
+  a device's shard of it; and, where the step runs the ``model`` axis (the
+  dense attention family on whole heads), tensor parallelism's
+  collectives over a client's model group as the step hands them to gloo
+  (:func:`tp_collectives`): the split products' ``all_reduce`` s, the
+  vocab-parallel embedding's and cross-entropy's, and the split
+  k-selection's; the selection's candidate gather is data-dependent and
+  listed apart (``collectives_data_dependent``);
 * ``server_ingest`` and ``fleet_scenarios`` as the reference measures them,
   through the port's :class:`~repro_torch.launch.train.WireLedger` (the
   ``"kernel"`` wire backend: ``pack_chunks`` on the card unless
@@ -33,9 +40,13 @@ PyTorch has no such analysis, so the port counts from the config:
 
 What a record leaves out: ``temp_size_in_bytes`` (activations and
 workspaces: nothing here measures them, so a record does not fit a step
-into memory by itself), and tensor parallelism's collectives (the port
-does not execute the ``model`` axis yet; its ``flops`` and message bytes
-are split over ``model`` evenly, an assumption until it does).  The
+into memory by itself); and, for a config the step does not run with
+``model > 1`` (:func:`repro_torch.launch.train.tensor_parallel_gap`:
+MoE, MLA, SSD, RG-LRU, encoder, prefix, or a split that is not on whole
+heads), tensor parallelism's collectives, with its ``flops`` split over
+``model`` evenly, an assumption.  Where the step runs it, each product
+splits on whole heads, columns or rows, so ``flops / model`` is each
+rank's count exactly.  The
 roofline terms are the H100's (:mod:`repro_torch.launch.hardware`).
 Records go to ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 """
@@ -63,10 +74,11 @@ from . import hardware
 from .mesh import Mesh, make_debug_mesh, make_production_mesh
 from .serve import serve_state_structs
 from .train import (TrainConfig, WireLedger, batch_shardings, codec_for,
-                    init_train_state, state_shardings)
+                    init_train_state, state_shardings, tensor_parallel_gap)
 
 __all__ = ["lower_combo", "save_record", "main", "measured_ingest_bytes",
-           "fleet_event_stats", "step_flops", "model_flops"]
+           "fleet_event_stats", "step_flops", "model_flops",
+           "tp_collectives"]
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                          "artifacts", "dryrun_torch")
@@ -437,12 +449,66 @@ def _mesh_tag(mesh: Mesh) -> str:
 
 
 def _wire_bytes(collectives: dict) -> float:
-    """A ring all-reduce's bytes a device: 2·(n - 1)/n of the message."""
+    """A ring's bytes a device: an all-reduce 2·(n - 1)/n of its message,
+    an all-gather (n - 1)/n of what it gathers."""
     total = 0.0
-    for rec in collectives.values():
+    for name, rec in collectives.items():
         n = rec["ranks"]
-        total += 2.0 * rec["bytes"] * (n - 1) / n
+        share = 1.0 if name.endswith("all-gather") else 2.0
+        total += share * rec["bytes"] * (n - 1) / n
     return total
+
+
+# the codecs whose tree path selects k over the model group (calls a step)
+# and the one that sums its TernQuant statistics over it
+_SPLIT_SELECTIONS = {"stc": 2, "topk": 1}
+_SPLIT_TERNQUANT = {"ternquant": 2}
+
+
+def tp_collectives(cfg: ModelConfig, tc: TrainConfig, mesh: Mesh,
+                   rows: int, seq: int) -> tuple[dict, dict]:
+    """Tensor parallelism's collectives in one step of ``rows`` rows of
+    ``seq`` tokens on a device, as the step hands them to gloo over the
+    model group: ``(counted, data_dependent)``, each ``{name: {"count",
+    "bytes", "ranks"}}`` (bytes a device hands in; an all-gather's, what it
+    gathers).  ``model-all-reduce``: per microbatch of ``t`` tokens, each
+    block's two forward ``all_reduce`` s (attention and MLP outputs), the
+    two of their backward (the inputs' gradients) and, with remat, the
+    attention's again in the recompute (which stops before the MLP's last
+    product), the embedding's rows and the head's input gradient, all
+    ``(t, d)`` in the compute dtype; the cross-entropy's row maxima
+    ``(t,)`` and exp-sums and gold logits ``(2, t)`` in fp32 per logit
+    chunk; the split k-selection's maximum and 256 bin sums a call; and
+    TernQuant's three 8-byte sums a call.  ``model-all-gather``: the
+    selection's 256 int32 counts a call.  The candidate bin's gather
+    depends on the data (``data_dependent``, bytes None).  Empty where the
+    step does not run the ``model`` axis."""
+    m = mesh.shape.get("model", 1)
+    if m == 1 or tensor_parallel_gap(cfg, mesh, tc):
+        return {}, {}
+    codec = codec_for(tc)
+    iters = codec.local_iters
+    t = rows // iters * seq
+    width = torch.empty((), dtype=tc.compute_dtype).element_size()
+    acts = cfg.n_layers * (4 + (1 if cfg.remat else 0)) + 2
+    lc = cfg.logit_chunk
+    chunks = seq // lc if lc and seq > lc and seq % lc == 0 else 1
+    count = iters * (acts + 2 * chunks)
+    nbytes = iters * (acts * t * cfg.d_model * width + 3 * 4 * t)
+    sel = _SPLIT_SELECTIONS.get(codec.name, 0)
+    tq = _SPLIT_TERNQUANT.get(codec.name, 0)
+    count += 2 * sel + 3 * tq
+    nbytes += sel * (4 + 4 * 256) + tq * 3 * 8
+    counted = {"model-all-reduce": {"count": count, "bytes": nbytes,
+                                    "ranks": m}}
+    dependent = {}
+    if sel:
+        counted["model-all-gather"] = {"count": sel,
+                                       "bytes": sel * m * 4 * 256,
+                                       "ranks": m}
+        dependent["model-candidates-all-gather"] = {
+            "count": sel, "bytes": None, "ranks": m}
+    return counted, dependent
 
 
 def lower_combo(arch: str, shape_name, *, multi_pod: bool = False,
@@ -530,11 +596,18 @@ def lower_combo(arch: str, shape_name, *, multi_pod: bool = False,
         memory["alias_size_in_bytes"] = arg_parts["caches"]
     t_build = time.time() - t0
 
-    collectives = {}
+    collectives, dependent = {}, {}
     if shape.kind == "train" and mesh.n_clients > 1:
         collectives["all-reduce"] = {
-            "count": 1, "bytes": 4 * cfg.param_count() // model,
+            "count": 1, "bytes": 4 * sum(
+                x.device_bytes() // 4
+                for x in tree_leaves(args["state"]["params"])),
             "ranks": mesh.n_clients}
+    if shape.kind == "train":
+        tp, dependent = tp_collectives(cfg, tc, mesh, rows, shape.seq_len)
+        collectives.update(tp)
+    tp_gap = (model > 1 and shape.kind == "train"
+              and tensor_parallel_gap(cfg, mesh, tc))
     flops_dev = flops / model
     bytes_acc = memory["argument_size_in_bytes"] + memory[
         "output_size_in_bytes"]
@@ -560,10 +633,11 @@ def lower_combo(arch: str, shape_name, *, multi_pod: bool = False,
         "memory": memory,
         "not_measured": ["temp_size_in_bytes"],
         "collectives": collectives,
-        "assumptions": [
-            "flops and the message's bytes split over the model axis "
-            "evenly; tensor parallelism's own collectives are not counted "
-            "(the port does not execute model > 1 yet)",
+        "collectives_data_dependent": dependent,
+        "assumptions": ([
+            "flops split over the model axis evenly; tensor parallelism's "
+            "own collectives are not counted (the step does not run this "
+            f"config on this mesh: {tp_gap})"] if tp_gap else []) + [
             "bytes_accessed: each argument read once, each output written "
             "once (the train step's metrics, a few scalars, left out)"],
         "params": cfg.param_count(),

@@ -30,8 +30,11 @@ from ..models.config import ModelConfig
 from ..models.transformer import decode_step, forward, init_cache, init_model
 from ..sharding.rules import (Sharding, StandIn, cache_specs, fit_spec,
                               map_tree, param_shardings)
-from .train import _TENSOR_PARALLEL
 
+_TENSOR_PARALLEL = ("prefill and decode under tensor parallelism (a mesh "
+                    "'model' axis > 1), with head-sharded caches, do not run "
+                    "yet (ROADMAP.md Queue 1, item 4b); the train step runs "
+                    "it, and the dry run sizes it")
 __all__ = ["CACHE_MODES", "make_prefill_step", "make_decode_step",
            "serve_state_structs"]
 

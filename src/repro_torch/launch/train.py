@@ -19,11 +19,20 @@ scale:
 * every codec registered in :mod:`repro_torch.core.protocols` runs; there
   is no protocol dispatch in this module.
 
-The ``model`` axis (tensor parallelism inside a client) does not run yet:
-:func:`make_train_step` raises for ``model > 1`` (ROADMAP Queue 1), while
-:func:`state_shardings` and :func:`batch_shardings` give the layout it
-would take, for the dry run (:mod:`repro_torch.launch.dryrun`).  The
-step runs on the card unless ``device="cpu"`` is passed; on the card the
+The ``model`` axis is tensor parallelism inside a client, for the dense
+attention family: with ``model = M > 1`` a client is ``M`` ranks (rank
+``d·M + m``, :class:`~repro_torch.launch.mesh.Mesh`), each holding its
+:func:`~repro_torch.sharding.rules.shard_leaf` block of every parameter,
+residual and momentum (:func:`state_shardings`' layout); the forward and
+backward are Megatron's split products
+(:mod:`repro_torch.sharding.tensor_parallel`), the codecs take their
+global statistics over the client's model group (STC's k-selection split
+across the shards, never gathering the tree), and ``tree_reduce`` runs
+over the ranks that share ``m``.  The function computed is the
+reference's step on the same mesh (GSPMD's automatic ``model`` axis).
+Other families and splits that are not on whole heads raise
+(:func:`tensor_parallel_gap`).  The step runs on the card unless
+``device="cpu"`` is passed; on the card the
 local SGD runs under PyTorch's deterministic algorithms, so that reruns
 and ranks are bitwise (the MoE blocks' dispatch moves rows by gathers
 both ways, with no atomic adds).  A MoE layer reads its experts' group
@@ -31,10 +40,10 @@ sizes to the host, one sync a layer in the forward and one in remat's
 recompute.  Momentum defaults OFF per the paper's lesson (6).
 
 Run as a script; it spawns its ranks itself (gloo, every rank on the same
-device):
+device; ``--ranks / --model`` clients of ``--model`` shards each):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
-        [--ranks 2] [--device cpu]
+        [--ranks 2] [--model 1] [--device cpu]
 """
 
 from __future__ import annotations
@@ -48,20 +57,19 @@ import numpy as np
 import torch
 
 from ..core.compression import _rebuild, tree_leaves, tree_map
-from ..core.distributed import all_gather, psum
+from ..core.distributed import ModelShards, all_gather, psum
 from ..core.protocols import Codec, get_protocol_class
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import init_model, lm_loss
 from ..sharding.rules import (Sharding, batch_entry, batch_rows, fit_spec,
-                              map_tree, param_specs)
+                              map_tree, model_dim, param_specs,
+                              replicated_leaves, shard_tree, unshard_leaf)
+from ..sharding.tensor_parallel import TensorParallel
 
 __all__ = ["TrainConfig", "WireLedger", "codec_for", "init_train_state",
-           "make_train_step", "state_shardings", "batch_shardings", "main"]
-
-_TENSOR_PARALLEL = ("tensor parallelism (a mesh 'model' axis > 1) does not "
-                    "run yet (ROADMAP.md Queue 1: tensor parallelism); the "
-                    "dry run sizes it")
+           "make_train_step", "state_shardings", "batch_shardings",
+           "tensor_parallel_gap", "unshard_tree", "main"]
 
 
 class WireLedger:
@@ -166,22 +174,35 @@ def codec_for(tc: TrainConfig) -> Codec:
 
 
 def init_train_state(cfg: ModelConfig, tc: TrainConfig, n_clients: int = 1,
-                     key=0, *, device=None, params=None):
+                     key=0, *, device=None, params=None, mesh=None,
+                     model_rank: int | None = None):
     """The train state of THIS rank: the parameters (from ``key``, a seed
     or a CPU ``torch.Generator``, unless ``params`` are given) and the step,
     with this rank's client residual and momentum (fp32, a leading client
     axis of 1: one client a rank, whatever ``n_clients``) and the server
-    residual where the codec keeps them."""
+    residual where the codec keeps them.
+
+    On a ``mesh`` with a ``model`` axis > 1 the parameters (drawn or given
+    whole, on the host) are cut to model rank ``model_rank``'s blocks
+    (default: this process's, ``mesh.model_rank()``) and only the blocks
+    reach ``device``; every buffer is then block-sized."""
     if n_clients < 1:
         raise ValueError(f"n_clients must be >= 1, got {n_clients}")
     device = resolve_device(device)
     codec = codec_for(tc)
+    split = mesh is not None and mesh.shape.get("model", 1) > 1
     if params is None:
-        params = init_model(cfg, key, device)
+        params = init_model(cfg, key, None if split else device)
     else:
         params = tree_map(lambda t: (t if isinstance(t, torch.Tensor)
                                      else torch.from_numpy(np.array(t)))
-                          .to(device), params)
+                          .to("cpu" if split else device), params)
+    if split:
+        m = mesh.model_rank() if model_rank is None else model_rank
+        params = tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                  device=device).copy_(t),
+            shard_tree(params, mesh, m))
     state = {"params": params,
              "step": torch.zeros((), dtype=torch.int32, device=device)}
 
@@ -263,6 +284,54 @@ def _deterministic(device: torch.device):
         det.fill_uninitialized_memory = prev[2]
 
 
+def tensor_parallel_gap(cfg: ModelConfig, mesh, tc: TrainConfig):
+    """Why the step cannot run ``cfg`` with ``mesh``'s ``model`` axis, or
+    None where it can (``model = 1``, or the dense attention family split
+    on whole heads).  The message names the ROADMAP item that would run
+    it."""
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return None
+    head = (f"tensor parallelism (a mesh 'model' axis of {m}) runs the dense "
+            f"attention family split on whole heads; {cfg.name}")
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+    family = [name for name, there in (
+        ("MoE blocks", cfg.moe is not None), ("MLA blocks", "mla" in kinds),
+        ("SSD blocks", "ssd" in kinds), ("RG-LRU blocks", "rglru" in kinds),
+        ("an encoder", cfg.encoder is not None),
+        ("a prefix", bool(cfg.n_prefix_tokens))) if there]
+    if family:
+        return (f"{head} has {', '.join(family)} (ROADMAP.md Queue 1, "
+                f"item 4c)")
+    if cfg.n_heads % m or cfg.n_kv_heads % m:
+        return (f"{head}'s {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
+                f"do not split {m} ways (ROADMAP.md Queue 1, item 4d)")
+    whole = []
+    meta = init_model(cfg, device="meta")
+    map_tree(lambda path, p, s: whole.append("/".join(map(str, path)))
+             if "model" in s and model_dim(s, tuple(p.shape), mesh) is None
+             else None, meta, param_specs(meta))
+    if whole:
+        return (f"{head}: fit_spec keeps {', '.join(whole[:4])} whole, a "
+                f"split that is not the reference's (ROADMAP.md Queue 1, "
+                f"item 4d)")
+    if tc.chunks:
+        return (f"{head}: the chunked STC's blocks cut across the shards "
+                f"(ROADMAP.md Queue 1, item 4d)")
+    return None
+
+
+def unshard_tree(tree, cfg: ModelConfig, mesh, group):
+    """A parameter-shaped tree of model blocks joined back into global
+    leaves over the model ``group``
+    (:func:`~repro_torch.sharding.rules.unshard_leaf`, leaf by leaf in
+    ``tree_leaves`` order on every rank)."""
+    meta = init_model(cfg, device="meta")
+    return map_tree(lambda _, x, p, s: unshard_leaf(x, s, p.shape, mesh,
+                                                    group),
+                    tree, meta, param_specs(meta))
+
+
 def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
     """Returns ``train_step(state, batch, mask=None, staleness=None) ->
     (state, metrics)`` (``(state, metrics, (msgs, global_delta))`` with
@@ -273,15 +342,29 @@ def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
     the rank takes its rows of every entry
     (:func:`repro_torch.sharding.rules.batch_rows`).
     ``mask`` / ``staleness`` are the global per-client vectors (masked mode
-    only); the rank takes its entry.  Metrics stay on the device."""
+    only); the rank takes its entry.  Metrics stay on the device.
+
+    With a ``model`` axis > 1 the state is this rank's blocks
+    (:func:`init_train_state` with the ``mesh``); a client's rows go to
+    each of its model ranks, and the step raises
+    ``NotImplementedError`` where :func:`tensor_parallel_gap` names a
+    gap.  Under ``measure_wire`` the messages and the downstream update
+    come back whole, joined over the model group."""
     device = resolve_device(device)
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(_TENSOR_PARALLEL)
+    gap = tensor_parallel_gap(cfg, mesh, tc)
+    if gap:
+        raise NotImplementedError(gap)
     group = mesh.client_group()
     rank = mesh.client_rank()
     n_clients = mesh.n_clients
     numel = cfg.param_count()
     codec = codec_for(tc)
+    tp, split = None, {}
+    if mesh.shape.get("model", 1) > 1:
+        tp = TensorParallel(mesh.model_group(), mesh.model_rank(),
+                            mesh.shape["model"])
+        split = {"model": ModelShards(tp.group, tp.rank, tuple(
+            replicated_leaves(init_model(cfg, device="meta"), mesh)))}
 
     def value_and_grad(params, batch):
         leaves = [leaf.detach().requires_grad_(True)
@@ -289,7 +372,7 @@ def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
         loss = lm_loss(_rebuild(params, iter(leaves)), cfg, batch["tokens"],
                        batch["labels"], prefix=batch.get("prefix"),
                        frames=batch.get("frames"),
-                       compute_dtype=tc.compute_dtype)
+                       compute_dtype=tc.compute_dtype, tp=tp)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), _rebuild(params, iter(grads))
 
@@ -379,7 +462,7 @@ def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
         cres = (tree_map(lambda x: x[0], state["client_res"])
                 if "client_res" in state else None)
         msg, new_cres, m_up = codec.tree_encode(delta, cres, numel=numel,
-                                                iters=tc.stc_iters)
+                                                iters=tc.stc_iters, **split)
         del delta                   # one model-sized copy less at the decode
         if "client_res" in state:
             if arrived is not None:
@@ -392,7 +475,7 @@ def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
                                      staleness=staleness)
         global_delta, new_sres, m_down = codec.tree_decode(
             combined, state.get("server_res"), numel=numel,
-            iters=tc.stc_iters)
+            iters=tc.stc_iters, **split)
         if mask is not None:
             # zero-arrival step: the server must not move either -- without
             # this gate a stateful codec (stc) would still drain its server
@@ -413,7 +496,11 @@ def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
             .to(p.dtype), params, global_delta)
         if tc.measure_wire:
             # every client's message (leading client axis, gathered from
-            # the ranks) + the replicated downstream update
+            # the ranks) + the replicated downstream update, whole
+            if tp is not None:
+                msg = unshard_tree(msg, cfg, mesh, tp.group)
+                global_delta = unshard_tree(global_delta, cfg, mesh,
+                                            tp.group)
             msgs = tree_map(lambda x: all_gather(x, group), msg)
             return new_state, metrics, (msgs, global_delta)
         return new_state, metrics
@@ -445,12 +532,13 @@ def _run(rank: int, args, port: int) -> None:
                                 world_size=args.ranks, rank=rank)
     try:
         cfg = (get_config if args.full else get_smoke_config)(args.arch)
-        mesh = make_debug_mesh(data=args.ranks, model=1)
+        mesh = make_debug_mesh(data=args.ranks // args.model,
+                               model=args.model)
         tc = TrainConfig(protocol=args.protocol, lr=0.05,
                          sparsity_up=1 / 50, sparsity_down=1 / 50,
                          measure_wire=args.measure_wire, chunks=args.chunks)
-        state = init_train_state(cfg, tc, n_clients=args.ranks, key=0,
-                                 device=device)
+        state = init_train_state(cfg, tc, n_clients=mesh.n_clients, key=0,
+                                 device=device, mesh=mesh)
         toks = make_lm_tokens(n_tokens=4 * 128 + 1, vocab=cfg.vocab_size)
         batch = {"tokens": torch.as_tensor(toks[:-1].reshape(4, 128)),
                  "labels": torch.as_tensor(toks[1:].reshape(4, 128))}
@@ -488,7 +576,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--protocol", default="stc")
     ap.add_argument("--ranks", type=int, default=1,
-                    help="client ranks (processes), all on one device")
+                    help="ranks (processes), all on one device: "
+                         "ranks / model clients")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel shards a client (the mesh's "
+                         "'model' axis)")
     ap.add_argument("--device", default=None,
                     help="cpu, or the card (default)")
     ap.add_argument("--full", action="store_true",
@@ -501,8 +593,8 @@ def main(argv=None):
                          "(default: one global flat selection)")
     args = ap.parse_args(argv)
     resolve_device(args.device)          # no card: raise before spawning
-    if args.ranks < 1:
-        raise SystemExit("--ranks must be >= 1")
+    if args.ranks < 1 or args.model < 1 or args.ranks % args.model:
+        raise SystemExit("--ranks must be a positive multiple of --model")
     if args.ranks == 1:
         _run(0, args, 0)
         return

@@ -104,11 +104,26 @@ def attn_apply(
     params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: int,
     rope_theta: float = 10000.0, causal: bool = True, window: int = 0,
     memory: Optional[torch.Tensor] = None, chunk: int = 1024,
-    positions: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None, tp=None,
 ) -> torch.Tensor:
     """Full-sequence attention. ``memory`` switches to cross-attention
-    (k/v projected from memory, no causal mask, no RoPE on memory keys)."""
+    (k/v projected from memory, no causal mask, no RoPE on memory keys).
+
+    Under tensor parallelism (``tp``, a
+    :class:`~repro_torch.sharding.tensor_parallel.TensorParallel`; self
+    attention only) ``params`` are the rank's blocks and ``n_heads`` /
+    ``n_kv_heads`` its local heads: ``wq``, ``wk``, ``wv`` and the biases
+    split by whole heads, ``wo`` by rows, and the partial outputs are
+    summed over the model group.  The attention itself sees only local
+    heads, and its backward needs nothing of the other ranks."""
+    from ..sharding.tensor_parallel import copy_to, reduce_from
     b, s, _ = x.shape
+    if tp is not None:
+        if memory is not None:
+            raise NotImplementedError("cross-attention under tensor "
+                                      "parallelism (ROADMAP.md Queue 1, "
+                                      "item 4c)")
+        x = copy_to(x, tp)
     if memory is None:
         q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
         pos = positions if positions is not None else torch.arange(
@@ -125,7 +140,8 @@ def attn_apply(
         v = (memory @ params["wv"].to(x.dtype)).reshape(b, sm, n_kv_heads,
                                                         head_dim)
         out = _attention(q, k, v, causal=False, window=0, chunk=chunk)
-    return out.reshape(b, s, n_heads * head_dim) @ params["wo"].to(x.dtype)
+    return reduce_from(out.reshape(b, s, n_heads * head_dim) @
+                       params["wo"].to(x.dtype), tp)
 
 
 def init_kv_cache(batch: int, s_cache: int, n_kv_heads: int, head_dim: int,

@@ -56,13 +56,21 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp_apply(params, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+def mlp_apply(params, x: torch.Tensor, act: str = "swiglu",
+              tp=None) -> torch.Tensor:
+    """The FFN.  Under tensor parallelism (``tp``, a
+    :class:`~repro_torch.sharding.tensor_parallel.TensorParallel`)
+    ``params`` are the rank's blocks: ``w_gate`` / ``w_up`` split by
+    columns, ``w_down`` by rows, and the partial outputs are summed over
+    the model group."""
+    from ..sharding.tensor_parallel import copy_to, reduce_from
+    x = copy_to(x, tp)
     if act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ params["w_up"], approximate="tanh")
-    return h @ params["w_down"]
+    return reduce_from(h @ params["w_down"], tp)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int):

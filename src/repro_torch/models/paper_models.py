@@ -29,7 +29,7 @@ __all__ = ["logreg_init", "logreg_apply", "mlp_init_model", "mlp_apply_model",
            "params_from_jax"]
 
 
-def params_from_jax(tree, device=None):
+def params_from_jax(tree, device=None, *, mesh=None, model_rank: int = 0):
     """A parameter tree of numpy arrays (e.g. a JAX model's initial values
     through ``np.asarray``) as the port's dict of fp32 tensors: the paper
     models' dicts and the TransformerLM's nested tree alike (its ``blocks``
@@ -38,7 +38,15 @@ def params_from_jax(tree, device=None):
     ``w_uk``, ``w_uv``, ``wo``, ``wq``, the MoE's ``router``, stacked
     ``w_down`` / ``w_gate`` / ``w_up`` and ``shared_i`` MLPs), keys and
     list order kept, so ``tree_leaves`` gives ``jax.tree.flatten``'s
-    order."""
+    order.  With a ``mesh`` whose ``model`` axis is > 1, model rank
+    ``model_rank``'s blocks of a TransformerLM tree
+    (:func:`repro_torch.sharding.rules.shard_tree`), each its own
+    contiguous tensor."""
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        from ..core.compression import tree_map
+        from ..sharding.rules import shard_tree
+        return tree_map(lambda t: t.contiguous().clone(),
+                        shard_tree(params_from_jax(tree), mesh, model_rank))
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -44,6 +44,8 @@ from torch.utils.checkpoint import checkpoint
 from . import attention, mla, moe, rglru, ssm
 from ..device import resolve_device
 from .config import ModelConfig
+from ..sharding.tensor_parallel import (copy_to, vocab_parallel_ce,
+                                        vocab_parallel_embedding)
 from .layers import embed_init, mlp_apply, mlp_init, rms_norm, rms_norm_init
 
 __all__ = ["init_model", "forward", "lm_loss", "init_cache", "decode_step",
@@ -159,25 +161,27 @@ def _uses_window(cfg: ModelConfig, kind: str) -> bool:
                                    len(cfg.block_pattern) == 1)
 
 
-def _ffn(block, h, cfg: ModelConfig):
+def _ffn(block, h, cfg: ModelConfig, tp=None):
     """The block's FFN on ``h``: ``(out, aux)``, aux the MoE's load-balance
     loss (a zero for a dense MLP)."""
     if "moe" in block:
         return moe.moe_apply(block["moe"], h, cfg.moe, cfg.mlp_act)
     mlp = {name: w.to(h.dtype) for name, w in block["mlp"].items()}
-    return (mlp_apply(mlp, h, cfg.mlp_act),
+    return (mlp_apply(mlp, h, cfg.mlp_act, tp),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _block_apply(block, x, memory, *, cfg: ModelConfig, kind: str,
-                 chunk: int):
+                 chunk: int, tp=None):
     h = rms_norm(block["norm1"], x, cfg.norm_eps)
     if kind in ("attn", "local"):
         window = cfg.sliding_window if _uses_window(cfg, kind) else 0
+        m = 1 if tp is None else tp.size
         x = x + attention.attn_apply(
-            block["mix"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            block["mix"], h, n_heads=cfg.n_heads // m,
+            n_kv_heads=cfg.n_kv_heads // m,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-            causal=True, window=window, chunk=chunk)
+            causal=True, window=window, chunk=chunk, tp=tp)
     elif kind == "mla":
         x = x + mla.mla_apply(block["mix"], h, n_heads=cfg.n_heads,
                               cfg=cfg.mla, rope_theta=cfg.rope_theta,
@@ -193,7 +197,8 @@ def _block_apply(block, x, memory, *, cfg: ModelConfig, kind: str,
             head_dim=cfg.resolved_head_dim, memory=memory, chunk=chunk)
     if kind == "ssd":
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
-    out, aux = _ffn(block, rms_norm(block["norm2"], x, cfg.norm_eps), cfg)
+    out, aux = _ffn(block, rms_norm(block["norm2"], x, cfg.norm_eps), cfg,
+                    tp)
     return x + out, aux
 
 
@@ -217,13 +222,29 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             prefix: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
             compute_dtype=torch.bfloat16, chunk: int = 1024,
-            return_hidden: bool = False):
+            return_hidden: bool = False, tp=None):
     """tokens: (B, S) integers.  prefix: (B, P, d) VLM patch embeddings,
     projected and put before the tokens.  frames: (B, F, d) audio frame
     embeddings, encoded into the cross-attention memory.  Returns (logits
     (B, P + S, V), aux_loss); the aux loss is the MoE blocks' load-balance
-    loss summed over the blocks (0 without MoE)."""
-    x = F.embedding(tokens.long(), params["embed"]).to(compute_dtype)
+    loss summed over the blocks (0 without MoE).
+
+    ``tp`` (a :class:`~repro_torch.sharding.tensor_parallel.TensorParallel`)
+    runs the dense attention family tensor-parallel on the rank's
+    parameter blocks (:func:`repro_torch.sharding.rules.shard_leaf`): the
+    vocab-parallel embedding, each block's attention on its local heads and
+    its split MLP, the norms replicated; the logits are then the rank's
+    vocabulary columns.  Remat's recompute issues the forward's
+    collectives again, in the same order on every rank."""
+    if tp is None:
+        x = F.embedding(tokens.long(), params["embed"]).to(compute_dtype)
+    else:
+        if prefix is not None or frames is not None:
+            raise NotImplementedError("a prefix or frames under tensor "
+                                      "parallelism (ROADMAP.md Queue 1, "
+                                      "item 4c)")
+        x = vocab_parallel_embedding(tokens, params["embed"], tp,
+                                     compute_dtype)
     if prefix is not None:
         pfx = (prefix.to(compute_dtype) @
                params["prefix_proj"].to(compute_dtype))
@@ -234,7 +255,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block in enumerate(params["blocks"]):
         fn = functools.partial(_block_apply, cfg=cfg, kind=cfg.layer_kind(i),
-                               chunk=chunk)
+                               chunk=chunk, tp=tp)
         if cfg.remat and torch.is_grad_enabled():
             x, aux_i = checkpoint(fn, block, x, memory, use_reentrant=False)
         else:
@@ -244,28 +265,36 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if return_hidden:
         return x, aux
     head = params.get("lm_head", params["embed"])
-    return x @ head.T.to(compute_dtype), aux
+    return copy_to(x, tp) @ head.T.to(compute_dtype), aux
 
 
 def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, *, prefix=None, frames=None,
-            compute_dtype=torch.bfloat16, chunk: int = 1024) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, chunk: int = 1024,
+            tp=None) -> torch.Tensor:
     """Causal LM cross-entropy (mean over the text tokens) + the aux loss.
 
     The log-sum-exp runs in fp32 on fp32 logits.  With ``cfg.logit_chunk >
     0`` the LM head and softmax run in sequence chunks, never materializing
-    the full (B, S, V) logits.
+    the full (B, S, V) logits.  Under tensor parallelism (``tp``, see
+    :func:`forward`) each rank's head holds its vocabulary rows, and the
+    cross-entropy is :func:`~repro_torch.sharding.tensor_parallel.
+    vocab_parallel_ce` over the split logits.
     """
     hidden, aux = forward(params, cfg, tokens, prefix=prefix, frames=frames,
                           compute_dtype=compute_dtype, chunk=chunk,
-                          return_hidden=True)
+                          return_hidden=True, tp=tp)
     if prefix is not None:
         hidden = hidden[:, prefix.shape[1]:]     # loss only on text tokens
     head = params.get("lm_head", params["embed"]).T.to(compute_dtype)
     labels = labels.long()
+    if tp is not None:
+        hidden = copy_to(hidden, tp)
 
     def ce(h_chunk, y_chunk):
         logits = (h_chunk @ head).to(torch.float32)
+        if tp is not None:
+            return torch.sum(vocab_parallel_ce(logits, y_chunk, tp))
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.take_along_dim(logits, y_chunk[..., None], dim=-1)[..., 0]
         return torch.sum(logz - gold)

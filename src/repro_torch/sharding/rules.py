@@ -12,9 +12,12 @@ of names, or ``None`` (the reference's ``PartitionSpec``, entry for
 entry); a tree of specs holds them where the parameter or cache tree holds
 its tensors.  A :class:`Sharding` pairs a spec with a mesh and gives the
 shard of a global shape that one device holds, so the dry run sizes every
-device's bytes with no device and no allocation.  The specs describe the
-layout a tensor-parallel step would use; the port's steps still run with
-``model = 1`` only (:mod:`repro_torch.launch.train`).
+device's bytes with no device and no allocation.  :func:`shard_leaf`
+cuts a rank's block out of a global tensor along the ``model`` entry of
+its fitted spec and :func:`unshard_leaf` joins the blocks back over the
+model group: the mesh trainer's tensor-parallel state is laid out so
+(:mod:`repro_torch.launch.train`); the serve steps still run with
+``model = 1`` only.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from typing import Any
 
 __all__ = ["param_specs", "param_shardings", "cache_specs", "batch_spec",
            "tree_shardings", "fit_spec", "batch_entry", "batch_rows",
-           "Sharding", "StandIn", "map_tree", "CACHE_SHARD_MODE"]
+           "Sharding", "StandIn", "map_tree", "CACHE_SHARD_MODE",
+           "model_dim", "shard_leaf", "unshard_leaf", "shard_tree",
+           "replicated_leaves"]
 
 # How decode caches shard over the "model" axis:
 #   "heads": shard the KV-head dim (falls back to replication where the
@@ -179,6 +184,63 @@ def fit_spec(spec: tuple, shape, mesh) -> tuple:
             continue
         out.append(entry if shape[i] % _factor(entry, mesh) == 0 else None)
     return tuple(out)
+
+
+def model_dim(spec: tuple, shape, mesh):
+    """The dimension that the ``model`` axis splits in ``spec`` fitted to
+    ``shape`` on ``mesh``, or None where the leaf is whole on every model
+    rank (a norm, or a dimension the axis does not divide)."""
+    if mesh.shape.get("model", 1) == 1:
+        return None
+    for i, entry in enumerate(fit_spec(spec, shape, mesh)):
+        if "model" in _names(entry):
+            return i
+    return None
+
+
+def shard_leaf(leaf, spec: tuple, mesh, model_rank: int):
+    """Model rank ``model_rank``'s block of the global tensor ``leaf``
+    along the ``model`` entry of ``fit_spec(spec)``: the
+    ``model_rank``-th of ``M`` equal slices of that dimension (a view), or
+    ``leaf`` itself where the leaf is replicated."""
+    dim = model_dim(spec, tuple(leaf.shape), mesh)
+    if dim is None:
+        return leaf
+    size = leaf.shape[dim] // mesh.shape["model"]
+    return leaf.narrow(dim, model_rank * size, size)
+
+
+def unshard_leaf(block, spec: tuple, shape, mesh, group):
+    """The global ``shape`` tensor from every model rank's ``block``: an
+    ``all_gather`` over the model ``group``, joined along the dimension
+    :func:`shard_leaf` cut (``block`` itself where the leaf is
+    replicated)."""
+    dim = model_dim(spec, tuple(shape), mesh)
+    if dim is None or group is None:
+        return block
+    import torch
+    import torch.distributed as dist
+    block = block.contiguous()
+    parts = [torch.empty_like(block)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, block, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def shard_tree(params, mesh, model_rank: int):
+    """:func:`shard_leaf` over a parameter tree with its
+    :func:`param_specs`."""
+    return map_tree(lambda _, p, s: shard_leaf(p, s, mesh, model_rank),
+                    params, param_specs(params))
+
+
+def replicated_leaves(params, mesh) -> list:
+    """Per leaf of ``params`` (global shapes), in the trees' leaf order:
+    True where every model rank holds the whole leaf."""
+    from ..core.compression import tree_leaves
+    return tree_leaves(map_tree(
+        lambda _, p, s: model_dim(s, tuple(p.shape), mesh) is None, params,
+        param_specs(params)))
 
 
 def param_specs(params) -> Any:

@@ -1,12 +1,19 @@
-"""Two client ranks on gloo, for the mesh-trainer tests (numpy and the
-port only, no JAX):
+"""Gloo ranks on the CPU, for the mesh-trainer tests (numpy and the port
+only, no JAX):
 
-    python tests/_torch_mesh_worker.py <case> <in.pt> <out.pt>
+    python tests/_torch_mesh_worker.py <case> <in.pt> <out.pt> [ranks]
 
-spawns two ranks on the CPU, runs the jobs of ``in.pt`` on each and writes
-every rank's results to ``<out.pt>.<rank>``.  Cases: ``reduce`` (the codec
-tree API's collectives and the sharded tree compressors) and ``step``
-(``make_train_step`` on ``make_debug_mesh(data=2, model=1)``).
+spawns ``ranks`` ranks (default 2), one torch thread each, runs the jobs of
+``in.pt`` on each and writes every rank's results to ``<out.pt>.<rank>``.
+Cases (``a+b`` runs several in one spawn, ``in.pt``
+a dict of their inputs): ``reduce`` (the codec tree API's collectives and the sharded tree
+compressors) and ``step`` (``make_train_step`` on ``make_debug_mesh(data=2,
+model=1)``); tensor parallelism's ``tp_blocks`` (the split MLP, attention,
+vocab-parallel embedding and cross-entropy with their gradients),
+``tp_select`` (the split k-selection and the tree STC over a model group)
+and ``tp_step`` (``make_train_step`` on ``make_debug_mesh(data, model)``,
+the state joined back after each job, and on request one step under
+``FlopCounterMode`` with what it hands gloo counted).
 """
 
 import socket
@@ -63,24 +70,190 @@ def _step(rank, inp, group):
     return out
 
 
-def _rank(rank, case, inp_path, out_path, port):
+def _tp(rank, group):
+    from repro_torch.sharding.tensor_parallel import TensorParallel
+    return TensorParallel(group, rank, dist.get_world_size(group))
+
+
+def _tp_blocks(rank, inp, group):
+    """Each block on this rank's parameter blocks: its output and the
+    gradients of ``sum(out * cot)`` for its inputs and blocks."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.attention import attn_apply
+    from repro_torch.models import params_from_jax
+    from repro_torch.models.layers import mlp_apply
+    from repro_torch.sharding.tensor_parallel import (
+        vocab_parallel_ce, vocab_parallel_embedding)
+    cfg = get_smoke_config(inp["arch"])
+    tp = _tp(rank, group)
+    mesh = make_debug_mesh(1, tp.size)
+    params = params_from_jax(inp["params"], mesh=mesh, model_rank=rank)
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
+    out = {}
+    x = leaf(inp["x"])
+    mlp = {k: leaf(v) for k, v in params["blocks"][0]["mlp"].items()}
+    y = mlp_apply(mlp, x, cfg.mlp_act, tp)
+    (y * inp["cot"]).sum().backward()
+    out["mlp"] = (y.detach(), x.grad, {k: v.grad for k, v in mlp.items()})
+    x = leaf(inp["x"])
+    mix = {k: leaf(v) for k, v in params["blocks"][0]["mix"].items()}
+    y = attn_apply(mix, x, n_heads=cfg.n_heads // tp.size,
+                   n_kv_heads=cfg.n_kv_heads // tp.size,
+                   head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                   chunk=inp["chunk"], tp=tp)
+    (y * inp["cot"]).sum().backward()
+    out["attention"] = (y.detach(), x.grad,
+                        {k: v.grad for k, v in mix.items()})
+    table = leaf(params["embed"])
+    y = vocab_parallel_embedding(inp["tokens"], table, tp, torch.float32)
+    (y * inp["cot"]).sum().backward()
+    out["embedding"] = (y.detach(), None, {"embed": table.grad})
+    v_local = inp["logits"].shape[-1] // tp.size
+    logits = leaf(inp["logits"][..., rank * v_local:(rank + 1) * v_local])
+    y = vocab_parallel_ce(logits, inp["labels"], tp)
+    (y * inp["cot_ce"]).sum().backward()
+    out["ce"] = (y.detach(), None, {"logits": logits.grad})
+    return out
+
+
+def _tp_select(rank, inp, group):
+    """The split selection of each case's parts, and the tree STC of each
+    tree case over the model group."""
+    from repro_torch.core.distributed import (ModelShards,
+                                              stc_compress_tree_with_residual)
+    from repro_torch.kernels.hist_select import hist_topk_threshold_split
+    rows = [hist_topk_threshold_split(torch.from_numpy(parts[rank])[None],
+                                      k, group)
+            for parts, k in inp["rows"]]
+    trees = []
+    for shards, replicated, p, numel in inp["trees"]:
+        tern, res, st = stc_compress_tree_with_residual(
+            shards[rank], p, numel=numel,
+            model=ModelShards(group, rank, tuple(replicated)))
+        trees.append((tern, res, tuple(st)))
+    return {"rows": rows, "trees": trees}
+
+
+class _Handed:
+    """Counts what the process hands gloo: ``(group, op, dtype)`` ->
+    ``[calls, bytes]`` (an all_gather's bytes: what it gathers)."""
+
+    def __init__(self, groups):
+        self.groups, self.log = groups, {}
+        self.saved = dist.all_reduce, dist.all_gather
+
+    def __enter__(self):
+        reduce_, gather = self.saved
+
+        def all_reduce(t, op=dist.ReduceOp.SUM, group=None, **kw):
+            self._add(group, "all_reduce", t, t.numel() * t.element_size())
+            return reduce_(t, op=op, group=group, **kw)
+
+        def all_gather(parts, t, group=None, **kw):
+            self._add(group, "all_gather", t,
+                      len(parts) * t.numel() * t.element_size())
+            return gather(parts, t, group=group, **kw)
+
+        dist.all_reduce, dist.all_gather = all_reduce, all_gather
+        return self
+
+    def _add(self, group, op, t, nbytes):
+        name = self.groups.get(id(group), "other")
+        rec = self.log.setdefault((name, op, str(t.dtype)), [0, 0])
+        rec[0] += 1
+        rec[1] += nbytes
+
+    def __exit__(self, *exc):
+        dist.all_reduce, dist.all_gather = self.saved
+
+
+def _tp_step(rank, inp, group):
+    """Each job's steps on ``make_debug_mesh(*inp["mesh"])``: the metrics
+    a step, this rank's replicated leaves a step, the state joined back
+    over the model group; a job with ``count`` runs one more step under
+    ``FlopCounterMode`` and ``_Handed``."""
+    import dataclasses
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compression import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import (TrainConfig, init_train_state,
+                                          make_train_step, unshard_tree)
+    from repro_torch.sharding.rules import replicated_leaves
+    mesh = make_debug_mesh(*inp["mesh"])
+    out = []
+    for job in inp["jobs"]:
+        cfg = dataclasses.replace(get_smoke_config(inp["arch"]),
+                                  **job.get("cfg", {}))
+        tc = TrainConfig(**{"compute_dtype": torch.float32, **job["tc"]})
+        state = init_train_state(cfg, tc, mesh.n_clients, device="cpu",
+                                 params=inp["params"], mesh=mesh)
+        step = make_train_step(cfg, mesh, tc, device="cpu")
+        flags = replicated_leaves(inp["params"], mesh)
+        args = () if job.get("mask") is None else (
+            torch.tensor(job["mask"]), torch.zeros(len(job["mask"])))
+        metrics, replicated, wire = [], [], []
+        for _ in range(job.get("steps", 1)):
+            res = step(state, inp["batch"], *args)
+            state, m = res[0], res[1]
+            if tc.measure_wire:
+                wire.append(res[2])
+            metrics.append({k: float(v) for k, v in m.items()})
+            replicated.append(torch.cat([
+                x.reshape(-1) for x, r in zip(
+                    tree_leaves(state["params"]), flags) if r]))
+        whole = {}
+        for key, tree in state.items():
+            if key == "step":
+                continue
+            lead = key in ("client_res", "momentum")
+            t = tree_map(lambda x: x[0], tree) if lead else tree
+            t = unshard_tree(t, cfg, mesh, mesh.model_group())
+            whole[key] = tree_map(lambda x: x[None], t) if lead else t
+        counted = None
+        if job.get("count"):
+            groups = {id(mesh.model_group()): "model",
+                      id(mesh.client_group()): "client"}
+            with FlopCounterMode(display=False) as flops, \
+                    _Handed(groups) as handed:
+                step(state, inp["batch"], *args)
+            counted = (flops.get_total_flops(), handed.log)
+        out.append({"metrics": metrics, "replicated": replicated,
+                    "state": whole, "wire": wire, "counted": counted})
+    return out
+
+
+def _rank(rank, case, inp_path, out_path, port, world):
+    if case.startswith("tp_"):
+        torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=WORLD, rank=rank)
+                            world_size=world, rank=rank)
     try:
         inp = torch.load(inp_path, weights_only=False)
-        fn = {"reduce": _reduce, "step": _step}[case]
-        torch.save(fn(rank, inp, dist.group.WORLD), f"{out_path}.{rank}")
+        fns = {"reduce": _reduce, "step": _step, "tp_blocks": _tp_blocks,
+               "tp_select": _tp_select, "tp_step": _tp_step}
+        if "+" in case:             # several cases, ``inp`` a dict of inputs
+            out = {c: fns[c](rank, inp[c], dist.group.WORLD)
+                   for c in case.split("+")}
+        else:
+            out = fns[case](rank, inp, dist.group.WORLD)
+        torch.save(out, f"{out_path}.{rank}")
     finally:
         dist.destroy_process_group()
 
 
 def main():
     case, inp_path, out_path = sys.argv[1:4]
+    world = int(sys.argv[4]) if len(sys.argv) > 4 else WORLD
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    mp.spawn(_rank, args=(case, inp_path, out_path, port), nprocs=WORLD,
-             join=True)
+    mp.spawn(_rank, args=(case, inp_path, out_path, port, world),
+             nprocs=world, join=True)
 
 
 if __name__ == "__main__":

@@ -21,11 +21,17 @@ initial parameters through ``params_from_jax``, at fp32:
   unchanged; an all-zero mask moves neither the parameters nor the server
   residual (bitwise).
 * ``WireLedger``'s four columns equal the reference's on the same messages.
+* TernQuant in lock-step (R15, ROADMAP Queue 3): the reference's tree Δ
+  is an fp32 sum then (θ·S)/n, the port's θ·(S/n) of an fp64 sum, so
+  ``nnz`` is within one a step, the loss within rtol 1e-5, and the states
+  equal within 1e-6 but for a few coordinates (at most 0.1 % of them, 16
+  at the least), each within 4 µ.
 * The loss falls over 4 steps for stc, topk, signsgd, fedavg
   (``local_iters=2``), baseline and ternquant.
-* The errors: a mask without ``masked=True``, a ``model`` axis > 1, no card
+* The errors: a mask without ``masked=True``, a ``model`` axis > 1 for a
+  split the step does not run (SmolLM's 9 / 3 heads, a MoE arch), no card
   without ``device="cpu"``, a 2-client mesh without a process group; and
-  the CLI on two ranks.
+  the CLI on two ranks, and on two tensor-parallel ranks.
 """
 
 import functools
@@ -120,13 +126,23 @@ def test_moe_single_client_lockstep_with_reference(arch):
     assert int(pm["nnz_up"]) >= int(cfg.param_count() / 50)
 
 
-def _lockstep(arch, kw):
+def held_r15(got, want, mu):
+    """R15's tolerance for flat states: within 1e-6 but for at most 0.1 %
+    of the coordinates (16 at the least), each within ``4·mu``."""
+    off = np.abs(got - want) > 1e-6
+    assert int(off.sum()) <= max(16, got.size // 1000), int(off.sum())
+    assert float(np.abs(got - want).max(initial=0.0)) <= 4 * mu
+
+
+def _lockstep(arch, kw, extra=None, r15=False):
     """3 lock-step steps of one client against the reference's
     ``make_train_step``: the metrics' keys and counts, the loss and every
-    state entry as the module docstring says.  Returns the port's last
-    state and metrics."""
+    state entry as the module docstring says (``r15``: R15's TernQuant
+    tolerance).  ``extra`` are the arch's frames or prefix (numpy).
+    Returns the port's last state and metrics."""
     cfg = ref_smoke(arch)
     toks, labels = _lm_batch(cfg.vocab_size)
+    extra = extra or {}
     rtc = RefTrainConfig(compute_dtype=jnp.float32, **kw)
     rstate = ref_init_state(cfg, rtc, 1, jax.random.PRNGKey(0))
     mesh = ref_debug_mesh(data=1, model=1)
@@ -140,24 +156,40 @@ def _lockstep(arch, kw):
         pstep = make_train_step(get_smoke_config(arch),
                                 make_debug_mesh(data=1, model=1), tc,
                                 device=CPU)
-        rb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+        rb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+              **{k: jnp.asarray(v) for k, v in extra.items()}}
         pb = {"tokens": torch.from_numpy(toks),
-              "labels": torch.from_numpy(labels)}
+              "labels": torch.from_numpy(labels),
+              **{k: torch.from_numpy(v) for k, v in extra.items()}}
+        mu = 0.0
         for _ in range(3):
+            before = _flat(pstate["params"])
             rstate, rm = rstep(rstate, rb)
             pstate, pm = pstep(pstate, pb)
+            # a kept coordinate moves by the step's µ
+            mu += float(np.abs(_flat(pstate["params"]) - before).max())
             assert sorted(pm) == sorted(rm)
             for key in ("nnz_up", "nnz_down"):
                 if key in rm:
-                    assert int(pm[key]) == int(rm[key])
+                    assert abs(int(pm[key]) - int(rm[key])) <= int(r15)
             np.testing.assert_allclose(float(pm["loss"]), float(rm["loss"]),
                                        rtol=1e-5)
             assert sorted(pstate) == sorted(rstate)
             for key in sorted(pstate):
+                if r15:
+                    held_r15(_flat(pstate[key]), _flat(rstate[key]), mu)
+                    continue
                 np.testing.assert_allclose(_flat(pstate[key]),
                                            _flat(rstate[key]), rtol=0,
                                            atol=1e-6, err_msg=key)
     return pstate, pm
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b"])
+def test_ternquant_lockstep_holds_what_r15_allows(arch):
+    pstate, pm = _lockstep(arch, dict(protocol="ternquant", lr=0.05),
+                           r15=True)
+    assert int(pstate["step"]) == 3 and int(pm["nnz_up"]) > 0
 
 
 @pytest.mark.parametrize("protocol", ["stc", "topk", "signsgd", "fedavg",
@@ -224,9 +256,14 @@ def test_mask_needs_masked_mode():
 def test_model_axis_and_missing_card_and_group_raise():
     cfg = get_smoke_config("smollm-135m")
     tc = TrainConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # SmolLM's 9 query and 3 KV heads do not split two ways (item 4d);
+    # the MoE family waits for item 4c
+    with pytest.raises(NotImplementedError, match="ROADMAP.*4d"):
         make_train_step(cfg, make_debug_mesh(data=1, model=2), tc,
                         device=CPU)
+    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP.*4c"):
+        make_train_step(get_smoke_config("granite-moe-3b-a800m"),
+                        make_debug_mesh(data=1, model=2), tc, device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_train_step(cfg, make_debug_mesh(data=1, model=1), tc)
@@ -367,6 +404,18 @@ def test_cli_on_two_ranks():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--ranks", "2", "--steps", "2", "--measure-wire"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": SRC})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("step ") == 2
+    assert "wire ledger over 2 rounds" in out.stdout
+
+
+def test_cli_on_two_tensor_parallel_ranks():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--arch", "qwen2-0.5b", "--ranks", "2", "--model", "2", "--steps",
+         "2", "--measure-wire"],
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": SRC})
     assert out.returncode == 0, out.stderr[-3000:]

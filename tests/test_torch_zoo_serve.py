@@ -8,7 +8,8 @@ cross-attention) and ``internvl2-2b`` (prefix), at their smoke configs.
   ``make_train_step`` for the SSD and the hybrid (the helper and
   tolerances of ``test_torch_mesh_train.py``: every state entry within
   1e-6 absolute, the loss within rtol 1e-5, ``nnz`` exact), on a batch of
-  4 x 32 (four SSD chunks).
+  4 x 32 (four SSD chunks); and for whisper with stand-in frames and
+  internvl with a stand-in prefix.
 * Two gloo client ranks on the CPU (``tests/_torch_mesh_worker.py``):
   whisper's ``frames`` and internvl's ``prefix`` split by rows with the
   tokens; the baseline step's parameters are ``p − lr·mean`` of the two
@@ -70,6 +71,18 @@ def test_recurrent_archs_single_client_lockstep_with_reference(arch):
     assert int(pm["nnz_up"]) >= int(cfg.param_count() / 50)
     assert tuple(pstate["client_res"]["blocks"][0]["mix"]["w_in"].shape)[0] \
         == 1
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-2b"])
+def test_frames_and_prefix_archs_single_client_lockstep_with_reference(arch):
+    """Whisper with stand-in frames, internvl with a stand-in prefix: STC
+    in lock-step with the reference, exact but µ (the tree codecs that
+    tensor parallelism splits, on the inputs a front end adds)."""
+    cfg = configs.get_smoke_config(arch)
+    pstate, pm = _lockstep(arch, LOCKSTEP["stc"],
+                           extra=_extra(cfg, seed=1, b=4))
+    assert int(pstate["step"]) == 3
+    assert int(pm["nnz_up"]) >= int(cfg.param_count() / 50)
 
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-2b"])
