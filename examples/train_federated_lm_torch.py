@@ -20,7 +20,9 @@ steps on.
 
 import argparse
 import dataclasses
-import socket
+import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -36,11 +38,11 @@ from repro_torch.launch.train import (TrainConfig, init_train_state,
                                       make_train_step)
 
 
-def run(rank, args, port):
+def run(rank, args, rendezvous):
     device = resolve_device(args.device)
     if args.ranks > 1:
         import torch.distributed as dist
-        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+        dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
                                 world_size=args.ranks, rank=rank)
     mesh = make_debug_mesh(data=args.ranks, model=1)
     if args.full:
@@ -116,13 +118,16 @@ def main():
     args = ap.parse_args()
     resolve_device(args.device)          # no card: raise before spawning
     if args.ranks == 1:
-        run(0, args, 0)
+        run(0, args, "")
         return
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    torch.multiprocessing.spawn(run, args=(args, port), nprocs=args.ranks,
-                                join=True)
+    # the ranks meet through a file in a fresh directory
+    where = tempfile.mkdtemp(prefix="repro_torch_rendezvous_")
+    try:
+        torch.multiprocessing.spawn(
+            run, args=(args, os.path.join(where, "store")),
+            nprocs=args.ranks, join=True)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
 
 
 if __name__ == "__main__":

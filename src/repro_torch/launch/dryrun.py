@@ -32,7 +32,9 @@ PyTorch has no such analysis, so the port counts from the config:
   (:func:`tp_collectives`): the split products' ``all_reduce`` s, the
   vocab-parallel embedding's and cross-entropy's, and the split
   k-selection's; the selection's candidate gather is data-dependent and
-  listed apart (``collectives_data_dependent``);
+  listed apart (``collectives_data_dependent``); and for the serve steps
+  on such a mesh (:func:`tp_serve_collectives`), the embedding's and the
+  split products' ``all_reduce`` s and the logits' ``all_gather``;
 * ``server_ingest`` and ``fleet_scenarios`` as the reference measures them,
   through the port's :class:`~repro_torch.launch.train.WireLedger` (the
   ``"kernel"`` wire backend: ``pack_chunks`` on the card unless
@@ -41,10 +43,11 @@ PyTorch has no such analysis, so the port counts from the config:
 What a record leaves out: ``temp_size_in_bytes`` (activations and
 workspaces: nothing here measures them, so a record does not fit a step
 into memory by itself); and, for a config the step does not run with
-``model > 1`` (:func:`repro_torch.launch.train.tensor_parallel_gap`:
-MoE, MLA, SSD, RG-LRU, encoder, prefix, or a split that is not on whole
-heads), tensor parallelism's collectives, with its ``flops`` split over
-``model`` evenly, an assumption.  Where the step runs it, each product
+``model > 1`` (:func:`repro_torch.launch.train.tensor_parallel_gap`,
+:func:`repro_torch.launch.serve.serve_gap`: MoE, MLA, SSD, RG-LRU,
+encoder, prefix, a split that is not on whole heads, a decode's cache not
+split on the heads), tensor parallelism's collectives, with its ``flops``
+split over ``model`` evenly, an assumption.  Where the step runs it, each product
 splits on whole heads, columns or rows, so ``flops / model`` is each
 rank's count exactly.  The
 roofline terms are the H100's (:mod:`repro_torch.launch.hardware`).
@@ -72,13 +75,13 @@ from ..models.transformer import _uses_window
 from ..sharding.rules import Sharding, StandIn, batch_spec, map_tree
 from . import hardware
 from .mesh import Mesh, make_debug_mesh, make_production_mesh
-from .serve import serve_state_structs
+from .serve import serve_gap, serve_state_structs
 from .train import (TrainConfig, WireLedger, batch_shardings, codec_for,
                     init_train_state, state_shardings, tensor_parallel_gap)
 
 __all__ = ["lower_combo", "save_record", "main", "measured_ingest_bytes",
            "fleet_event_stats", "step_flops", "model_flops",
-           "tp_collectives"]
+           "tp_collectives", "tp_serve_collectives"]
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                          "artifacts", "dryrun_torch")
@@ -511,6 +514,33 @@ def tp_collectives(cfg: ModelConfig, tc: TrainConfig, mesh: Mesh,
     return counted, dependent
 
 
+def tp_serve_collectives(cfg: ModelConfig, mesh: Mesh, kind: str,
+                         rows: int, seq: int,
+                         cache_mode: str = "heads") -> dict:
+    """Tensor parallelism's collectives in one serve step (``kind``
+    ``"prefill"`` of ``rows`` prompts of ``seq`` tokens, or ``"decode"``
+    of ``rows`` tokens), as the step hands them to gloo over the model
+    group: ``{name: {"count", "bytes", "ranks"}}`` (an all-gather's bytes:
+    what it gathers), in the serve steps' bf16.  ``model-all-reduce``: the
+    embedding's rows and each layer's attention and MLP outputs, ``(t,
+    d)`` for the step's ``t`` tokens; ``model-all-gather``: the last
+    position's logits, the vocabulary's columns from every rank.  ``2·L +
+    2`` calls a step.  Empty where the step does not run the ``model``
+    axis."""
+    m = mesh.shape.get("model", 1)
+    if m == 1 or serve_gap(cfg, mesh, cache_mode):
+        return {}
+    t = rows * (seq if kind == "prefill" else 1)
+    width = 2                          # bytes of a bf16 element
+    acts = 2 * cfg.n_layers + 1
+    return {"model-all-reduce": {"count": acts,
+                                 "bytes": acts * t * cfg.d_model * width,
+                                 "ranks": m},
+            "model-all-gather": {"count": 1,
+                                 "bytes": rows * cfg.vocab_size * width,
+                                 "ranks": m}}
+
+
 def lower_combo(arch: str, shape_name, *, multi_pod: bool = False,
                 tc: TrainConfig | None = None, verbose: bool = True,
                 cache_shard: str = "heads", moe_dispatch: str = "",
@@ -603,11 +633,15 @@ def lower_combo(arch: str, shape_name, *, multi_pod: bool = False,
                 x.device_bytes() // 4
                 for x in tree_leaves(args["state"]["params"])),
             "ranks": mesh.n_clients}
+    serve_mode = cache_shard if shape.kind == "decode" else "heads"
     if shape.kind == "train":
         tp, dependent = tp_collectives(cfg, tc, mesh, rows, shape.seq_len)
-        collectives.update(tp)
-    tp_gap = (model > 1 and shape.kind == "train"
-              and tensor_parallel_gap(cfg, mesh, tc))
+        tp_gap = model > 1 and tensor_parallel_gap(cfg, mesh, tc)
+    else:
+        tp = tp_serve_collectives(cfg, mesh, shape.kind, rows, shape.seq_len,
+                                  serve_mode)
+        tp_gap = model > 1 and serve_gap(cfg, mesh, serve_mode)
+    collectives.update(tp)
     flops_dev = flops / model
     bytes_acc = memory["argument_size_in_bytes"] + memory[
         "output_size_in_bytes"]

@@ -13,10 +13,17 @@ one sync a layer a step (:mod:`repro_torch.models.moe`).
 
 The batch axis is the caller's to shard: on a mesh with client axes
 (``pod``, ``data``) each rank passes its own rows, and no collective is
-needed.  ``cache_mode`` takes the reference's values; they only pin
-layouts under GSPMD, so on a mesh whose ``model`` axis is 1 every mode
-gives the same values.  ``model > 1`` raises ``NotImplementedError``: the
-port does not run tensor parallelism yet (ROADMAP Queue 1).
+needed.  A ``model`` axis > 1 is tensor parallelism, as in the train step
+(:mod:`repro_torch.launch.train`): the model group's ranks each hold their
+:func:`~repro_torch.sharding.rules.shard_leaf` block of every parameter
+and, in the decode, their KV heads of every cache
+(``init_cache(..., model=M)``, ``cache_specs``' ``"heads"`` split); the
+steps run Megatron's split products and return the whole (B, 1, V)
+last-position logits on every rank.  It runs what the train step runs,
+the dense attention family split on whole heads (:func:`serve_gap`).
+``cache_mode`` takes the reference's values; they only pin layouts under
+GSPMD, so on a mesh whose ``model`` axis is 1 every mode gives the same
+values; under ``model > 1`` only ``"heads"`` runs.
 :func:`serve_state_structs` gives the sharded shape stand-ins of a serve
 step's parameters and caches on any mesh, for the dry run.
 """
@@ -30,20 +37,43 @@ from ..models.config import ModelConfig
 from ..models.transformer import decode_step, forward, init_cache, init_model
 from ..sharding.rules import (Sharding, StandIn, cache_specs, fit_spec,
                               map_tree, param_shardings)
+from ..sharding.tensor_parallel import TensorParallel, arch_gap, gather_vocab
 
-_TENSOR_PARALLEL = ("prefill and decode under tensor parallelism (a mesh "
-                    "'model' axis > 1), with head-sharded caches, do not run "
-                    "yet (ROADMAP.md Queue 1, item 4b); the train step runs "
-                    "it, and the dry run sizes it")
 __all__ = ["CACHE_MODES", "make_prefill_step", "make_decode_step",
-           "serve_state_structs"]
+           "serve_gap", "serve_state_structs"]
 
 CACHE_MODES = ("heads", "batch", "local", "seq")
 
 
-def _check(cfg: ModelConfig, mesh) -> None:
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(_TENSOR_PARALLEL)
+def serve_gap(cfg: ModelConfig, mesh, cache_mode: str = "heads"):
+    """Why the serve steps cannot run ``cfg`` with ``mesh``'s ``model``
+    axis, or None where they can: the split products' configs
+    (:func:`~repro_torch.sharding.tensor_parallel.arch_gap`, what the
+    train step runs) with head-sharded caches.  ``"batch"`` and
+    ``"local"`` keep a whole cache on every model rank and ``"seq"`` splits
+    it on the sequence (flash-decoding): other layouts, and other
+    collectives, than the heads' split.  The message names the ROADMAP
+    item that would run it."""
+    gap = arch_gap(cfg, mesh)
+    m = mesh.shape.get("model", 1)
+    if gap or m == 1 or cache_mode == "heads":
+        return gap
+    return (f"cache_mode={cache_mode!r} under tensor parallelism (a mesh "
+            f"'model' axis of {m}): the decode splits its caches on the KV "
+            f"heads only (ROADMAP.md Queue 1, item 4b, the other cache "
+            f"modes)")
+
+
+def _tensor_parallel(cfg: ModelConfig, mesh, cache_mode: str = "heads"):
+    """The model group of a step on ``mesh`` (None for ``model = 1``);
+    raises where :func:`serve_gap` names a gap."""
+    gap = serve_gap(cfg, mesh, cache_mode)
+    if gap:
+        raise NotImplementedError(gap)
+    if mesh.shape.get("model", 1) == 1:
+        return None
+    return TensorParallel(mesh.model_group(), mesh.model_rank(),
+                          mesh.shape["model"])
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
@@ -52,8 +82,9 @@ def make_prefill_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
     ``tokens`` (B, S), and ``prefix`` (B, P, d) or ``frames`` (B, F, d)
     where the arch takes them).  The logits are the LAST position's only,
     (B, 1, V): the realistic serving prefill, which never holds (B, S,
-    V)."""
-    _check(cfg, mesh)
+    V).  With a ``model`` axis > 1, ``params`` are this rank's blocks, and
+    the logits are still the whole vocabulary's."""
+    tp = _tensor_parallel(cfg, mesh)
     device = resolve_device(device)
 
     def prefill(params, batch):
@@ -64,9 +95,10 @@ def make_prefill_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
             hidden, _ = forward(params, cfg,
                                 torch.as_tensor(batch["tokens"]).to(device),
                                 compute_dtype=compute_dtype,
-                                return_hidden=True, **extra)
+                                return_hidden=True, tp=tp, **extra)
             head = params.get("lm_head", params["embed"])
-            return hidden[:, -1:, :] @ head.T.to(hidden.dtype)
+            return gather_vocab(hidden[:, -1:, :] @ head.T.to(hidden.dtype),
+                                tp)
 
     return prefill
 
@@ -78,18 +110,21 @@ def make_decode_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
     ``token`` is (B, 1); the caches passed in are consumed (written in
     place) and come back with their ``idx`` advanced on the device.
     ``memory`` is an encoder-decoder's encoder output
-    (:func:`repro_torch.models.encode_frames`), on the device."""
+    (:func:`repro_torch.models.encode_frames`), on the device.  With a
+    ``model`` axis > 1, ``params`` are this rank's blocks and ``caches``
+    its KV heads (``init_cache(..., model=M)``); a step issues ``2·L + 2``
+    collectives over the model group and makes no host sync."""
     if cache_mode not in CACHE_MODES:
         raise ValueError(f"unknown cache_mode {cache_mode!r}; options: "
                          f"{CACHE_MODES}")
-    _check(cfg, mesh)
+    tp = _tensor_parallel(cfg, mesh, cache_mode)
     device = resolve_device(device)
 
     def decode(params, token, caches, memory=None):
         with torch.inference_mode():
             return decode_step(params, cfg, torch.as_tensor(token).to(device),
                                caches, memory=memory,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, tp=tp)
 
     return decode
 

@@ -63,9 +63,9 @@ from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import init_model, lm_loss
 from ..sharding.rules import (Sharding, batch_entry, batch_rows, fit_spec,
-                              map_tree, model_dim, param_specs,
-                              replicated_leaves, shard_tree, unshard_leaf)
-from ..sharding.tensor_parallel import TensorParallel
+                              map_tree, param_specs, replicated_leaves,
+                              shard_tree, unshard_leaf)
+from ..sharding.tensor_parallel import TensorParallel, arch_gap
 
 __all__ = ["TrainConfig", "WireLedger", "codec_for", "init_train_state",
            "make_train_step", "state_shardings", "batch_shardings",
@@ -286,39 +286,17 @@ def _deterministic(device: torch.device):
 
 def tensor_parallel_gap(cfg: ModelConfig, mesh, tc: TrainConfig):
     """Why the step cannot run ``cfg`` with ``mesh``'s ``model`` axis, or
-    None where it can (``model = 1``, or the dense attention family split
-    on whole heads).  The message names the ROADMAP item that would run
-    it."""
-    m = mesh.shape.get("model", 1)
-    if m == 1:
-        return None
-    head = (f"tensor parallelism (a mesh 'model' axis of {m}) runs the dense "
-            f"attention family split on whole heads; {cfg.name}")
-    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
-    family = [name for name, there in (
-        ("MoE blocks", cfg.moe is not None), ("MLA blocks", "mla" in kinds),
-        ("SSD blocks", "ssd" in kinds), ("RG-LRU blocks", "rglru" in kinds),
-        ("an encoder", cfg.encoder is not None),
-        ("a prefix", bool(cfg.n_prefix_tokens))) if there]
-    if family:
-        return (f"{head} has {', '.join(family)} (ROADMAP.md Queue 1, "
-                f"item 4c)")
-    if cfg.n_heads % m or cfg.n_kv_heads % m:
-        return (f"{head}'s {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
-                f"do not split {m} ways (ROADMAP.md Queue 1, item 4d)")
-    whole = []
-    meta = init_model(cfg, device="meta")
-    map_tree(lambda path, p, s: whole.append("/".join(map(str, path)))
-             if "model" in s and model_dim(s, tuple(p.shape), mesh) is None
-             else None, meta, param_specs(meta))
-    if whole:
-        return (f"{head}: fit_spec keeps {', '.join(whole[:4])} whole, a "
-                f"split that is not the reference's (ROADMAP.md Queue 1, "
-                f"item 4d)")
-    if tc.chunks:
-        return (f"{head}: the chunked STC's blocks cut across the shards "
-                f"(ROADMAP.md Queue 1, item 4d)")
-    return None
+    None where it can: the split products' configs
+    (:func:`~repro_torch.sharding.tensor_parallel.arch_gap`), but for the
+    chunked STC, whose blocks cut across the shards.  The message names
+    the ROADMAP item that would run it."""
+    gap = arch_gap(cfg, mesh)
+    if gap or mesh.shape.get("model", 1) == 1 or not tc.chunks:
+        return gap
+    return (f"tensor parallelism (a mesh 'model' axis of "
+            f"{mesh.shape['model']}) runs the dense attention family split "
+            f"on whole heads; {cfg.name}: the chunked STC's blocks cut "
+            f"across the shards (ROADMAP.md Queue 1, item 4d)")
 
 
 def unshard_tree(tree, cfg: ModelConfig, mesh, group):
@@ -513,14 +491,7 @@ def make_train_step(cfg: ModelConfig, mesh, tc: TrainConfig, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _run(rank: int, args, port: int) -> None:
+def _run(rank: int, args, rendezvous: str) -> None:
     from ..configs import get_config, get_smoke_config, stand_in_inputs
     from ..data import make_lm_tokens
     from .mesh import make_debug_mesh
@@ -528,7 +499,7 @@ def _run(rank: int, args, port: int) -> None:
     device = resolve_device(args.device)
     if args.ranks > 1:
         import torch.distributed as dist
-        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+        dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
                                 world_size=args.ranks, rank=rank)
     try:
         cfg = (get_config if args.full else get_smoke_config)(args.arch)
@@ -596,10 +567,19 @@ def main(argv=None):
     if args.ranks < 1 or args.model < 1 or args.ranks % args.model:
         raise SystemExit("--ranks must be a positive multiple of --model")
     if args.ranks == 1:
-        _run(0, args, 0)
+        _run(0, args, "")
         return
+    import shutil
+    import tempfile
     import torch.multiprocessing as mp
-    mp.spawn(_run, args=(args, _free_port()), nprocs=args.ranks, join=True)
+    # the ranks meet through a file no other world can name (a port taken
+    # from a closed socket can be taken again before rank 0 binds it)
+    where = tempfile.mkdtemp(prefix="repro_torch_rendezvous_")
+    try:
+        mp.spawn(_run, args=(args, os.path.join(where, "store")),
+                 nprocs=args.ranks, join=True)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
 
 
 if __name__ == "__main__":

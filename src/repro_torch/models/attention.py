@@ -157,7 +157,7 @@ def init_kv_cache(batch: int, s_cache: int, n_kv_heads: int, head_dim: int,
 def attn_decode(
     params, x: torch.Tensor, cache: KVCache, *, n_heads: int, n_kv_heads: int,
     head_dim: int, rope_theta: float = 10000.0, window: int = 0,
-    memory: Optional[torch.Tensor] = None,
+    memory: Optional[torch.Tensor] = None, tp=None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode: x is (B, 1, d). Returns (out (B,1,d), cache).
 
@@ -169,8 +169,19 @@ def attn_decode(
     is consumed, and the one returned holds the same tensors and
     ``idx + 1`` (on the device).  ``memory`` switches to cross-attention
     over it, and the cache comes back untouched.
+
+    Under tensor parallelism (``tp``, self attention only) ``params`` are
+    the rank's blocks, as in :func:`attn_apply`, ``n_heads`` /
+    ``n_kv_heads`` its local heads, and ``cache`` holds only its KV heads;
+    the partial outputs are summed over the model group (Megatron's *g*,
+    an ``all_reduce`` in the forward).
     """
+    from ..sharding.tensor_parallel import reduce_from
     b = x.shape[0]
+    if tp is not None and memory is not None:
+        raise NotImplementedError("cross-attention under tensor "
+                                  "parallelism (ROADMAP.md Queue 1, "
+                                  "item 4c)")
     if memory is not None:
         sm = memory.shape[1]
         q = (x @ params["wq"].to(x.dtype)).reshape(b, 1, n_heads, head_dim)
@@ -193,7 +204,8 @@ def attn_decode(
     n_valid = torch.clamp(cache.idx + 1, max=s_cache)
     valid = torch.arange(s_cache, device=x.device) < n_valid
     out = _dense_decode_attn(q, cache.k, cache.v, valid)
-    out = out.reshape(b, 1, n_heads * head_dim) @ params["wo"].to(x.dtype)
+    out = reduce_from(out.reshape(b, 1, n_heads * head_dim) @
+                      params["wo"].to(x.dtype), tp)
     return out, cache._replace(idx=cache.idx + 1)
 
 

@@ -44,7 +44,8 @@ from torch.utils.checkpoint import checkpoint
 from . import attention, mla, moe, rglru, ssm
 from ..device import resolve_device
 from .config import ModelConfig
-from ..sharding.tensor_parallel import (copy_to, vocab_parallel_ce,
+from ..sharding.tensor_parallel import (copy_to, gather_vocab,
+                                        vocab_parallel_ce,
                                         vocab_parallel_embedding)
 from .layers import embed_init, mlp_apply, mlp_init, rms_norm, rms_norm_init
 
@@ -316,17 +317,27 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_cache: int,
-               dtype=torch.bfloat16, device=None) -> list:
+               dtype=torch.bfloat16, device=None, model: int = 1) -> list:
     """Per-layer caches on ``device`` (the card unless ``"cpu"``).
     Windowed attention layers (``_uses_window``) get a ring buffer of the
     window when it is shorter than ``s_cache``; the other attention layers
     ``s_cache`` slots; MLA layers a latent cache of ``s_cache`` slots
     whatever the window (the reference's rule); SSD and RG-LRU layers their
-    recurrent state and conv tail, whatever ``s_cache``."""
+    recurrent state and conv tail, whatever ``s_cache``.
+
+    ``model`` > 1 allocates one model rank's block of a tensor-parallel
+    decode's caches (:func:`decode_step` with ``tp``): each KV layer's
+    ``n_kv_heads // model`` heads, the ``"heads"`` split of
+    :func:`~repro_torch.sharding.rules.cache_specs`; the other cache kinds
+    raise."""
     device = resolve_device(device)
     caches = []
     for i in range(cfg.n_layers):
         kind = cfg.layer_kind(i)
+        if model > 1 and kind not in ("attn", "local"):
+            raise NotImplementedError(
+                f"a {kind} cache under tensor parallelism (ROADMAP.md "
+                f"Queue 1, item 4c)")
         if kind == "mla":
             caches.append(mla.init_mla_cache(batch, s_cache, cfg.mla, dtype,
                                              device=device))
@@ -340,34 +351,53 @@ def init_cache(cfg: ModelConfig, batch: int, s_cache: int,
                                                  cfg.rglru, dtype,
                                                  device=device))
             continue
+        if cfg.n_kv_heads % model:
+            raise ValueError(f"{cfg.n_kv_heads} KV heads do not split "
+                             f"{model} ways")
         use_window = _uses_window(cfg, kind)
         window = cfg.sliding_window
         size = min(window, s_cache) if use_window and window else s_cache
         caches.append(attention.init_kv_cache(
-            batch, size, cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
-            ring=bool(use_window and window and size < s_cache),
+            batch, size, cfg.n_kv_heads // model, cfg.resolved_head_dim,
+            dtype, ring=bool(use_window and window and size < s_cache),
             device=device))
     return caches
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: list,
                 *, memory: Optional[torch.Tensor] = None,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, tp=None):
     """One decode step. token: (B, 1) integers -> (logits (B,1,V), caches).
     The caches passed in are consumed (written in place).  ``memory`` is
     the encoder output (:func:`encode_frames`) for the cross-attention
     blocks; without cross-attention blocks it goes unused, as in the
-    reference."""
-    x = F.embedding(token.long(), params["embed"]).to(compute_dtype)
+    reference.
+
+    ``tp`` (a :class:`~repro_torch.sharding.tensor_parallel.TensorParallel`)
+    runs the dense attention family tensor-parallel, as :func:`forward`
+    does, on the rank's parameter blocks and its caches
+    (``init_cache(..., model=tp.size)``: its KV heads): the vocab-parallel
+    embedding, each attention layer on its local heads, the split MLP,
+    and the rank's vocabulary columns of the logits joined over the model
+    group (:func:`~repro_torch.sharding.tensor_parallel.gather_vocab`), so
+    every rank returns the whole (B, 1, V).  A step issues ``2·L + 2``
+    collectives: the embedding's sum, two a layer, the logits' gather."""
+    if tp is None:
+        x = F.embedding(token.long(), params["embed"]).to(compute_dtype)
+    else:
+        x = vocab_parallel_embedding(token, params["embed"], tp,
+                                     compute_dtype)
+    m = 1 if tp is None else tp.size
     new_caches = []
     for i, (block, cache) in enumerate(zip(params["blocks"], caches)):
         kind = cfg.layer_kind(i)
         h = rms_norm(block["norm1"], x, cfg.norm_eps)
         if kind in ("attn", "local"):
             mix, new = attention.attn_decode(
-                block["mix"], h, cache, n_heads=cfg.n_heads,
-                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
-                rope_theta=cfg.rope_theta)
+                block["mix"], h, cache, n_heads=cfg.n_heads // m,
+                n_kv_heads=cfg.n_kv_heads // m,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                tp=tp)
         elif kind == "mla":
             mix, new = mla.mla_decode(block["mix"], h, cache,
                                       n_heads=cfg.n_heads, cfg=cfg.mla,
@@ -387,12 +417,12 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: list,
             out, _ = attention.attn_decode(
                 block["cross"], hx, cache, n_heads=cfg.n_heads,
                 n_kv_heads=cfg.n_heads, head_dim=cfg.resolved_head_dim,
-                memory=memory)
+                memory=memory, tp=tp)
             x = x + out
         if kind != "ssd":
             out, _ = _ffn(block, rms_norm(block["norm2"], x, cfg.norm_eps),
-                          cfg)
+                          cfg, tp)
             x = x + out
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params.get("lm_head", params["embed"])
-    return x @ head.T.to(compute_dtype), new_caches
+    return gather_vocab(x @ head.T.to(compute_dtype), tp), new_caches

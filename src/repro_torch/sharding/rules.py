@@ -16,8 +16,9 @@ device's bytes with no device and no allocation.  :func:`shard_leaf`
 cuts a rank's block out of a global tensor along the ``model`` entry of
 its fitted spec and :func:`unshard_leaf` joins the blocks back over the
 model group: the mesh trainer's tensor-parallel state is laid out so
-(:mod:`repro_torch.launch.train`); the serve steps still run with
-``model = 1`` only.
+(:mod:`repro_torch.launch.train`), and so are the serve steps'
+parameters, their KV caches split on the heads
+(:mod:`repro_torch.launch.serve`).
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ through :func:`reduce_from` (``all_reduce`` forward, identity backward:
 and sums the rows over the ranks, and :func:`vocab_parallel_ce` takes the
 cross-entropy of logits split over the vocabulary with one ``all_reduce``
 MAX of the row maxima and one ``all_reduce`` SUM of the exp-sums and the
-gold logits; its backward is local.
+gold logits; its backward is local.  Serving takes no gradient:
+:func:`gather_vocab` joins the vocab-parallel head's logits with one
+``all_gather``.  :func:`arch_gap` says which configs these splits run.
 
 A :class:`TensorParallel` names the model group, this rank's index in it
 and its size.  ``None`` in place of it (or of its group) makes every
@@ -27,7 +29,8 @@ from typing import Any, NamedTuple
 import torch
 
 __all__ = ["TensorParallel", "copy_to", "reduce_from",
-           "vocab_parallel_embedding", "vocab_parallel_ce"]
+           "vocab_parallel_embedding", "vocab_parallel_ce", "gather_vocab",
+           "arch_gap"]
 
 
 class TensorParallel(NamedTuple):
@@ -144,3 +147,52 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
                                     dim=-1)[..., 0]
         return torch.logsumexp(logits, dim=-1) - gold
     return _VocabParallelCE.apply(logits, labels, tp.group, tp.rank)
+
+
+def gather_vocab(logits: torch.Tensor, tp) -> torch.Tensor:
+    """The whole vocabulary's logits from each rank's columns ``[rank·V_l,
+    (rank+1)·V_l)`` of the last dimension: one ``all_gather`` over the
+    model group, joined in rank order.  Forward only (serving)."""
+    if _group(tp) is None:
+        return logits
+    import torch.distributed as dist
+    logits = logits.contiguous()
+    parts = [torch.empty_like(logits) for _ in range(tp.size)]
+    dist.all_gather(parts, logits, group=tp.group)
+    return torch.cat(parts, dim=-1)
+
+
+def arch_gap(cfg, mesh):
+    """Why the split products cannot run ``cfg`` with ``mesh``'s ``model``
+    axis, or None where they can (``model = 1``, or the dense attention
+    family split on whole heads with no leaf that ``fit_spec`` keeps
+    whole).  The message names the ROADMAP item that would run it."""
+    from ..models.transformer import init_model
+    from .rules import map_tree, model_dim, param_specs
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return None
+    head = (f"tensor parallelism (a mesh 'model' axis of {m}) runs the dense "
+            f"attention family split on whole heads; {cfg.name}")
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+    family = [name for name, there in (
+        ("MoE blocks", cfg.moe is not None), ("MLA blocks", "mla" in kinds),
+        ("SSD blocks", "ssd" in kinds), ("RG-LRU blocks", "rglru" in kinds),
+        ("an encoder", cfg.encoder is not None),
+        ("a prefix", bool(cfg.n_prefix_tokens))) if there]
+    if family:
+        return (f"{head} has {', '.join(family)} (ROADMAP.md Queue 1, "
+                f"item 4c)")
+    if cfg.n_heads % m or cfg.n_kv_heads % m:
+        return (f"{head}'s {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
+                f"do not split {m} ways (ROADMAP.md Queue 1, item 4d)")
+    whole = []
+    meta = init_model(cfg, device="meta")
+    map_tree(lambda path, p, s: whole.append("/".join(map(str, path)))
+             if "model" in s and model_dim(s, tuple(p.shape), mesh) is None
+             else None, meta, param_specs(meta))
+    if whole:
+        return (f"{head}: fit_spec keeps {', '.join(whole[:4])} whole, a "
+                f"split that is not the reference's (ROADMAP.md Queue 1, "
+                f"item 4d)")
+    return None

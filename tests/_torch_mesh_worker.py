@@ -10,13 +10,16 @@ a dict of their inputs): ``reduce`` (the codec tree API's collectives and the sh
 compressors) and ``step`` (``make_train_step`` on ``make_debug_mesh(data=2,
 model=1)``); tensor parallelism's ``tp_blocks`` (the split MLP, attention,
 vocab-parallel embedding and cross-entropy with their gradients),
-``tp_select`` (the split k-selection and the tree STC over a model group)
-and ``tp_step`` (``make_train_step`` on ``make_debug_mesh(data, model)``,
+``tp_select`` (the split k-selection and the tree STC over a model group),
+``tp_step`` (``make_train_step`` on ``make_debug_mesh(data, model)``,
 the state joined back after each job, and on request one step under
-``FlopCounterMode`` with what it hands gloo counted).
+``FlopCounterMode`` with what it hands gloo counted) and ``tp_serve``
+(``make_prefill_step`` and ``make_decode_step`` on ``make_debug_mesh(1,
+model)`` from head-sharded caches, with what a step hands gloo counted).
+The ranks meet through a ``file://`` rendezvous beside ``<out.pt>``.
 """
 
-import socket
+import os
 import sys
 
 import torch
@@ -227,15 +230,69 @@ def _tp_step(rank, inp, group):
     return out
 
 
-def _rank(rank, case, inp_path, out_path, port, world):
+def _tp_serve(rank, inp, group):
+    """Each arch's serve steps on ``make_debug_mesh(1, 2)`` from this
+    rank's blocks of ``params``: the fp32 prefill of ``prompt``, and the
+    fp32 decode teacher-forced through ``prompt`` then ``tail`` from the
+    rank's caches (their shapes and bytes kept), the first step with what
+    it hands gloo counted; then one bf16 prefill and one bf16 decode step,
+    each counted."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compression import tree_leaves
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache, params_from_jax
+    mesh = make_debug_mesh(1, dist.get_world_size(group))
+    m = mesh.shape["model"]
+    names = {id(mesh.model_group()): "model"}
+    out = {}
+    for arch, job in inp.items():
+        cfg = get_smoke_config(arch)
+        params = params_from_jax(job["params"], mesh=mesh, model_rank=rank)
+        toks = torch.cat([job["prompt"], job["tail"]], dim=1)
+        b, steps = toks.shape
+        rec = {"prefill": make_prefill_step(cfg, mesh, torch.float32,
+                                            device="cpu")(
+            params, {"tokens": job["prompt"]})}
+        decode = make_decode_step(cfg, mesh, torch.float32, device="cpu")
+        caches = init_cache(cfg, b, steps, torch.float32, device="cpu",
+                            model=m)
+        rec["cache"] = [[tuple(x.shape) for x in (c.k, c.v, c.idx)]
+                        for c in caches]
+        rec["cache_bytes"] = sum(x.numel() * x.element_size()
+                                 for x in tree_leaves(caches)
+                                 if isinstance(x, torch.Tensor))
+        logits = []
+        for t in range(steps):
+            with _Handed(names) as handed:
+                lg, caches = decode(params, toks[:, t:t + 1], caches)
+            if t == 0:
+                rec["decode_handed"] = handed.log
+            logits.append(lg)
+        rec["decode"] = torch.cat(logits, dim=1)
+        with _Handed(names) as handed:
+            make_prefill_step(cfg, mesh, device="cpu")(
+                params, {"tokens": job["prompt"]})
+        rec["bf16_prefill_handed"] = handed.log
+        caches = init_cache(cfg, b, steps, device="cpu", model=m)
+        with _Handed(names) as handed:
+            make_decode_step(cfg, mesh, device="cpu")(
+                params, job["prompt"][:, :1], caches)
+        rec["bf16_decode_handed"] = handed.log
+        out[arch] = rec
+    return out
+
+
+def _rank(rank, case, inp_path, out_path, rendezvous, world):
     if case.startswith("tp_"):
         torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
                             world_size=world, rank=rank)
     try:
         inp = torch.load(inp_path, weights_only=False)
         fns = {"reduce": _reduce, "step": _step, "tp_blocks": _tp_blocks,
-               "tp_select": _tp_select, "tp_step": _tp_step}
+               "tp_select": _tp_select, "tp_step": _tp_step,
+               "tp_serve": _tp_serve}
         if "+" in case:             # several cases, ``inp`` a dict of inputs
             out = {c: fns[c](rank, inp[c], dist.group.WORLD)
                    for c in case.split("+")}
@@ -249,11 +306,17 @@ def _rank(rank, case, inp_path, out_path, port, world):
 def main():
     case, inp_path, out_path = sys.argv[1:4]
     world = int(sys.argv[4]) if len(sys.argv) > 4 else WORLD
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    mp.spawn(_rank, args=(case, inp_path, out_path, port, world),
-             nprocs=world, join=True)
+    # the ranks meet through a fresh file beside the outputs, which no other
+    # world can name (a port from a closed socket can be taken in between)
+    rendezvous = f"{out_path}.rendezvous"
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    try:
+        mp.spawn(_rank, args=(case, inp_path, out_path, rendezvous, world),
+                 nprocs=world, join=True)
+    finally:
+        if os.path.exists(rendezvous):
+            os.remove(rendezvous)
 
 
 if __name__ == "__main__":

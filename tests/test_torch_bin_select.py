@@ -237,10 +237,14 @@ LONGEST = hist_select._MAX_CLUSTER * hist_select._CLUSTER_KEYS
     (1, 4_000_037, "two_read", 0),          # the overflow witness
     (1, 134_515_008, "two_read", 0),        # mesh (SmolLM-135M)
     (1, 63_713_088, "two_read", 0),         # mesh (SmolLM-135M, 10 layers)
-    (1, 368_227_840, "two_read", 0),        # ssm (Mamba-2-370M)
-    (1, 810_987_520, "two_read", 0),        # enc (whisper-medium)
+    (1, 368_227_840, "two_read", 0),        # ssm (Mamba-2-370M, 48 l.)
+    (1, 209_857_792, "two_read", 0),        # ssm (Mamba-2-370M, 24 l.)
+    (1, 810_987_520, "two_read", 0),        # enc (whisper-medium, 24 + 24)
+    (1, 458_604_544, "two_read", 0),        # enc (whisper-medium, 12 + 12)
     (1, 1_394_772_480, "two_read", 0),      # hybrid (RecurrentGemma, 12 l.)
+    (1, 1_025_067_520, "two_read", 0),      # hybrid (RecurrentGemma, 6 l.)
     (1, 1_641_666_560, "two_read", 0),      # vlm (internvl2-2b, 20 layers)
+    (1, 1_138_317_312, "two_read", 0),      # vlm (internvl2-2b, 12 layers)
     (1, 1_670_133_760, "two_read", 0),      # moe (DeepSeek-V2-Lite, 3 l.)
 ])
 def test_select_plan_of_each_chip_smoke_shape(rows, n, route, cluster):
