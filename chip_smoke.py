@@ -331,8 +331,9 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    step's median time as TFLOP/s and as a share of the 989 TFLOP/s bf16
    peak.
 16. tensor parallelism in the mesh trainer: Qwen2-0.5B at full width and
-   depth (494,032,768 parameters) on ``make_debug_mesh(data=1, model=2)``,
-   two gloo ranks on ``cuda:0``, STC p = 1/50 both ways (k = 9,880,655),
+   depth (494,032,768 parameters), on
+   ``make_debug_mesh(data=1, model=2)``, two gloo ranks on ``cuda:0``, STC
+   p = 1/50 both ways (k = 9,880,655),
    lr 0.05, bf16, remat, the 4 x 128 batch of ``make_lm_tokens(seed=0)``.
    Each rank: ``init_train_state`` asks the allocator for exactly the dry
    run's per-device state bytes on that mesh; the first step's carried
@@ -361,7 +362,16 @@ Needs one CUDA card and ``nvcc``; fails without them.  Phases:
    and the decode at batch 64 against 4,096 slots timed, a decode step
    with no host sync but gloo's own staging (``set_sync_debug_mode`` off
    only inside each collective), its ``2·24 + 2`` collectives equal to the
-   dry run's, its device time and idle share.
+   dry run's, its device time and idle share.  Then the same on heads cut
+   mid-head (the attention's gather route): SmolLM-135M at full width, its
+   depth cut to phase 11's 10 layers (63,713,088 parameters, k =
+   1,274,261), on ``make_debug_mesh(data=1, model=4)``, four gloo ranks,
+   each with 144 of ``wq``'s 576 columns (2.25 query heads) and 48 of
+   ``wk``'s 192 (0.75 of a KV head); every check above but the
+   ``WireLedger``, the fp32 step on a 4 x 32 batch, what a step hands
+   gloo (the gather route's ``all_gather`` s too) equal to the dry run's,
+   the four ranks' logits bitwise equal, a whole cache on every rank, and
+   ``3·10 + 2`` collectives a decode step.
 
 ``--signsgd-round`` runs the last of the timings of 6 alone on the package
 of the tree the file sits in: a copy inside a parent checkout unpacked
@@ -6055,18 +6065,30 @@ def run_dryrun(torch, np, rk):
 
 # --------------------------------------------------------------- phase 16
 
-TP_ARCH = "qwen2-0.5b"
-TP_NUMEL = 494_032_768          # 24 layers: full width and depth
-TP_K = 9_880_655                # int(TP_NUMEL / 50)
-# each rank's row: half of every sharded leaf and the 43,904 entries of
-# the replicated norms; the selection's owned row keeps the norms on model
-# rank 0 only
-TP_LOCAL = 247_038_336
-TP_OWNED = (247_038_336, 246_994_432)
+# the runs of phase 16: an arch at full width on make_debug_mesh(1, model).
+# "local" is each rank's row: its block of every sharded leaf and the whole
+# replicated norms; "owned" the selection's owned row a rank, which keeps
+# the norms on model rank 0 only
+TP_RUNS = {
+    # Qwen2-0.5B at full width and depth (24 layers): 14 query / 2 KV
+    # heads, whole heads on two ranks; the norms 43,904 entries
+    "qwen2": {"arch": "qwen2-0.5b", "model": 2, "layers": 24,
+              "numel": 494_032_768, "k": 9_880_655,
+              "local": 247_038_336, "owned": (247_038_336, 246_994_432),
+              "ledger": True, "fp32_seq": 128, "path": "tp"},
+    # SmolLM-135M, depth cut to phase 11's 10 layers: 9 query / 3 KV heads
+    # of 64, so a rank holds 144 of wq's 576 columns (2.25 heads) and 48 of
+    # wk's 192 (0.75 of a head): the attention's gather route; the norms
+    # 12,096 entries
+    "smollm": {"arch": "smollm-135m", "model": 4, "layers": 10,
+               "numel": 63_713_088, "k": 1_274_261,
+               "local": 15_937_344, "owned": (15_937_344,) + (15_925_248,) * 3,
+               "ledger": False, "fp32_seq": 32, "path": "tp_midhead"},
+}
 TP_STEPS = 5
 TP_LEDGER_STEPS = 2
 TP_NEAR = 1e-5                  # |x| within this rtol of the threshold
-TP_DIR = ROOT / "build" / "tp_ranks"
+TP_DIR = ROOT / "build" / "tp_ranks"         # a folder a run under it
 TP_RANK_TIMEOUT = 900
 TP_SERVE_PROMPT = 64            # fp32 TP against model = 1
 TP_SERVE_GREEDY = 8
@@ -6074,7 +6096,8 @@ TP_SERVE_BF16 = (4, 16)         # bf16 prefill against bf16 decode (a
                                 # step costs 50 gloo collectives: phase
                                 # 12's 512 tokens cut for the script's time)
 TP_PREFILL = (1, 8_192)         # phase 14's prefill for the attention archs
-TP_DECODE = (64, 4_096)         # 1.61 GB of bf16 cache a rank
+TP_DECODE = (64, 4_096)         # 1.61 GB (qwen2) and 2.01 GB
+                                # (smollm, whole caches) of bf16 cache a rank
 
 
 class GlooCalls:
@@ -6157,14 +6180,16 @@ class SyncFreeCollectives:
         self.dist.all_reduce, self.dist.all_gather = self.saved
 
 
-def tp_setup(torch, np):
-    """Qwen2-0.5B at full width and depth, the reference CLI's STC setting
-    (bf16 compute, remat) and ``make_lm_tokens(seed=0)`` in a 4 x 128
-    batch: ``(cfg, tc, batch)``."""
+def tp_setup(torch, np, run):
+    """The run's arch at full width (its depth cut where ``run`` says),
+    the reference CLI's STC setting (bf16 compute, remat) and
+    ``make_lm_tokens(seed=0)`` in a 4 x 128 batch: ``(cfg, tc, batch)``."""
     from repro_torch.configs import get_config
     from repro_torch.data import make_lm_tokens
     from repro_torch.launch.train import TrainConfig
-    cfg = get_config(TP_ARCH)
+    cfg = get_config(run["arch"])
+    if run["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=run["layers"])
     toks = make_lm_tokens(seed=0, n_tokens=4 * 128 + 1, vocab=cfg.vocab_size)
     batch = {"tokens": torch.from_numpy(toks[:-1].reshape(4, 128)),
              "labels": torch.from_numpy(toks[1:].reshape(4, 128))}
@@ -6289,9 +6314,9 @@ def tp_lockstep(torch, np, rk, cfg, tc, state, batch, tp, mesh, flags):
 
 
 def tp_fp32_check(torch, np, rk, cfg, tc, batch, mesh, rank):
-    """16f: one fp32 step of the two ranks from the seed-0 state against
-    the ``model = 1`` step of the same parameters and batch on the card
-    (rank 0 runs it after the ranks' step; the other waits): the loss
+    """16f: one fp32 step of the ranks from the seed-0 state against the
+    ``model = 1`` step of the same parameters and batch on the card (rank
+    0 runs it after the ranks' step; the others wait): the loss
     within rtol 1e-5 and ``nnz_up`` apart by no more than the model = 1
     carried row's magnitudes within rtol ``TP_NEAR`` of its threshold."""
     import torch.distributed as dist
@@ -6328,9 +6353,9 @@ def tp_fp32_check(torch, np, rk, cfg, tc, batch, mesh, rank):
 
 def tp_serve_fp32(torch, np, cfg, mesh, tp, trained, digest):
     """16i: the fp32 prefill of a 64-token prompt (batch 2) and its decode,
-    teacher-forced through the prompt and then 8 greedy steps, on the two
+    teacher-forced through the prompt and then 8 greedy steps, on the
     ranks; rank 0 then runs the ``model = 1`` steps on the joined weights
-    over the same tokens (the other rank waits): prefill and each decode
+    over the same tokens (the others wait): prefill and each decode
     step within ``CARD_CPU_TOL``, the greedy tokens equal where the
     ``model = 1`` top-2 gap exceeds twice it.  Returns rank 0's gaps."""
     import torch.distributed as dist
@@ -6427,14 +6452,15 @@ def tp_serve_bf16(torch, np, cfg, mesh, tp, trained, digest):
 
 
 def tp_serve_timed(torch, np, cfg, mesh, tp, trained, digest):
-    """16k: the rank's caches at batch 64 against 4,096 slots (requested
-    bytes equal to ``serve_state_structs``' per-device stand-ins, allocated
+    """16k: the rank's caches at batch 64 against 4,096 slots (its KV
+    heads, or the whole cache where they do not split; requested bytes
+    equal to ``serve_state_structs``' per-device stand-ins, allocated
     within the allocator's rounding), the bf16 prefill at (1, 8,192)
     (median of 3, what it hands gloo counted) and the decode: 6 warm-up
     steps, one under ``SyncFreeCollectives`` and ``GlooCalls`` (exactly
-    ``2·L + 2`` collectives, the dry run's ``tp_serve_collectives``), one
-    under the profiler (device time), 16 timed; each step feeds back its
-    argmax."""
+    the collectives of the dry run's ``tp_serve_collectives``: ``2·L + 2``
+    on whole heads, ``3·L + 2`` on the gather route), one under the
+    profiler (device time), 16 timed; each step feeds back its argmax."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.compression import tree_leaves
@@ -6478,8 +6504,12 @@ def tp_serve_timed(torch, np, cfg, mesh, tp, trained, digest):
     rec["cache_requested"] = requested_bytes(torch) - before_asked
     rec["cache_stand_ins"] = want_bytes
     rec["cache_heads"] = sorted({c.k.shape[2] for c in caches})
-    require(rec["cache_heads"] == [cfg.n_kv_heads // tp.size],
-            f"tp caches hold {rec['cache_heads']} KV heads a layer")
+    # the KV heads a rank's stand-ins hold (fit_spec's cache_specs)
+    heads = sorted({x.sharding.shard_shape(x.shape)[2] for x in stand_ins
+                    if len(x.shape) == 4})
+    require(rec["cache_heads"] == heads,
+            f"tp caches hold {rec['cache_heads']} KV heads a layer, not "
+            f"{heads}")
     require(rec["cache_requested"] == want_bytes,
             f"tp caches requested {rec['cache_requested']} bytes, the "
             f"stand-ins {want_bytes}")
@@ -6514,9 +6544,10 @@ def tp_serve_timed(torch, np, cfg, mesh, tp, trained, digest):
     want = tp_serve_collectives(cfg, mesh, "decode", b, s)
     rec.update(decode_gloo=calls.log, decode_collectives=free.calls,
                dryrun_decode=want, decode_gloo_ms=1e3 * calls.seconds)
-    require(free.calls == 2 * cfg.n_layers + 2,
+    calls_want = sum(c["count"] for c in want.values())
+    require(free.calls == calls_want,
             f"a tp decode step issued {free.calls} collectives, not "
-            f"{2 * cfg.n_layers + 2}")
+            f"{calls_want}")
     require(_as_records(calls.log) == _as_records(want),
             f"a tp decode step handed gloo {calls.log}, the dry run lists "
             f"{want}")
@@ -6546,26 +6577,30 @@ def tp_serve_timed(torch, np, cfg, mesh, tp, trained, digest):
     return rec
 
 
-def _as_records(log):
-    """A ``GlooCalls`` log, or the dry run's collectives, as ``{(op,
-    dtype-free): (calls, bytes)}`` over the model group."""
+def _as_records(log, skip=()):
+    """A ``GlooCalls`` log, or the dry run's collectives, as ``{op: (calls,
+    bytes)}`` over the model group, summed over dtypes and names; a log's
+    ``"op dtype"`` keys in ``skip`` left out."""
     out = {}
     for key, val in log.items():
         if isinstance(val, dict):
-            out[key.replace("model-", "").replace("-", "_")] = (
-                val["count"], val["bytes"])
-            continue
-        group, op, _ = key.split(" ")
-        require(group == "model", f"a collective outside the model group: "
-                f"{key}")
+            op = "all_gather" if key.endswith("all-gather") else "all_reduce"
+            val = (val["count"], val["bytes"])
+        else:
+            group, op, dtype = key.split(" ")
+            require(group == "model", f"a collective outside the model "
+                    f"group: {key}")
+            if f"{op} {dtype}" in skip:
+                continue
         calls, nbytes = out.get(op, (0, 0))
         out[op] = (calls + val[0], nbytes + val[1])
     return out
 
 
 def tp_serve(torch, np, rk, cfg, mesh, tp, trained):
-    """16i-k: serving the rank's trained shard of Qwen2-0.5B from
-    head-sharded caches, with the counters at 0 (the serve path launches
+    """16i-k: serving the rank's trained shard from its caches (head-sharded,
+    or whole where the KV heads do not split), with the counters at 0 (the
+    serve path launches
     none of the port's kernels).  Returns the rank's serve record, with a
     digest of every logits tensor it made (the ranks' must be equal)."""
     import hashlib
@@ -6593,17 +6628,18 @@ def tp_serve(torch, np, rk, cfg, mesh, tp, trained):
     return rec
 
 
-def tp_rank(rank, port, out_dir):
-    """16, one of the two model ranks of ``make_debug_mesh(1, 2)`` (a
-    spawned process, gloo on ``cuda:0``): the state's requested bytes
+def tp_rank(rank, port, out_dir, run):
+    """16, one of the model ranks of ``make_debug_mesh(1, run["model"])``
+    (a spawned process, gloo on ``cuda:0``): the state's requested bytes
     against the dry run (16a), the lock-step selection and kernel rows
     (16b, 16h), ``TP_STEPS`` steps with the counters at 0 and what it
     hands gloo counted (16c), one step under ``FlopCounterMode`` (16d),
-    ``TP_LEDGER_STEPS`` measured steps through the ``WireLedger`` (16e:
-    rank 0 on the card's wire route, rank 1 on the numpy route, each on
-    the joined messages it holds), the fp32 check (16f), the step's
-    times, device share and peak memory (16g), and serving the trained
-    shard (16i-k).  Writes its record to ``out_dir/rank<rank>.json``."""
+    where the run asks for it ``TP_LEDGER_STEPS`` measured steps through
+    the ``WireLedger`` (16e: rank 0 on the card's wire route, rank 1 on the
+    numpy route, each on the joined messages it holds), the fp32 check on
+    the run's rows (16f), the step's times, device share and peak memory
+    (16g), and serving the trained shard (16i-k).  Writes its record to
+    ``out_dir/rank<rank>.json``."""
     import hashlib
     import numpy as np
     import torch
@@ -6620,8 +6656,9 @@ def tp_rank(rank, port, out_dir):
     from repro_torch.models.transformer import init_model
     from repro_torch.sharding.rules import replicated_leaves
     from repro_torch.sharding.tensor_parallel import TensorParallel
+    m = run["model"]
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=2, rank=rank)
+                            world_size=m, rank=rank)
     stages, clock = {}, [time.perf_counter()]
 
     def stage(name):
@@ -6632,16 +6669,17 @@ def tp_rank(rank, port, out_dir):
 
     try:
         t_start = clock[0]
-        cfg, tc, batch = tp_setup(torch, np)
-        mesh = make_debug_mesh(1, 2)
-        tp = TensorParallel(mesh.model_group(), mesh.model_rank(), 2)
+        cfg, tc, batch = tp_setup(torch, np, run)
+        mesh = make_debug_mesh(1, m)
+        tp = TensorParallel(mesh.model_group(), mesh.model_rank(), m)
         numel = cfg.param_count()
         rec = lower_combo(cfg.name, InputShape("row", 128, 4, "train"),
                           mesh=mesh, cfg=cfg, tc=tc, verbose=False,
                           ingest=False)
         out = {"rank": rank, "numel": numel, "dryrun_flops": rec["flops"],
                "dryrun_state": rec["memory"]["arguments"]["state"],
-               "dryrun_collectives": rec["collectives"]}
+               "dryrun_collectives": rec["collectives"],
+               "dryrun_dependent": rec["collectives_data_dependent"]}
         torch.cuda.synchronize()
         asked = requested_bytes(torch)
         state = init_train_state(cfg, tc, 1, key=0, mesh=mesh)
@@ -6698,30 +6736,33 @@ def tp_rank(rank, port, out_dir):
         out.update(local_sgd_s=sgd, device_ms=sum(kt.values()))
         stage("timing")
         # 16e: measured steps through the WireLedger on both wire routes
-        measured = make_train_step(cfg, mesh, dataclasses.replace(
-            tc, measure_wire=True))
-        codec = codec_for(tc)
-        if rank == 0:
-            codec = dataclasses.replace(codec, wire_backend="kernel")
-        ledger = WireLedger(codec, numel)
-        s, packs = state, 0
-        for _ in range(TP_LEDGER_STEPS):
-            s, _, (msgs, gd) = measured(s, batch)
-            before = rk.LAUNCHES.counts["pack_chunks"]
-            ledger.record_round(msgs, gd)
-            torch.cuda.synchronize()
-            packs += rk.LAUNCHES.counts["pack_chunks"] - before
-            del msgs, gd
-        del s
-        out.update(ledger=ledger.summary(), ledger_packs=packs)
-        stage("ledger")
+        if run["ledger"]:
+            measured = make_train_step(cfg, mesh, dataclasses.replace(
+                tc, measure_wire=True))
+            codec = codec_for(tc)
+            if rank == 0:
+                codec = dataclasses.replace(codec, wire_backend="kernel")
+            ledger = WireLedger(codec, numel)
+            s, packs = state, 0
+            for _ in range(TP_LEDGER_STEPS):
+                s, _, (msgs, gd) = measured(s, batch)
+                before = rk.LAUNCHES.counts["pack_chunks"]
+                ledger.record_round(msgs, gd)
+                torch.cuda.synchronize()
+                packs += rk.LAUNCHES.counts["pack_chunks"] - before
+                del msgs, gd
+            del s, measured
+            out.update(ledger=ledger.summary(), ledger_packs=packs)
+            stage("ledger")
         peak = torch.cuda.max_memory_allocated() / 2**30
         trained = state["params"]
-        del state, step, measured
+        del state, step
         torch.cuda.empty_cache()
-        # 16f: fp32 against the model = 1 step
-        out["fp32"] = tp_fp32_check(torch, np, rk, cfg, tc, batch, mesh,
-                                    rank)
+        # 16f: fp32 against the model = 1 step, on the run's rows
+        seq = run["fp32_seq"]
+        out["fp32"] = tp_fp32_check(
+            torch, np, rk, cfg, tc, {k: v[:, :seq] for k, v in batch.items()},
+            mesh, rank)
         stage("fp32 check")
         # 16i-k: serving the trained shard
         out["serve"] = tp_serve(torch, np, rk, cfg, mesh, tp, trained)
@@ -6734,69 +6775,93 @@ def tp_rank(rank, port, out_dir):
 
 
 def run_tensor_parallel(torch, np, rk):
-    """Phase 16: tensor parallelism in the mesh trainer on the card:
-    Qwen2-0.5B at full width and depth on ``make_debug_mesh(1, 2)``, two
-    gloo ranks on ``cuda:0``, STC p = 1/50 both ways.  Checks each rank's
-    records (``tp_rank``) and returns ``(launches by path, keys by kernel
-    for the kernels line, max errors)``."""
+    """Phase 16: tensor parallelism in the mesh trainer on the card, each
+    run of ``TP_RUNS`` in turn (``tp_run``): Qwen2-0.5B at full width and
+    depth on ``make_debug_mesh(1, 2)`` (whole heads), then SmolLM-135M
+    at full width (10 layers) on ``make_debug_mesh(1, 4)`` (heads cut
+    mid-head: the attention's gather route), gloo ranks on ``cuda:0``, STC
+    p = 1/50 both ways.  Returns ``(launches by path, keys by kernel for the kernels
+    line, max errors)``."""
+    t0 = time.perf_counter()
+    rk.build_all()
+    launches, keys, errs = {}, {}, {}
+    for name, run in TP_RUNS.items():
+        paths, rows, run_errs = tp_run(torch, np, rk, name, run)
+        launches.update(paths)
+        for kernel, kv in rows.items():
+            keys.setdefault(kernel, {}).update(kv)
+        for kernel, err in run_errs.items():
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return launches, keys, errs
+
+
+def tp_run(torch, np, rk, name, run):
+    """One run of phase 16: ``run["model"]`` gloo ranks (``tp_rank``), each
+    rank's records checked.  Returns ``(launches by path, keys by kernel,
+    max errors)``."""
     import shutil
     import socket
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
     t0 = time.perf_counter()
-    rk.build_all()
-    shutil.rmtree(TP_DIR, ignore_errors=True)
-    TP_DIR.mkdir(parents=True)
+    m, arch = run["model"], run["arch"]
+    where = TP_DIR / name
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    ctx = mp.start_processes(tp_rank, args=(port, TP_DIR), nprocs=2,
+    ctx = mp.start_processes(tp_rank, args=(port, where, run), nprocs=m,
                              join=False, start_method="spawn")
     deadline = time.monotonic() + TP_RANK_TIMEOUT
     try:
         while not ctx.join(timeout=5):
             require(time.monotonic() < deadline,
-                    f"the two tensor-parallel ranks did not finish in "
-                    f"{TP_RANK_TIMEOUT} s")
+                    f"the {m} tensor-parallel ranks of {arch} did not "
+                    f"finish in {TP_RANK_TIMEOUT} s")
     except ProcessException as exc:
-        raise Failure(f"a tensor-parallel rank failed: {exc}") from exc
+        raise Failure(f"a tensor-parallel rank of {arch} failed: "
+                      f"{exc}") from exc
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
                 proc.kill()
             proc.join()
-    ranks = [json.loads((TP_DIR / f"rank{r}.json").read_text())
-             for r in range(2)]
+    ranks = [json.loads((where / f"rank{r}.json").read_text())
+             for r in range(m)]
     zero = ranks[0]
     numel, k = zero["numel"], max(int(zero["numel"] * P_STC), 1)
-    require((numel, k) == (TP_NUMEL, TP_K),
-            f"{TP_ARCH}: {numel} parameters, k = {k}")
-    losses = [m["loss"] for m in zero["metrics"]]
-    nnz = [(int(m["nnz_up"]), int(m["nnz_down"])) for m in zero["metrics"]]
-    print(f"tp: {TP_STEPS} steps of {TP_ARCH} on two model ranks, losses "
-          f"{json.dumps(losses)}; nnz (up, down) beside k = {k}: {nnz}; "
-          f"candidate rows m_b a call (rank 0): {zero['m_b']}")
+    require((numel, k) == (run["numel"], run["k"]),
+            f"{arch}: {numel} parameters, k = {k}")
+    losses = [x["loss"] for x in zero["metrics"]]
+    nnz = [(int(x["nnz_up"]), int(x["nnz_down"])) for x in zero["metrics"]]
+    print(f"tp {name}: {TP_STEPS} steps of {arch} on {m} model ranks, "
+          f"losses {json.dumps(losses)}; nnz (up, down) beside k = {k}: "
+          f"{nnz}; candidate rows m_b a call (rank 0): {zero['m_b']}")
     require(all(math.isfinite(x) for x in losses), f"tp loss not finite: "
             f"{losses}")
     require(losses[-1] < losses[0], f"tp loss did not fall: {losses}")
     require(all(u >= k and d >= k for u, d in nnz),
             f"a tp selection kept fewer than k = {k}: {nnz}")
-    require(ranks[1]["metrics"] == zero["metrics"],
-            "the two ranks' metrics differ")
-    require(ranks[1]["digests"] == zero["digests"],
-            "the replicated leaves differ between the ranks at steps "
-            f"{[i for i, (a, b) in enumerate(zip(ranks[1]['digests'], zero['digests'])) if a != b]}")
+    for r, out in enumerate(ranks[1:], 1):
+        require(out["metrics"] == zero["metrics"],
+                f"rank {r}'s metrics differ from rank 0's")
+        require(out["digests"] == zero["digests"],
+                f"rank {r}'s replicated leaves differ from rank 0's at "
+                f"steps {[i for i, (a, b) in enumerate(zip(out['digests'], zero['digests'])) if a != b]}")
     for r, out in enumerate(ranks):
-        for name in MESH_KERNELS:
-            require(out["launches"].get(name) == 2 * TP_STEPS,
-                    f"rank {r}: {name} launched "
-                    f"{out['launches'].get(name)} times in {TP_STEPS} "
+        for kernel in MESH_KERNELS:
+            require(out["launches"].get(kernel) == 2 * TP_STEPS,
+                    f"rank {r}: {kernel} launched "
+                    f"{out['launches'].get(kernel)} times in {TP_STEPS} "
                     f"steps, not twice a step")
         others = {n: c for n, c in out["launches"].items()
                   if c and n not in MESH_KERNELS}
         require(not others, f"rank {r}'s step launched other kernels: "
                 f"{others}")
-        want = {"histogram": [1, TP_OWNED[r]], "stc_apply": [1, TP_LOCAL],
+        want = {"histogram": [1, run["owned"][r]],
+                "stc_apply": [1, run["local"]],
                 "bin_select": [1, out["m_b"][-1]]}
         got = {n: out["shapes"].get(n) for n in want}
         require(got == want, f"rank {r}: last launch shapes {got}, not "
@@ -6809,17 +6874,29 @@ def run_tensor_parallel(torch, np, rk):
         require(out["flops"] == out["dryrun_flops"],
                 f"rank {r}: a step counted {out['flops']} FLOPs, the dry "
                 f"run {out['dryrun_flops']}")
-        print(f"tp rank {r}: init_train_state requested {out['state_asked']}"
-              f" bytes, dry run {out['dryrun_state']}; step FLOPs "
-              f"{out['flops']} = dry run {out['dryrun_flops']:.0f}; gloo a "
-              f"step {json.dumps(out['gloo'])} (dry run's counted: "
+        # what a step hands gloo: the dry run's counted collectives; the
+        # candidates' fp32 gather depends on the data (its calls counted)
+        cand = out["gloo"].get("model all_gather float32", [0, 0])
+        want_cand = out["dryrun_dependent"].get(
+            "model-candidates-all-gather", {"count": 0})["count"]
+        require(_as_records(out["gloo"], skip=("all_gather float32",)) ==
+                _as_records(out["dryrun_collectives"]) and
+                cand[0] == want_cand,
+                f"rank {r}: a step handed gloo {json.dumps(out['gloo'])}, "
+                f"the dry run lists {json.dumps(out['dryrun_collectives'])}")
+        print(f"tp {name} rank {r}: init_train_state requested "
+              f"{out['state_asked']} bytes, dry run {out['dryrun_state']}; "
+              f"step FLOPs {out['flops']} = dry run "
+              f"{out['dryrun_flops']:.0f}; gloo a step by kind "
+              f"{json.dumps(out['gloo'])} (= the dry run's counted: "
               f"{json.dumps(out['dryrun_collectives'])}); step seconds "
               f"{out['step_s']}; local SGD seconds {out['local_sgd_s']}; "
               f"peak {out['peak_gib']:.3f} GiB; {out['seconds']:.1f} s "
               f"(stages {json.dumps(out['stages'])})")
     lock = zero["lockstep"]
-    print(f"tp lock-step (the first step's carried tree): split against "
-          f"the flat stc_compress_rows of the joined row: {json.dumps(lock)}")
+    print(f"tp {name} lock-step (the first step's carried tree): split "
+          f"against the flat stc_compress_rows of the joined row: "
+          f"{json.dumps(lock)}")
     require(lock["thresh"][0] == lock["thresh"][1]
             and lock["nnz"][0] == lock["nnz"][1]
             and lock["same_positions_and_signs"],
@@ -6827,7 +6904,8 @@ def run_tensor_parallel(torch, np, rk):
     require(abs(lock["mu"][0] - lock["mu"][1]) <= 1e-6 * abs(lock["mu"][1]),
             f"the split selection's µ {lock['mu']}")
     fp = zero["fp32"]
-    print(f"tp fp32 step against model = 1: {json.dumps(fp)}")
+    print(f"tp {name} fp32 step (4 x {run['fp32_seq']} tokens) against "
+          f"model = 1: {json.dumps(fp)}")
     require(abs(fp["tp"]["loss"] - fp["one"]["loss"])
             <= 1e-5 * abs(fp["one"]["loss"]),
             f"fp32 loss {fp['tp']['loss']!r} against {fp['one']['loss']!r}")
@@ -6835,63 +6913,67 @@ def run_tensor_parallel(torch, np, rk):
             f"fp32 nnz_up {fp['tp']['nnz_up']} against "
             f"{fp['one']['nnz_up']}, {fp['near']} magnitudes near the "
             f"threshold")
-    print(f"tp WireLedger over {TP_LEDGER_STEPS} steps: card (rank 0) "
-          f"{json.dumps(zero['ledger'])}, numpy route (rank 1) "
-          f"{json.dumps(ranks[1]['ledger'])}; pack_chunks launches "
-          f"{zero['ledger_packs']} on the card route, "
-          f"{ranks[1]['ledger_packs']} on the numpy route")
-    require(zero["ledger"] == ranks[1]["ledger"],
-            "the card's ledger differs from the numpy route's")
-    require(zero["ledger_packs"] >= 2 * TP_LEDGER_STEPS
-            and ranks[1]["ledger_packs"] == 0,
-            f"the ledgers launched pack_chunks {zero['ledger_packs']} and "
-            f"{ranks[1]['ledger_packs']} times")
-    tp_serve_report(ranks)
+    if run["ledger"]:
+        print(f"tp {name} WireLedger over {TP_LEDGER_STEPS} steps: card "
+              f"(rank 0) {json.dumps(zero['ledger'])}, numpy route (rank 1) "
+              f"{json.dumps(ranks[1]['ledger'])}; pack_chunks launches "
+              f"{zero['ledger_packs']} on the card route, "
+              f"{ranks[1]['ledger_packs']} on the numpy route")
+        require(zero["ledger"] == ranks[1]["ledger"],
+                "the card's ledger differs from the numpy route's")
+        require(zero["ledger_packs"] >= 2 * TP_LEDGER_STEPS
+                and ranks[1]["ledger_packs"] == 0,
+                f"the ledgers launched pack_chunks {zero['ledger_packs']} "
+                f"and {ranks[1]['ledger_packs']} times")
+    tp_serve_report(ranks, name)
     step_ms = [1e3 * statistics.median(out["step_s"][1:]) for out in ranks]
     sgd_ms = [1e3 * statistics.median(out["local_sgd_s"]) for out in ranks]
-    print(f"tp step ms a rank (median of steps 2-{TP_STEPS}) {step_ms}, "
-          f"local_sgd ms {sgd_ms}; device ms of one step "
+    print(f"tp {name} step ms a rank (median of steps 2-{TP_STEPS}) "
+          f"{step_ms}, local_sgd ms {sgd_ms}; device ms of one step "
           f"{[round(o['device_ms'], 3) for o in ranks]}, idle share "
           f"{[round(1 - o['device_ms'] / ms, 3) for o, ms in zip(ranks, step_ms)]}"
           f"; peak GiB {[round(o['peak_gib'], 3) for o in ranks]}; card: "
           f"{card_line()}")
-    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
-    return ({"tp": {n: zero["launches"][n] for n in MESH_KERNELS},
-             "tp_serve": zero["serve"]["launches"]},
+    print(f"phase 16 {name} took {time.perf_counter() - t0:.1f} s")
+    path = run["path"]
+    return ({path: {n: zero["launches"][n] for n in MESH_KERNELS},
+             f"{path}_serve": zero["serve"]["launches"]},
             zero["kernel_rows"], zero["kernel_errs"])
 
 
-def tp_serve_report(ranks):
-    """16i-k's records of the two ranks: every logits tensor bitwise equal
+def tp_serve_report(ranks, name):
+    """16i-k's records of a run's ranks: every logits tensor bitwise equal
     across them; the prefill's and each decode step's times, the device
     time and idle share, what a step hands gloo."""
     serve = [out["serve"] for out in ranks]
-    require(serve[0]["digests"] == serve[1]["digests"],
-            "the two ranks' serve logits differ: " + ", ".join(
-                k for k in serve[0]["digests"]
-                if serve[0]["digests"][k] != serve[1]["digests"].get(k)))
+    for r, sv in enumerate(serve[1:], 1):
+        require(sv["digests"] == serve[0]["digests"],
+                f"rank {r}'s serve logits differ from rank 0's: " +
+                ", ".join(k for k in serve[0]["digests"]
+                          if serve[0]["digests"][k] != sv["digests"].get(k)))
     fp, bf = serve[0]["fp32"], serve[0]["bf16"]
-    print(f"tp serve fp32 ({SERVE_BATCH} x {TP_SERVE_PROMPT}-token prompt, "
-          f"{TP_SERVE_GREEDY} greedy steps) against model = 1 on the joined "
+    print(f"tp {name} serve fp32 ({SERVE_BATCH} x {TP_SERVE_PROMPT}-token "
+          f"prompt, {TP_SERVE_GREEDY} greedy steps) against model = 1 on the joined "
           f"weights: prefill max |gap| {fp['prefill_gap']:.3e}, decode "
           f"{max(fp['decode_gaps']):.3e} (max |logit| "
           f"{fp['max_logit']:.4f}; tolerance {CARD_CPU_TOL}); greedy tokens "
           f"checked {fp['greedy_checked']} of {fp['greedy_steps']} (top-2 "
           f"gap above twice the tolerance), all equal")
-    print(f"tp serve bf16 prefill {TP_SERVE_BF16} against its decode: last "
+    print(f"tp {name} serve bf16 prefill {TP_SERVE_BF16} against its "
+          f"decode: last "
           f"logits max |gap| {bf['gap']:.4f} of max |logit| "
           f"{bf['max_logit']:.4f}, {bf['gap'] / bf['max_logit']:.4f} of it "
           f"(tolerance {BF16_TOL}); argmax equal in {bf['argmax_equal']} of "
-          f"{bf['rows']} rows; every logits tensor bitwise equal on both "
-          f"ranks ({len(serve[0]['digests'])} tensors)")
+          f"{bf['rows']} rows; every logits tensor bitwise equal on the "
+          f"{len(serve)} ranks ({len(serve[0]['digests'])} tensors)")
     for r, sv in enumerate(serve):
         t = sv["timed"]
         ms = statistics.median(t["decode_ms"])
         b, s = TP_DECODE
-        print(f"tp serve rank {r}: caches at batch {b}, {s} slots: "
+        print(f"tp {name} serve rank {r}: caches at batch {b}, {s} slots: "
               f"{t['cache_requested']} bytes requested, {t['cache_allocated']}"
               f" allocated, stand-ins {t['cache_stand_ins']} "
-              f"({t['cache_heads']} KV head a layer); prefill {TP_PREFILL} "
+              f"({t['cache_heads']} KV heads a layer); prefill {TP_PREFILL} "
               f"bf16 {t['prefill_ms']:.1f} ms (median of 3), "
               f"{TP_PREFILL[0] * TP_PREFILL[1] / t['prefill_ms'] * 1e3:.0f} "
               f"tokens/s, gloo {json.dumps(t['prefill_gloo'])} "
@@ -6902,7 +6984,7 @@ def tp_serve_report(ranks):
               f"a step, idle share {max(0.0, 1 - t['device_ms'] / ms):.3f}; "
               f"bound {t['bound_ms']:.3f} ms (the rank's cache "
               f"{t['cache_bytes'] / 1e9:.3f} GB + fp32 weights "
-              f"{t['weight_bytes'] / 1e9:.3f} GB; both ranks share the card), "
+              f"{t['weight_bytes'] / 1e9:.3f} GB; the ranks share the card), "
               f"{ms / t['bound_ms']:.1f}x it; {t['decode_collectives']} "
               f"collectives a step, gloo {json.dumps(t['decode_gloo'])} "
               f"({t['decode_gloo_ms']:.1f} ms inside the calls; dry run: "

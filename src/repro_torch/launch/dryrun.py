@@ -27,14 +27,16 @@ PyTorch has no such analysis, so the port counts from the config:
 * ``collectives``: the tree codec's one ``all_reduce`` of the flat fp32
   message over the client ranks (:mod:`repro_torch.core.distributed`),
   a device's shard of it; and, where the step runs the ``model`` axis (the
-  dense attention family on whole heads), tensor parallelism's
-  collectives over a client's model group as the step hands them to gloo
-  (:func:`tp_collectives`): the split products' ``all_reduce`` s, the
+  dense attention family, on every split ``fit_spec`` makes), tensor
+  parallelism's collectives over a client's model group as the step hands
+  them to gloo (:func:`tp_collectives`): the split products'
+  ``all_reduce`` s, the attention's gather route's ``all_gather`` s, the
   vocab-parallel embedding's and cross-entropy's, and the split
   k-selection's; the selection's candidate gather is data-dependent and
   listed apart (``collectives_data_dependent``); and for the serve steps
   on such a mesh (:func:`tp_serve_collectives`), the embedding's and the
-  split products' ``all_reduce`` s and the logits' ``all_gather``;
+  split products' ``all_reduce`` s, the gather route's ``all_gather`` s
+  and the logits' ``all_gather``;
 * ``server_ingest`` and ``fleet_scenarios`` as the reference measures them,
   through the port's :class:`~repro_torch.launch.train.WireLedger` (the
   ``"kernel"`` wire backend: ``pack_chunks`` on the card unless
@@ -45,19 +47,20 @@ workspaces: nothing here measures them, so a record does not fit a step
 into memory by itself); and, for a config the step does not run with
 ``model > 1`` (:func:`repro_torch.launch.train.tensor_parallel_gap`,
 :func:`repro_torch.launch.serve.serve_gap`: MoE, MLA, SSD, RG-LRU,
-encoder, prefix, a split that is not on whole heads, a decode's cache not
-split on the heads), tensor parallelism's collectives, with its ``flops``
-split over ``model`` evenly, an assumption.  Where the step runs it, each product
-splits on whole heads, columns or rows, so ``flops / model`` is each
-rank's count exactly.  The
-roofline terms are the H100's (:mod:`repro_torch.launch.hardware`).
-Records go to ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``.
+encoder, prefix, the chunked STC, a decode's cache not in the ``"heads"``
+layout), tensor parallelism's collectives, with its ``flops`` split over
+``model`` evenly, an assumption.  Where the step runs it, ``flops`` is
+one rank's count (:func:`step_flops` with ``model``): each product's
+block, the whole product of a leaf kept whole, and the attention core on
+the rank's heads, or on every head on the gather route.  The roofline
+terms are the H100's (:mod:`repro_torch.launch.hardware`).  Records go to ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -70,9 +73,11 @@ from ..configs import (ARCH_IDS, INPUT_SHAPES, InputShape, get_config,
 from ..core.compression import tree_leaves
 from ..device import resolve_device
 from ..models.config import ModelConfig
+from ..models.attention import core_heads
 from ..models.moe import capacity
-from ..models.transformer import _uses_window
-from ..sharding.rules import Sharding, StandIn, batch_spec, map_tree
+from ..models.transformer import _uses_window, init_model
+from ..sharding.rules import (Sharding, StandIn, batch_spec, map_tree,
+                              shard_tree)
 from . import hardware
 from .mesh import Mesh, make_debug_mesh, make_production_mesh
 from .serve import serve_gap, serve_state_structs
@@ -96,6 +101,45 @@ CHUNK = 1024        # the attention scan's chunk (forward's and lm_loss's)
 
 def _mm(m: int, k: int, n: int) -> int:
     return 2 * m * k * n
+
+
+class _Splits:
+    """One of ``model`` ranks' widths of a dense config's split leaves,
+    read off its blocks of a one-layer meta model
+    (:func:`~repro_torch.sharding.rules.shard_tree`, which cuts each leaf
+    as ``fit_spec`` does): ``cols`` of ``wq``, ``wk``, ``d_ff`` and the
+    vocabulary; which of them ``model`` splits (a leaf kept whole keeps its
+    width, and its product runs replicated); and the heads its attention
+    core runs (:func:`~repro_torch.models.attention.core_heads`).  At
+    ``model = 1`` every width is whole."""
+
+    def __init__(self, cfg: ModelConfig, model: int):
+        hd = cfg.resolved_head_dim
+        self.q_width = cfg.n_heads * hd
+        whole = {"q": self.q_width, "kv": cfg.n_kv_heads * hd,
+                 "ff": cfg.d_ff, "vocab": cfg.vocab_size}
+        self.cols = dict(whole)
+        if model > 1:
+            meta = init_model(dataclasses.replace(cfg, n_layers=1),
+                              device="meta")
+            rank = shard_tree(meta, make_debug_mesh(1, model), 0)
+            mix, mlp = rank["blocks"][0]["mix"], rank["blocks"][0]["mlp"]
+            self.cols = {"q": mix["wq"].shape[1], "kv": mix["wk"].shape[1],
+                         "ff": mlp["w_down"].shape[0],
+                         "vocab": rank["embed"].shape[0]}
+        self.q, self.kv, self.mlp, self.vocab = (
+            self.cols[n] < whole[n] for n in ("q", "kv", "ff", "vocab"))
+        self.core, _ = core_heads(cfg.n_heads, cfg.n_kv_heads, model)
+        self.heads = model == 1 or self.core < cfg.n_heads
+        # the gather route's joined q/k/v columns a token (all ranks')
+        self.gathered = (0 if self.heads else
+                         (cfg.n_heads * self.q + 2 * cfg.n_kv_heads * self.kv)
+                         * hd)
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(cfg: ModelConfig, model: int) -> _Splits:
+    return _Splits(cfg, model)
 
 
 class _Count:
@@ -131,17 +175,21 @@ def _flash(c: _Count, b, h, sq, skv, hd, hdv):
             2 * b * h * sq * keys * (3 * hd + 2 * hdv))
 
 
-def _attn(c: _Count, cfg: ModelConfig, b, s, *, kv_heads=None, memory=0):
+def _attn(c: _Count, cfg: ModelConfig, b, s, *, kv_heads=None, memory=0,
+          sp=None):
     """Self-attention over s positions, or cross-attention over ``memory``
-    positions (k and v projected from the memory)."""
+    positions (k and v projected from the memory); with ``sp`` (a
+    :class:`_Splits`) one rank's share of self-attention."""
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
     kv = cfg.n_kv_heads if kv_heads is None else kv_heads
     t, skv = b * s, (memory or s)
-    c.mm(t, d, h * hd)
-    c.mm(b * skv, d, kv * hd)
-    c.mm(b * skv, d, kv * hd)
-    _flash(c, b, h, s, skv, hd, hd)
-    c.mm(t, h * hd, d)
+    q_cols, kv_cols, core = ((h * hd, kv * hd, h) if sp is None else
+                             (sp.cols["q"], sp.cols["kv"], sp.core))
+    c.mm(t, d, q_cols)
+    c.mm(b * skv, d, kv_cols)
+    c.mm(b * skv, d, kv_cols)
+    _flash(c, b, core, s, skv, hd, hd)
+    c.mm(t, q_cols, d)
 
 
 def _mla(c: _Count, cfg: ModelConfig, b, s):
@@ -204,18 +252,20 @@ def _moe(c: _Count, cfg: ModelConfig, t):
         _mlp(c, cfg, t, m.d_expert)
 
 
-def _ffn(c: _Count, cfg: ModelConfig, i, t):
+def _ffn(c: _Count, cfg: ModelConfig, i, t, sp: _Splits):
     if cfg.moe is not None and i >= cfg.moe.first_dense:
         _moe(c, cfg, t)
     else:
-        _mlp(c, cfg, t, cfg.d_ff)
+        _mlp(c, cfg, t, sp.cols["ff"])
 
 
-def _forward(cfg: ModelConfig, b, s, frames: int, remat: bool) -> _Count:
+def _forward(cfg: ModelConfig, b, s, frames: int, remat: bool,
+             model: int = 1) -> _Count:
     """The model's forward over ``s`` positions (prefix included) and its
     backward, the LM head excluded; with ``remat`` the blocks' recompute is
-    added to the backward."""
-    total = _Count()
+    added to the backward.  ``model`` > 1: one rank's share under tensor
+    parallelism (the dense attention family)."""
+    total, sp = _Count(), _splits(cfg, model)
     d = cfg.d_model
     if cfg.n_prefix_tokens:
         total.mm(b * cfg.n_prefix_tokens, d, d, grads=1)
@@ -227,7 +277,7 @@ def _forward(cfg: ModelConfig, b, s, frames: int, remat: bool) -> _Count:
         c = _Count()
         kind = cfg.layer_kind(i)
         if kind in ("attn", "local"):
-            _attn(c, cfg, b, s)
+            _attn(c, cfg, b, s, sp=sp)
         elif kind == "mla":
             _mla(c, cfg, b, s)
         elif kind == "ssd":
@@ -237,28 +287,30 @@ def _forward(cfg: ModelConfig, b, s, frames: int, remat: bool) -> _Count:
         if frames:
             _attn(c, cfg, b, s, kv_heads=cfg.n_heads, memory=frames)
         if kind != "ssd":
-            _ffn(c, cfg, i, b * s)
+            _ffn(c, cfg, i, b * s, sp)
         total.extra(c.fwd, c.bwd + (c.fwd - c.last if remat else 0))
     return total
 
 
-def _decode(cfg: ModelConfig, b, s_cache, memory: int) -> int:
+def _decode(cfg: ModelConfig, b, s_cache, memory: int, model: int = 1) -> int:
     """One decode step: each layer against its cache (a ring of the window
-    on windowed layers), cross-attention re-projecting the memory."""
+    on windowed layers), cross-attention re-projecting the memory; one
+    rank's share over ``model`` ranks."""
     c = _Count()
-    d, h, hd, kvh = (cfg.d_model, cfg.n_heads, cfg.resolved_head_dim,
-                     cfg.n_kv_heads)
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    sp = _splits(cfg, model)
+    q_cols, kv_cols, core = sp.cols["q"], sp.cols["kv"], sp.core
     for i in range(cfg.n_layers):
         kind = cfg.layer_kind(i)
         if kind in ("attn", "local"):
             window = cfg.sliding_window
             slots = (min(window, s_cache) if _uses_window(cfg, kind)
                      and window else s_cache)
-            c.mm(b, d, h * hd)
-            c.mm(b, d, kvh * hd)
-            c.mm(b, d, kvh * hd)
-            c.extra(4 * b * h * slots * hd, 0)
-            c.mm(b, h * hd, d)
+            c.mm(b, d, q_cols)
+            c.mm(b, d, kv_cols)
+            c.mm(b, d, kv_cols)
+            c.extra(4 * b * core * slots * hd, 0)
+            c.mm(b, q_cols, d)
         elif kind == "mla":
             m = cfg.mla
             r, nope, rope = (m.kv_lora_rank, m.qk_nope_head_dim,
@@ -285,13 +337,13 @@ def _decode(cfg: ModelConfig, b, s_cache, memory: int) -> int:
             c.extra(4 * b * h * memory * hd, 0)
             c.mm(b, h * hd, d)
         if kind != "ssd":
-            _ffn(c, cfg, i, b)
-    c.mm(b, d, cfg.vocab_size)
+            _ffn(c, cfg, i, b, sp)
+    c.mm(b, d, sp.cols["vocab"])
     return c.fwd
 
 
 def step_flops(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
-               local_iters: int = 1) -> int:
+               local_iters: int = 1, model: int = 1) -> int:
     """Matmul FLOPs of one step of the port on ``batch`` rows.
 
     ``train``: :func:`repro_torch.launch.train.make_train_step` on
@@ -303,21 +355,28 @@ def step_flops(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
     :func:`repro_torch.launch.serve.make_decode_step`, one token against
     caches of ``seq`` positions.  A VLM's prefix and an encoder-decoder's
     frames (or, at decode, its memory) come with the arch's input specs.
+
+    ``model`` > 1 counts one rank of a tensor-parallel step of the dense
+    attention family: each product's block where ``fit_spec`` splits its
+    leaf and the whole product where it keeps the leaf whole, and the
+    attention core on the rank's heads, or on every head where the heads
+    do not split (the gather route).
     """
     frames = cfg.encoder.n_frames if cfg.encoder is not None else 0
     if kind == "decode":
-        return _decode(cfg, batch, seq, frames)
+        return _decode(cfg, batch, seq, frames, model)
     s = seq + cfg.n_prefix_tokens
-    d, v = cfg.d_model, cfg.vocab_size
+    d, v = cfg.d_model, _splits(cfg, model).cols["vocab"]
     if kind == "prefill":
-        return _forward(cfg, batch, s, frames, False).fwd + _mm(batch, d, v)
+        return (_forward(cfg, batch, s, frames, False, model).fwd +
+                _mm(batch, d, v))
     if kind != "train":
         raise ValueError(f"unknown step kind {kind!r}")
     if batch % local_iters:
         raise ValueError(f"{batch} rows do not split into {local_iters} "
                          "microbatches")
     micro = batch // local_iters
-    c = _forward(cfg, micro, s, frames, cfg.remat)
+    c = _forward(cfg, micro, s, frames, cfg.remat, model)
     head = _mm(micro * seq, d, v)
     return local_iters * (c.fwd + c.bwd + 3 * head)
 
@@ -475,17 +534,22 @@ def tp_collectives(cfg: ModelConfig, tc: TrainConfig, mesh: Mesh,
     model group: ``(counted, data_dependent)``, each ``{name: {"count",
     "bytes", "ranks"}}`` (bytes a device hands in; an all-gather's, what it
     gathers).  ``model-all-reduce``: per microbatch of ``t`` tokens, each
-    block's two forward ``all_reduce`` s (attention and MLP outputs), the
-    two of their backward (the inputs' gradients) and, with remat, the
-    attention's again in the recompute (which stops before the MLP's last
-    product), the embedding's rows and the head's input gradient, all
-    ``(t, d)`` in the compute dtype; the cross-entropy's row maxima
-    ``(t,)`` and exp-sums and gold logits ``(2, t)`` in fp32 per logit
-    chunk; the split k-selection's maximum and 256 bin sums a call; and
-    TernQuant's three 8-byte sums a call.  ``model-all-gather``: the
-    selection's 256 int32 counts a call.  The candidate bin's gather
-    depends on the data (``data_dependent``, bytes None).  Empty where the
-    step does not run the ``model`` axis."""
+    block's forward ``all_reduce`` s of its split products' outputs
+    (attention and MLP), the backward's of their inputs' gradients and,
+    with remat, the attention's again in the recompute (which stops before
+    the MLP's last product), the embedding's rows and the head's input
+    gradient, all ``(t, d)`` in the compute dtype; the cross-entropy's row
+    maxima ``(t,)`` and exp-sums and gold logits ``(2, t)`` in fp32 per
+    logit chunk; the split k-selection's maximum and 256 bin sums a call;
+    and TernQuant's three 8-byte sums a call.  A product of a leaf that
+    ``fit_spec`` keeps whole runs replicated and hands gloo nothing.
+    ``model-activations-all-gather``: on the attention's gather route
+    (heads that do not split), each layer's joined q/k/v blocks in the
+    forward and again in remat's recompute, and its output's gradient
+    rows in the backward (``scatter_to``), in the compute dtype.
+    ``model-all-gather``: the selection's 256 int32 counts a call.  The
+    candidate bin's gather depends on the data (``data_dependent``, bytes
+    None).  Empty where the step does not run the ``model`` axis."""
     m = mesh.shape.get("model", 1)
     if m == 1 or tensor_parallel_gap(cfg, mesh, tc):
         return {}, {}
@@ -493,17 +557,30 @@ def tp_collectives(cfg: ModelConfig, tc: TrainConfig, mesh: Mesh,
     iters = codec.local_iters
     t = rows // iters * seq
     width = torch.empty((), dtype=tc.compute_dtype).element_size()
-    acts = cfg.n_layers * (4 + (1 if cfg.remat else 0)) + 2
+    sp = _splits(cfg, m)
+    remat = 1 if cfg.remat else 0
+    attn_out = sp.heads or sp.q             # wo split: reduce_from
+    attn_in = sp.heads or sp.q or sp.kv     # a split input: copy_to
+    acts = (cfg.n_layers * (attn_out * (1 + remat) + attn_in + 2 * sp.mlp)
+            + 2 * sp.vocab)
     lc = cfg.logit_chunk
     chunks = seq // lc if lc and seq > lc and seq % lc == 0 else 1
-    count = iters * (acts + 2 * chunks)
-    nbytes = iters * (acts * t * cfg.d_model * width + 3 * 4 * t)
+    count = iters * (acts + 2 * chunks * sp.vocab)
+    nbytes = iters * (acts * t * cfg.d_model * width + 3 * 4 * t * sp.vocab)
     sel = _SPLIT_SELECTIONS.get(codec.name, 0)
     tq = _SPLIT_TERNQUANT.get(codec.name, 0)
     count += 2 * sel + 3 * tq
     nbytes += sel * (4 + 4 * 256) + tq * 3 * 8
     counted = {"model-all-reduce": {"count": count, "bytes": nbytes,
                                     "ranks": m}}
+    gathers = (1 + remat) * bool(sp.gathered) + (not sp.heads and sp.q)
+    if gathers:
+        counted["model-activations-all-gather"] = {
+            "count": iters * cfg.n_layers * gathers,
+            "bytes": iters * cfg.n_layers * t * width * (
+                (1 + remat) * sp.gathered +
+                (0 if sp.heads or not sp.q else sp.q_width)),
+            "ranks": m}
     dependent = {}
     if sel:
         counted["model-all-gather"] = {"count": sel,
@@ -523,22 +600,33 @@ def tp_serve_collectives(cfg: ModelConfig, mesh: Mesh, kind: str,
     group: ``{name: {"count", "bytes", "ranks"}}`` (an all-gather's bytes:
     what it gathers), in the serve steps' bf16.  ``model-all-reduce``: the
     embedding's rows and each layer's attention and MLP outputs, ``(t,
-    d)`` for the step's ``t`` tokens; ``model-all-gather``: the last
-    position's logits, the vocabulary's columns from every rank.  ``2·L +
-    2`` calls a step.  Empty where the step does not run the ``model``
-    axis."""
+    d)`` for the step's ``t`` tokens, where their leaves split;
+    ``model-all-gather``: the last position's logits, the vocabulary's
+    columns from every rank; ``model-activations-all-gather``: on the
+    attention's gather route, each layer's joined q/k/v blocks.  On whole
+    heads ``2·L + 2`` calls a step, on the gather route ``3·L + 2``.
+    Empty where the step does not run the ``model`` axis."""
     m = mesh.shape.get("model", 1)
     if m == 1 or serve_gap(cfg, mesh, cache_mode):
         return {}
     t = rows * (seq if kind == "prefill" else 1)
     width = 2                          # bytes of a bf16 element
-    acts = 2 * cfg.n_layers + 1
-    return {"model-all-reduce": {"count": acts,
-                                 "bytes": acts * t * cfg.d_model * width,
-                                 "ranks": m},
-            "model-all-gather": {"count": 1,
-                                 "bytes": rows * cfg.vocab_size * width,
-                                 "ranks": m}}
+    sp = _splits(cfg, m)
+    acts = cfg.n_layers * ((sp.heads or sp.q) + sp.mlp) + sp.vocab
+    out = {}
+    if acts:
+        out["model-all-reduce"] = {"count": acts,
+                                   "bytes": acts * t * cfg.d_model * width,
+                                   "ranks": m}
+    if sp.vocab:
+        out["model-all-gather"] = {"count": 1,
+                                   "bytes": rows * cfg.vocab_size * width,
+                                   "ranks": m}
+    if sp.gathered:
+        out["model-activations-all-gather"] = {
+            "count": cfg.n_layers,
+            "bytes": cfg.n_layers * t * sp.gathered * width, "ranks": m}
+    return out
 
 
 def lower_combo(arch: str, shape_name, *, multi_pod: bool = False,
@@ -642,7 +730,13 @@ def lower_combo(arch: str, shape_name, *, multi_pod: bool = False,
                                   serve_mode)
         tp_gap = model > 1 and serve_gap(cfg, mesh, serve_mode)
     collectives.update(tp)
-    flops_dev = flops / model
+    if model > 1 and not tp_gap:
+        flops_dev = step_flops(
+            cfg, shape.kind, rows, shape.seq_len, model=model,
+            local_iters=(codec_for(tc).local_iters if shape.kind == "train"
+                         else 1))
+    else:
+        flops_dev = flops / model
     bytes_acc = memory["argument_size_in_bytes"] + memory[
         "output_size_in_bytes"]
     terms = {"compute": flops_dev / hardware.PEAK_BF16_FLOPS,

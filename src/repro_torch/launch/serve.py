@@ -17,10 +17,12 @@ needed.  A ``model`` axis > 1 is tensor parallelism, as in the train step
 (:mod:`repro_torch.launch.train`): the model group's ranks each hold their
 :func:`~repro_torch.sharding.rules.shard_leaf` block of every parameter
 and, in the decode, their KV heads of every cache
-(``init_cache(..., model=M)``, ``cache_specs``' ``"heads"`` split); the
-steps run Megatron's split products and return the whole (B, 1, V)
-last-position logits on every rank.  It runs what the train step runs,
-the dense attention family split on whole heads (:func:`serve_gap`).
+(``init_cache(..., model=M)``, ``cache_specs``' ``"heads"`` split), or the
+whole cache where the KV heads do not split ``M`` ways; the steps run
+Megatron's split products (the attention on the gather route where its
+heads do not split) and return the whole (B, 1, V) last-position logits on
+every rank.  It runs what the train step runs, the dense attention family
+on every split that ``fit_spec`` makes (:func:`serve_gap`).
 ``cache_mode`` takes the reference's values; they only pin layouts under
 GSPMD, so on a mesh whose ``model`` axis is 1 every mode gives the same
 values; under ``model > 1`` only ``"heads"`` runs.
@@ -34,7 +36,8 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import decode_step, forward, init_cache, init_model
+from ..models.transformer import (decode_step, forward, init_cache,
+                                  init_model, vocab_tp)
 from ..sharding.rules import (Sharding, StandIn, cache_specs, fit_spec,
                               map_tree, param_shardings)
 from ..sharding.tensor_parallel import TensorParallel, arch_gap, gather_vocab
@@ -49,7 +52,8 @@ def serve_gap(cfg: ModelConfig, mesh, cache_mode: str = "heads"):
     """Why the serve steps cannot run ``cfg`` with ``mesh``'s ``model``
     axis, or None where they can: the split products' configs
     (:func:`~repro_torch.sharding.tensor_parallel.arch_gap`, what the
-    train step runs) with head-sharded caches.  ``"batch"`` and
+    train step runs) with the ``"heads"`` caches (split on the KV heads, or
+    whole where they do not split).  ``"batch"`` and
     ``"local"`` keep a whole cache on every model rank and ``"seq"`` splits
     it on the sequence (flash-decoding): other layouts, and other
     collectives, than the heads' split.  The message names the ROADMAP
@@ -98,7 +102,7 @@ def make_prefill_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
                                 return_hidden=True, tp=tp, **extra)
             head = params.get("lm_head", params["embed"])
             return gather_vocab(hidden[:, -1:, :] @ head.T.to(hidden.dtype),
-                                tp)
+                                vocab_tp(params, cfg, tp))
 
     return prefill
 
@@ -112,8 +116,11 @@ def make_decode_step(cfg: ModelConfig, mesh, compute_dtype=torch.bfloat16,
     ``memory`` is an encoder-decoder's encoder output
     (:func:`repro_torch.models.encode_frames`), on the device.  With a
     ``model`` axis > 1, ``params`` are this rank's blocks and ``caches``
-    its KV heads (``init_cache(..., model=M)``); a step issues ``2·L + 2``
-    collectives over the model group and makes no host sync."""
+    its KV heads, or whole caches where the heads do not split
+    (``init_cache(..., model=M)``); a step issues ``2·L + 2`` collectives
+    over the model group on whole heads (``3·L + 2`` on the gather route,
+    :func:`repro_torch.launch.dryrun.tp_serve_collectives`) and makes no
+    host sync."""
     if cache_mode not in CACHE_MODES:
         raise ValueError(f"unknown cache_mode {cache_mode!r}; options: "
                          f"{CACHE_MODES}")

@@ -29,10 +29,11 @@ backward are Megatron's split products
 global statistics over the client's model group (STC's k-selection split
 across the shards, never gathering the tree), and ``tree_reduce`` runs
 over the ranks that share ``m``.  The function computed is the
-reference's step on the same mesh (GSPMD's automatic ``model`` axis).
-Other families and splits that are not on whole heads raise
-(:func:`tensor_parallel_gap`).  The step runs on the card unless
-``device="cpu"`` is passed; on the card the
+reference's step on the same mesh (GSPMD's automatic ``model`` axis), on
+every split that ``fit_spec`` makes: heads cut mid-head take the
+attention's gather route, and leaves kept whole run replicated.  Other
+families and the chunked STC raise (:func:`tensor_parallel_gap`).  The
+step runs on the card unless ``device="cpu"`` is passed; on the card the
 local SGD runs under PyTorch's deterministic algorithms, so that reruns
 and ranks are bitwise (the MoE blocks' dispatch moves rows by gathers
 both ways, with no atomic adds).  A MoE layer reads its experts' group
@@ -294,9 +295,9 @@ def tensor_parallel_gap(cfg: ModelConfig, mesh, tc: TrainConfig):
     if gap or mesh.shape.get("model", 1) == 1 or not tc.chunks:
         return gap
     return (f"tensor parallelism (a mesh 'model' axis of "
-            f"{mesh.shape['model']}) runs the dense attention family split "
-            f"on whole heads; {cfg.name}: the chunked STC's blocks cut "
-            f"across the shards (ROADMAP.md Queue 1, item 4d)")
+            f"{mesh.shape['model']}) runs the dense attention family; "
+            f"{cfg.name}: the chunked STC's blocks cut across the shards "
+            f"(ROADMAP.md Queue 1, item 4d)")
 
 
 def unshard_tree(tree, cfg: ModelConfig, mesh, group):

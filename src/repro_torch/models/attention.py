@@ -30,7 +30,7 @@ from .flash import _fwd_scan, _to_bshd, flash_attention
 from .layers import apply_rope, dense_init, rope_freqs
 
 __all__ = ["KVCache", "attn_init", "attn_apply", "attn_decode",
-           "init_kv_cache", "chunked_attention"]
+           "init_kv_cache", "chunked_attention", "core_heads"]
 
 NEG_INF = -1e30
 
@@ -100,6 +100,66 @@ def _project_qkv(params, x, n_heads, n_kv_heads, head_dim):
             v.reshape(b, s, n_kv_heads, head_dim))
 
 
+def core_heads(n_heads: int, n_kv_heads: int, m: int) -> tuple[int, int]:
+    """The query and KV heads that one of ``m`` model ranks runs the
+    attention core on and holds in its KV cache: its share where ``m``
+    splits both counts into whole heads (the whole-head route), every head
+    where it does not (the gather route)."""
+    if n_heads % m == 0 and n_kv_heads % m == 0:
+        return n_heads // m, n_kv_heads // m
+    return n_heads, n_kv_heads
+
+
+def _route(n_heads: int, n_kv_heads: int, tp) -> tuple[int, int, bool]:
+    """A layer's ``(query heads, KV heads, gather)`` under ``tp`` (None:
+    one rank) from the global head counts."""
+    m = 1 if tp is None else tp.size
+    h, kv = core_heads(n_heads, n_kv_heads, m)
+    return h, kv, m > 1 and h == n_heads
+
+
+def _gather_qkv(params, x, n_heads, n_kv_heads, head_dim, tp):
+    """The gather route's whole q, k and v, ``(B, S, heads, hd)`` on every
+    rank.  Each of ``wq``, ``wk``, ``wv`` (and its bias) is the rank's
+    column block where ``fit_spec`` splits it, a block that may cut a head,
+    or the whole leaf; the split products take ``x`` through ``copy_to``,
+    the whole ones take it as it is (their input gradient is already whole
+    on every rank), and the split blocks are joined in ONE ``all_gather``
+    of their concatenation."""
+    from ..sharding.tensor_parallel import copy_to, gather_from
+    b, s, _ = x.shape
+    heads = {"q": n_heads, "k": n_kv_heads, "v": n_kv_heads}
+    split = [n for n in "qkv" if params["w" + n].shape[1] !=
+             heads[n] * head_dim]
+    xs = copy_to(x, tp) if split else x
+    out = {}
+    for n in "qkv":
+        y = (xs if n in split else x) @ params["w" + n].to(x.dtype)
+        if "b" + n in params:
+            y = y + params["b" + n].to(x.dtype)
+        out[n] = y
+    if split:
+        cols = [out[n].shape[-1] for n in split]
+        joined = gather_from(torch.cat([out[n] for n in split], dim=-1), tp)
+        parts = joined.reshape(b, s, tp.size, sum(cols)).split(cols, dim=-1)
+        for n, part in zip(split, parts):
+            out[n] = part.reshape(b, s, tp.size * part.shape[-1])
+    return tuple(out[n].reshape(b, s, heads[n], head_dim) for n in "qkv")
+
+
+def _out_proj(params, o, tp, gather):
+    """``o @ wo`` summed over the model group: the whole-head route's
+    row block of the rank's heads; on the gather route the rank's row block
+    of the whole ``o`` (``scatter_to``), or the whole ``wo`` replicated."""
+    from ..sharding.tensor_parallel import reduce_from, scatter_to
+    wo = params["wo"].to(o.dtype)
+    if gather and wo.shape[0] == o.shape[-1]:
+        return o @ wo
+    if gather:
+        o = scatter_to(o, tp)
+    return reduce_from(o @ wo, tp)
+
+
 def attn_apply(
     params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: int,
     rope_theta: float = 10000.0, causal: bool = True, window: int = 0,
@@ -112,20 +172,31 @@ def attn_apply(
     Under tensor parallelism (``tp``, a
     :class:`~repro_torch.sharding.tensor_parallel.TensorParallel`; self
     attention only) ``params`` are the rank's blocks and ``n_heads`` /
-    ``n_kv_heads`` its local heads: ``wq``, ``wk``, ``wv`` and the biases
-    split by whole heads, ``wo`` by rows, and the partial outputs are
-    summed over the model group.  The attention itself sees only local
-    heads, and its backward needs nothing of the other ranks."""
-    from ..sharding.tensor_parallel import copy_to, reduce_from
+    ``n_kv_heads`` stay the global counts.  Where ``tp.size`` splits both
+    into whole heads (:func:`core_heads`) the layer takes the whole-head
+    route: ``wq``, ``wk``, ``wv`` and the biases split by whole heads,
+    ``wo`` by rows, and the partial outputs are summed over the model
+    group; the attention sees only local heads, and its backward needs
+    nothing of the other ranks.  Otherwise it takes the gather route: the
+    rank's column blocks of q, k and v, which may cut a head, are joined
+    in one ``all_gather``, RoPE and the attention run on whole heads on
+    every rank (RoPE pairs dimension i of a head with i + hd/2, which a
+    block cut mid-head may not hold), and ``wo`` takes the rank's row
+    block of the output (``scatter_to``)."""
+    from ..sharding.tensor_parallel import copy_to
     b, s, _ = x.shape
-    if tp is not None:
-        if memory is not None:
-            raise NotImplementedError("cross-attention under tensor "
-                                      "parallelism (ROADMAP.md Queue 1, "
-                                      "item 4c)")
+    if tp is not None and memory is not None:
+        raise NotImplementedError("cross-attention under tensor "
+                                  "parallelism (ROADMAP.md Queue 1, "
+                                  "item 4c)")
+    n_heads, n_kv_heads, gather = _route(n_heads, n_kv_heads, tp)
+    if gather:
+        q, k, v = _gather_qkv(params, x, n_heads, n_kv_heads, head_dim, tp)
+    elif tp is not None:
         x = copy_to(x, tp)
     if memory is None:
-        q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
+        if not gather:
+            q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
         pos = positions if positions is not None else torch.arange(
             s, device=x.device)
         cos, sin = rope_freqs(pos, head_dim, rope_theta)
@@ -140,8 +211,8 @@ def attn_apply(
         v = (memory @ params["wv"].to(x.dtype)).reshape(b, sm, n_kv_heads,
                                                         head_dim)
         out = _attention(q, k, v, causal=False, window=0, chunk=chunk)
-    return reduce_from(out.reshape(b, s, n_heads * head_dim) @
-                       params["wo"].to(x.dtype), tp)
+    return _out_proj(params, out.reshape(b, s, n_heads * head_dim), tp,
+                     gather)
 
 
 def init_kv_cache(batch: int, s_cache: int, n_kv_heads: int, head_dim: int,
@@ -171,17 +242,20 @@ def attn_decode(
     over it, and the cache comes back untouched.
 
     Under tensor parallelism (``tp``, self attention only) ``params`` are
-    the rank's blocks, as in :func:`attn_apply`, ``n_heads`` /
-    ``n_kv_heads`` its local heads, and ``cache`` holds only its KV heads;
-    the partial outputs are summed over the model group (Megatron's *g*,
-    an ``all_reduce`` in the forward).
+    the rank's blocks and the head counts the global ones, as in
+    :func:`attn_apply`.  On the whole-head route ``cache`` holds only the
+    rank's KV heads and the partial outputs are summed over the model
+    group (Megatron's *g*, an ``all_reduce`` in the forward).  On the
+    gather route ``cache`` is whole on every rank: the whole new k and v,
+    joined as :func:`attn_apply` joins them, go into it, and the attention
+    runs on whole heads on every rank.
     """
-    from ..sharding.tensor_parallel import reduce_from
     b = x.shape[0]
     if tp is not None and memory is not None:
         raise NotImplementedError("cross-attention under tensor "
                                   "parallelism (ROADMAP.md Queue 1, "
                                   "item 4c)")
+    n_heads, n_kv_heads, gather = _route(n_heads, n_kv_heads, tp)
     if memory is not None:
         sm = memory.shape[1]
         q = (x @ params["wq"].to(x.dtype)).reshape(b, 1, n_heads, head_dim)
@@ -194,7 +268,10 @@ def attn_decode(
         return (out.reshape(b, 1, n_heads * head_dim) @
                 params["wo"].to(x.dtype)), cache
 
-    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
+    if gather:
+        q, k, v = _gather_qkv(params, x, n_heads, n_kv_heads, head_dim, tp)
+    else:
+        q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
     cos, sin = rope_freqs(cache.idx[None], head_dim, rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -204,8 +281,7 @@ def attn_decode(
     n_valid = torch.clamp(cache.idx + 1, max=s_cache)
     valid = torch.arange(s_cache, device=x.device) < n_valid
     out = _dense_decode_attn(q, cache.k, cache.v, valid)
-    out = reduce_from(out.reshape(b, 1, n_heads * head_dim) @
-                      params["wo"].to(x.dtype), tp)
+    out = _out_proj(params, out.reshape(b, 1, n_heads * head_dim), tp, gather)
     return out, cache._replace(idx=cache.idx + 1)
 
 

@@ -50,7 +50,7 @@ from ..sharding.tensor_parallel import (copy_to, gather_vocab,
 from .layers import embed_init, mlp_apply, mlp_init, rms_norm, rms_norm_init
 
 __all__ = ["init_model", "forward", "lm_loss", "init_cache", "decode_step",
-           "encode_frames"]
+           "encode_frames", "vocab_tp"]
 
 
 def _generator(key) -> torch.Generator:
@@ -162,12 +162,23 @@ def _uses_window(cfg: ModelConfig, kind: str) -> bool:
                                    len(cfg.block_pattern) == 1)
 
 
+def vocab_tp(params, cfg: ModelConfig, tp):
+    """``tp`` where the embedding table (and the head) is split over the
+    vocabulary, None where ``fit_spec`` keeps it whole on every rank (a
+    vocabulary that does not divide the ``model`` axis): the lookup and
+    the head then run replicated."""
+    return None if params["embed"].shape[0] == cfg.vocab_size else tp
+
+
 def _ffn(block, h, cfg: ModelConfig, tp=None):
     """The block's FFN on ``h``: ``(out, aux)``, aux the MoE's load-balance
-    loss (a zero for a dense MLP)."""
+    loss (a zero for a dense MLP).  An MLP that ``fit_spec`` keeps whole
+    (a ``d_ff`` that does not divide the ``model`` axis) runs replicated."""
     if "moe" in block:
         return moe.moe_apply(block["moe"], h, cfg.moe, cfg.mlp_act)
     mlp = {name: w.to(h.dtype) for name, w in block["mlp"].items()}
+    if mlp["w_down"].shape[0] == cfg.d_ff:
+        tp = None
     return (mlp_apply(mlp, h, cfg.mlp_act, tp),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
@@ -177,12 +188,11 @@ def _block_apply(block, x, memory, *, cfg: ModelConfig, kind: str,
     h = rms_norm(block["norm1"], x, cfg.norm_eps)
     if kind in ("attn", "local"):
         window = cfg.sliding_window if _uses_window(cfg, kind) else 0
-        m = 1 if tp is None else tp.size
         x = x + attention.attn_apply(
-            block["mix"], h, n_heads=cfg.n_heads // m,
-            n_kv_heads=cfg.n_kv_heads // m,
-            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-            causal=True, window=window, chunk=chunk, tp=tp)
+            block["mix"], h, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta, causal=True, window=window,
+            chunk=chunk, tp=tp)
     elif kind == "mla":
         x = x + mla.mla_apply(block["mix"], h, n_heads=cfg.n_heads,
                               cfg=cfg.mla, rope_theta=cfg.rope_theta,
@@ -233,18 +243,22 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``tp`` (a :class:`~repro_torch.sharding.tensor_parallel.TensorParallel`)
     runs the dense attention family tensor-parallel on the rank's
     parameter blocks (:func:`repro_torch.sharding.rules.shard_leaf`): the
-    vocab-parallel embedding, each block's attention on its local heads and
-    its split MLP, the norms replicated; the logits are then the rank's
-    vocabulary columns.  Remat's recompute issues the forward's
-    collectives again, in the same order on every rank."""
-    if tp is None:
+    vocab-parallel embedding, each block's attention on its local heads
+    (or, where the heads do not split, on the gather route) and its split
+    MLP, the norms and every leaf that ``fit_spec`` keeps whole
+    replicated; the logits are then the rank's vocabulary columns (the
+    whole vocabulary's where the table is whole).  Remat's recompute
+    issues the forward's collectives again, in the same order on every
+    rank."""
+    if tp is not None and (prefix is not None or frames is not None):
+        raise NotImplementedError("a prefix or frames under tensor "
+                                  "parallelism (ROADMAP.md Queue 1, "
+                                  "item 4c)")
+    vtp = vocab_tp(params, cfg, tp)
+    if vtp is None:
         x = F.embedding(tokens.long(), params["embed"]).to(compute_dtype)
     else:
-        if prefix is not None or frames is not None:
-            raise NotImplementedError("a prefix or frames under tensor "
-                                      "parallelism (ROADMAP.md Queue 1, "
-                                      "item 4c)")
-        x = vocab_parallel_embedding(tokens, params["embed"], tp,
+        x = vocab_parallel_embedding(tokens, params["embed"], vtp,
                                      compute_dtype)
     if prefix is not None:
         pfx = (prefix.to(compute_dtype) @
@@ -266,7 +280,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if return_hidden:
         return x, aux
     head = params.get("lm_head", params["embed"])
-    return copy_to(x, tp) @ head.T.to(compute_dtype), aux
+    return copy_to(x, vtp) @ head.T.to(compute_dtype), aux
 
 
 def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -289,13 +303,14 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
         hidden = hidden[:, prefix.shape[1]:]     # loss only on text tokens
     head = params.get("lm_head", params["embed"]).T.to(compute_dtype)
     labels = labels.long()
-    if tp is not None:
-        hidden = copy_to(hidden, tp)
+    vtp = vocab_tp(params, cfg, tp)
+    if vtp is not None:
+        hidden = copy_to(hidden, vtp)
 
     def ce(h_chunk, y_chunk):
         logits = (h_chunk @ head).to(torch.float32)
-        if tp is not None:
-            return torch.sum(vocab_parallel_ce(logits, y_chunk, tp))
+        if vtp is not None:
+            return torch.sum(vocab_parallel_ce(logits, y_chunk, vtp))
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.take_along_dim(logits, y_chunk[..., None], dim=-1)[..., 0]
         return torch.sum(logz - gold)
@@ -326,10 +341,11 @@ def init_cache(cfg: ModelConfig, batch: int, s_cache: int,
     recurrent state and conv tail, whatever ``s_cache``.
 
     ``model`` > 1 allocates one model rank's block of a tensor-parallel
-    decode's caches (:func:`decode_step` with ``tp``): each KV layer's
-    ``n_kv_heads // model`` heads, the ``"heads"`` split of
-    :func:`~repro_torch.sharding.rules.cache_specs`; the other cache kinds
-    raise."""
+    decode's caches (:func:`decode_step` with ``tp``), the ``"heads"``
+    split of :func:`~repro_torch.sharding.rules.cache_specs` fitted to the
+    heads: each KV layer's ``n_kv_heads // model`` heads where the heads
+    split ``model`` ways, else the whole cache (the gather route's decode
+    writes every head on every rank); the other cache kinds raise."""
     device = resolve_device(device)
     caches = []
     for i in range(cfg.n_layers):
@@ -351,14 +367,12 @@ def init_cache(cfg: ModelConfig, batch: int, s_cache: int,
                                                  cfg.rglru, dtype,
                                                  device=device))
             continue
-        if cfg.n_kv_heads % model:
-            raise ValueError(f"{cfg.n_kv_heads} KV heads do not split "
-                             f"{model} ways")
+        _, heads = attention.core_heads(cfg.n_heads, cfg.n_kv_heads, model)
         use_window = _uses_window(cfg, kind)
         window = cfg.sliding_window
         size = min(window, s_cache) if use_window and window else s_cache
         caches.append(attention.init_kv_cache(
-            batch, size, cfg.n_kv_heads // model, cfg.resolved_head_dim,
+            batch, size, heads, cfg.resolved_head_dim,
             dtype, ring=bool(use_window and window and size < s_cache),
             device=device))
     return caches
@@ -376,28 +390,30 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: list,
     ``tp`` (a :class:`~repro_torch.sharding.tensor_parallel.TensorParallel`)
     runs the dense attention family tensor-parallel, as :func:`forward`
     does, on the rank's parameter blocks and its caches
-    (``init_cache(..., model=tp.size)``: its KV heads): the vocab-parallel
-    embedding, each attention layer on its local heads, the split MLP,
-    and the rank's vocabulary columns of the logits joined over the model
-    group (:func:`~repro_torch.sharding.tensor_parallel.gather_vocab`), so
-    every rank returns the whole (B, 1, V).  A step issues ``2·L + 2``
-    collectives: the embedding's sum, two a layer, the logits' gather."""
-    if tp is None:
+    (``init_cache(..., model=tp.size)``: its KV heads, or the whole cache
+    where the heads do not split): the vocab-parallel embedding, each
+    attention layer on its local heads or on the gather route, the split
+    MLP, and the rank's vocabulary columns of the logits joined over the
+    model group (:func:`~repro_torch.sharding.tensor_parallel.gather_vocab`),
+    so every rank returns the whole (B, 1, V).  On whole heads a step
+    issues ``2·L + 2`` collectives: the embedding's sum, two a layer, the
+    logits' gather; the gather route adds its q/k/v ``all_gather`` a
+    layer."""
+    vtp = vocab_tp(params, cfg, tp)
+    if vtp is None:
         x = F.embedding(token.long(), params["embed"]).to(compute_dtype)
     else:
-        x = vocab_parallel_embedding(token, params["embed"], tp,
+        x = vocab_parallel_embedding(token, params["embed"], vtp,
                                      compute_dtype)
-    m = 1 if tp is None else tp.size
     new_caches = []
     for i, (block, cache) in enumerate(zip(params["blocks"], caches)):
         kind = cfg.layer_kind(i)
         h = rms_norm(block["norm1"], x, cfg.norm_eps)
         if kind in ("attn", "local"):
             mix, new = attention.attn_decode(
-                block["mix"], h, cache, n_heads=cfg.n_heads // m,
-                n_kv_heads=cfg.n_kv_heads // m,
-                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-                tp=tp)
+                block["mix"], h, cache, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                rope_theta=cfg.rope_theta, tp=tp)
         elif kind == "mla":
             mix, new = mla.mla_decode(block["mix"], h, cache,
                                       n_heads=cfg.n_heads, cfg=cfg.mla,
@@ -425,4 +441,4 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: list,
             x = x + out
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params.get("lm_head", params["embed"])
-    return gather_vocab(x @ head.T.to(compute_dtype), tp), new_caches
+    return gather_vocab(x @ head.T.to(compute_dtype), vtp), new_caches

@@ -8,7 +8,15 @@ block of every parameter; a column-parallel product's input passes
 through :func:`copy_to` (identity forward, ``all_reduce`` of the gradient
 backward: Megatron's *f*) and a row-parallel product's partial output
 through :func:`reduce_from` (``all_reduce`` forward, identity backward:
-*g*).  The vocabulary splits the embedding table and the tied head:
+*g*).  Where a split does not fall on whole heads, the attention joins the
+rank's column blocks of q, k and v with :func:`gather_from` (``all_gather``
+forward, the rank's block of the gradient backward), runs on whole heads
+on every rank, and hands ``wo`` its row block with :func:`scatter_to` (the
+rank's block forward, ``all_gather`` of the gradient backward): an
+activation that every rank holds whole has a gradient that every rank holds
+whole.  A leaf that ``fit_spec`` keeps whole is whole on every rank and its
+product runs replicated, with none of these operators.  The vocabulary
+splits the embedding table and the tied head:
 :func:`vocab_parallel_embedding` looks up the ids of the rank's range
 and sums the rows over the ranks, and :func:`vocab_parallel_ce` takes the
 cross-entropy of logits split over the vocabulary with one ``all_reduce``
@@ -28,9 +36,9 @@ from typing import Any, NamedTuple
 
 import torch
 
-__all__ = ["TensorParallel", "copy_to", "reduce_from",
-           "vocab_parallel_embedding", "vocab_parallel_ce", "gather_vocab",
-           "arch_gap"]
+__all__ = ["TensorParallel", "copy_to", "reduce_from", "gather_from",
+           "scatter_to", "vocab_parallel_embedding", "vocab_parallel_ce",
+           "gather_vocab", "arch_gap"]
 
 
 class TensorParallel(NamedTuple):
@@ -72,6 +80,45 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
+def _all_gather(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
+    """The ranks' equal blocks ``x`` joined along ``dim`` in rank order."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _block(x: torch.Tensor, rank: int, size: int, dim: int) -> torch.Tensor:
+    """Rank ``rank``'s block of ``size`` equal blocks of ``x`` along
+    ``dim``."""
+    n = x.shape[dim] // size
+    return x.narrow(dim, rank * n, n).contiguous()
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, size, dim):
+        ctx.block = (rank, size, dim)
+        return _all_gather(x, group, size, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _block(grad, *ctx.block), None, None, None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, size, dim):
+        ctx.group, ctx.size, ctx.dim = group, size, dim
+        return _block(x, rank, size, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_all_gather(grad, ctx.group, ctx.size, ctx.dim), None, None,
+                None, None)
+
+
 def _group(tp):
     return None if tp is None else tp.group
 
@@ -88,6 +135,26 @@ def reduce_from(x: torch.Tensor, tp) -> torch.Tensor:
     passes unchanged."""
     group = _group(tp)
     return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
+    """The model group's equal blocks ``x`` joined along ``dim`` in rank
+    order (one ``all_gather``), held whole on every rank; the backward takes
+    this rank's block of the whole gradient, with no collective."""
+    group = _group(tp)
+    if group is None:
+        return x
+    return _GatherFrom.apply(x, group, tp.rank, tp.size, dim % x.ndim)
+
+
+def scatter_to(x: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
+    """This rank's block of ``tp.size`` equal blocks of the whole ``x``
+    along ``dim``; the backward joins the blocks' gradients with one
+    ``all_gather``, so the whole gradient is on every rank."""
+    group = _group(tp)
+    if group is None:
+        return x
+    return _ScatterTo.apply(x, group, tp.rank, tp.size, dim % x.ndim)
 
 
 def vocab_parallel_embedding(ids: torch.Tensor, table: torch.Tensor, tp,
@@ -155,25 +222,18 @@ def gather_vocab(logits: torch.Tensor, tp) -> torch.Tensor:
     model group, joined in rank order.  Forward only (serving)."""
     if _group(tp) is None:
         return logits
-    import torch.distributed as dist
-    logits = logits.contiguous()
-    parts = [torch.empty_like(logits) for _ in range(tp.size)]
-    dist.all_gather(parts, logits, group=tp.group)
-    return torch.cat(parts, dim=-1)
+    return _all_gather(logits, tp.group, tp.size, logits.ndim - 1)
 
 
 def arch_gap(cfg, mesh):
     """Why the split products cannot run ``cfg`` with ``mesh``'s ``model``
-    axis, or None where they can (``model = 1``, or the dense attention
-    family split on whole heads with no leaf that ``fit_spec`` keeps
-    whole).  The message names the ROADMAP item that would run it."""
-    from ..models.transformer import init_model
-    from .rules import map_tree, model_dim, param_specs
+    axis, or None where they can: ``model = 1``, or the dense attention
+    family on every split that ``fit_spec`` makes (whole heads, heads cut
+    mid-head, leaves kept whole).  The message names the ROADMAP item that
+    would run it."""
     m = mesh.shape.get("model", 1)
     if m == 1:
         return None
-    head = (f"tensor parallelism (a mesh 'model' axis of {m}) runs the dense "
-            f"attention family split on whole heads; {cfg.name}")
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     family = [name for name, there in (
         ("MoE blocks", cfg.moe is not None), ("MLA blocks", "mla" in kinds),
@@ -181,18 +241,7 @@ def arch_gap(cfg, mesh):
         ("an encoder", cfg.encoder is not None),
         ("a prefix", bool(cfg.n_prefix_tokens))) if there]
     if family:
-        return (f"{head} has {', '.join(family)} (ROADMAP.md Queue 1, "
-                f"item 4c)")
-    if cfg.n_heads % m or cfg.n_kv_heads % m:
-        return (f"{head}'s {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
-                f"do not split {m} ways (ROADMAP.md Queue 1, item 4d)")
-    whole = []
-    meta = init_model(cfg, device="meta")
-    map_tree(lambda path, p, s: whole.append("/".join(map(str, path)))
-             if "model" in s and model_dim(s, tuple(p.shape), mesh) is None
-             else None, meta, param_specs(meta))
-    if whole:
-        return (f"{head}: fit_spec keeps {', '.join(whole[:4])} whole, a "
-                f"split that is not the reference's (ROADMAP.md Queue 1, "
-                f"item 4d)")
+        return (f"tensor parallelism (a mesh 'model' axis of {m}) runs the "
+                f"dense attention family; {cfg.name} has "
+                f"{', '.join(family)} (ROADMAP.md Queue 1, item 4c)")
     return None

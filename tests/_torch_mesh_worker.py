@@ -11,11 +11,13 @@ compressors) and ``step`` (``make_train_step`` on ``make_debug_mesh(data=2,
 model=1)``); tensor parallelism's ``tp_blocks`` (the split MLP, attention,
 vocab-parallel embedding and cross-entropy with their gradients),
 ``tp_select`` (the split k-selection and the tree STC over a model group),
+``tp_ops`` (``gather_from`` and ``scatter_to`` around split products),
 ``tp_step`` (``make_train_step`` on ``make_debug_mesh(data, model)``,
 the state joined back after each job, and on request one step under
 ``FlopCounterMode`` with what it hands gloo counted) and ``tp_serve``
 (``make_prefill_step`` and ``make_decode_step`` on ``make_debug_mesh(1,
-model)`` from head-sharded caches, with what a step hands gloo counted).
+model)`` from head-sharded caches, or whole caches where the KV heads do
+not split, with what a step hands gloo counted).
 The ranks meet through a ``file://`` rendezvous beside ``<out.pt>``.
 """
 
@@ -104,8 +106,7 @@ def _tp_blocks(rank, inp, group):
     out["mlp"] = (y.detach(), x.grad, {k: v.grad for k, v in mlp.items()})
     x = leaf(inp["x"])
     mix = {k: leaf(v) for k, v in params["blocks"][0]["mix"].items()}
-    y = attn_apply(mix, x, n_heads=cfg.n_heads // tp.size,
-                   n_kv_heads=cfg.n_kv_heads // tp.size,
+    y = attn_apply(mix, x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                    head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                    chunk=inp["chunk"], tp=tp)
     (y * inp["cot"]).sum().backward()
@@ -174,11 +175,41 @@ class _Handed:
         dist.all_reduce, dist.all_gather = self.saved
 
 
+def _tp_ops(rank, inp, group):
+    """``gather_from`` and ``scatter_to`` around each case's split product:
+    the output and the gradients of ``sum(out * cot)``."""
+    from repro_torch.sharding.tensor_parallel import (copy_to, gather_from,
+                                                      reduce_from, scatter_to)
+    tp = _tp(rank, group)
+    out = {}
+    for name, (x, w, cot, dim) in inp.items():
+        x = x.clone().requires_grad_(True)
+        if name == "column":        # Megatron's f, then gather_from
+            n = w.shape[1] // tp.size
+            blk = w[:, rank * n:(rank + 1) * n].clone().requires_grad_(True)
+            y = gather_from(copy_to(x, tp) @ blk, tp, dim)
+        elif name == "row":         # scatter_to, then Megatron's g
+            n = w.shape[0] // tp.size
+            blk = w[rank * n:(rank + 1) * n].clone().requires_grad_(True)
+            y = reduce_from(scatter_to(x, tp, dim) @ blk, tp)
+        else:                       # the blocks of another dimension
+            n = x.shape[dim] // tp.size
+            blk = x.detach().narrow(dim, rank * n, n).clone() \
+                .requires_grad_(True)
+            y = gather_from(blk * w, tp, dim)
+        (y * cot).sum().backward()
+        out[name] = (y.detach(), None if x.grad is None else x.grad,
+                     blk.grad)
+    return out
+
+
 def _tp_step(rank, inp, group):
     """Each job's steps on ``make_debug_mesh(*inp["mesh"])``: the metrics
     a step, this rank's replicated leaves a step, the state joined back
     over the model group; a job with ``count`` runs one more step under
-    ``FlopCounterMode`` and ``_Handed``."""
+    ``FlopCounterMode`` and ``_Handed``.  A job may name its own
+    ``arch``, ``params``, ``batch`` and ``mesh`` (every rank builds every
+    job's groups in the same order)."""
     import dataclasses
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_smoke_config
@@ -187,21 +218,24 @@ def _tp_step(rank, inp, group):
     from repro_torch.launch.train import (TrainConfig, init_train_state,
                                           make_train_step, unshard_tree)
     from repro_torch.sharding.rules import replicated_leaves
-    mesh = make_debug_mesh(*inp["mesh"])
     out = []
     for job in inp["jobs"]:
-        cfg = dataclasses.replace(get_smoke_config(inp["arch"]),
+        mesh = make_debug_mesh(*job.get("mesh", inp["mesh"]))
+        cfg = dataclasses.replace(get_smoke_config(job.get("arch",
+                                                           inp["arch"])),
                                   **job.get("cfg", {}))
+        params, batch = job.get("params", inp["params"]), job.get(
+            "batch", inp["batch"])
         tc = TrainConfig(**{"compute_dtype": torch.float32, **job["tc"]})
         state = init_train_state(cfg, tc, mesh.n_clients, device="cpu",
-                                 params=inp["params"], mesh=mesh)
+                                 params=params, mesh=mesh)
         step = make_train_step(cfg, mesh, tc, device="cpu")
-        flags = replicated_leaves(inp["params"], mesh)
+        flags = replicated_leaves(params, mesh)
         args = () if job.get("mask") is None else (
             torch.tensor(job["mask"]), torch.zeros(len(job["mask"])))
         metrics, replicated, wire = [], [], []
         for _ in range(job.get("steps", 1)):
-            res = step(state, inp["batch"], *args)
+            res = step(state, batch, *args)
             state, m = res[0], res[1]
             if tc.measure_wire:
                 wire.append(res[2])
@@ -223,7 +257,7 @@ def _tp_step(rank, inp, group):
                       id(mesh.client_group()): "client"}
             with FlopCounterMode(display=False) as flops, \
                     _Handed(groups) as handed:
-                step(state, inp["batch"], *args)
+                step(state, batch, *args)
             counted = (flops.get_total_flops(), handed.log)
         out.append({"metrics": metrics, "replicated": replicated,
                     "state": whole, "wire": wire, "counted": counted})
@@ -231,10 +265,11 @@ def _tp_step(rank, inp, group):
 
 
 def _tp_serve(rank, inp, group):
-    """Each arch's serve steps on ``make_debug_mesh(1, 2)`` from this
-    rank's blocks of ``params``: the fp32 prefill of ``prompt``, and the
-    fp32 decode teacher-forced through ``prompt`` then ``tail`` from the
-    rank's caches (their shapes and bytes kept), the first step with what
+    """Each arch's serve steps on ``make_debug_mesh(1, M)``, ``M`` the
+    world's ranks, from this rank's blocks of ``params``: the fp32 prefill
+    of ``prompt``, and the fp32 decode teacher-forced through ``prompt``
+    then ``tail`` from the rank's caches (their shapes and bytes kept;
+    whole where the KV heads do not split ``M`` ways), the first step with what
     it hands gloo counted; then one bf16 prefill and one bf16 decode step,
     each counted."""
     from repro_torch.configs import get_smoke_config
@@ -291,8 +326,8 @@ def _rank(rank, case, inp_path, out_path, rendezvous, world):
     try:
         inp = torch.load(inp_path, weights_only=False)
         fns = {"reduce": _reduce, "step": _step, "tp_blocks": _tp_blocks,
-               "tp_select": _tp_select, "tp_step": _tp_step,
-               "tp_serve": _tp_serve}
+               "tp_select": _tp_select, "tp_ops": _tp_ops,
+               "tp_step": _tp_step, "tp_serve": _tp_serve}
         if "+" in case:             # several cases, ``inp`` a dict of inputs
             out = {c: fns[c](rank, inp[c], dist.group.WORLD)
                    for c in case.split("+")}

@@ -232,13 +232,23 @@ def _deltas(li, numel, P=3):
         .astype(np.float32)
 
 
+# the Hypothesis draws (layout, one chunk a layer, seeds) on which the
+# reference's own oracle test misses by 2.4e-7 (ROADMAP.md, R3)
+R3_DRAW = ([40, 0, 33, 27], "numel", (101692104, 23))
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", CODECS)
 def test_chunked_is_per_chunk_oracle(name, mode):
     routes = ("kernel", "torch") if name == "stc" else ("kernel",)
-    for li, sizes in enumerate(LAYOUTS):
+    draws = [(sizes, _deltas(li, sum(sizes)))
+             for li, sizes in enumerate(LAYOUTS)]
+    sizes, r3_mode, seeds = R3_DRAW
+    if mode == r3_mode:
+        draws += [(sizes, _deltas(seed, sum(sizes))) for seed in seeds]
+    for sizes, d_np in draws:
         for route in routes:
-            _run_chunked(name, route, sizes, mode, _deltas(li, sum(sizes)))
+            _run_chunked(name, route, sizes, mode, d_np)
 
 
 @pytest.mark.parametrize("name", CODECS)

@@ -256,11 +256,11 @@ def test_mask_needs_masked_mode():
 def test_model_axis_and_missing_card_and_group_raise():
     cfg = get_smoke_config("smollm-135m")
     tc = TrainConfig()
-    # SmolLM's 9 query and 3 KV heads do not split two ways (item 4d);
-    # the MoE family waits for item 4c
+    # the chunked STC's blocks cut across the shards (item 4d); the MoE
+    # family waits for item 4c
     with pytest.raises(NotImplementedError, match="ROADMAP.*4d"):
-        make_train_step(cfg, make_debug_mesh(data=1, model=2), tc,
-                        device=CPU)
+        make_train_step(cfg, make_debug_mesh(data=1, model=2),
+                        TrainConfig(chunks=4096), device=CPU)
     with pytest.raises(NotImplementedError, match="MoE.*ROADMAP.*4c"):
         make_train_step(get_smoke_config("granite-moe-3b-a800m"),
                         make_debug_mesh(data=1, model=2), tc, device=CPU)

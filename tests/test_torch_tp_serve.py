@@ -286,27 +286,30 @@ def test_the_dry_run_lists_what_a_serve_step_hands_gloo(ranks, arch, kind):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_what_serving_runs_under_tensor_parallelism(arch):
-    """The train step's archs run (qwen2, phi3 at ``model = 2``); the other
-    families name item 4c, SmolLM's 9 / 3 heads item 4d, and both steps
-    raise with that message; the dry run then counts no tensor-parallel
-    collective and says so.  ``model = 1`` always runs."""
-    want = {"qwen2-0.5b": None, "phi3-medium-14b": None,
-            "smollm-135m": "item 4d"}.get(arch, "item 4c")
+    """The train step's archs run: the dense attention family at ``model``
+    2, 4 and 16, on whole heads or not; the other families name item 4c,
+    and both steps raise with that message; the dry run then counts no
+    tensor-parallel collective and says so.  ``model = 1`` always runs."""
+    dense = arch in ("qwen2-0.5b", "phi3-medium-14b", "smollm-135m")
+    want = None if dense else "item 4c"
     mesh = make_debug_mesh(1, 2)
     for cfg in (get_config(arch), get_smoke_config(arch)):
-        gap = serve_gap(cfg, mesh)
-        assert gap == arch_gap(cfg, mesh)
-        assert (gap is None) if want is None else (want in gap), gap
+        for m in (2, 4, 16):
+            gap = serve_gap(cfg, make_debug_mesh(1, m))
+            assert gap == arch_gap(cfg, make_debug_mesh(1, m))
+            assert (gap is None) if want is None else (want in gap), gap
         assert serve_gap(cfg, make_debug_mesh(2, 1)) is None
-    if want is None:
-        return
     cfg = get_smoke_config(arch)
-    for make in (make_prefill_step, make_decode_step):
-        with pytest.raises(NotImplementedError, match=want):
-            make(cfg, mesh, device="cpu")
     rec = dryrun.lower_combo(arch, InputShape("row", 8, 2, "decode"),
                              mesh=mesh, cfg=cfg, verbose=False,
                              ingest=False)
+    if want is None:
+        assert rec["collectives"]
+        assert not [a for a in rec["assumptions"] if "not counted" in a]
+        return
+    for make in (make_prefill_step, make_decode_step):
+        with pytest.raises(NotImplementedError, match=want):
+            make(cfg, mesh, device="cpu")
     assert rec["collectives"] == {}
     assert [a for a in rec["assumptions"] if "not counted" in a]
 
@@ -328,13 +331,15 @@ def test_other_cache_modes_raise_under_tensor_parallelism(arch, mode):
 
 
 def test_the_rank_cache_and_cross_attention_refuse_what_they_do_not_split():
-    """``init_cache(model=2)`` allocates KV heads only, and raises on heads
-    that do not split or on a cache of another kind; the decode's
-    cross-attention under ``tp`` names item 4c; the logits' gather is the
-    identity without ``tp``."""
+    """``init_cache(model=2)`` allocates KV heads only where they split,
+    the whole cache where they do not (SmolLM's one KV head), and raises on
+    a cache of another kind; the decode's cross-attention under ``tp``
+    names item 4c; the logits' gather is the identity without ``tp``."""
     smollm = get_smoke_config("smollm-135m")
-    with pytest.raises(ValueError, match="do not split"):
-        init_cache(smollm, 1, 4, device="meta", model=2)
+    assert [tuple(c.k.shape) for c in init_cache(
+        smollm, 1, 4, device="meta", model=2)] == \
+        [(1, 4, smollm.n_kv_heads, smollm.resolved_head_dim)] * \
+        smollm.n_layers
     with pytest.raises(NotImplementedError, match="item 4c"):
         init_cache(get_smoke_config("mamba2-370m"), 1, 4, device="meta",
                    model=2)
