@@ -5714,11 +5714,13 @@ def run_moe(torch, np, rk):
 
 # Each arch's depth is cut for the script's time: at 48 / 12 / 24 + 24 /
 # 20 layers phase 14 took 307-387 s, and the whole script up to 1,205 s of
-# its 1,200 s limit on a slow host.  Every check still runs on each arch.
+# its 1,200 s limit on a slow host; at 24 / 6 / 12 + 12 / 12 it took 202.6
+# s of a 1,113 s script once phase 16 ran three archs.  Every check still
+# runs on each arch.
 ZOO_SSM = "mamba2-370m"
-ZOO_SSM_LAYERS = 24             # of 48 (368,227,840 parameters)
-ZOO_SSM_NUMEL = 209_857_792
-ZOO_SSM_K = 4_197_155           # int(ZOO_SSM_NUMEL / 50)
+ZOO_SSM_LAYERS = 12             # of 48 (368,227,840 parameters)
+ZOO_SSM_NUMEL = 130_672_768
+ZOO_SSM_K = 2_613_455           # int(ZOO_SSM_NUMEL / 50)
 ZOO_HYBRID = "recurrentgemma-2b"
 # of 26 layers (2,265,290,240 parameters): two whole (rglru, rglru, local)
 # periods; at 26 the trainer would need ~76 GiB (phase 13's 56.2 GiB for
@@ -5727,16 +5729,16 @@ ZOO_HYBRID_LAYERS = 6
 ZOO_HYBRID_NUMEL = 1_025_067_520
 ZOO_HYBRID_K = 20_501_350       # int(ZOO_HYBRID_NUMEL / 50)
 ZOO_ENC = "whisper-medium"
-ZOO_ENC_LAYERS = 12             # encoder and decoder, each of 24
-ZOO_ENC_NUMEL = 458_604_544     # (810,987,520 parameters at 24 + 24)
-ZOO_ENC_K = 9_172_090           # int(ZOO_ENC_NUMEL / 50)
+ZOO_ENC_LAYERS = 6              # encoder and decoder, each of 24
+ZOO_ENC_NUMEL = 282_413_056     # (810,987,520 parameters at 24 + 24)
+ZOO_ENC_K = 5_648_261           # int(ZOO_ENC_NUMEL / 50)
 ZOO_VLM = "internvl2-2b"
 # of 24 layers (1,893,341,184 parameters): there the trainer fits (peak
 # 63.6 GiB) but the plain bin_select at its (1, 1,893,341,184) row does
 # not: its full sort asked for 21.21 GiB beside 58.34 GiB in use
-ZOO_VLM_LAYERS = 12
-ZOO_VLM_NUMEL = 1_138_317_312
-ZOO_VLM_K = 22_766_346          # int(ZOO_VLM_NUMEL / 50)
+ZOO_VLM_LAYERS = 6
+ZOO_VLM_NUMEL = 760_805_376
+ZOO_VLM_K = 15_216_107          # int(ZOO_VLM_NUMEL / 50)
 ZOO_BATCH = (4, 1024)           # four SSD chunks of 256 a sequence
 ZOO_STEPS = 5
 ZOO_BLOCK_X = (2, 512)          # two SSD chunks: the recurrence runs
@@ -5977,10 +5979,10 @@ def zoo_arch(torch, np, rk, arch, numel, k, layers=None):
 def run_zoo(torch, np, rk):
     """Phase 14: the rest of the model zoo on the card, through the mesh
     trainer and the serve path, each at full width and a cut depth
-    (``ZOO_*_LAYERS``): Mamba-2-370M at 24 layers, RecurrentGemma-2B at
+    (``ZOO_*_LAYERS``): Mamba-2-370M at 12 layers, RecurrentGemma-2B at
     6, whisper-medium (frames through its encoder into the
-    cross-attention) at 12 encoder and 12 decoder layers, internvl2-2b (a
-    patch prefix) at 12; then whisper and internvl at
+    cross-attention) at 6 encoder and 6 decoder layers, internvl2-2b (a
+    patch prefix) at 6; then whisper and internvl at
     their smoke configs, the train step card against CPU.  Returns
     ``(launches by path, keys by kernel for the kernels line, max
     errors)``."""
@@ -6067,23 +6069,34 @@ def run_dryrun(torch, np, rk):
 
 # the runs of phase 16: an arch at full width on make_debug_mesh(1, model).
 # "local" is each rank's row: its block of every sharded leaf and the whole
-# replicated norms; "owned" the selection's owned row a rank, which keeps
-# the norms on model rank 0 only
+# replicated leaves; "owned" the selection's owned row a rank, which keeps
+# the replicated leaves on model rank 0 only.  The depths are cut for the
+# script's time: with Qwen2 at 24 layers and SmolLM at 10 the three runs
+# took 396.4 s of a 1,113 s script
 TP_RUNS = {
-    # Qwen2-0.5B at full width and depth (24 layers): 14 query / 2 KV
-    # heads, whole heads on two ranks; the norms 43,904 entries
-    "qwen2": {"arch": "qwen2-0.5b", "model": 2, "layers": 24,
-              "numel": 494_032_768, "k": 9_880_655,
-              "local": 247_038_336, "owned": (247_038_336, 246_994_432),
+    # Qwen2-0.5B at full width, depth cut to 12 of 24 layers: 14 query / 2
+    # KV heads, whole heads on two ranks; the norms 22,400 entries
+    "qwen2": {"arch": "qwen2-0.5b", "model": 2, "layers": 12,
+              "numel": 315_084_160, "k": 6_301_683,
+              "local": 157_553_280, "owned": (157_553_280, 157_530_880),
               "ledger": True, "fp32_seq": 128, "path": "tp"},
-    # SmolLM-135M, depth cut to phase 11's 10 layers: 9 query / 3 KV heads
-    # of 64, so a rank holds 144 of wq's 576 columns (2.25 heads) and 48 of
-    # wk's 192 (0.75 of a head): the attention's gather route; the norms
-    # 12,096 entries
-    "smollm": {"arch": "smollm-135m", "model": 4, "layers": 10,
-               "numel": 63_713_088, "k": 1_274_261,
-               "local": 15_937_344, "owned": (15_937_344,) + (15_925_248,) * 3,
+    # SmolLM-135M at full width, depth cut to 5 of 30 layers: 9 query / 3
+    # KV heads of 64, so a rank holds 144 of wq's 576 columns (2.25 heads)
+    # and 48 of wk's 192 (0.75 of a head): the attention's gather route;
+    # the norms 6,336 entries
+    "smollm": {"arch": "smollm-135m", "model": 4, "layers": 5,
+               "numel": 46_012_608, "k": 920_252,
+               "local": 11_507_904, "owned": (11_507_904,) + (11_501_568,) * 3,
                "ledger": False, "fp32_seq": 32, "path": "tp_midhead"},
+    # Granite-MoE-3B at full width, depth cut to 4 layers: 24 query / 8 KV
+    # heads of 64 (12 and 4 a rank: whole heads), 40 experts top-8 with
+    # d_expert 512 (256 a rank), the tied vocabulary of 49,155 whole on both
+    # ranks (it does not split two ways); the embedding, the routers and
+    # the norms 75,761,664 entries
+    "granite": {"arch": "granite-moe-3b-a800m", "model": 2, "layers": 4,
+                "numel": 478_414_848, "k": 9_568_296,
+                "local": 277_088_256, "owned": (277_088_256, 201_326_592),
+                "ledger": False, "fp32_seq": 32, "path": "tp_moe"},
 }
 TP_STEPS = 5
 TP_LEDGER_STEPS = 2
@@ -6096,8 +6109,11 @@ TP_SERVE_BF16 = (4, 16)         # bf16 prefill against bf16 decode (a
                                 # step costs 50 gloo collectives: phase
                                 # 12's 512 tokens cut for the script's time)
 TP_PREFILL = (1, 8_192)         # phase 14's prefill for the attention archs
-TP_DECODE = (64, 4_096)         # 1.61 GB (qwen2) and 2.01 GB
-                                # (smollm, whole caches) of bf16 cache a rank
+TP_DECODE = (64, 4_096)         # 0.81 GB (qwen2), 1.01 GB (smollm, whole
+                                # caches), 1.07 GB (granite) of bf16 cache
+                                # a rank
+TP_NEAR_TIE = 1e-6              # router probabilities closer than this may
+                                # order their experts either way in fp32
 
 
 class GlooCalls:
@@ -6151,19 +6167,21 @@ class SyncFreeCollectives:
     inside each ``dist.all_reduce`` / ``dist.all_gather``: gloo stages a
     CUDA tensor through the host and synchronizes its copy stream (on its
     worker thread, while the call waits), so any other host sync raises.
-    Counts the collectives it let through."""
+    Counts the collectives it let through (``calls``), and the host reads
+    of ``Tensor.tolist`` (``reads``: a MoE layer's group sizes), which it
+    lets through too."""
 
     def __init__(self, torch):
         import torch.distributed as dist
-        self.torch, self.dist, self.calls = torch, dist, 0
-        self.saved = dist.all_reduce, dist.all_gather
+        self.torch, self.dist, self.calls, self.reads = torch, dist, 0, 0
+        self.saved = dist.all_reduce, dist.all_gather, torch.Tensor.tolist
 
     def __enter__(self):
         cuda = self.torch.cuda
 
-        def quiet(fn):
+        def quiet(fn, counter):
             def call(*args, **kw):
-                self.calls += 1
+                setattr(self, counter, getattr(self, counter) + 1)
                 cuda.set_sync_debug_mode(0)
                 try:
                     return fn(*args, **kw)
@@ -6171,13 +6189,26 @@ class SyncFreeCollectives:
                     cuda.set_sync_debug_mode("error")
             return call
 
-        self.dist.all_reduce, self.dist.all_gather = map(quiet, self.saved)
+        self.dist.all_reduce, self.dist.all_gather = (
+            quiet(fn, "calls") for fn in self.saved[:2])
+        assert "tolist" not in vars(self.torch.Tensor)
+        self.torch.Tensor.tolist = quiet(self.saved[2], "reads")
         cuda.set_sync_debug_mode("error")
         return self
 
     def __exit__(self, *exc):
         self.torch.cuda.set_sync_debug_mode(0)
-        self.dist.all_reduce, self.dist.all_gather = self.saved
+        self.dist.all_reduce, self.dist.all_gather = self.saved[:2]
+        del self.torch.Tensor.tolist        # TensorBase's again
+
+
+def router_calls():
+    """``tests/_torch_mesh_worker.py``'s ``RouterCalls``: every call of
+    ``repro_torch.models.moe.route`` while entered, its expert choices and
+    router probabilities kept on the device."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_mesh_worker import RouterCalls
+    return RouterCalls()
 
 
 def tp_setup(torch, np, run):
@@ -6318,14 +6349,19 @@ def tp_fp32_check(torch, np, rk, cfg, tc, batch, mesh, rank):
     ``model = 1`` step of the same parameters and batch on the card (rank
     0 runs it after the ranks' step; the others wait): the loss
     within rtol 1e-5 and ``nnz_up`` apart by no more than the model = 1
-    carried row's magnitudes within rtol ``TP_NEAR`` of its threshold."""
+    carried row's magnitudes within rtol ``TP_NEAR`` of its threshold; on
+    a MoE config every router call's expert choices (forward and remat's
+    recompute) equal to the ``model = 1`` step's for every token whose
+    k-th and (k+1)-th probabilities there lie more than ``TP_NEAR_TIE``
+    apart, each token that differs inside that gap listed with its gap."""
     import torch.distributed as dist
     from repro_torch.core.compression import flatten_pytree
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.train import init_train_state, make_train_step
     tc32 = dataclasses.replace(tc, compute_dtype=torch.float32)
     state = init_train_state(cfg, tc32, 1, key=0, mesh=mesh)
-    _, m_tp = make_train_step(cfg, mesh, tc32)(state, batch)
+    with router_calls() as routed_tp:
+        _, m_tp = make_train_step(cfg, mesh, tc32)(state, batch)
     m_tp = {k: float(v) for k, v in m_tp.items()}
     del state
     torch.cuda.empty_cache()
@@ -6333,8 +6369,9 @@ def tp_fp32_check(torch, np, rk, cfg, tc, batch, mesh, rank):
     rec = {}
     if rank == 0:
         state = init_train_state(cfg, tc32, 1, key=0)
-        _, m_one = make_train_step(cfg, make_debug_mesh(1, 1), tc32)(state,
-                                                                     batch)
+        with router_calls() as routed_one:
+            _, m_one = make_train_step(cfg, make_debug_mesh(1, 1),
+                                       tc32)(state, batch)
         row = flatten_pytree(mesh_delta(torch, cfg, tc32, state["params"],
                                         batch, slice(0, 4)))[0][None]
         del state
@@ -6347,8 +6384,37 @@ def tp_fp32_check(torch, np, rk, cfg, tc, batch, mesh, rank):
         torch.cuda.empty_cache()
         rec = {"tp": m_tp, "one": {k: float(v) for k, v in m_one.items()},
                "thresh": t, "near": near}
+        if cfg.moe is not None:
+            rec["choices"] = compare_choices(torch, routed_tp.log,
+                                             routed_one.log, cfg.moe.top_k)
     dist.barrier()
     return rec
+
+
+def compare_choices(torch, got, want, k):
+    """Router calls ``got`` (expert choices) against ``want`` (choices and
+    probabilities), call by call: the tokens clear of a near-tie (the k-th
+    and (k+1)-th probabilities more than ``TP_NEAR_TIE`` apart) must choose
+    the same experts; a token inside the gap may differ, and is listed with
+    its gap."""
+    require(len(got) == len(want), f"{len(got)} router calls against "
+            f"{len(want)}")
+    clear_tokens, flipped = 0, []
+    for call, ((idx, _), (ref, probs)) in enumerate(zip(got, want)):
+        top = torch.sort(probs, dim=-1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        clear = gap > TP_NEAR_TIE
+        differ = (idx != ref).any(dim=-1)
+        require(not bool((differ & clear).any()),
+                f"router call {call}: "
+                f"{int((differ & clear).sum())} tokens clear of a near-tie "
+                f"chose other experts")
+        clear_tokens += int(clear.sum())
+        flipped += [{"call": call, "token": int(i), "gap": float(gap[i])}
+                    for i in differ.nonzero()[:, 0].tolist()]
+    return {"calls": len(got), "tokens_clear": clear_tokens,
+            "tokens": sum(int(idx.shape[0]) for idx, _ in got),
+            "near_tie_flips": flipped}
 
 
 def tp_serve_fp32(torch, np, cfg, mesh, tp, trained, digest):
@@ -6459,8 +6525,10 @@ def tp_serve_timed(torch, np, cfg, mesh, tp, trained, digest):
     (median of 3, what it hands gloo counted) and the decode: 6 warm-up
     steps, one under ``SyncFreeCollectives`` and ``GlooCalls`` (exactly
     the collectives of the dry run's ``tp_serve_collectives``: ``2·L + 2``
-    on whole heads, ``3·L + 2`` on the gather route), one under the
-    profiler (device time), 16 timed; each step feeds back its argmax."""
+    on whole heads, ``3·L + 2`` on the gather route, ``2·L`` where the
+    vocabulary stays whole; no host sync but one read of the group sizes
+    a MoE layer), one under the profiler (device time), 16 timed; each
+    step feeds back its argmax."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.compression import tree_leaves
@@ -6543,11 +6611,18 @@ def tp_serve_timed(torch, np, cfg, mesh, tp, trained, digest):
     digest("decode step", lg)
     want = tp_serve_collectives(cfg, mesh, "decode", b, s)
     rec.update(decode_gloo=calls.log, decode_collectives=free.calls,
-               dryrun_decode=want, decode_gloo_ms=1e3 * calls.seconds)
+               decode_reads=free.reads, dryrun_decode=want,
+               decode_gloo_ms=1e3 * calls.seconds)
     calls_want = sum(c["count"] for c in want.values())
     require(free.calls == calls_want,
             f"a tp decode step issued {free.calls} collectives, not "
             f"{calls_want}")
+    # one host read of the group sizes a MoE layer, none elsewhere
+    reads_want = (0 if cfg.moe is None else
+                  cfg.n_layers - cfg.moe.first_dense)
+    require(free.reads == reads_want,
+            f"a tp decode step read the host {free.reads} times, not "
+            f"{reads_want}")
     require(_as_records(calls.log) == _as_records(want),
             f"a tp decode step handed gloo {calls.log}, the dry run lists "
             f"{want}")
@@ -6632,8 +6707,9 @@ def tp_rank(rank, port, out_dir, run):
     """16, one of the model ranks of ``make_debug_mesh(1, run["model"])``
     (a spawned process, gloo on ``cuda:0``): the state's requested bytes
     against the dry run (16a), the lock-step selection and kernel rows
-    (16b, 16h), ``TP_STEPS`` steps with the counters at 0 and what it
-    hands gloo counted (16c), one step under ``FlopCounterMode`` (16d),
+    (16b, 16h), ``TP_STEPS`` steps with the counters at 0, what it hands
+    gloo counted and each router call's expert choices digested (16c),
+    one step under ``FlopCounterMode`` (16d),
     where the run asks for it ``TP_LEDGER_STEPS`` measured steps through
     the ``WireLedger`` (16e: rank 0 on the card's wire route, rank 1 on the
     numpy route, each on the joined messages it holds), the fp32 check on
@@ -6696,14 +6772,16 @@ def tp_rank(rank, port, out_dir, run):
         torch.cuda.synchronize()
         rk.LAUNCHES.reset()
         hist_select.SPLIT_CANDIDATES.clear()
-        metrics, digests, times = [], [], []
+        metrics, digests, times, choices = [], [], [], []
         with GlooCalls({id(tp.group): "model"}) as calls:
             for _ in range(TP_STEPS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                state, m = step(state, batch)
+                with router_calls() as routed:
+                    state, m = step(state, batch)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
+                choices.append(routed.digests())
                 metrics.append({k: float(v) for k, v in m.items()})
                 h = hashlib.sha256()
                 for x, r in zip(tree_leaves(state["params"]), flags):
@@ -6711,6 +6789,7 @@ def tp_rank(rank, port, out_dir, run):
                         h.update(x.detach().cpu().numpy().tobytes())
                 digests.append(h.hexdigest())
         out.update(metrics=metrics, digests=digests, step_s=times,
+                   choices=choices,
                    launches=dict(rk.LAUNCHES.counts),
                    shapes={k: list(v) for k, v in rk.LAUNCHES.shapes.items()},
                    m_b=list(hist_select.SPLIT_CANDIDATES),
@@ -6776,12 +6855,14 @@ def tp_rank(rank, port, out_dir, run):
 
 def run_tensor_parallel(torch, np, rk):
     """Phase 16: tensor parallelism in the mesh trainer on the card, each
-    run of ``TP_RUNS`` in turn (``tp_run``): Qwen2-0.5B at full width and
-    depth on ``make_debug_mesh(1, 2)`` (whole heads), then SmolLM-135M
-    at full width (10 layers) on ``make_debug_mesh(1, 4)`` (heads cut
-    mid-head: the attention's gather route), gloo ranks on ``cuda:0``, STC
-    p = 1/50 both ways.  Returns ``(launches by path, keys by kernel for the kernels
-    line, max errors)``."""
+    run of ``TP_RUNS`` in turn (``tp_run``): Qwen2-0.5B at full width (12
+    layers) on ``make_debug_mesh(1, 2)`` (whole heads), then SmolLM-135M
+    at full width (5 layers) on ``make_debug_mesh(1, 4)`` (heads cut
+    mid-head: the attention's gather route), then Granite-MoE-3B at full
+    width (4 layers) on ``make_debug_mesh(1, 2)`` (the experts split on
+    their hidden dim), gloo ranks on ``cuda:0``, STC p = 1/50 both ways.
+    Returns ``(launches by path, keys by kernel for the kernels line, max
+    errors)``."""
     t0 = time.perf_counter()
     rk.build_all()
     launches, keys, errs = {}, {}, {}
@@ -6847,6 +6928,11 @@ def tp_run(torch, np, rk, name, run):
     for r, out in enumerate(ranks[1:], 1):
         require(out["metrics"] == zero["metrics"],
                 f"rank {r}'s metrics differ from rank 0's")
+        apart = [i for i, (a, b) in enumerate(zip(out["choices"],
+                                                  zero["choices"])) if a != b]
+        require(not apart and len(out["choices"]) == len(zero["choices"]),
+                f"rank {r}'s expert choices differ from rank 0's at steps "
+                f"{apart}")
         require(out["digests"] == zero["digests"],
                 f"rank {r}'s replicated leaves differ from rank 0's at "
                 f"steps {[i for i, (a, b) in enumerate(zip(out['digests'], zero['digests'])) if a != b]}")
@@ -6903,6 +6989,10 @@ def tp_run(torch, np, rk, name, run):
             f"the split selection differs from the joined row's: {lock}")
     require(abs(lock["mu"][0] - lock["mu"][1]) <= 1e-6 * abs(lock["mu"][1]),
             f"the split selection's µ {lock['mu']}")
+    if any(zero["choices"]):
+        print(f"tp {name}: every router call's expert choices bitwise equal "
+              f"on the {m} ranks ({len(zero['choices'][0])} calls a step: "
+              f"the forward's and remat's recompute, {TP_STEPS} steps)")
     fp = zero["fp32"]
     print(f"tp {name} fp32 step (4 x {run['fp32_seq']} tokens) against "
           f"model = 1: {json.dumps(fp)}")
@@ -6989,7 +7079,8 @@ def tp_serve_report(ranks, name):
               f"collectives a step, gloo {json.dumps(t['decode_gloo'])} "
               f"({t['decode_gloo_ms']:.1f} ms inside the calls; dry run: "
               f"{json.dumps(t['dryrun_decode'])}); no host sync but gloo's "
-              f"staging; {sv['seconds']:.1f} s (stages "
+              f"staging and {t['decode_reads']} reads of MoE group sizes; "
+              f"{sv['seconds']:.1f} s (stages "
               f"{json.dumps(sv['stages'])}); card: {card_line()}")
 
 

@@ -27,11 +27,12 @@ PyTorch has no such analysis, so the port counts from the config:
 * ``collectives``: the tree codec's one ``all_reduce`` of the flat fp32
   message over the client ranks (:mod:`repro_torch.core.distributed`),
   a device's shard of it; and, where the step runs the ``model`` axis (the
-  dense attention family, on every split ``fit_spec`` makes), tensor
-  parallelism's collectives over a client's model group as the step hands
-  them to gloo (:func:`tp_collectives`): the split products'
-  ``all_reduce`` s, the attention's gather route's ``all_gather`` s, the
-  vocab-parallel embedding's and cross-entropy's, and the split
+  attention family, dense or MoE, on every split ``fit_spec`` makes),
+  tensor parallelism's collectives over a client's model group as the step
+  hands them to gloo (:func:`tp_collectives`): the split products'
+  ``all_reduce`` s, the MoE gates' gradient sums, the attention's gather
+  route's ``all_gather`` s, the vocab-parallel embedding's and
+  cross-entropy's, and the split
   k-selection's; the selection's candidate gather is data-dependent and
   listed apart (``collectives_data_dependent``); and for the serve steps
   on such a mesh (:func:`tp_serve_collectives`), the embedding's and the
@@ -46,7 +47,7 @@ What a record leaves out: ``temp_size_in_bytes`` (activations and
 workspaces: nothing here measures them, so a record does not fit a step
 into memory by itself); and, for a config the step does not run with
 ``model > 1`` (:func:`repro_torch.launch.train.tensor_parallel_gap`,
-:func:`repro_torch.launch.serve.serve_gap`: MoE, MLA, SSD, RG-LRU,
+:func:`repro_torch.launch.serve.serve_gap`: MLA, SSD, RG-LRU,
 encoder, prefix, the chunked STC, a decode's cache not in the ``"heads"``
 layout), tensor parallelism's collectives, with its ``flops`` split over
 ``model`` evenly, an assumption.  Where the step runs it, ``flops`` is
@@ -104,37 +105,53 @@ def _mm(m: int, k: int, n: int) -> int:
 
 
 class _Splits:
-    """One of ``model`` ranks' widths of a dense config's split leaves,
-    read off its blocks of a one-layer meta model
+    """One of ``model`` ranks' widths of an attention config's split leaves,
+    read off its blocks of a meta model cut to its first MoE layer
     (:func:`~repro_torch.sharding.rules.shard_tree`, which cuts each leaf
-    as ``fit_spec`` does): ``cols`` of ``wq``, ``wk``, ``d_ff`` and the
-    vocabulary; which of them ``model`` splits (a leaf kept whole keeps its
-    width, and its product runs replicated); and the heads its attention
-    core runs (:func:`~repro_torch.models.attention.core_heads`).  At
-    ``model = 1`` every width is whole."""
+    as ``fit_spec`` does): ``cols`` of ``wq``, ``wk``, ``d_ff`` (a dense
+    block's), ``d_expert`` (a MoE block's experts, routed and shared) and
+    the vocabulary; which of them ``model`` splits (a leaf kept whole keeps
+    its width, and its product runs replicated); and the heads its
+    attention core runs (:func:`~repro_torch.models.attention.core_heads`).
+    At ``model = 1`` every width is whole."""
 
     def __init__(self, cfg: ModelConfig, model: int):
         hd = cfg.resolved_head_dim
         self.q_width = cfg.n_heads * hd
         whole = {"q": self.q_width, "kv": cfg.n_kv_heads * hd,
-                 "ff": cfg.d_ff, "vocab": cfg.vocab_size}
+                 "ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                 "expert": cfg.moe.d_expert if cfg.moe else 0}
         self.cols = dict(whole)
         if model > 1:
-            meta = init_model(dataclasses.replace(cfg, n_layers=1),
+            layers = 1 if cfg.moe is None else cfg.moe.first_dense + 1
+            meta = init_model(dataclasses.replace(cfg, n_layers=layers),
                               device="meta")
             rank = shard_tree(meta, make_debug_mesh(1, model), 0)
-            mix, mlp = rank["blocks"][0]["mix"], rank["blocks"][0]["mlp"]
-            self.cols = {"q": mix["wq"].shape[1], "kv": mix["wk"].shape[1],
-                         "ff": mlp["w_down"].shape[0],
-                         "vocab": rank["embed"].shape[0]}
-        self.q, self.kv, self.mlp, self.vocab = (
-            self.cols[n] < whole[n] for n in ("q", "kv", "ff", "vocab"))
+            first, last = rank["blocks"][0], rank["blocks"][-1]
+            self.cols.update(q=first["mix"]["wq"].shape[1],
+                             kv=first["mix"]["wk"].shape[1],
+                             vocab=rank["embed"].shape[0])
+            if "mlp" in first:
+                self.cols["ff"] = first["mlp"]["w_down"].shape[0]
+            if "moe" in last:
+                self.cols["expert"] = last["moe"]["w_down"].shape[1]
+        self.q, self.kv, self.mlp, self.expert, self.vocab = (
+            self.cols[n] < whole[n]
+            for n in ("q", "kv", "ff", "expert", "vocab"))
         self.core, _ = core_heads(cfg.n_heads, cfg.n_kv_heads, model)
         self.heads = model == 1 or self.core < cfg.n_heads
         # the gather route's joined q/k/v columns a token (all ranks')
         self.gathered = (0 if self.heads else
                          (cfg.n_heads * self.q + 2 * cfg.n_kv_heads * self.kv)
                          * hd)
+
+    def ffn(self, cfg: ModelConfig, i: int) -> bool:
+        """Whether layer ``i``'s FFN (its MLP or its experts) is split."""
+        return self.expert if _is_moe(cfg, i) else self.mlp
+
+
+def _is_moe(cfg: ModelConfig, i: int) -> bool:
+    return cfg.moe is not None and i >= cfg.moe.first_dense
 
 
 @functools.lru_cache(maxsize=None)
@@ -239,22 +256,23 @@ def _mlp(c: _Count, cfg: ModelConfig, t, f):
     c.mm(t, f, d)
 
 
-def _moe(c: _Count, cfg: ModelConfig, t):
-    """Router, the routed experts (tokens x top-k rows ragged, experts x
-    capacity rows in the capacity dispatch), the shared experts."""
+def _moe(c: _Count, cfg: ModelConfig, t, f):
+    """Router (whole on every rank), the routed experts at the hidden width
+    ``f`` (tokens x top-k rows ragged, experts x capacity rows in the
+    capacity dispatch), the shared experts at ``f``."""
     m, d = cfg.moe, cfg.d_model
     c.mm(t, d, m.n_experts)
     rows = (t * m.top_k if m.dispatch != "capacity"
             else m.n_experts * capacity(m, t))
-    _mlp(c, cfg, rows, m.d_expert)
+    _mlp(c, cfg, rows, f)
     c.last = 0                  # the combine's gate product saves after
     for _ in range(m.n_shared):
-        _mlp(c, cfg, t, m.d_expert)
+        _mlp(c, cfg, t, f)
 
 
 def _ffn(c: _Count, cfg: ModelConfig, i, t, sp: _Splits):
-    if cfg.moe is not None and i >= cfg.moe.first_dense:
-        _moe(c, cfg, t)
+    if _is_moe(cfg, i):
+        _moe(c, cfg, t, sp.cols["expert"])
     else:
         _mlp(c, cfg, t, sp.cols["ff"])
 
@@ -264,7 +282,7 @@ def _forward(cfg: ModelConfig, b, s, frames: int, remat: bool,
     """The model's forward over ``s`` positions (prefix included) and its
     backward, the LM head excluded; with ``remat`` the blocks' recompute is
     added to the backward.  ``model`` > 1: one rank's share under tensor
-    parallelism (the dense attention family)."""
+    parallelism (the attention family, dense or MoE)."""
     total, sp = _Count(), _splits(cfg, model)
     d = cfg.d_model
     if cfg.n_prefix_tokens:
@@ -356,11 +374,12 @@ def step_flops(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
     caches of ``seq`` positions.  A VLM's prefix and an encoder-decoder's
     frames (or, at decode, its memory) come with the arch's input specs.
 
-    ``model`` > 1 counts one rank of a tensor-parallel step of the dense
-    attention family: each product's block where ``fit_spec`` splits its
-    leaf and the whole product where it keeps the leaf whole, and the
-    attention core on the rank's heads, or on every head where the heads
-    do not split (the gather route).
+    ``model`` > 1 counts one rank of a tensor-parallel step of the
+    attention family, dense or MoE: each product's block where
+    ``fit_spec`` splits its leaf and the whole product where it keeps the
+    leaf whole (the router always), and the attention core on the rank's
+    heads, or on every head where the heads do not split (the gather
+    route).
     """
     frames = cfg.encoder.n_frames if cfg.encoder is not None else 0
     if kind == "decode":
@@ -535,13 +554,15 @@ def tp_collectives(cfg: ModelConfig, tc: TrainConfig, mesh: Mesh,
     "bytes", "ranks"}}`` (bytes a device hands in; an all-gather's, what it
     gathers).  ``model-all-reduce``: per microbatch of ``t`` tokens, each
     block's forward ``all_reduce`` s of its split products' outputs
-    (attention and MLP), the backward's of their inputs' gradients and,
-    with remat, the attention's again in the recompute (which stops before
-    the MLP's last product), the embedding's rows and the head's input
-    gradient, all ``(t, d)`` in the compute dtype; the cross-entropy's row
-    maxima ``(t,)`` and exp-sums and gold logits ``(2, t)`` in fp32 per
-    logit chunk; the split k-selection's maximum and 256 bin sums a call;
-    and TernQuant's three 8-byte sums a call.  A product of a leaf that
+    (attention, and MLP or experts), the backward's of their inputs'
+    gradients and, with remat, the attention's again in the recompute
+    (which stops before the MLP's or the experts' last product), the
+    embedding's rows and the head's input gradient, all ``(t, d)`` in the
+    compute dtype; a MoE block's gates' gradient ``(t, k)`` in fp32 where
+    its experts split; the cross-entropy's row maxima ``(t,)`` and
+    exp-sums and gold logits ``(2, t)`` in fp32 per logit chunk; the split
+    k-selection's maximum and 256 bin sums a call; and TernQuant's three
+    8-byte sums a call.  A product of a leaf that
     ``fit_spec`` keeps whole runs replicated and hands gloo nothing.
     ``model-activations-all-gather``: on the attention's gather route
     (heads that do not split), each layer's joined q/k/v blocks in the
@@ -561,12 +582,16 @@ def tp_collectives(cfg: ModelConfig, tc: TrainConfig, mesh: Mesh,
     remat = 1 if cfg.remat else 0
     attn_out = sp.heads or sp.q             # wo split: reduce_from
     attn_in = sp.heads or sp.q or sp.kv     # a split input: copy_to
-    acts = (cfg.n_layers * (attn_out * (1 + remat) + attn_in + 2 * sp.mlp)
+    ffn = sum(sp.ffn(cfg, i) for i in range(cfg.n_layers))
+    gates = sum(sp.ffn(cfg, i) for i in range(cfg.n_layers)
+                if _is_moe(cfg, i))         # the gates' gradient, (t, k)
+    acts = (cfg.n_layers * (attn_out * (1 + remat) + attn_in) + 2 * ffn
             + 2 * sp.vocab)
     lc = cfg.logit_chunk
     chunks = seq // lc if lc and seq > lc and seq % lc == 0 else 1
-    count = iters * (acts + 2 * chunks * sp.vocab)
-    nbytes = iters * (acts * t * cfg.d_model * width + 3 * 4 * t * sp.vocab)
+    count = iters * (acts + gates + 2 * chunks * sp.vocab)
+    nbytes = iters * (acts * t * cfg.d_model * width + 3 * 4 * t * sp.vocab
+                      + gates * 4 * t * (cfg.moe.top_k if gates else 0))
     sel = _SPLIT_SELECTIONS.get(codec.name, 0)
     tq = _SPLIT_TERNQUANT.get(codec.name, 0)
     count += 2 * sel + 3 * tq
@@ -599,8 +624,9 @@ def tp_serve_collectives(cfg: ModelConfig, mesh: Mesh, kind: str,
     of ``rows`` tokens), as the step hands them to gloo over the model
     group: ``{name: {"count", "bytes", "ranks"}}`` (an all-gather's bytes:
     what it gathers), in the serve steps' bf16.  ``model-all-reduce``: the
-    embedding's rows and each layer's attention and MLP outputs, ``(t,
-    d)`` for the step's ``t`` tokens, where their leaves split;
+    embedding's rows and each layer's attention and MLP or experts'
+    outputs, ``(t, d)`` for the step's ``t`` tokens, where their leaves
+    split;
     ``model-all-gather``: the last position's logits, the vocabulary's
     columns from every rank; ``model-activations-all-gather``: on the
     attention's gather route, each layer's joined q/k/v blocks.  On whole
@@ -612,7 +638,8 @@ def tp_serve_collectives(cfg: ModelConfig, mesh: Mesh, kind: str,
     t = rows * (seq if kind == "prefill" else 1)
     width = 2                          # bytes of a bf16 element
     sp = _splits(cfg, m)
-    acts = cfg.n_layers * ((sp.heads or sp.q) + sp.mlp) + sp.vocab
+    acts = (cfg.n_layers * (sp.heads or sp.q) + sp.vocab +
+            sum(sp.ffn(cfg, i) for i in range(cfg.n_layers)))
     out = {}
     if acts:
         out["model-all-reduce"] = {"count": acts,

@@ -21,8 +21,8 @@ and, in the decode, their KV heads of every cache
 whole cache where the KV heads do not split ``M`` ways; the steps run
 Megatron's split products (the attention on the gather route where its
 heads do not split) and return the whole (B, 1, V) last-position logits on
-every rank.  It runs what the train step runs, the dense attention family
-on every split that ``fit_spec`` makes (:func:`serve_gap`).
+every rank.  It runs what the train step runs, the attention family,
+dense or MoE, on every split that ``fit_spec`` makes (:func:`serve_gap`).
 ``cache_mode`` takes the reference's values; they only pin layouts under
 GSPMD, so on a mesh whose ``model`` axis is 1 every mode gives the same
 values; under ``model > 1`` only ``"heads"`` runs.

@@ -19,9 +19,10 @@ scale:
 * every codec registered in :mod:`repro_torch.core.protocols` runs; there
   is no protocol dispatch in this module.
 
-The ``model`` axis is tensor parallelism inside a client, for the dense
-attention family: with ``model = M > 1`` a client is ``M`` ranks (rank
-``d·M + m``, :class:`~repro_torch.launch.mesh.Mesh`), each holding its
+The ``model`` axis is tensor parallelism inside a client, for the
+attention family, dense or MoE (the experts split on their hidden dim):
+with ``model = M > 1`` a client is ``M`` ranks (rank ``d·M + m``,
+:class:`~repro_torch.launch.mesh.Mesh`), each holding its
 :func:`~repro_torch.sharding.rules.shard_leaf` block of every parameter,
 residual and momentum (:func:`state_shardings`' layout); the forward and
 backward are Megatron's split products
@@ -295,8 +296,8 @@ def tensor_parallel_gap(cfg: ModelConfig, mesh, tc: TrainConfig):
     if gap or mesh.shape.get("model", 1) == 1 or not tc.chunks:
         return gap
     return (f"tensor parallelism (a mesh 'model' axis of "
-            f"{mesh.shape['model']}) runs the dense attention family; "
-            f"{cfg.name}: the chunked STC's blocks cut across the shards "
+            f"{mesh.shape['model']}) runs the attention family, dense or "
+            f"MoE; {cfg.name}: the chunked STC's blocks cut across the shards "
             f"(ROADMAP.md Queue 1, item 4d)")
 
 

@@ -28,6 +28,27 @@ What the port fixes that the reference leaves to XLA:
   as the mesh trainer's deterministic local SGD needs.  The capacity
   dispatch (on none of the configs' paths) scatters into its buffers with
   ``index_copy``, whose gradient is an index add.
+
+Under tensor parallelism (``tp``, a
+:class:`~repro_torch.sharding.tensor_parallel.TensorParallel`) a rank
+holds every expert's block of the hidden dim (``w_gate`` / ``w_up``
+``(E, d, f/M)``, ``w_down`` ``(E, f/M, d)``, the shared experts split as a
+dense MLP) and the whole router, as the reference's rules place them; no
+row crosses ranks.  The router, its top-k and the aux loss run replicated
+on the block's input as it comes (a replicated product's input gradient
+is whole on every rank already); the experts' input passes
+:func:`~repro_torch.sharding.tensor_parallel.copy_to`.  Each rank's
+experts give a partial output; the gather back, the gate product, the
+slot-order adds and the shared experts' partials are linear, so ONE
+:func:`~repro_torch.sharding.tensor_parallel.reduce_from` after them
+makes the output whole.  The gate's gradient needs the whole expert
+output, which no rank holds: the ``(T, k)`` gates pass ``copy_to`` too,
+so their partial gradients are summed over the model group (``T·k`` fp32
+values a layer, not the ``T·k·d`` rows).  A step issues one collective a
+MoE layer forward and two backward; the group sizes are the same on
+every rank, whose block inputs are bitwise equal.  Where ``fit_spec``
+keeps the experts whole (a ``d_expert`` that does not divide ``model``)
+the block runs replicated, with no collective.
 """
 
 from __future__ import annotations
@@ -39,6 +60,7 @@ import torch.nn.functional as F
 
 from .config import MoEConfig
 from .layers import dense_init, mlp_apply, mlp_init
+from ..sharding.tensor_parallel import copy_to, reduce_from
 
 __all__ = ["moe_init", "moe_apply", "route"]
 
@@ -77,11 +99,15 @@ def route(params, xt: torch.Tensor, cfg: MoEConfig):
     return probs, gate_vals, expert_idx
 
 
-def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, act: str = "swiglu"):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar fp32)."""
+def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, act: str = "swiglu",
+              tp=None):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar fp32).  ``tp``: the
+    rank's blocks of the experts (see the module's docstring)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     k, e = cfg.top_k, cfg.n_experts
+    if params["w_up"].shape[2] == cfg.d_expert:
+        tp = None                       # experts kept whole: replicated
     probs, gate_vals, expert_idx = route(params, xt, cfg)
 
     # ---- load-balance aux loss (switch-transformer style) -----------------
@@ -92,16 +118,14 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, act: str = "swiglu"):
     aux = cfg.aux_loss_coef * e * torch.sum(me * ce) / k
     counts = torch.sum(one_hot, dim=(0, 1)).to(torch.int64)      # (E,)
 
-    if cfg.dispatch == "capacity":
-        out = _capacity_dispatch(params, xt, expert_idx, gate_vals, counts,
-                                 cfg, act)
-    else:
-        out = _ragged_dispatch(params, xt, expert_idx, gate_vals, counts,
-                               cfg, act)
+    xc, gates = copy_to(xt, tp), copy_to(gate_vals, tp)
+    dispatch = (_capacity_dispatch if cfg.dispatch == "capacity"
+                else _ragged_dispatch)
+    out = dispatch(params, xc, expert_idx, gates, counts, cfg, act)
     for i in range(cfg.n_shared):
         shared = {n: w.to(x.dtype) for n, w in params[f"shared_{i}"].items()}
-        out = out + mlp_apply(shared, xt, act)
-    return out.reshape(b, s, d), aux
+        out = out + mlp_apply(shared, xc, act)
+    return reduce_from(out, tp).reshape(b, s, d), aux
 
 
 class _Rows(torch.autograd.Function):

@@ -172,10 +172,11 @@ def vocab_tp(params, cfg: ModelConfig, tp):
 
 def _ffn(block, h, cfg: ModelConfig, tp=None):
     """The block's FFN on ``h``: ``(out, aux)``, aux the MoE's load-balance
-    loss (a zero for a dense MLP).  An MLP that ``fit_spec`` keeps whole
-    (a ``d_ff`` that does not divide the ``model`` axis) runs replicated."""
+    loss (a zero for a dense MLP).  An MLP or experts that ``fit_spec``
+    keeps whole (a ``d_ff`` or ``d_expert`` that does not divide the
+    ``model`` axis) run replicated."""
     if "moe" in block:
-        return moe.moe_apply(block["moe"], h, cfg.moe, cfg.mlp_act)
+        return moe.moe_apply(block["moe"], h, cfg.moe, cfg.mlp_act, tp)
     mlp = {name: w.to(h.dtype) for name, w in block["mlp"].items()}
     if mlp["w_down"].shape[0] == cfg.d_ff:
         tp = None
@@ -241,13 +242,14 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     loss summed over the blocks (0 without MoE).
 
     ``tp`` (a :class:`~repro_torch.sharding.tensor_parallel.TensorParallel`)
-    runs the dense attention family tensor-parallel on the rank's
+    runs the attention family, dense or MoE, tensor-parallel on the rank's
     parameter blocks (:func:`repro_torch.sharding.rules.shard_leaf`): the
     vocab-parallel embedding, each block's attention on its local heads
     (or, where the heads do not split, on the gather route) and its split
-    MLP, the norms and every leaf that ``fit_spec`` keeps whole
-    replicated; the logits are then the rank's vocabulary columns (the
-    whole vocabulary's where the table is whole).  Remat's recompute
+    MLP or experts (:func:`repro_torch.models.moe.moe_apply`), the norms,
+    the router and every leaf that ``fit_spec`` keeps whole replicated;
+    the logits are then the rank's vocabulary columns (the whole
+    vocabulary's where the table is whole).  Remat's recompute
     issues the forward's collectives again, in the same order on every
     rank."""
     if tp is not None and (prefix is not None or frames is not None):
@@ -388,17 +390,18 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: list,
     reference.
 
     ``tp`` (a :class:`~repro_torch.sharding.tensor_parallel.TensorParallel`)
-    runs the dense attention family tensor-parallel, as :func:`forward`
-    does, on the rank's parameter blocks and its caches
-    (``init_cache(..., model=tp.size)``: its KV heads, or the whole cache
-    where the heads do not split): the vocab-parallel embedding, each
-    attention layer on its local heads or on the gather route, the split
-    MLP, and the rank's vocabulary columns of the logits joined over the
-    model group (:func:`~repro_torch.sharding.tensor_parallel.gather_vocab`),
-    so every rank returns the whole (B, 1, V).  On whole heads a step
-    issues ``2·L + 2`` collectives: the embedding's sum, two a layer, the
-    logits' gather; the gather route adds its q/k/v ``all_gather`` a
-    layer."""
+    runs the attention family tensor-parallel, as :func:`forward` does, on
+    the rank's parameter blocks and its caches (``init_cache(...,
+    model=tp.size)``: its KV heads, or the whole cache where the heads do
+    not split): the vocab-parallel embedding, each attention layer on its
+    local heads or on the gather route, the split MLP or experts, and the
+    rank's vocabulary columns of the logits joined over the model group
+    (:func:`~repro_torch.sharding.tensor_parallel.gather_vocab`), so every
+    rank returns the whole (B, 1, V).  On whole heads a step issues ``2·L
+    + 2`` collectives: the embedding's sum, two a layer (the attention's
+    and the MLP's or the experts'), the logits' gather; the gather route
+    adds its q/k/v ``all_gather`` a layer, and a leaf kept whole drops its
+    collective."""
     vtp = vocab_tp(params, cfg, tp)
     if vtp is None:
         x = F.embedding(token.long(), params["embed"]).to(compute_dtype)

@@ -23,7 +23,9 @@ cross-entropy of logits split over the vocabulary with one ``all_reduce``
 MAX of the row maxima and one ``all_reduce`` SUM of the exp-sums and the
 gold logits; its backward is local.  Serving takes no gradient:
 :func:`gather_vocab` joins the vocab-parallel head's logits with one
-``all_gather``.  :func:`arch_gap` says which configs these splits run.
+``all_gather``.  The MoE FFN adds nothing here: its experts are split
+products, its gates' gradient a :func:`copy_to`.  :func:`arch_gap` says
+which configs these splits run.
 
 A :class:`TensorParallel` names the model group, this rank's index in it
 and its size.  ``None`` in place of it (or of its group) makes every
@@ -227,21 +229,22 @@ def gather_vocab(logits: torch.Tensor, tp) -> torch.Tensor:
 
 def arch_gap(cfg, mesh):
     """Why the split products cannot run ``cfg`` with ``mesh``'s ``model``
-    axis, or None where they can: ``model = 1``, or the dense attention
-    family on every split that ``fit_spec`` makes (whole heads, heads cut
-    mid-head, leaves kept whole).  The message names the ROADMAP item that
-    would run it."""
+    axis, or None where they can: ``model = 1``, or the attention family,
+    dense or MoE (the experts split on their hidden dim,
+    :func:`repro_torch.models.moe.moe_apply`), on every split that
+    ``fit_spec`` makes (whole heads, heads cut mid-head, leaves kept
+    whole).  The message names the ROADMAP item that would run it."""
     m = mesh.shape.get("model", 1)
     if m == 1:
         return None
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     family = [name for name, there in (
-        ("MoE blocks", cfg.moe is not None), ("MLA blocks", "mla" in kinds),
+        ("MLA blocks", "mla" in kinds),
         ("SSD blocks", "ssd" in kinds), ("RG-LRU blocks", "rglru" in kinds),
         ("an encoder", cfg.encoder is not None),
         ("a prefix", bool(cfg.n_prefix_tokens))) if there]
     if family:
         return (f"tensor parallelism (a mesh 'model' axis of {m}) runs the "
-                f"dense attention family; {cfg.name} has "
+                f"attention family, dense or MoE; {cfg.name} has "
                 f"{', '.join(family)} (ROADMAP.md Queue 1, item 4c)")
     return None

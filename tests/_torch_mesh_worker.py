@@ -12,9 +12,12 @@ model=1)``); tensor parallelism's ``tp_blocks`` (the split MLP, attention,
 vocab-parallel embedding and cross-entropy with their gradients),
 ``tp_select`` (the split k-selection and the tree STC over a model group),
 ``tp_ops`` (``gather_from`` and ``scatter_to`` around split products),
+``tp_moe`` (the MoE FFN on the rank's blocks of the experts, both
+dispatches, with its gradients and expert choices),
 ``tp_step`` (``make_train_step`` on ``make_debug_mesh(data, model)``,
 the state joined back after each job, and on request one step under
-``FlopCounterMode`` with what it hands gloo counted) and ``tp_serve``
+``FlopCounterMode`` with what it hands gloo counted, and on request every
+MoE layer's expert choices a step) and ``tp_serve``
 (``make_prefill_step`` and ``make_decode_step`` on ``make_debug_mesh(1,
 model)`` from head-sharded caches, or whole caches where the KV heads do
 not split, with what a step hands gloo counted).
@@ -203,6 +206,87 @@ def _tp_ops(rank, inp, group):
     return out
 
 
+def _tp_moe(rank, inp, group):
+    """Each case's MoE block (the last block's ``moe`` of the arch's smoke
+    config, ``dispatch`` set) on this rank's blocks: its output, aux loss,
+    the gradients of ``sum(out * cot) + aux`` for ``x`` and every leaf, and
+    the router's expert choices."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import params_from_jax
+    from repro_torch.models.moe import moe_apply, route
+    tp = _tp(rank, group)
+    mesh = make_debug_mesh(1, tp.size)
+    out = {}
+    for arch, dispatch in inp["cases"]:
+        cfg = get_smoke_config(arch)
+        moe_cfg = dataclasses.replace(cfg.moe, dispatch=dispatch)
+        blk = params_from_jax(inp["params"][arch], mesh=mesh,
+                              model_rank=rank)["blocks"][-1]["moe"]
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in _moe_leaves(blk)}
+        x = inp["x"][arch].clone().requires_grad_(True)
+        y, aux = moe_apply(_moe_tree(leaves), x, moe_cfg, cfg.mlp_act, tp)
+        ((y * inp["cot"][arch]).sum() + aux).backward()
+        choices = route(blk, x.detach().reshape(-1, cfg.d_model), moe_cfg)[2]
+        out[(arch, dispatch)] = (y.detach(), aux.detach(), x.grad,
+                                 {k: v.grad for k, v in leaves.items()},
+                                 choices)
+    return out
+
+
+def _moe_leaves(blk):
+    """A MoE block's leaves as ``(path, tensor)``, a shared expert's under
+    ``shared_i/name``."""
+    for k, v in blk.items():
+        if isinstance(v, dict):
+            yield from ((f"{k}/{n}", w) for n, w in v.items())
+        else:
+            yield k, v
+
+
+def _moe_tree(leaves):
+    tree = {}
+    for path, v in leaves.items():
+        if "/" in path:
+            k, n = path.split("/")
+            tree.setdefault(k, {})[n] = v
+        else:
+            tree[path] = v
+    return tree
+
+
+class RouterCalls:
+    """Records every call of :func:`repro_torch.models.moe.route` (a MoE
+    layer's, remat's recompute included) while entered: its expert
+    choices and router probabilities, on their device (``chip_smoke.py``
+    records the card's with it too)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.saved, self.log = moe, moe.route, []
+
+    def __enter__(self):
+        def route(*args, **kw):
+            res = self.saved(*args, **kw)
+            self.log.append((res[2].detach().clone(),
+                             res[0].detach().clone()))
+            return res
+
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.saved
+
+    def digests(self):
+        """SHA-256 of each call's expert choices."""
+        import hashlib
+        return [hashlib.sha256(idx.cpu().numpy().tobytes()).hexdigest()
+                for idx, _ in self.log]
+
+
 def _tp_step(rank, inp, group):
     """Each job's steps on ``make_debug_mesh(*inp["mesh"])``: the metrics
     a step, this rank's replicated leaves a step, the state joined back
@@ -233,9 +317,12 @@ def _tp_step(rank, inp, group):
         flags = replicated_leaves(params, mesh)
         args = () if job.get("mask") is None else (
             torch.tensor(job["mask"]), torch.zeros(len(job["mask"])))
-        metrics, replicated, wire = [], [], []
+        metrics, replicated, wire, choices = [], [], [], []
         for _ in range(job.get("steps", 1)):
-            res = step(state, batch, *args)
+            with RouterCalls() as chosen:
+                res = step(state, batch, *args)
+            if job.get("choices"):
+                choices.append(chosen.log)
             state, m = res[0], res[1]
             if tc.measure_wire:
                 wire.append(res[2])
@@ -260,7 +347,8 @@ def _tp_step(rank, inp, group):
                 step(state, batch, *args)
             counted = (flops.get_total_flops(), handed.log)
         out.append({"metrics": metrics, "replicated": replicated,
-                    "state": whole, "wire": wire, "counted": counted})
+                    "state": whole, "wire": wire, "counted": counted,
+                    "choices": choices})
     return out
 
 
@@ -327,7 +415,8 @@ def _rank(rank, case, inp_path, out_path, rendezvous, world):
         inp = torch.load(inp_path, weights_only=False)
         fns = {"reduce": _reduce, "step": _step, "tp_blocks": _tp_blocks,
                "tp_select": _tp_select, "tp_ops": _tp_ops,
-               "tp_step": _tp_step, "tp_serve": _tp_serve}
+               "tp_moe": _tp_moe, "tp_step": _tp_step,
+               "tp_serve": _tp_serve}
         if "+" in case:             # several cases, ``inp`` a dict of inputs
             out = {c: fns[c](rank, inp[c], dist.group.WORLD)
                    for c in case.split("+")}

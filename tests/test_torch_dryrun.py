@@ -222,10 +222,12 @@ def test_cli_sizes_all_forty_combinations(multi_pod, tmp_path, capsys,
         assert rec["roofline"]["card"] == "NVIDIA H100 80GB HBM3"
         assert set(rec["roofline"]) >= {"t_compute_s", "t_memory_s",
                                          "t_collective_s", "dominant"}
-        # the dense attention family runs the model axis of 16 (tensor
-        # parallelism's collectives counted); the other families do not
+        # the attention family, dense or MoE, runs the model axis of 16
+        # (tensor parallelism's collectives counted); the other families do
+        # not
         dense = rec["arch"] in ("smollm-135m", "qwen2-0.5b",
-                                "phi3-medium-14b")
+                                "phi3-medium-14b", "granite-moe-3b-a800m",
+                                "moonshot-v1-16b-a3b")
         tp = {k for k in rec["collectives"] if k.startswith("model-")}
         assert bool(tp) == dense, (rec["arch"], rec["shape"])
         if rec["kind"] == "train":

@@ -256,13 +256,13 @@ def test_mask_needs_masked_mode():
 def test_model_axis_and_missing_card_and_group_raise():
     cfg = get_smoke_config("smollm-135m")
     tc = TrainConfig()
-    # the chunked STC's blocks cut across the shards (item 4d); the MoE
-    # family waits for item 4c
+    # the chunked STC's blocks cut across the shards (item 4d); MLA (in
+    # deepseek, beside its MoE blocks) waits for item 4c
     with pytest.raises(NotImplementedError, match="ROADMAP.*4d"):
         make_train_step(cfg, make_debug_mesh(data=1, model=2),
                         TrainConfig(chunks=4096), device=CPU)
-    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP.*4c"):
-        make_train_step(get_smoke_config("granite-moe-3b-a800m"),
+    with pytest.raises(NotImplementedError, match="MLA blocks.*ROADMAP.*4c"):
+        make_train_step(get_smoke_config("deepseek-v2-lite-16b"),
                         make_debug_mesh(data=1, model=2), tc, device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -505,10 +505,11 @@ def test_every_cache_mode_gives_the_same_values():
 
 @pytest.mark.parametrize("make", [make_prefill_step, make_decode_step])
 def test_tensor_parallel_mesh_raises(make):
-    # the dense family runs a model axis (tests/test_torch_tp_serve.py,
-    # tests/test_torch_tp_midhead.py); the MoE family waits for item 4c
-    cfg = configs.get_smoke_config("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # the attention family, dense or MoE, runs a model axis
+    # (tests/test_torch_tp_serve.py, tests/test_torch_tp_midhead.py,
+    # tests/test_torch_tp_moe.py); MLA (deepseek's) waits for item 4c
+    cfg = configs.get_smoke_config("deepseek-v2-lite-16b")
+    with pytest.raises(NotImplementedError, match="MLA blocks.*item 4c"):
         make(cfg, make_debug_mesh(data=1, model=2), device="cpu")
 
 

@@ -133,11 +133,12 @@ def _join(parts, dim):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_what_tensor_parallelism_runs(arch):
-    """The dense attention family runs on every split ``fit_spec`` makes:
-    at ``model`` 2, 4 and 16 (the production mesh's axis), whole heads or
-    not; the other families name item 4c; the chunked STC still names item
-    4d; ``model = 1`` always runs."""
-    dense = arch in ("qwen2-0.5b", "phi3-medium-14b", "smollm-135m")
+    """The attention family, dense or MoE, runs on every split
+    ``fit_spec`` makes: at ``model`` 2, 4 and 16 (the production mesh's
+    axis), whole heads or not; the other families name item 4c; the
+    chunked STC still names item 4d; ``model = 1`` always runs."""
+    dense = arch in ("qwen2-0.5b", "phi3-medium-14b", "smollm-135m",
+                     "granite-moe-3b-a800m", "moonshot-v1-16b-a3b")
     meshes = [make_debug_mesh(1, m) for m in (2, 4, 16)]
     meshes.append(make_production_mesh())
     for cfg in (get_config(arch), get_smoke_config(arch)):

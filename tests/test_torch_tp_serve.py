@@ -286,11 +286,13 @@ def test_the_dry_run_lists_what_a_serve_step_hands_gloo(ranks, arch, kind):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_what_serving_runs_under_tensor_parallelism(arch):
-    """The train step's archs run: the dense attention family at ``model``
-    2, 4 and 16, on whole heads or not; the other families name item 4c,
-    and both steps raise with that message; the dry run then counts no
-    tensor-parallel collective and says so.  ``model = 1`` always runs."""
-    dense = arch in ("qwen2-0.5b", "phi3-medium-14b", "smollm-135m")
+    """The train step's archs run: the attention family, dense or MoE, at
+    ``model`` 2, 4 and 16, on whole heads or not; the other families name
+    item 4c, and both steps raise with that message; the dry run then
+    counts no tensor-parallel collective and says so.  ``model = 1``
+    always runs."""
+    dense = arch in ("qwen2-0.5b", "phi3-medium-14b", "smollm-135m",
+                     "granite-moe-3b-a800m", "moonshot-v1-16b-a3b")
     want = None if dense else "item 4c"
     mesh = make_debug_mesh(1, 2)
     for cfg in (get_config(arch), get_smoke_config(arch)):
